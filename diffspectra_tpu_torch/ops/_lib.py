@@ -1,0 +1,105 @@
+"""Build and load the port's CUDA kernels.
+
+The sources under ``csrc/`` are compiled with ``nvcc`` into one shared
+library with a plain C interface (no PyTorch headers, so the build takes
+seconds), loaded with ``ctypes``. The build runs once per process, at the
+first kernel launch, into ``_build/`` beside the package (listed in
+``.gitignore``). A failed build raises with nvcc's output.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+import torch
+
+_PKG = Path(__file__).resolve().parent.parent
+SOURCES = (_PKG / "csrc" / "mix_attention.cu", _PKG / "csrc" / "equi_update.cu")
+BUILD_DIR = _PKG / "_build"
+LIB_NAME = "libdstt_kernels.so"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+
+# kernel launches per wrapper, since the process started or reset_launches()
+LAUNCHES = {"mix_attention": 0, "equi_update": 0}
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_ARGTYPES = {
+    "dstt_mix_attention": [_P] * 9 + [_I] * 9 + [_P],
+    "dstt_equi_update": [_P] * 16 + [_I] * 6 + [_F, _P],
+}
+
+_lock = threading.Lock()
+_lib = None
+build_log = ""  # nvcc's output of this process's build (register use per kernel)
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(found):
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return found
+
+
+def build() -> ctypes.CDLL:
+    """Compile ``csrc/*.cu`` (first call in the process) and load it."""
+    global _lib, build_log
+    with _lock:
+        if _lib is not None:
+            return _lib
+        BUILD_DIR.mkdir(exist_ok=True)
+        target = BUILD_DIR / LIB_NAME
+        tmp = BUILD_DIR / f"{LIB_NAME}.{os.getpid()}.tmp"
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, SOURCES)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stderr}"
+            )
+        os.replace(tmp, target)
+        lib = ctypes.CDLL(str(target))
+        for name, argtypes in _ARGTYPES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        build_log = proc.stdout + proc.stderr
+        _lib = lib
+        return lib
+
+
+def stream_handle(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def check_rc(name: str, rc: int) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+
+
+def check_inputs(name: str, tensors: dict, shapes: dict) -> torch.device:
+    """Every tensor float32, contiguous, on one device (CPU or CUDA), with
+    the expected shape. Returns that device."""
+    devices = {t.device for t in tensors.values()}
+    if len(devices) != 1:
+        raise ValueError(f"{name}: inputs on several devices {sorted(map(str, devices))}")
+    (device,) = devices
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: tensors on {device}; takes cpu or cuda tensors")
+    for key, t in tensors.items():
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name}: {key} is {t.dtype}, expected torch.float32")
+        if tuple(t.shape) != tuple(shapes[key]):
+            raise ValueError(f"{name}: {key} has shape {tuple(t.shape)}, expected {tuple(shapes[key])}")
+        if device.type == "cuda" and not t.is_contiguous():
+            raise ValueError(f"{name}: {key} is not contiguous")
+    return device

@@ -1,0 +1,72 @@
+"""Equivariant coordinate update: the CUDA kernel ``csrc/equi_update.cu``
+and its plain PyTorch version.
+
+Port of ``diffspectra_tpu/ops/pallas_equi_update.py``
+(``equi_update_fused`` and ``equi_update_reference``), with the JAX layout
+at the public functions: node_i, node_j ``[B, N, Dh]``, edge_attr
+``[B, N, N, De]``, dist ``[B, N, N, Dd]``, normed_diff ``[B, N, N, 3]``,
+adj_extra ``[B, N, N, A]``, edge_mask ``[B, N, N]``, w_e ``[De, Dh]``,
+w_d ``[Dd, Dh]``, bias ``[Dh]``, shift, scale ``[B, Dh]``, w0 ``[Dh, Dh]``,
+b0 ``[Dh]``, w1 ``[Dh, 1+A]`` -> the position delta ``[B, N, 3]``, all
+float32.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from . import _lib
+
+
+def equi_update_reference(node_i, node_j, edge_attr, dist, normed_diff, adj_extra,
+                          edge_mask, w_e, w_d, bias, shift, scale, w0, b0, w1,
+                          *, eps_ln: float = 1e-6):
+    """Plain PyTorch version, the same math as the JAX reference."""
+    pair = node_i[:, :, None, :] + node_j[:, None, :, :] + edge_attr @ w_e + dist @ w_d
+    pair = pair + bias
+    mu = pair.mean(dim=-1, keepdim=True)
+    var = (pair - mu).square().mean(dim=-1, keepdim=True)
+    pair = (pair - mu) * torch.rsqrt(var + eps_ln)
+    pair = pair * (1.0 + scale[:, None, None, :]) + shift[:, None, None, :]
+    g = torch.tanh(F.silu(pair @ w0 + b0) @ w1)
+    adjs = torch.cat([torch.ones_like(adj_extra[..., :1]), adj_extra], dim=-1)
+    gate = (g * adjs).mean(dim=-1, keepdim=True)
+    return (normed_diff * gate * edge_mask[..., None]).sum(dim=2)
+
+
+def equi_update(node_i, node_j, edge_attr, dist, normed_diff, adj_extra, edge_mask,
+                w_e, w_d, bias, shift, scale, w0, b0, w1, *, eps_ln: float = 1e-6):
+    """CPU tensors: the plain version. CUDA tensors: the kernel."""
+    B, N, dh = node_i.shape
+    de, dd, n_adj = edge_attr.shape[-1], dist.shape[-1], adj_extra.shape[-1]
+    device = _lib.check_inputs(
+        "equi_update",
+        dict(node_i=node_i, node_j=node_j, edge_attr=edge_attr, dist=dist,
+             normed_diff=normed_diff, adj_extra=adj_extra, edge_mask=edge_mask,
+             w_e=w_e, w_d=w_d, bias=bias, shift=shift, scale=scale, w0=w0, b0=b0, w1=w1),
+        dict(node_i=(B, N, dh), node_j=(B, N, dh), edge_attr=(B, N, N, de),
+             dist=(B, N, N, dd), normed_diff=(B, N, N, 3), adj_extra=(B, N, N, n_adj),
+             edge_mask=(B, N, N), w_e=(de, dh), w_d=(dd, dh), bias=(dh,), shift=(B, dh),
+             scale=(B, dh), w0=(dh, dh), b0=(dh,), w1=(dh, 1 + n_adj)),
+    )
+    if device.type == "cpu":
+        return equi_update_reference(
+            node_i, node_j, edge_attr, dist, normed_diff, adj_extra, edge_mask,
+            w_e, w_d, bias, shift, scale, w0, b0, w1, eps_ln=eps_ln,
+        )
+    if N > 32 or dh % 32 or dh > 1024 or n_adj > 3:
+        raise ValueError(f"equi_update kernel: takes N <= 32, Dh a multiple of 32 up to 1024 "
+                         f"and A <= 3, got N={N}, Dh={dh}, A={n_adj}")
+    lib = _lib.build()
+    out = torch.empty((B, N, 3), device=device, dtype=torch.float32)
+    rc = lib.dstt_equi_update(
+        node_i.data_ptr(), node_j.data_ptr(), edge_attr.data_ptr(), dist.data_ptr(),
+        normed_diff.data_ptr(), adj_extra.data_ptr(), edge_mask.data_ptr(),
+        w_e.data_ptr(), w_d.data_ptr(), bias.data_ptr(), shift.data_ptr(),
+        scale.data_ptr(), w0.data_ptr(), b0.data_ptr(), w1.data_ptr(), out.data_ptr(),
+        B, N, de, dd, dh, n_adj, eps_ln, _lib.stream_handle(device),
+    )
+    _lib.check_rc("equi_update", rc)
+    _lib.LAUNCHES["equi_update"] += 1
+    return out
