@@ -5,17 +5,27 @@
 Phases, each printing its own lines:
   1. the card (name, power limit); TF32 off for matmuls and convolutions;
   2. build the CUDA kernels from ``diffspectra_tpu_torch/csrc`` with nvcc;
-  3. each kernel against its plain PyTorch version at the serving shape
-     (B=10 draws, N=29, flagship widths) on a seeded ragged batch, with the
-     kernel's, the plain version's and the bound's times;
-  4. a full-width DMT forward from ``artifacts/warm_qm9s_as.npz`` on cuda
-     (kernels) against the same model on the CPU (plain versions);
+  3. each kernel (mix_attention, equi_update, block_fused) against its plain
+     PyTorch version at the serving shape (B=10 draws, N=29, flagship
+     widths) on a seeded ragged batch, with the kernel's, the plain
+     version's and the bound's times;
+  4. full-width DMT forwards from ``artifacts/warm_qm9s_as.npz`` on cuda
+     (kernels) against the same models on the CPU (plain versions), for
+     ``pallas_ops=('attn','equi')`` and ``('block',)``, and the two cuda
+     paths against each other;
   5. serve: ``Elucidator.from_warm_state(...).elucidate(...)`` for 3 synthetic
      requests (fidelity-4 spectra) at their true atom counts, 10 candidates,
-     1000 ancestral steps; the kernels' launch counters must rise by
-     8 blocks x steps x requests;
-  6. a profile of DMT forwards at the serving shape (kernel time by name and
-     the device's busy share).
+     1000 ancestral steps, once per path; each path's launch counters must
+     rise by 8 blocks x steps x requests, the other path's by 0. Then on the
+     block path (100 steps, cut from 1000 to keep the run short): one
+     request without its atom count through the count head
+     (``artifacts/atom_count_head.npz``), one without it and without the
+     head (every plausible count of the train histogram, 2 draws each at 20
+     steps, each count's launches counted), ``elucidate_batch`` over 8 queries
+     (2 without their count), and one request each with DPM-Solver++ (ODE
+     and SDE, 50 steps);
+  6. a profile of DMT forwards of both paths at the serving shape (kernel
+     time by name and the device's busy share).
 Then one ``{"kernels": [...]}`` line, the card's ``nvidia-smi`` line, and as
 the last line ``{"ok": true, "device": {...}}``. Any failed check raises and
 the script exits non-zero without that last line; without CUDA it exits 2.
@@ -35,12 +45,18 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WARM = os.path.join(ROOT, "artifacts", "warm_qm9s_as.npz")
+HEAD = os.path.join(ROOT, "artifacts", "atom_count_head.npz")
 B, N = 10, 29  # draws per request, padded atoms at the largest bucket
 REQUESTS, CANDIDATES, STEPS = 3, 10, 1000
+SHORT_STEPS, DPM_STEPS = 100, 50  # the count-head, batch and DPM-Solver phases
+MARGINAL_STEPS, MARGINAL_DRAWS = 20, 2  # the marginal over the histogram's counts
 F32_PEAK = 67e12  # H100 SXM float32 outside the tensor cores, FLOP/s
 HBM_RATE = 3.35e12  # H100 SXM device memory, bytes/s
-KERNEL_ATOL = {"mix_attention": 1e-5, "equi_update": 1e-5}
+# block_fused: four LayerNorms and 512-deep sums in another order
+KERNEL_ATOL = {"mix_attention": 1e-5, "equi_update": 1e-5, "block_fused": 1e-4}
 FORWARD_RTOL = 1e-3  # of the largest |value|: 8 blocks sum in another order
+PATHS = {"attn_equi": ("attn", "equi"), "block": ("block",)}
+PATH_KERNELS = {"attn_equi": ("mix_attention", "equi_update"), "block": ("block_fused",)}
 
 
 def say(*parts):
@@ -82,7 +98,7 @@ def attention_case(gen, dev):
     # the softmax, alpha*v*e1 and the j sum (dense over all N x N pairs)
     flops = B * N * N * (2 * de * (ec + hc) + (ec + hc) + 3 * ec + 3 * heads + 3 * hc)
     nbytes = 4 * (sum(a.numel() for a in args) + B * N * hc)
-    return args, flops, nbytes
+    return args, {"set_inf": True}, flops, nbytes
 
 
 def equi_case(gen, dev):
@@ -98,10 +114,56 @@ def equi_case(gen, dev):
     # about 12 operations per channel for sums, LayerNorm, modulation, silu
     flops = B * N * N * (2 * (de + dd) * dh + 2 * dh * dh + 2 * dh * (1 + n_adj) + 12 * dh)
     nbytes = 4 * (sum(a.numel() for a in args) + B * N * 3)
-    return args, flops, nbytes
+    return args, {}, flops, nbytes
+
+
+def block_case(gen, dev):
+    """block_fused inputs at the serving shape, and the work they need."""
+    from diffspectra_tpu_torch.ops.block_fused import _DATA, _WEIGHTS
+
+    dh, de, heads, out_ch, n_extra = 256, 64, 16, 16, 2
+    n_sub = heads - n_extra
+    ec, hc, rn, re = n_sub * (heads * out_ch // n_sub), heads * out_ch, 2 * dh, 2 * de
+    r = lambda *s, scale=1.0: (torch.randn(*s, generator=gen) * scale).to(dev)
+    edge_mask = ragged_masks(dev)
+    node_mask = (torch.arange(N)[None] < torch.tensor(N_NODES)[:, None]).float()[..., None]
+    data = dict(
+        h=r(B, N, dh), q=r(B, N, ec), k=r(B, N, ec), v=r(B, N, dh), edge_in=r(B, N, N, de),
+        d2=r(B, N, N, 1, scale=2.0).abs(), normed_diff=r(B, N, N, 3, scale=0.1),
+        adj=(torch.rand(B, N, N, n_extra, generator=gen) > 0.5).float().to(dev),
+        edge_mask=edge_mask, node_mask=node_mask.to(dev), node_mods4=r(B, 4, dh, scale=0.2),
+        edge_mods6=r(B, 6, de, scale=0.2), eq_ss=r(B, 2, dh, scale=0.2),
+        gbf_ss=r(B, 1, 2, scale=0.2),
+    )
+    shapes = dict(
+        emb_kd=(de, de), emb_ke=(de, de), emb_b=(de,), w0a=(de, ec), w1a=(de, dh),
+        n2e_k=(dh, de), n2e_b=(de,), fn1_k=(dh, rn), fn1_b=(rn,), fn2_k=(rn, dh),
+        fn2_b=(dh,), fe1_k=(de, re), fe1_b=(re,), fe2_k=(re, de), fe2_b=(de,),
+        w_hi=(dh, dh), w_hj=(dh, dh), w_e=(de, dh), w_d=(de, dh), eq_bias=(dh,),
+        eq_k0=(dh, dh), eq_b0=(dh,), eq_k1=(dh, 1 + n_extra),
+    )
+    weights = {k: r(*s, scale=s[0] ** -0.5 if len(s) == 2 else 0.1) for k, s in shapes.items()}
+    weights["gbf_means"] = (torch.rand(de - 1, generator=gen) * 3).to(dev)
+    weights["gbf_stds"] = (0.5 + torch.rand(de - 1, generator=gen) * 2.5).to(dev)
+    args = [data[k] for k in _DATA] + [weights[k] for k in _WEIGHTS]
+    # per pair: the GBF (about 8 operations a basis function), edge_emb, its
+    # LayerNorm and modulation, the two gate products and their tanh, the
+    # logits, alpha * v * e1, the edge residual, LayerNorm and FFN, W_e and
+    # W_d, the LayerNorm and modulation of the pair, W0 and silu, W1, the
+    # gate and the coordinate sum (dense over all N x N pairs)
+    pair = (8 * de + 4 * de * de + 10 * de + 2 * de * (ec + hc)
+            + (ec + hc) + 3 * ec + 3 * heads + 3 * hc + 12 * de + 4 * de * re + re
+            + 4 * de * dh + 10 * dh + 2 * dh * dh + dh + 2 * dh * (1 + n_extra) + 12)
+    # per node: n2e, the residual, LayerNorm and modulation, the node FFN,
+    # W_hi and W_hj
+    node = 2 * dh * de + 12 * dh + 4 * dh * rn + rn + 4 * dh * dh
+    flops = B * N * N * pair + B * N * node
+    nbytes = 4 * (sum(a.numel() for a in args) + B * N * dh + B * N * N * de + B * N * 3)
+    return args, dict(n_heads=heads, n_extra=n_extra, out_ch=out_ch), flops, nbytes
 
 
 def phase_kernels(dev):
+    from diffspectra_tpu_torch.ops.block_fused import block_fused, block_fused_reference
     from diffspectra_tpu_torch.ops.equi_update import equi_update, equi_update_reference
     from diffspectra_tpu_torch.ops.mix_attention import mix_attention, mix_attention_reference
 
@@ -112,17 +174,24 @@ def phase_kernels(dev):
          "diffspectra_tpu_torch/csrc/mix_attention.cu", "diffspectra_tpu/ops/pallas_attention.py:147"),
         ("equi_update", equi_update, equi_update_reference, equi_case,
          "diffspectra_tpu_torch/csrc/equi_update.cu", "diffspectra_tpu/ops/pallas_equi_update.py:139"),
+        ("block_fused", block_fused, block_fused_reference, block_case,
+         "diffspectra_tpu_torch/csrc/block_fused.cu", "diffspectra_tpu/ops/pallas_block.py:230"),
     ):
-        args, flops, nbytes = case(gen, dev)
-        got = kernel(*args)
-        want = plain(*args)
+        args, kw, flops, nbytes = case(gen, dev)
+        got = kernel(*args, **kw)
+        want = plain(*args, **kw)
         torch.cuda.synchronize()
-        err = (got - want).abs().max().item()
-        say(f"[kernels] {name}: max |kernel - plain| = {err:.3e} (tolerance {KERNEL_ATOL[name]:.0e}, "
-            f"max |plain| = {want.abs().max().item():.3e})")
-        assert torch.isfinite(got).all() and err <= KERNEL_ATOL[name], name
-        ms = cuda_time_ms(lambda: kernel(*args), iters=200)
-        plain_ms = cuda_time_ms(lambda: plain(*args), iters=50)
+        if isinstance(got, torch.Tensor):
+            got, want = (got,), (want,)
+        err = 0.0
+        for g, w in zip(got, want):  # every output, padded rows and pairs included
+            e = (g - w).abs().max().item()
+            say(f"[kernels] {name}: {tuple(g.shape)} max |kernel - plain| = {e:.3e} "
+                f"(tolerance {KERNEL_ATOL[name]:.0e}, max |plain| = {w.abs().max().item():.3e})")
+            assert torch.isfinite(g).all() and e <= KERNEL_ATOL[name], name
+            err = max(err, e)
+        ms = cuda_time_ms(lambda: kernel(*args, **kw), iters=200)
+        plain_ms = cuda_time_ms(lambda: plain(*args, **kw), iters=50)
         t_ops, t_bytes = flops / F32_PEAK * 1e3, nbytes / HBM_RATE * 1e3
         bound_ms, bound_by = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
         say(f"[kernels] {name}: {ms:.4f} ms kernel, {plain_ms:.4f} ms plain version, "
@@ -161,44 +230,63 @@ def forward_inputs(dev, has_cond: bool):
         [s.to(dev) for s in specs]
 
 
+def compare(tag, got, want):
+    """Assert each output within FORWARD_RTOL x max|want|."""
+    for name, g, w in zip(("pred", "edge_pred"), got, want):
+        err, scale = (g - w).abs().max().item(), w.abs().max().item()
+        say(f"[forward] {tag} {name}: max |diff| = {err:.3e}, max |value| = {scale:.3e}, "
+            f"tolerance {FORWARD_RTOL:.0e} x max")
+        assert torch.isfinite(g).all() and err <= FORWARD_RTOL * scale, (tag, name)
+
+
 def phase_forward(dev):
+    """Both paths' full-width forwards on cuda against the CPU, and the two
+    cuda paths against each other. Returns the cuda models by path."""
     from diffspectra_tpu_torch import configs
     from diffspectra_tpu_torch.api import load_dmt
 
-    config = configs.get_config()
-    cpu_model = load_dmt(WARM, config, "cpu")
-    gpu_model = copy.deepcopy(cpu_model).to(dev)
+    gpu_models, cuda_outs = {}, {}
+    for path, ops in PATHS.items():
+        config = configs.apply_overrides(configs.get_config(), {"model.pallas_ops": ops})
+        cpu_model = load_dmt(WARM, config, "cpu")
+        gpu_models[path] = gpu_model = copy.deepcopy(cpu_model).to(dev)
+        assert all(b.e_block.block_kernel == (path == "block") for b in gpu_model.blocks)
+        for has_cond in (True, False):
+            outs = []
+            for model, device in ((gpu_model, dev), (cpu_model, torch.device("cpu"))):
+                args, specs = forward_inputs(device, has_cond)
+                with torch.no_grad():
+                    ctx = model.encode_context(specs)
+                    outs.append([o.cpu() for o in model(*args, has_cond, ctx)])
+            compare(f"{path} has_cond={has_cond} cuda vs cpu", *outs)
+            cuda_outs[path, has_cond] = outs[0]
     for has_cond in (True, False):
-        outs = []
-        for model, device in ((gpu_model, dev), (cpu_model, torch.device("cpu"))):
-            args, specs = forward_inputs(device, has_cond)
-            with torch.no_grad():
-                ctx = model.encode_context(specs)
-                outs.append([o.cpu() for o in model(*args, has_cond, ctx)])
-        for name, got, want in zip(("pred", "edge_pred"), *outs):
-            err, scale = (got - want).abs().max().item(), want.abs().max().item()
-            say(f"[forward] has_cond={has_cond} {name}: max |cuda - cpu| = {err:.3e}, "
-                f"max |cpu| = {scale:.3e}, tolerance {FORWARD_RTOL:.0e} x max")
-            assert torch.isfinite(got).all() and err <= FORWARD_RTOL * scale, name
-    return gpu_model
+        compare(f"has_cond={has_cond} cuda block vs cuda attn_equi",
+                cuda_outs["block", has_cond], cuda_outs["attn_equi", has_cond])
+    return gpu_models
 
 
-def phase_serve(dev):
-    from diffspectra_tpu_torch import configs
+def launched_only(path_kernels, launches, expected):
+    """The kernels of the path launched ``expected`` times, the others never."""
+    want = {k: (expected if k in path_kernels else 0) for k in launches}
+    assert launches == want, (launches, want)
+
+
+def serve_path(path, dev, data):
+    """Serve the REQUESTS through one path; the counts are this path's."""
     from diffspectra_tpu_torch.api import Elucidator
     from diffspectra_tpu_torch.data.info import get_dataset_info
-    from diffspectra_tpu_torch.data.synthetic import generate
     from diffspectra_tpu_torch.evaluation.molgraph import MolGraph
     from diffspectra_tpu_torch.ops import LAUNCHES, reset_launches
 
     t0 = time.perf_counter()
-    el = Elucidator.from_warm_state(WARM, overrides={"sampling.steps": STEPS}, device=dev)
-    say(f"[serve] loaded {WARM} in {time.perf_counter() - t0:.2f} s; "
-        f"steps={el.config.sampling.steps}, candidates={CANDIDATES}, requests={REQUESTS}")
-    data = generate(seed=7, size=REQUESTS, max_n=29, fidelity=4)
+    el = Elucidator.from_warm_state(
+        WARM, overrides={"sampling.steps": STEPS, "model.pallas_ops": PATHS[path]}, device=dev)
+    say(f"[serve {path}] loaded {WARM} in {time.perf_counter() - t0:.2f} s; "
+        f"pallas_ops={el.config.model.pallas_ops}, steps={el.config.sampling.steps}, "
+        f"candidates={CANDIDATES}, requests={REQUESTS}")
     decoder = get_dataset_info("qm9_second_half")["atom_decoder"]
-    n_layers = el.config.model.n_layers
-    reset_launches()  # counts from here on are the main path's
+    reset_launches()  # counts from here on are this path's
     per_request = []
     for m in range(REQUESTS):
         n = int(data["num_atom"][m])
@@ -214,7 +302,7 @@ def phase_serve(dev):
         finite = all(np.isfinite(c.positions).all() for c in result.candidates)
         launched = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
         hit = result.best.molgraph.wl_hash() == target.wl_hash()
-        say(f"[serve] request {m}: n_atoms={n} wall={wall:.3f} s "
+        say(f"[serve {path}] request {m}: n_atoms={n} wall={wall:.3f} s "
             f"({CANDIDATES / wall:.3f} sampled mols/s), {len(result.candidates)} distinct "
             f"candidates, best frequency {result.best.frequency:.2f}, finite={finite}, "
             f"top-1 WL hash equals target={hit}, launches={launched}")
@@ -223,15 +311,130 @@ def phase_serve(dev):
         per_request.append(dict(n_atoms=n, wall_s=wall, mols_per_s=CANDIDATES / wall,
                                 distinct=len(result.candidates), top1_hit=hit))
     launches = dict(LAUNCHES)
-    expected = n_layers * STEPS * REQUESTS
-    say(f"[serve] launches {launches}, expected {expected} each")
-    assert all(v == expected for v in launches.values()), launches
+    expected = el.config.model.n_layers * STEPS * REQUESTS
+    say(f"[serve {path}] launches {launches}, expected {expected} for {PATH_KERNELS[path]}, "
+        "0 for the others")
+    launched_only(PATH_KERNELS[path], launches, expected)
     total = sum(r["wall_s"] for r in per_request)
-    say("[serve] " + json.dumps({"requests": per_request, "mols_per_s": REQUESTS * CANDIDATES / total}))
-    return launches
+    say(f"[serve {path}] " + json.dumps({"requests": per_request,
+                                         "mols_per_s": REQUESTS * CANDIDATES / total}))
+    return el, launches
 
 
-def phase_profile(model, dev):
+def serve_more(el, dev, data, queries):
+    """The rest of serving on the block path, at SHORT_STEPS (DPM_STEPS for
+    DPM-Solver) steps: the count head and DPM-Solver on the requests of
+    ``data``, elucidate_batch on the 8 ``queries``."""
+    from diffspectra_tpu_torch import configs
+    from diffspectra_tpu_torch.api import Elucidator
+    from diffspectra_tpu_torch.ops import LAUNCHES, reset_launches
+
+    def elucidator(**overrides):
+        config = configs.apply_overrides(copy.deepcopy(el.config), overrides)
+        return Elucidator(config, el.model, dev)
+
+    n_layers = el.config.model.n_layers
+    as_spectra = lambda d: [{k: d[k][m] for k in ("uv", "ir", "raman")} for m in range(len(d["ir"]))]
+    spectra = as_spectra(data)
+
+    # the count head: one request without its atom count
+    short = elucidator(**{"sampling.steps": SHORT_STEPS})
+    meta = short.load_count_head(HEAD)
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    result = short.elucidate(spectra[0], n_atoms=None, num_candidates=CANDIDATES, seed=0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts, probs = short._predict_counts(short._prepare_context(spectra[0], False))
+    K = max(2, CANDIDATES // len(counts))
+    say(f"[count head] {HEAD} (held-out top-1 {meta.get('test_top1')}); steps={SHORT_STEPS} "
+        f"(cut from {STEPS}); true n_atoms={int(data['num_atom'][0])}, predicted counts "
+        f"{counts} with probabilities {[round(probs[c], 4) for c in counts]}, {K} draws each; "
+        f"wall={wall:.3f} s; {len(result.candidates)} distinct candidates, best n_atoms "
+        f"{result.best.molgraph.n_atoms} at frequency {result.best.frequency:.2f}; "
+        f"launches {dict(LAUNCHES)}")
+    assert result.n_atoms is None and result.num_draws == K * len(counts)
+    assert sum(c.count for c in result.candidates) == K * len(counts)
+    assert all(c.molgraph.n_atoms in counts for c in result.candidates)
+    assert all(np.isfinite(c.positions).all() for c in result.candidates)
+    launched_only(("block_fused",), dict(LAUNCHES), n_layers * SHORT_STEPS * len(counts))
+
+    # the marginal without a head: every plausible count of the train
+    # histogram, MARGINAL_DRAWS draws each, each count's round counted alone
+    marginal = elucidator(**{"sampling.steps": MARGINAL_STEPS})
+    plain_round, per_count = marginal._round, {}
+
+    def counted_round(contexts, n_atoms, n_pad, generator):
+        before = LAUNCHES["block_fused"]
+        mols = plain_round(contexts, n_atoms, n_pad, generator)
+        per_count[n_atoms[0]] = LAUNCHES["block_fused"] - before
+        return mols
+
+    marginal._round = counted_round
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    result = marginal.elucidate(spectra[0], n_atoms=None, num_candidates=CANDIDATES, seed=0,
+                                draws_per_n=MARGINAL_DRAWS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ns = marginal._plausible_n()
+    say(f"[marginal] no head: counts tried {sorted(per_count)} (plausible {ns}), "
+        f"{MARGINAL_DRAWS} draws each, steps={MARGINAL_STEPS} (cut from {STEPS}); "
+        f"wall={wall:.3f} s; {len(result.candidates)} distinct candidates, best n_atoms "
+        f"{result.best.molgraph.n_atoms}; launches per count {per_count}")
+    assert len(per_count) > 1 and sorted(per_count) == ns
+    assert all(v == n_layers * MARGINAL_STEPS for v in per_count.values()), per_count
+    assert result.n_atoms is None and result.num_draws == MARGINAL_DRAWS * len(ns)
+    assert sum(c.count for c in result.candidates) == MARGINAL_DRAWS * len(ns)
+    assert all(c.molgraph.n_atoms in ns and np.isfinite(c.positions).all()
+               for c in result.candidates)
+    launched_only(("block_fused",), dict(LAUNCHES), n_layers * MARGINAL_STEPS * len(ns))
+
+    # elucidate_batch: 8 queries, 2 without their atom count
+    given = [int(n) for n in queries["num_atom"]]
+    given[2] = given[5] = None
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results = short.elucidate_batch(as_spectra(queries), given, num_candidates=CANDIDATES,
+                                    seed=1, queries_per_round=8)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    pads = {short._bucket(r.n_atoms) for r in results}
+    say(f"[batch] 8 queries, given counts {given}, served at {[r.n_atoms for r in results]}; "
+        f"{len(pads)} rounds of {8 * CANDIDATES} draws (buckets {sorted(pads)}), "
+        f"steps={SHORT_STEPS} (cut from {STEPS}); wall={wall:.3f} s "
+        f"({8 * CANDIDATES / wall:.3f} sampled mols/s of the 8 queries); launches {dict(LAUNCHES)}")
+    assert len(results) == 8
+    for r, g in zip(results, given):
+        assert g is None or r.n_atoms == g
+        assert r.num_draws == CANDIDATES and sum(c.count for c in r.candidates) == CANDIDATES
+        assert all(c.molgraph.n_atoms == r.n_atoms and np.isfinite(c.positions).all()
+                   for c in r.candidates)
+    launched_only(("block_fused",), dict(LAUNCHES), n_layers * SHORT_STEPS * len(pads))
+
+    # DPM-Solver++, ODE and SDE
+    for method in ("dpm_solver", "dpm_solver_sde"):
+        dpm = elucidator(**{"sampling.steps": DPM_STEPS, "sampling.method": method})
+        n = int(data["num_atom"][1])
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = dpm.elucidate(spectra[1], n_atoms=n, num_candidates=CANDIDATES, seed=1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        say(f"[{method}] steps={DPM_STEPS}, n_atoms={n}: wall={wall:.3f} s, "
+            f"{len(result.candidates)} distinct candidates, best frequency "
+            f"{result.best.frequency:.2f}; launches {dict(LAUNCHES)}")
+        assert sum(c.count for c in result.candidates) == CANDIDATES
+        assert all(np.isfinite(c.positions).all() and c.molgraph.n_atoms == n
+                   for c in result.candidates)
+        launched_only(("block_fused",), dict(LAUNCHES), n_layers * DPM_STEPS)
+
+
+def phase_profile(path, model, dev):
     """Kernel time by name over 5 forwards at the serving shape, and the
     device's busy share of the window (from the profiler's kernel events)."""
     from torch.profiler import ProfilerActivity, profile
@@ -240,7 +443,7 @@ def phase_profile(model, dev):
     with torch.no_grad():
         ctx = model.encode_context(specs)
         fwd = lambda: model(*args, True, ctx)
-        say(f"[profile] one DMT forward (B={B}, N={N}, has_cond): "
+        say(f"[profile {path}] one DMT forward (B={B}, N={N}, has_cond): "
             f"{cuda_time_ms(fwd, iters=20):.3f} ms by CUDA events")
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -252,10 +455,11 @@ def phase_profile(model, dev):
     rows = [e for e in prof.key_averages() if e.device_time_total > 0]
     busy_us = sum(e.device_time_total for e in rows if e.device_type.name == "CUDA")
     rows.sort(key=lambda e: -e.device_time_total)
-    say(f"[profile] window {window_us:.0f} us, kernel time {busy_us:.0f} us "
+    say(f"[profile {path}] window {window_us:.0f} us, kernel time {busy_us:.0f} us "
         f"(busy share {busy_us / window_us:.3f})")
     for e in rows[:10]:
-        say(f"[profile]   {e.device_time_total / 5:10.1f} us/forward  x{e.count // 5:<4d} {e.key[:90]}")
+        say(f"[profile {path}]   {e.device_time_total / 5:10.1f} us/forward  "
+            f"x{e.count // 5:<4d} {e.key[:90]}")
 
 
 def main() -> int:
@@ -284,9 +488,17 @@ def main() -> int:
             say(f"[build] {line.strip()}")
 
     rows = phase_kernels(dev)
-    model = phase_forward(dev)
-    launches = phase_serve(dev)
-    phase_profile(model, dev)
+    models = phase_forward(dev)
+    from diffspectra_tpu_torch.data.synthetic import generate
+
+    data = generate(seed=7, size=REQUESTS, max_n=29, fidelity=4)
+    launches = {}
+    for path in PATHS:
+        el, counts = serve_path(path, dev, data)
+        launches.update({k: counts[k] for k in PATH_KERNELS[path]})
+    serve_more(el, dev, data, generate(seed=9, size=8, max_n=29, fidelity=4))
+    for path, model in models.items():
+        phase_profile(path, model, dev)
     for row in rows:
         row["launches"] = launches[row["name"]]
     print(json.dumps({"kernels": rows}))

@@ -17,9 +17,8 @@ def get_config() -> NS:
     """The QM9S allspectra flagship: DMT nf=256, 8 blocks, 16 heads (2 of
     them adjacency heads), N <= 29, 1000 ancestral steps. The port serves
     what the JAX config fixes as pred_edge=True, only_2D=False,
-    compress_edge=True, include_fc_charge=True, cond_time=True, dist_gbf=True,
-    gbf_name='CondGaussianLayer' and the ancestral sampler, so those are no
-    keys here."""
+    compress_edge=True, include_fc_charge=True, cond_time=True, dist_gbf=True
+    and gbf_name='CondGaussianLayer', so those are no keys here."""
     return NS(
         data=NS(
             info_name="qm9_second_half",
@@ -47,11 +46,14 @@ def get_config() -> NS:
             softmax_inf=True,
             patch_len=(20, 50, 50),
             stride=(10, 25, 25),
-            # the JAX package's use_pallas=True, pallas_ops=('attn','equi'):
-            # in the port both kernels always run for CUDA tensors
+            # the JAX package's use_pallas=True with these pallas_ops: the
+            # kernels always run for CUDA tensors. ('attn', 'equi'): the
+            # attention and equi-update kernels; ('block',): the whole-block
+            # kernel in every block
             pallas_ops=("attn", "equi"),
         ),
-        sampling=NS(steps=1000),
+        # 'ancestral', 'dpm_solver' (DPM-Solver++(2M)) or 'dpm_solver_sde'
+        sampling=NS(steps=1000, method="ancestral"),
         eval=NS(bucket_sizes=(17, 21, 25, 29)),
     )
 

@@ -29,13 +29,9 @@
 // TPU. The 3-wide W1 product is reduced with warp shuffles and the j sum by
 // three threads. Tensor cores (wgmma, bf16) are later work.
 
-#include <cuda_runtime.h>
-#include <math.h>
+#include "dmt_rows.cuh"
 
 namespace {
-
-constexpr int kMaxN = 32;
-constexpr int kMaxGate = 4;  // 1 + A
 
 // float offset of the pair rows in shared memory, rounded up for float4 reads
 __host__ __device__ inline int pair_offset(int n, int de, int dd) {
@@ -63,137 +59,24 @@ __global__ void equi_update_kernel(
   extern __shared__ float smem[];
   const int row = blockIdx.x;  // b * n + i
   const int b = row / n;
-  const int n_gate = 1 + n_adj;
   const int n_warps = blockDim.x / 32;
-  float* edge_s = smem;                    // [n, de]
-  float* dist_s = edge_s + n * de;         // [n, dd]
+  float* edge_s = smem;                           // [n, de]
+  float* dist_s = edge_s + n * de;                // [n, dd]
   float* pair_s = smem + pair_offset(n, de, dd);  // [n, dh], float4-aligned rows
-  float* red_s = pair_s + n * dh;          // [n_warps, n, n_gate]
-  float* gate_s = red_s + n_warps * n * n_gate;  // [n]
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
+  float* red_s = pair_s + n * dh;                 // [n_warps, n, 1 + n_adj]
+  float* gate_s = red_s + n_warps * n * (1 + n_adj);  // [n]
 
   const float* edge_row = edge + (size_t)row * n * de;
   const float* dist_row = dist + (size_t)row * n * dd;
-  for (int idx = tid; idx < n * de; idx += blockDim.x) edge_s[idx] = edge_row[idx];
-  for (int idx = tid; idx < n * dd; idx += blockDim.x) dist_s[idx] = dist_row[idx];
+  for (int idx = threadIdx.x; idx < n * de; idx += blockDim.x) edge_s[idx] = edge_row[idx];
+  for (int idx = threadIdx.x; idx < n * dd; idx += blockDim.x) dist_s[idx] = dist_row[idx];
   __syncthreads();
 
-  const int c = tid;  // blockDim.x == dh
-  float acc[kMaxN];
-
-  // pair = ((node_i + node_j) + edge @ We) + dist @ Wd + bias, column c
-#pragma unroll
-  for (int j = 0; j < kMaxN; ++j) acc[j] = 0.f;
-  for (int d = 0; d < de; ++d) {
-    const float w = __ldg(we + (size_t)d * dh + c);
-#pragma unroll
-    for (int j = 0; j < kMaxN; ++j)
-      if (j < n) acc[j] = fmaf(edge_s[j * de + d], w, acc[j]);
-  }
-  const float ni = node_i[(size_t)row * dh + c];
-#pragma unroll
-  for (int j = 0; j < kMaxN; ++j)
-    if (j < n) pair_s[j * dh + c] = ni + node_j[((size_t)b * n + j) * dh + c] + acc[j];
-#pragma unroll
-  for (int j = 0; j < kMaxN; ++j) acc[j] = 0.f;
-  for (int d = 0; d < dd; ++d) {
-    const float w = __ldg(wd + (size_t)d * dh + c);
-#pragma unroll
-    for (int j = 0; j < kMaxN; ++j)
-      if (j < n) acc[j] = fmaf(dist_s[j * dd + d], w, acc[j]);
-  }
-  const float bc = bias[c];
-#pragma unroll
-  for (int j = 0; j < kMaxN; ++j)
-    if (j < n) pair_s[j * dh + c] = pair_s[j * dh + c] + acc[j] + bc;
-  __syncthreads();
-
-  // LayerNorm (two-pass, no affine) and the adaLN modulation, one warp per pair
-  const float* shift_b = shift + (size_t)b * dh;
-  const float* scale_b = scale + (size_t)b * dh;
-  for (int j = warp; j < n; j += n_warps) {
-    float* p = pair_s + j * dh;
-    float s = 0.f;
-    for (int u = lane; u < dh; u += 32) s += p[u];
-    for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
-    const float mu = s / dh;
-    float v = 0.f;
-    for (int u = lane; u < dh; u += 32) {
-      const float t = p[u] - mu;
-      v = fmaf(t, t, v);
-    }
-    for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-    const float r = 1.f / sqrtf(v / dh + eps);
-    for (int u = lane; u < dh; u += 32) {
-      p[u] = (p[u] - mu) * r * (1.f + scale_b[u]) + shift_b[u];
-    }
-  }
-  __syncthreads();
-
-  // inv = silu(pair @ W0 + b0), column c, four rows of W0 at a time
-#pragma unroll
-  for (int j = 0; j < kMaxN; ++j) acc[j] = 0.f;
-  for (int u = 0; u < dh; u += 4) {
-    const float a0 = __ldg(w0 + (size_t)(u + 0) * dh + c);
-    const float a1 = __ldg(w0 + (size_t)(u + 1) * dh + c);
-    const float a2 = __ldg(w0 + (size_t)(u + 2) * dh + c);
-    const float a3 = __ldg(w0 + (size_t)(u + 3) * dh + c);
-#pragma unroll
-    for (int j = 0; j < kMaxN; ++j) {
-      if (j < n) {
-        const float4 p = *reinterpret_cast<const float4*>(pair_s + j * dh + u);
-        acc[j] = fmaf(p.x, a0, acc[j]);
-        acc[j] = fmaf(p.y, a1, acc[j]);
-        acc[j] = fmaf(p.z, a2, acc[j]);
-        acc[j] = fmaf(p.w, a3, acc[j]);
-      }
-    }
-  }
-  const float b0c = b0[c];
-  float w1c[kMaxGate];
-#pragma unroll
-  for (int a = 0; a < kMaxGate; ++a) w1c[a] = a < n_gate ? w1[(size_t)c * n_gate + a] : 0.f;
-
-  // g = inv @ W1: per-warp partial sums by shuffle, then across warps
-#pragma unroll
-  for (int j = 0; j < kMaxN; ++j) {
-    if (j < n) {
-      const float x = acc[j] + b0c;
-      const float inv = x / (1.f + expf(-x));
-#pragma unroll
-      for (int a = 0; a < kMaxGate; ++a) {
-        if (a < n_gate) {
-          float p = inv * w1c[a];
-          for (int off = 16; off > 0; off >>= 1) p += __shfl_xor_sync(0xffffffffu, p, off);
-          if (lane == 0) red_s[(warp * n + j) * n_gate + a] = p;
-        }
-      }
-    }
-  }
-  __syncthreads();
-
-  const float* adj_row = adj + (size_t)row * n * n_adj;
-  const float* mask_row = mask + (size_t)row * n;
-  for (int j = tid; j < n; j += blockDim.x) {
-    float gsum = 0.f;
-    for (int a = 0; a < n_gate; ++a) {
-      float s = 0.f;
-      for (int w = 0; w < n_warps; ++w) s += red_s[(w * n + j) * n_gate + a];
-      const float g = tanhf(s);
-      gsum += a == 0 ? g : g * adj_row[j * n_adj + a - 1];
-    }
-    gate_s[j] = gsum / n_gate * mask_row[j];
-  }
-  __syncthreads();
-
-  if (tid < 3) {
-    const float* nd = normed + (size_t)row * n * 3;
-    float o = 0.f;
-    for (int j = 0; j < n; ++j) o = fmaf(nd[j * 3 + tid], gate_s[j], o);
-    out[(size_t)row * 3 + tid] = o;
-  }
+  dmt::equi_chain_row(edge_s, dist_s, pair_s, red_s, gate_s, node_i + (size_t)row * dh,
+                      node_j + (size_t)b * n * dh, we, wd, bias, shift + (size_t)b * dh,
+                      scale + (size_t)b * dh, w0, b0, w1, adj + (size_t)row * n * n_adj,
+                      mask + (size_t)row * n, normed + (size_t)row * n * 3,
+                      out + (size_t)row * 3, n, de, dd, dh, n_adj, eps);
 }
 
 }  // namespace
@@ -207,7 +90,7 @@ extern "C" int dstt_equi_update(
     const float* shift, const float* scale, const float* w0, const float* b0,
     const float* w1, float* out, int batch, int n, int de, int dd, int dh,
     int n_adj, float eps, void* stream) {
-  if (n > kMaxN || 1 + n_adj > kMaxGate || dh % 32 != 0 || dh > 1024) {
+  if (n > dmt::kMaxN || 1 + n_adj > dmt::kMaxGate || dh % 32 != 0 || dh > 1024) {
     return (int)cudaErrorInvalidValue;
   }
   const int n_warps = dh / 32;

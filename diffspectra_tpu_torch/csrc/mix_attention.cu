@@ -27,14 +27,9 @@
 // shared memory; the masked softmax over j runs one thread per head.
 // Tensor cores (wgmma, bf16) are later work.
 
-#include <cuda_runtime.h>
-#include <math.h>
+#include "dmt_rows.cuh"
 
 namespace {
-
-constexpr int kMaxN = 32;
-constexpr float kMaskInf = -1e30f;  // padding and the diagonal
-constexpr float kNegAdj = -1e10f;   // an adjacency head's zero entry
 
 __global__ void mix_attention_kernel(
     const float* __restrict__ q,      // [B, N, E*sc]
@@ -56,88 +51,15 @@ __global__ void mix_attention_kernel(
   float* edge_s = smem;               // [n, de]
   float* prod_s = edge_s + n * de;    // [n, ec]
   float* alpha_s = prod_s + n * ec;   // [n, heads]
-  const int tid = threadIdx.x;
 
   const float* edge_row = edge + (size_t)row * n * de;
-  for (int idx = tid; idx < n * de; idx += blockDim.x) edge_s[idx] = edge_row[idx];
+  for (int idx = threadIdx.x; idx < n * de; idx += blockDim.x) edge_s[idx] = edge_row[idx];
   __syncthreads();
 
-  const int c = tid;
-  const bool has0 = c < ec;
-  const bool has1 = c < hc;
-  float acc0[kMaxN], acc1[kMaxN];
-#pragma unroll
-  for (int j = 0; j < kMaxN; ++j) {
-    acc0[j] = 0.f;
-    acc1[j] = 0.f;
-  }
-  for (int d = 0; d < de; ++d) {
-    const float a0 = has0 ? __ldg(w0 + (size_t)d * ec + c) : 0.f;
-    const float a1 = has1 ? __ldg(w1 + (size_t)d * hc + c) : 0.f;
-#pragma unroll
-    for (int j = 0; j < kMaxN; ++j) {
-      if (j < n) {
-        const float e = edge_s[j * de + d];
-        acc0[j] = fmaf(e, a0, acc0[j]);
-        acc1[j] = fmaf(e, a1, acc1[j]);
-      }
-    }
-  }
-
-  if (has0) {
-    const float qc = q[(size_t)row * ec + c];
-#pragma unroll
-    for (int j = 0; j < kMaxN; ++j) {
-      if (j < n) {
-        prod_s[j * ec + c] = qc * k[((size_t)b * n + j) * ec + c] * tanhf(acc0[j]);
-      }
-    }
-  }
-  __syncthreads();
-
-  const float* mask_row = mask + (size_t)row * n;
-  const float* extra_row = extra + (size_t)row * n * n_extra;
-  for (int idx = tid; idx < n * heads; idx += blockDim.x) {
-    const int j = idx / heads;
-    const int h = idx - j * heads;
-    float logit;
-    if (h < n_extra) {
-      logit = extra_row[j * n_extra + h];
-      if (set_inf && logit == 0.f) logit = kNegAdj;
-    } else {
-      const float* p = prod_s + j * ec + (h - n_extra) * sub_c;
-      float s = 0.f;
-      for (int u = 0; u < sub_c; ++u) s += p[u];
-      logit = s / sqrt_c;
-    }
-    alpha_s[idx] = mask_row[j] > 0.f ? logit : kMaskInf;
-  }
-  __syncthreads();
-
-  for (int h = tid; h < heads; h += blockDim.x) {
-    float m = alpha_s[h];
-    for (int j = 1; j < n; ++j) m = fmaxf(m, alpha_s[j * heads + h]);
-    float s = 0.f;
-    for (int j = 0; j < n; ++j) {
-      const float e = expf(alpha_s[j * heads + h] - m);
-      alpha_s[j * heads + h] = e;
-      s += e;
-    }
-    for (int j = 0; j < n; ++j) alpha_s[j * heads + h] /= s;
-  }
-  __syncthreads();
-
-  if (has1) {
-    const int h = c / out_ch;
-    float o = 0.f;
-#pragma unroll
-    for (int j = 0; j < kMaxN; ++j) {
-      if (j < n) {
-        o = fmaf(alpha_s[j * heads + h] * v[((size_t)b * n + j) * hc + c], tanhf(acc1[j]), o);
-      }
-    }
-    out[(size_t)row * hc + c] = o;
-  }
+  dmt::attention_row(edge_s, prod_s, alpha_s, q + (size_t)row * ec, k + (size_t)b * n * ec,
+                     v + (size_t)b * n * hc, w0, w1, extra + (size_t)row * n * n_extra,
+                     mask + (size_t)row * n, out + (size_t)row * hc, n, de, n_sub, sub_c,
+                     heads, out_ch, n_extra, set_inf, sqrt_c);
 }
 
 }  // namespace
@@ -149,7 +71,7 @@ extern "C" int dstt_mix_attention(
     const float* w0, const float* w1, const float* extra, const float* mask,
     float* out, int batch, int n, int de, int n_sub, int sub_c, int heads,
     int out_ch, int n_extra, int set_inf, void* stream) {
-  if (n > kMaxN) return (int)cudaErrorInvalidValue;
+  if (n > dmt::kMaxN) return (int)cudaErrorInvalidValue;
   const int width = max(n_sub * sub_c, heads * out_ch);
   const int threads = (width + 31) / 32 * 32;
   if (threads > 1024) return (int)cudaErrorInvalidValue;

@@ -1,6 +1,6 @@
 """Cosine VP-SDE schedule (port of the cosine branch of
-``diffspectra_tpu/diffusion/schedule.py``): ``alpha_t``, ``sigma_t`` and the
-inverse of ``lambda_t = log(alpha_t / sigma_t)``. T = 0.9946, where the
+``diffspectra_tpu/diffusion/schedule.py``): ``alpha_t``, ``sigma_t``,
+``lambda_t = log(alpha_t / sigma_t)`` and its inverse. T = 0.9946, where the
 cosine schedule is still numerically stable."""
 
 from __future__ import annotations
@@ -33,6 +33,11 @@ class NoiseScheduleVP:
         """(alpha_t, sigma_t)."""
         log_mean = self.marginal_log_mean_coeff(t)
         return torch.exp(log_mean), torch.sqrt(1.0 - torch.exp(2.0 * log_mean))
+
+    def marginal_lambda(self, t: torch.Tensor) -> torch.Tensor:
+        """lambda_t = log(alpha_t) - log(sigma_t)."""
+        log_mean = self.marginal_log_mean_coeff(t)
+        return log_mean - 0.5 * torch.log(1.0 - torch.exp(2.0 * log_mean))
 
     def inverse_lambda(self, lamb: torch.Tensor) -> torch.Tensor:
         """t such that ``marginal_lambda(t) == lamb``."""

@@ -4,7 +4,9 @@
 Every molecule is padded dense: ``[B, N, .]`` nodes and ``[B, N, N, .]``
 pairs with masks. Each ``EquivariantMixBlock`` runs its pair-grid
 attention through the ``mix_attention`` kernel and its coordinate update
-through the ``equi_update`` kernel (plain versions for CPU tensors).
+through the ``equi_update`` kernel, or, with ``pallas_ops=('block',)``, its
+whole pair-grid chain through the ``block_fused`` kernel (plain versions
+for CPU tensors). Both paths read the same parameters.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.block_fused import block_fused
 from ..ops.equi_update import equi_update
 from ..utils import masks as M
 from .layers import (
@@ -47,30 +50,43 @@ class MultiCondEquiUpdate(nn.Module):
         self.coord_mlp_1 = Dense(hidden_dim, 1 + extra_heads, use_bias=False)
 
     def forward(self, h, pos, edge_attr, dist, time_emb, adj_extra, edge_mask):
-        D, De = self.hidden_dim, self.edge_dim
-        coord_diff = self.coord_norm(pos[:, :, None, :] - pos[:, None, :, :])
-        # concat([h_i, h_j, e_ij, d_ij]) @ W split by rows: the node parts
-        # become per-node products broadcast over the pair grid
-        w = self.input_lin_kernel
-        node_i = h @ w[:D]
-        node_j = h @ w[D : 2 * D]
-        # chunk order is (shift, scale) here
-        shift, scale = self.time_mlp(F.silu(time_emb)).chunk(2, dim=-1)
+        eq = self.export_for_block(pos, time_emb)
         agg = equi_update(
-            node_i, node_j, edge_attr, dist, coord_diff, adj_extra, edge_mask,
-            w[2 * D : 2 * D + De], w[2 * D + De :], self.input_lin_bias,
-            shift.contiguous(), scale.contiguous(),
-            self.coord_mlp_0.kernel, self.coord_mlp_0.bias, self.coord_mlp_1.kernel,
+            h @ eq["w_hi"], h @ eq["w_hj"], edge_attr, dist, eq["normed_diff"], adj_extra,
+            edge_mask, eq["w_e"], eq["w_d"], eq["bias"], eq["shift"], eq["scale"],
+            eq["k0"], eq["b0"], eq["k1"],
         )
         return pos + agg
 
+    def export_for_block(self, pos, time_emb) -> dict:
+        """The node-level part of the update: the CoorsNorm'd coordinate
+        differences, the time modulation and the weights, with
+        concat([h_i, h_j, e_ij, d_ij]) @ W split by rows (the node parts
+        become per-node products broadcast over the pair grid)."""
+        D, De = self.hidden_dim, self.edge_dim
+        w = self.input_lin_kernel
+        # chunk order is (shift, scale) here
+        shift, scale = self.time_mlp(F.silu(time_emb)).chunk(2, dim=-1)
+        return {
+            "normed_diff": self.coord_norm(pos[:, :, None, :] - pos[:, None, :, :]),
+            "w_hi": w[:D], "w_hj": w[D : 2 * D], "w_e": w[2 * D : 2 * D + De],
+            "w_d": w[2 * D + De :], "bias": self.input_lin_bias,
+            "shift": shift.contiguous(), "scale": scale.contiguous(),
+            "k0": self.coord_mlp_0.kernel, "b0": self.coord_mlp_0.bias,
+            "k1": self.coord_mlp_1.kernel,
+        }
+
 
 class EquivariantMixBlock(nn.Module):
-    """One equivariant transformer block with adaLN time conditioning."""
+    """One equivariant transformer block with adaLN time conditioning.
+    ``block_kernel`` sends its whole pair-grid chain to ``block_fused``."""
 
     def __init__(self, node_dim: int, edge_dim: int, time_dim: int, num_extra_heads: int,
-                 num_heads: int, softmax_inf: bool = True, mlp_ratio: int = 2):
+                 num_heads: int, softmax_inf: bool = True, mlp_ratio: int = 2,
+                 block_kernel: bool = False):
         super().__init__()
+        self.num_heads, self.num_extra_heads = num_heads, num_extra_heads
+        self.softmax_inf, self.block_kernel = softmax_inf, block_kernel
         self.dist_layer = CondGaussianLayer(edge_dim, time_dim)
         self.edge_emb = Dense(2 * edge_dim, edge_dim)
         self.node_time_mlp = Dense(time_dim, 6 * node_dim)
@@ -90,6 +106,11 @@ class EquivariantMixBlock(nn.Module):
         )
 
     def forward(self, pos, h, edge_attr, node_mask, edge_mask, extra_heads, time_emb):
+        # the JAX dispatch condition; the port always runs cond_time, dist_gbf
+        # and no dropout
+        if self.block_kernel and extra_heads.shape[-1] == self.num_extra_heads:
+            return self._fused_block(pos, h, edge_attr, node_mask, edge_mask, extra_heads,
+                                     time_emb)
         h_in_node, h_in_edge = h, edge_attr
         distance = self.dist_layer(M.coord2dist_dense(pos), time_emb)
         k_emb = self.edge_emb.kernel
@@ -121,16 +142,50 @@ class EquivariantMixBlock(nn.Module):
         pos = self.equi_update(h_out, pos, h_edge_out, distance, time_emb, extra_heads, edge_mask)
         return h_out, h_edge_out, pos
 
+    def _fused_block(self, pos, h, edge_attr, node_mask, edge_mask, extra_heads, time_emb):
+        """The node-level preprocessing (adaLN vectors, q/k/v, time MLPs, d2,
+        CoorsNorm) here, the whole pair-grid chain in one ``block_fused``
+        call, from the same parameters as the unfused path."""
+        means, stds, g_scale, g_shift = self.dist_layer.export_params(time_emb)
+        t = F.silu(time_emb)
+        node_mods = self.node_time_mlp(t).chunk(6, dim=-1)
+        edge_mods = self.edge_time_mlp(t).chunk(6, dim=-1)
+        n_shift_msa, n_scale_msa, n_gate_msa, n_shift_mlp, n_scale_mlp, n_gate_mlp = node_mods
+        hm = modulate(layer_norm(h), n_shift_msa[:, None, :], n_scale_msa[:, None, :])
+        q, k, v, w0a, w1a = self.attn_mpnn.export_for_block(hm)
+        eq = self.equi_update.export_for_block(pos, time_emb)
+        de = self.edge_emb.kernel.shape[-1]  # dist_dim == edge_dim
+        h_out, edge_out, agg = block_fused(
+            h, q, k, v, edge_attr, M.coord2dist_dense(pos), eq["normed_diff"], extra_heads,
+            edge_mask, node_mask,
+            # shift/scale_msa of the nodes were used on hm above
+            torch.stack([n_gate_msa, n_shift_mlp, n_scale_mlp, n_gate_mlp], dim=1),
+            torch.stack(edge_mods, dim=1),
+            torch.stack([eq["shift"], eq["scale"]], dim=1),
+            torch.stack([g_scale, g_shift], dim=-1)[:, None, :],  # (scale, shift)
+            means, stds, self.edge_emb.kernel[:de], self.edge_emb.kernel[de:],
+            self.edge_emb.bias, w0a, w1a, self.node2edge_kernel, self.node2edge_bias,
+            self.ff_linear1.kernel, self.ff_linear1.bias, self.ff_linear2.kernel,
+            self.ff_linear2.bias, self.ff_linear3.kernel, self.ff_linear3.bias,
+            self.ff_linear4.kernel, self.ff_linear4.bias,
+            eq["w_hi"], eq["w_hj"], eq["w_e"], eq["w_d"], eq["bias"], eq["k0"], eq["b0"],
+            eq["k1"],
+            set_inf=self.softmax_inf, n_heads=self.num_heads, n_extra=self.num_extra_heads,
+            out_ch=h.shape[-1] // self.num_heads,
+        )
+        return h_out, edge_out, pos + agg
+
 
 class Block(nn.Module):
     """One step of the JAX block scan: the block, CoM removal and the
     skip-concat projections."""
 
     def __init__(self, node_dim, edge_dim, time_dim, num_extra_heads, num_heads,
-                 softmax_inf, mlp_ratio, cat_node_dim, cat_edge_dim):
+                 softmax_inf, mlp_ratio, cat_node_dim, cat_edge_dim, block_kernel):
         super().__init__()
         self.e_block = EquivariantMixBlock(
-            node_dim, edge_dim, time_dim, num_extra_heads, num_heads, softmax_inf, mlp_ratio
+            node_dim, edge_dim, time_dim, num_extra_heads, num_heads, softmax_inf, mlp_ratio,
+            block_kernel,
         )
         self.node_proj = Dense(node_dim, cat_node_dim)
         self.edge_proj = Dense(edge_dim, cat_edge_dim)
@@ -148,7 +203,7 @@ class DMT(nn.Module):
                  edge_quan_th: float = 0.0, CoM: bool = True, mlp_ratio: int = 2,
                  spatial_cut_off: float = 2.0, softmax_inf: bool = True,
                  pred_data: bool = True, spectra_version: str = "ir",
-                 patch_len=(20, 50, 50), stride=(10, 25, 25)):
+                 patch_len=(20, 50, 50), stride=(10, 25, 25), block_kernel: bool = False):
         super().__init__()
         self.edge_quan_th, self.CoM, self.pred_data = edge_quan_th, CoM, pred_data
         self.spatial_cut_off = spatial_cut_off
@@ -167,7 +222,7 @@ class DMT(nn.Module):
         cat_edge_dim = De * 2 // n_layers
         self.blocks = nn.ModuleList(
             Block(hidden_dim, De, time_dim, n_extra_heads, n_heads, softmax_inf, mlp_ratio,
-                  cat_node_dim, cat_edge_dim)
+                  cat_node_dim, cat_edge_dim, block_kernel)
             for _ in range(n_layers)
         )
         width = hidden_dim + n_layers * cat_node_dim
@@ -182,10 +237,9 @@ class DMT(nn.Module):
     @staticmethod
     def from_config(config) -> "DMT":
         m = config.model
-        if "block" in m.pallas_ops:
-            raise NotImplementedError(
-                "pallas_ops 'block' (the whole-block kernel) is not ported yet: see ROADMAP.md"
-            )
+        unknown = set(m.pallas_ops) - {"attn", "equi", "block"}
+        if unknown:
+            raise ValueError(f"unknown model.pallas_ops {sorted(unknown)}")
         return DMT(
             in_node_dim=config.data.atom_types + 1,  # atom types, formal charge
             hidden_dim=m.nf, edge_ch=m.edge_ch, n_heads=m.n_heads,
@@ -194,6 +248,7 @@ class DMT(nn.Module):
             spatial_cut_off=m.spatial_cut_off, softmax_inf=m.softmax_inf,
             pred_data=m.pred_data, spectra_version=config.data.spectra_version,
             patch_len=tuple(m.patch_len), stride=tuple(m.stride),
+            block_kernel="block" in m.pallas_ops,
         )
 
     def encode_context(self, specs) -> torch.Tensor:

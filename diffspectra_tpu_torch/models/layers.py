@@ -80,11 +80,16 @@ class CondGaussianLayer(nn.Module):
         self.time_mlp = Dense(time_dim, 2)
 
     def forward(self, x, time_emb):
-        ss = self.time_mlp(F.silu(time_emb))
-        scale, shift = ss[:, 0], ss[:, 1]
+        _, _, scale, shift = self.export_params(time_emb)
         x = x * (scale[:, None, None, None] + 1) + shift[:, None, None, None]
         std = self.stds.abs() + 1e-5
         return torch.cat([x, _gaussian(x, self.means, std)], dim=-1)
+
+    def export_params(self, time_emb):
+        """``(means, stds, scale [B], shift [B])`` for the whole-block
+        kernel, which applies the basis on the pair grid itself."""
+        ss = self.time_mlp(F.silu(time_emb))
+        return self.means, self.stds, ss[:, 0], ss[:, 1]
 
 
 class CoorsNorm(nn.Module):
@@ -130,10 +135,15 @@ class DenseTransMixLayer(nn.Module):
             extra_heads = extra_heads.repeat_interleave(self.extra_heads // n_cur, dim=-1)
         B, N, _ = x.shape
         n_sub = self.heads - self.extra_heads
-        q = self.lin_query(x).reshape(B, N, n_sub, self.sub_c)
-        k = self.lin_key(x).reshape(B, N, n_sub, self.sub_c)
-        v = self.lin_value(x).reshape(B, N, self.heads, self.out_channels)
+        q, k, v, w0, w1 = self.export_for_block(x)
         return mix_attention(
-            q, k, v, edge_attr, self.lin_edge0_kernel, self.lin_edge1_kernel,
+            q.reshape(B, N, n_sub, self.sub_c), k.reshape(B, N, n_sub, self.sub_c),
+            v.reshape(B, N, self.heads, self.out_channels), edge_attr, w0, w1,
             extra_heads, edge_mask, set_inf=self.set_inf,
         )
+
+    def export_for_block(self, x):
+        """The node-level ``q, k [B, N, E*sc]``, ``v [B, N, H*C]`` and the
+        raw edge-gate kernels, for the whole-block kernel."""
+        return (self.lin_query(x), self.lin_key(x), self.lin_value(x),
+                self.lin_edge0_kernel, self.lin_edge1_kernel)

@@ -1,6 +1,6 @@
 """Build and load the port's CUDA kernels.
 
-The sources under ``csrc/`` are compiled with ``nvcc`` into one shared
+The sources under ``csrc/`` (and the header they share) are compiled with ``nvcc`` into one shared
 library with a plain C interface (no PyTorch headers, so the build takes
 seconds), loaded with ``ctypes``. The build runs once per process, at the
 first kernel launch, into ``_build/`` beside the package (listed in
@@ -19,19 +19,20 @@ from pathlib import Path
 import torch
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCES = (_PKG / "csrc" / "mix_attention.cu", _PKG / "csrc" / "equi_update.cu")
+SOURCES = tuple(_PKG / "csrc" / f for f in ("mix_attention.cu", "equi_update.cu", "block_fused.cu"))
 BUILD_DIR = _PKG / "_build"
 LIB_NAME = "libdstt_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 # kernel launches per wrapper, since the process started or reset_launches()
-LAUNCHES = {"mix_attention": 0, "equi_update": 0}
+LAUNCHES = {"mix_attention": 0, "equi_update": 0, "block_fused": 0}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = {
     "dstt_mix_attention": [_P] * 9 + [_I] * 9 + [_P],
     "dstt_equi_update": [_P] * 16 + [_I] * 6 + [_F, _P],
+    "dstt_block_fused": [_P, _I, _P, _I, _F, _P],
 }
 
 _lock = threading.Lock()

@@ -1,9 +1,10 @@
 """The port on a bare install: in a subprocess whose import system refuses
 jax, flax, optax, orbax, ml_collections, ml_dtypes, absl, rdkit, triton and
 the JAX package ``diffspectra_tpu``, every module of ``diffspectra_tpu_torch``
-imports and a small-config ``Elucidator`` serves one request on the CPU.
-Also the entry points' refusals: no CUDA without asking for the CPU, no
-marginal atom-count mode, no whole-block kernel yet."""
+imports and a small-config ``Elucidator`` serves on the CPU: one request at
+a known atom count, one through the whole-block path, and one without the
+atom count through a count head. Also the entry points' refusals: no CUDA
+without asking for the CPU, and the modes that are not ported."""
 
 import os
 import subprocess
@@ -73,6 +74,30 @@ BARE_INSTALL = textwrap.dedent(
     assert sum(c.count for c in result.candidates) == 4
     assert all(c.molgraph.n_atoms == n_atoms and c.smiles is None for c in result.candidates)
     assert all(torch.isfinite(torch.from_numpy(c.positions)).all() for c in result.candidates)
+
+    # the whole-block path, and the marginal over atom counts with a count head
+    import json, os, tempfile
+    import numpy as np
+    configs.apply_overrides(config, {"model.pallas_ops": ("block",)})
+    block = DMT.from_config(config)
+    load_model_state(block, random_variables(block, seed=0))
+    el = Elucidator(config, block.eval(), torch.device("cpu"))
+    assert el.model.blocks[0].e_block.block_kernel
+    result = el.elucidate(data["ir"][0], n_atoms=n_atoms, num_candidates=2, seed=0)
+    assert sum(c.count for c in result.candidates) == 2
+    rng = np.random.default_rng(0)
+    head = {"p/fc1/kernel": rng.normal(size=(32, 16)), "p/fc1/bias": np.zeros(16),
+            "p/fc2/kernel": rng.normal(size=(16, 16)), "p/fc2/bias": np.zeros(16),
+            "p/out/kernel": rng.normal(size=(16, 17)), "p/out/bias": np.zeros(17)}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "head.npz")
+        np.savez(path, __meta__=np.asarray(json.dumps({"max_n": 16, "hidden": 16})),
+                 **{k: v.astype(np.float32) for k, v in head.items()})
+        el.load_count_head(path)
+    result = el.elucidate(data["ir"][0], n_atoms=None, num_candidates=4, seed=0)
+    assert result.n_atoms is None and result.num_draws >= 2
+    counts, _ = el._predict_counts(el._prepare_context(data["ir"][0], False))
+    assert {c.molgraph.n_atoms for c in result.candidates} <= set(counts)
     loaded = sorted(n for n in sys.modules if n.split(".")[0] in BLOCKED)
     assert not loaded, loaded
     print("served", len(names), "modules", len(result.candidates), "candidates")
@@ -104,12 +129,15 @@ def test_unported_modes_raise():
     model = DMT.from_config(config)
     load_model_state(model, random_variables(model, seed=0))
     el = Elucidator(config, model.eval(), torch.device("cpu"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        el.elucidate(np.ones(3501, np.float32), n_atoms=None)
     with pytest.raises(ValueError):
         el.elucidate(np.ones(3501, np.float32), n_atoms=17)  # above max_node=16
-    configs.apply_overrides(config, {"model.pallas_ops": ("block",)})
+    with pytest.raises(ValueError, match="n_atoms_list"):
+        el.elucidate_batch([np.ones(3501, np.float32)], [5, 6])
+    configs.apply_overrides(config, {"sde.schedule": "linear"})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
+        Elucidator(config, model.eval(), torch.device("cpu"))
+    configs.apply_overrides(config, {"sde.schedule": "cosine", "model.pallas_ops": ("mlp",)})
+    with pytest.raises(ValueError, match="pallas_ops"):
         DMT.from_config(config)
     with pytest.raises(AttributeError):
         configs.apply_overrides(config, {"model.use_pallas": False})
