@@ -9,6 +9,12 @@ Phases, each printing its own lines:
      PyTorch version at the serving shape (B=10 draws, N=29, flagship
      widths) on a seeded ragged batch, with the kernel's, the plain
      version's and the bound's times;
+  3b. the Mosaic probes t1 ... t14 (``ops/probes.py``): the probe tool
+     ``run_probes`` on cuda, each probe kernel launched once and no plain
+     version on cuda; then each probe kernel against its plain version on
+     cuda, with the kernel's, the plain version's, the library call's and
+     the bound's times (CUDA events over 200 calls, and the kernel's and
+     the library call's device time from the profiler);
   4. full-width DMT forwards from ``artifacts/warm_qm9s_as.npz`` on cuda
      (kernels) against the same models on the CPU (plain versions), for
      ``pallas_ops=('attn','equi')`` and ``('block',)``, and the two cuda
@@ -51,9 +57,17 @@ REQUESTS, CANDIDATES, STEPS = 3, 10, 1000
 SHORT_STEPS, DPM_STEPS = 100, 50  # the count-head, batch and DPM-Solver phases
 MARGINAL_STEPS, MARGINAL_DRAWS = 20, 2  # the marginal over the histogram's counts
 F32_PEAK = 67e12  # H100 SXM float32 outside the tensor cores, FLOP/s
+BF16_PEAK = 989e12  # H100 SXM bf16 on the tensor cores, dense, FLOP/s
 HBM_RATE = 3.35e12  # H100 SXM device memory, bytes/s
 # block_fused: four LayerNorms and 512-deep sums in another order
 KERNEL_ATOL = {"mix_attention": 1e-5, "equi_update": 1e-5, "block_fused": 1e-4}
+# the probes, kernel against plain version: copies, masks, +1 and x2 exact;
+# tanh and softmax 1e-6; the 18- and 64-wide sums (t10, t14) 1e-5; the
+# 64- and 252-deep products of unit normals (t5, t13) and the bf16
+# product (t7) 1e-4
+PROBE_ATOL = {"t1": 0.0, "t2": 0.0, "t3": 0.0, "t4": 0.0, "t9": 0.0, "t11": 0.0, "t12": 0.0,
+              "t6": 1e-6, "t8": 1e-6, "t10": 1e-5, "t14": 1e-5,
+              "t5": 1e-4, "t13": 1e-4, "t7": 1e-4}
 FORWARD_RTOL = 1e-3  # of the largest |value|: 8 blocks sum in another order
 PATHS = {"attn_equi": ("attn", "equi"), "block": ("block",)}
 PATH_KERNELS = {"attn_equi": ("mix_attention", "equi_update"), "block": ("block_fused",)}
@@ -202,6 +216,124 @@ def phase_kernels(dev):
     return rows
 
 
+def device_ms(fn, iters: int = 20, tries: int = 3):
+    """Device time of the CUDA kernels ``fn`` launches, a call, from the
+    profiler's kernel events: what the card spends, without the host's
+    launch overhead that back-to-back calls of a small kernel measure. A window
+    whose kernel events did not all arrive (seen once on the card) is taken
+    again; None (not measured) after ``tries`` such windows."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+        if kernels and min(e.count for e in kernels) >= iters:
+            return sum(e.device_time_total for e in kernels) / iters / 1e3
+    return None
+
+
+def ms_or_none(t):
+    return "not measured" if t is None else f"{t:.4f} ms"
+
+
+def probe_library(dev):
+    """One PyTorch call a probe that computes the same function, timed
+    beside the kernel as a yardstick and used nowhere in the port."""
+    one, two = torch.ones((), device=dev), torch.full((), 2.0, device=dev)
+    times2, plus1 = (lambda x: x * 2.0), (lambda x: x + 1.0)
+    return {
+        "t1": times2, "t2": times2, "t11": times2, "t3": plus1, "t4": plus1,
+        "t5": lambda x, w: x @ w, "t6": torch.tanh,
+        "t8": lambda x: torch.softmax(x, -1),
+        "t9": lambda x, m: torch.where(m > 0, x, -1e10),  # with the comparison
+        "t10": lambda x: x.view(29, 29, 14, 18).sum(-1),
+        "t12": lambda x: torch.addcmul(one, x, two),  # 1 + 2x in one call
+        "t13": lambda q, k: q @ k.T, "t14": lambda q, k: q @ k.T,
+        "t7": lambda x, w: torch.mm(x, w, out_dtype=torch.float32),  # bf16 in, f32 out
+    }
+
+
+def phase_probes(dev):
+    """This slice's path, the probe tool, with every count at 0 just before
+    it: ``run_probes`` on cuda (its kernel against the plain version on the
+    CPU), each probe kernel launched once, the serving kernels never, and no
+    plain version called with cuda tensors. Then each probe kernel against
+    its plain version on cuda on other inputs, and their times."""
+    from diffspectra_tpu_torch.ops import LAUNCHES, probes, reset_launches
+    from diffspectra_tpu_torch.tools.diag_probes import probe_inputs, run_probes
+
+    assert PROBE_ATOL == {name: p.atol for name, p in probes.PROBES.items()}
+    plain_on_cuda, originals = [], {}
+
+    def spy(name, plain):
+        def counted(*args):
+            if any(a.is_cuda for a in args):
+                plain_on_cuda.append(name)
+            return plain(*args)
+        return counted
+
+    for name in probes.PROBES:  # the wrappers call their plain version by this name
+        originals[name] = getattr(probes, f"{name}_reference")
+        setattr(probes, f"{name}_reference", spy(name, originals[name]))
+    try:
+        reset_launches()
+        t0 = time.perf_counter()
+        passed = run_probes(dev, seed=0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(LAUNCHES)
+    finally:
+        for name, plain in originals.items():
+            setattr(probes, f"{name}_reference", plain)
+    say(f"[probes] run_probes on cuda: {sum(passed.values())} of {len(passed)} passed in "
+        f"{wall:.3f} s; launches {nonzero(launches)}; plain versions on cuda {plain_on_cuda}")
+    assert all(passed.values()), passed
+    assert not plain_on_cuda, plain_on_cuda
+    launched_only([f"probe_{name}" for name in probes.PROBES], launches, 1)
+
+    library = probe_library(dev)
+    rows = []
+    for name, p in probes.PROBES.items():
+        args = [a.to(dev) for a in probe_inputs(name, seed=1)]
+        got, want = p.wrapper(*args), p.reference(*args)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        say(f"[probes] {name}: {tuple(got.shape)} max |kernel - plain| = {err:.3e} "
+            f"(tolerance {PROBE_ATOL[name]:.0e}, max |plain| = {want.abs().max().item():.3e})")
+        assert got.shape == want.shape and torch.isfinite(got).all() and err <= PROBE_ATOL[name], name
+        ms = cuda_time_ms(lambda: p.wrapper(*args), iters=200)
+        kernel_device_ms = device_ms(lambda: p.wrapper(*args))
+        plain_ms = cuda_time_ms(lambda: p.reference(*args), iters=200)
+        call = library[name]
+        lib_err = (call(*args).float() - want).abs().max().item()
+        library_ms = cuda_time_ms(lambda: call(*args), iters=200)
+        library_device_ms = device_ms(lambda: call(*args))
+        lib_note = (f"{library_ms:.4f} ms library call, {ms_or_none(library_device_ms)} of it on "
+                    f"the device (|library - plain| {lib_err:.1e})")
+        nbytes = sum(a.numel() * a.element_size() for a in args) + got.numel() * got.element_size()
+        assert nbytes == p.nbytes, (name, nbytes, p.nbytes)
+        tensor_cores = p.dtype == torch.bfloat16  # t7's kernel runs mma.sync on bf16
+        peak = BF16_PEAK if tensor_cores else F32_PEAK
+        t_ops, t_bytes = p.flops / peak * 1e3, nbytes / HBM_RATE * 1e3
+        bound_ms, bound_by = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+        say(f"[probes] {name}: {ms:.4f} ms kernel, {ms_or_none(kernel_device_ms)} of it on the device; "
+            f"{plain_ms:.4f} ms plain version; {lib_note}; "
+            f"bound {bound_ms:.6f} ms by {bound_by} ({p.flops / 1e6:.3f} MFLOP "
+            f"{'bf16 tensor cores' if tensor_cores else 'f32'}, {nbytes / 1e6:.4f} MB)")
+        rows.append(dict(name=f"probe_{name}", route="cuda",
+                         source="diffspectra_tpu_torch/csrc/probes.cu", replaces=p.replaces,
+                         launches=launches[f"probe_{name}"], max_abs_err=err, max_err=err,
+                         ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                         library_ms=library_ms, device_ms=kernel_device_ms,
+                         library_device_ms=library_device_ms))
+    return rows
+
+
 def forward_inputs(dev, has_cond: bool):
     """One reverse step's inputs in the warm model's operating range: noisy
     positions and features, conditioning inside its clamp range, spectra of
@@ -266,6 +398,10 @@ def phase_forward(dev):
     return gpu_models
 
 
+def nonzero(launches):
+    return {k: v for k, v in launches.items() if v}
+
+
 def launched_only(path_kernels, launches, expected):
     """The kernels of the path launched ``expected`` times, the others never."""
     want = {k: (expected if k in path_kernels else 0) for k in launches}
@@ -305,14 +441,14 @@ def serve_path(path, dev, data):
         say(f"[serve {path}] request {m}: n_atoms={n} wall={wall:.3f} s "
             f"({CANDIDATES / wall:.3f} sampled mols/s), {len(result.candidates)} distinct "
             f"candidates, best frequency {result.best.frequency:.2f}, finite={finite}, "
-            f"top-1 WL hash equals target={hit}, launches={launched}")
+            f"top-1 WL hash equals target={hit}, launches={nonzero(launched)}")
         assert finite and sum(c.count for c in result.candidates) == CANDIDATES
         assert all(c.molgraph.n_atoms == n for c in result.candidates)
         per_request.append(dict(n_atoms=n, wall_s=wall, mols_per_s=CANDIDATES / wall,
                                 distinct=len(result.candidates), top1_hit=hit))
     launches = dict(LAUNCHES)
     expected = el.config.model.n_layers * STEPS * REQUESTS
-    say(f"[serve {path}] launches {launches}, expected {expected} for {PATH_KERNELS[path]}, "
+    say(f"[serve {path}] launches {nonzero(launches)}, expected {expected} for {PATH_KERNELS[path]}, "
         "0 for the others")
     launched_only(PATH_KERNELS[path], launches, expected)
     total = sum(r["wall_s"] for r in per_request)
@@ -353,7 +489,7 @@ def serve_more(el, dev, data, queries):
         f"{counts} with probabilities {[round(probs[c], 4) for c in counts]}, {K} draws each; "
         f"wall={wall:.3f} s; {len(result.candidates)} distinct candidates, best n_atoms "
         f"{result.best.molgraph.n_atoms} at frequency {result.best.frequency:.2f}; "
-        f"launches {dict(LAUNCHES)}")
+        f"launches {nonzero(LAUNCHES)}")
     assert result.n_atoms is None and result.num_draws == K * len(counts)
     assert sum(c.count for c in result.candidates) == K * len(counts)
     assert all(c.molgraph.n_atoms in counts for c in result.candidates)
@@ -406,7 +542,7 @@ def serve_more(el, dev, data, queries):
     say(f"[batch] 8 queries, given counts {given}, served at {[r.n_atoms for r in results]}; "
         f"{len(pads)} rounds of {8 * CANDIDATES} draws (buckets {sorted(pads)}), "
         f"steps={SHORT_STEPS} (cut from {STEPS}); wall={wall:.3f} s "
-        f"({8 * CANDIDATES / wall:.3f} sampled mols/s of the 8 queries); launches {dict(LAUNCHES)}")
+        f"({8 * CANDIDATES / wall:.3f} sampled mols/s of the 8 queries); launches {nonzero(LAUNCHES)}")
     assert len(results) == 8
     for r, g in zip(results, given):
         assert g is None or r.n_atoms == g
@@ -427,7 +563,7 @@ def serve_more(el, dev, data, queries):
         wall = time.perf_counter() - t0
         say(f"[{method}] steps={DPM_STEPS}, n_atoms={n}: wall={wall:.3f} s, "
             f"{len(result.candidates)} distinct candidates, best frequency "
-            f"{result.best.frequency:.2f}; launches {dict(LAUNCHES)}")
+            f"{result.best.frequency:.2f}; launches {nonzero(LAUNCHES)}")
         assert sum(c.count for c in result.candidates) == CANDIDATES
         assert all(np.isfinite(c.positions).all() and c.molgraph.n_atoms == n
                    for c in result.candidates)
@@ -488,20 +624,27 @@ def main() -> int:
             say(f"[build] {line.strip()}")
 
     rows = phase_kernels(dev)
+    probe_rows = phase_probes(dev)
     models = phase_forward(dev)
     from diffspectra_tpu_torch.data.synthetic import generate
 
     data = generate(seed=7, size=REQUESTS, max_n=29, fidelity=4)
-    launches = {}
+    launches, serving = {}, {}
     for path in PATHS:
         el, counts = serve_path(path, dev, data)
         launches.update({k: counts[k] for k in PATH_KERNELS[path]})
+        serving.update({k: serving.get(k, 0) + counts[k] for k in counts})
     serve_more(el, dev, data, generate(seed=9, size=8, max_n=29, fidelity=4))
     for path, model in models.items():
         phase_profile(path, model, dev)
     for row in rows:
         row["launches"] = launches[row["name"]]
-    print(json.dumps({"kernels": rows}))
+    for row in probe_rows:  # launches: the probe tool's run; none on the serving paths
+        row["serving_launches"] = serving[row["name"]]
+        assert row["serving_launches"] == 0, row
+    say(f"[probes] launches in the probe tool's run "
+        f"{ {r['name']: r['launches'] for r in probe_rows} }, on the serving paths 0 each")
+    print(json.dumps({"kernels": rows + probe_rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

@@ -1,0 +1,372 @@
+// The Mosaic probes t1 ... t14 of tools/diag_mosaic_bisect.py, for Hopper
+// (sm_90a). f32 unless marked.
+//
+// Replaces the fourteen TPU kernels of that tool (functions t1 ... t14, one
+// pl.pallas_call each). The tool bisects which Pallas/Mosaic feature a TPU
+// compile refuses, one feature a probe: unaligned and high-rank shapes, a
+// grid, 2-D products (f32 and bf16), tanh, a softmax, a masked large
+// negative, a reshape and segment sum, a VMEM scratch. Each kernel here
+// computes what its probe computes, at the probe's shapes, and exercises the
+// counterpart feature of this card: masked ragged edges (29 and 841 are no
+// multiples of the warp or the tile), a thread block per grid step, shared
+// memory tiles, warp shuffles and, for t7, the bf16 tensor cores.
+//
+// What bounds them on this card. Each probe moves 7 KB to 3.4 MB, so the
+// bound is 2 ns to 1 us: bytes / 3.35 TB/s for all but t5, whose 27 MFLOP
+// of f32 products (0.41 us at 67 TFLOP/s) just outweigh its 1.1 MB. A launch
+// costs a few microseconds, which sets the time of most of them.
+//
+// What the design does about it: nothing beyond a simple kernel that is
+// right, with enough threads to cover the data in one wave. They are not
+// on any serving path.
+//
+//   t1, t2, t11  x * 2                     map_kernel<Times2>
+//   t3           x + 1                     map_kernel<PlusOne>
+//   t4           x + 1 over a grid of 8    one thread block per grid step
+//   t6           tanh(x)                   map_kernel<Tanh>
+//   t9           m > 0 ? x : -1e10         mask_kernel
+//   t12          s = 2x (shared); s + 1    stage_kernel (the VMEM scratch)
+//   t8           softmax over the last axis, one warp per row
+//   t10          [841,252] -> [29,29,14,18].sum(-1), one thread per output
+//   t14          q k^T, one warp per output, shuffle sum over the depth
+//   t5, t13      x @ w and q @ k^T, 16 x 16 shared-memory tiles
+//   t7           x @ w, bf16 in, f32 out, mma.sync m16n8k16 on the tensor
+//                cores, 64 x 64 tiles, the 841 rows masked at the edge
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kMaxBlocks = 4096;     // map kernels loop past this many blocks
+constexpr int kStageTile = 2048;     // floats a block stages (8 rows of 256)
+constexpr int kTile = 16;            // f32 product tile
+constexpr int kMmaTile = 64;         // bf16 product: rows, columns and depth a block
+constexpr int kMmaPad = 8;           // bf16 of padding a shared row (no bank conflicts)
+constexpr int kChunks = kMmaTile * kMmaTile / 8 / 128;  // 16-byte loads a thread a tile
+
+struct Times2 {
+  __device__ float operator()(float x) const { return x * 2.0f; }
+};
+struct PlusOne {
+  __device__ float operator()(float x) const { return x + 1.0f; }
+};
+struct Tanh {
+  __device__ float operator()(float x) const { return tanhf(x); }
+};
+
+int map_blocks(int n) { return max(1, min(kMaxBlocks, (n + kThreads - 1) / kThreads)); }
+
+template <class Op>
+__global__ void map_kernel(const float* __restrict__ x, float* __restrict__ out, int n, Op op) {
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n; i += gridDim.x * blockDim.x) {
+    out[i] = op(x[i]);
+  }
+}
+
+// t4: grid step b (one block) owns x[b] of `per_step` elements, as the
+// BlockSpec (1, 29, 29, 64) cut it on the TPU.
+__global__ void step_kernel(const float* __restrict__ x, float* __restrict__ out, int per_step) {
+  const size_t base = (size_t)blockIdx.x * per_step;
+  for (int i = threadIdx.x; i < per_step; i += blockDim.x) out[base + i] = x[base + i] + 1.0f;
+}
+
+__global__ void mask_kernel(const float* __restrict__ x, const float* __restrict__ m,
+                            float* __restrict__ out, int n) {
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n; i += gridDim.x * blockDim.x) {
+    out[i] = m[i] > 0.0f ? x[i] : -1e10f;
+  }
+}
+
+// t12: the block's tile is written to shared memory (2x), and after the
+// barrier each thread reads back elements that another thread wrote (the
+// mirrored index), so the result rests on the staging and the barrier.
+__global__ void stage_kernel(const float* __restrict__ x, float* __restrict__ out, int n) {
+  __shared__ float scratch[kStageTile];
+  const size_t base = (size_t)blockIdx.x * kStageTile;
+  const int len = min(kStageTile, (int)(n - base));
+  for (int i = threadIdx.x; i < len; i += blockDim.x) scratch[i] = x[base + i] * 2.0f;
+  __syncthreads();
+  for (int i = threadIdx.x; i < len; i += blockDim.x) {
+    const int j = len - 1 - i;
+    out[base + j] = scratch[j] + 1.0f;
+  }
+}
+
+__device__ float warp_max(float v) {
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+__device__ float warp_sum(float v) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// t8: one warp per row; lane c holds columns c, c + 32, ... (29 of 32 lanes
+// live at the probe's width). Max-subtracted, as jax.nn.softmax.
+__global__ void softmax_kernel(const float* __restrict__ x, float* __restrict__ out, int rows,
+                               int cols) {
+  const int row = (blockIdx.x * blockDim.x + threadIdx.x) / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= rows) return;  // the whole warp leaves together
+  const float* xr = x + (size_t)row * cols;
+  float m = -INFINITY;
+  for (int c = lane; c < cols; c += 32) m = fmaxf(m, xr[c]);
+  m = warp_max(m);
+  float s = 0.0f;
+  for (int c = lane; c < cols; c += 32) s += expf(xr[c] - m);
+  s = warp_sum(s);
+  for (int c = lane; c < cols; c += 32) out[(size_t)row * cols + c] = expf(xr[c] - m) / s;
+}
+
+// t10: the reshape [841, 252] -> [29, 29, 14, 18] keeps memory order, so
+// output o sums the contiguous segment x[o * seg : (o + 1) * seg].
+__global__ void segment_sum_kernel(const float* __restrict__ x, float* __restrict__ out,
+                                   int n_out, int seg) {
+  const int o = blockIdx.x * blockDim.x + threadIdx.x;
+  if (o >= n_out) return;
+  const float* xs = x + (size_t)o * seg;
+  float s = 0.0f;
+  for (int c = 0; c < seg; ++c) s += xs[c];
+  out[o] = s;
+}
+
+// t14: out[i, j] = sum_c q[i, c] k[j, c], one warp per (i, j): lane c takes
+// c, c + 32, ..., then a shuffle sum.
+__global__ void warp_dot_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                                float* __restrict__ out, int m, int n, int depth) {
+  const int pair = (blockIdx.x * blockDim.x + threadIdx.x) / 32;
+  const int lane = threadIdx.x % 32;
+  if (pair >= m * n) return;
+  const float* qi = q + (size_t)(pair / n) * depth;
+  const float* kj = k + (size_t)(pair % n) * depth;
+  float s = 0.0f;
+  for (int c = lane; c < depth; c += 32) s += qi[c] * kj[c];
+  s = warp_sum(s);
+  if (lane == 0) out[pair] = s;
+}
+
+// t5 (b is [K, N]) and t13 (b is [N, K], the product with its transpose):
+// out[M, N] = a[M, K] @ b, f32 sums. A 16 x 16 block of threads owns a
+// 16 x 16 output tile and walks the depth 16 at a time through shared
+// memory; the ragged edges load zeros and store nothing.
+template <bool kTransB>
+__global__ void tiled_product_kernel(const float* __restrict__ a, const float* __restrict__ b,
+                                     float* __restrict__ out, int M, int N, int K) {
+  __shared__ float as[kTile][kTile + 1];  // [row][depth]
+  __shared__ float bs[kTile][kTile + 1];  // [depth][column]
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  const int row = blockIdx.y * kTile + ty, col = blockIdx.x * kTile + tx;
+  float acc = 0.0f;
+  for (int k0 = 0; k0 < K; k0 += kTile) {
+    as[ty][tx] = (row < M && k0 + tx < K) ? a[(size_t)row * K + k0 + tx] : 0.0f;
+    if (kTransB) {  // read b's rows along the depth, coalesced
+      const int n = blockIdx.x * kTile + ty;
+      bs[tx][ty] = (n < N && k0 + tx < K) ? b[(size_t)n * K + k0 + tx] : 0.0f;
+    } else {
+      bs[ty][tx] = (k0 + ty < K && col < N) ? b[(size_t)(k0 + ty) * N + col] : 0.0f;
+    }
+    __syncthreads();
+    for (int kk = 0; kk < kTile; ++kk) acc += as[ty][kk] * bs[kk][tx];
+    __syncthreads();
+  }
+  if (row < M && col < N) out[(size_t)row * N + col] = acc;
+}
+
+__device__ uint32_t load_pair(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);  // two bf16, the lower index in the low half
+}
+
+// t7: out[M, N] (f32) = a[M, K] (bf16) @ b[K, N] (bf16). A block of four
+// warps owns a 64 x 64 output tile; warp w its rows 16w ... 16w + 15, as
+// eight m16n8k16 tiles whose f32 sums stay in registers. The depth goes 64
+// at a time through shared memory, a as [row][k] and b transposed to
+// [n][k], so that each fragment register is one 32-bit load of two
+// neighbouring k. K and N are multiples of 8 and both operands 16-byte
+// aligned, for the 16-byte loads. Fragment layout (PTX ISA, mma.m16n8k16,
+// .bf16): g = lane / 4, t = lane % 4; A registers (g, 2t), (g + 8, 2t),
+// (g, 2t + 8), (g + 8, 2t + 8); B registers (k = 2t, n = g), (k = 2t + 8,
+// n = g); C (g, 2t), (g, 2t + 1), (g + 8, 2t), (g + 8, 2t + 1). Rows,
+// columns and depth past the edge load zeros; rows past M store nothing.
+__global__ void __launch_bounds__(128) bf16_mma_kernel(const __nv_bfloat16* __restrict__ a,
+                                                       const __nv_bfloat16* __restrict__ b,
+                                                       float* __restrict__ out, int M, int N,
+                                                       int K) {
+  __shared__ __align__(16) __nv_bfloat16 as[kMmaTile][kMmaTile + kMmaPad];  // [row][k]
+  __shared__ __align__(16) __nv_bfloat16 bs[kMmaTile][kMmaTile + kMmaPad];  // [n][k]
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int row0 = blockIdx.y * kMmaTile, col0 = blockIdx.x * kMmaTile;
+  float acc[8][4] = {};
+  for (int k0 = 0; k0 < K; k0 += kMmaTile) {
+    // Each thread loads kChunks 16-byte chunks (8 bf16) of a and of b, all
+    // in flight before the first is stored, so that the tile costs one
+    // memory latency and not one a loop step.
+    uint4 va[kChunks], vb[kChunks];
+#pragma unroll
+    for (int it = 0; it < kChunks; ++it) {
+      const int chunk = threadIdx.x + it * 128;
+      const int r = chunk / 8, c = chunk % 8 * 8;  // a: row r, k c ... c + 7
+      va[it] = (row0 + r < M && k0 + c < K)
+                   ? *reinterpret_cast<const uint4*>(a + (size_t)(row0 + r) * K + k0 + c)
+                   : make_uint4(0, 0, 0, 0);
+      vb[it] = (k0 + r < K && col0 + c < N)  // b: k r, n c ... c + 7
+                   ? *reinterpret_cast<const uint4*>(b + (size_t)(k0 + r) * N + col0 + c)
+                   : make_uint4(0, 0, 0, 0);
+    }
+#pragma unroll
+    for (int it = 0; it < kChunks; ++it) {
+      const int chunk = threadIdx.x + it * 128;
+      const int r = chunk / 8, c = chunk % 8 * 8;
+      *reinterpret_cast<uint4*>(&as[r][c]) = va[it];
+      const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&vb[it]);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) bs[c + j][r] = e[j];  // transposed to [n][k]
+    }
+    __syncthreads();
+    const int r = warp * 16 + g;
+    for (int ks = 0; ks < kMmaTile; ks += 16) {
+      const uint32_t a0 = load_pair(&as[r][ks + 2 * t]);
+      const uint32_t a1 = load_pair(&as[r + 8][ks + 2 * t]);
+      const uint32_t a2 = load_pair(&as[r][ks + 2 * t + 8]);
+      const uint32_t a3 = load_pair(&as[r + 8][ks + 2 * t + 8]);
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        const uint32_t b0 = load_pair(&bs[nt * 8 + g][ks + 2 * t]);
+        const uint32_t b1 = load_pair(&bs[nt * 8 + g][ks + 2 * t + 8]);
+        asm volatile(
+            "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+            "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+            : "+f"(acc[nt][0]), "+f"(acc[nt][1]), "+f"(acc[nt][2]), "+f"(acc[nt][3])
+            : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+      }
+    }
+    __syncthreads();
+  }
+  const int row = row0 + warp * 16 + g;
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt) {
+    const int col = col0 + nt * 8 + 2 * t;
+    for (int half = 0; half < 2; ++half) {
+      const int rr = row + 8 * half;
+      if (rr >= M) continue;
+      if (col < N) out[(size_t)rr * N + col] = acc[nt][2 * half];
+      if (col + 1 < N) out[(size_t)rr * N + col + 1] = acc[nt][2 * half + 1];
+    }
+  }
+}
+
+int finish() { return (int)cudaGetLastError(); }
+
+template <class Op>
+int launch_map(const float* x, float* out, int n, Op op, void* stream) {
+  if (n <= 0) return (int)cudaErrorInvalidValue;
+  map_kernel<<<map_blocks(n), kThreads, 0, (cudaStream_t)stream>>>(x, out, n, op);
+  return finish();
+}
+
+template <bool kTransB>
+int launch_tiled(const float* a, const float* b, float* out, int m, int n, int k, void* stream) {
+  if (m <= 0 || n <= 0 || k <= 0) return (int)cudaErrorInvalidValue;
+  const dim3 grid((n + kTile - 1) / kTile, (m + kTile - 1) / kTile);
+  tiled_product_kernel<kTransB><<<grid, dim3(kTile, kTile), 0, (cudaStream_t)stream>>>(
+      a, b, out, m, n, k);
+  return finish();
+}
+
+}  // namespace
+
+// One launcher a probe. Each launches on `stream` and returns
+// cudaGetLastError(), so that a refused launch is seen at once; the caller
+// checked shapes, types and contiguity. Sizes are element counts.
+extern "C" {
+
+int dstt_probe_t1(const float* x, float* out, int n, void* stream) {
+  return launch_map(x, out, n, Times2{}, stream);
+}
+
+int dstt_probe_t2(const float* x, float* out, int n, void* stream) {
+  return launch_map(x, out, n, Times2{}, stream);
+}
+
+int dstt_probe_t3(const float* x, float* out, int n, void* stream) {
+  return launch_map(x, out, n, PlusOne{}, stream);
+}
+
+int dstt_probe_t4(const float* x, float* out, int steps, int per_step, void* stream) {
+  if (steps <= 0 || per_step <= 0) return (int)cudaErrorInvalidValue;
+  step_kernel<<<steps, 1024, 0, (cudaStream_t)stream>>>(x, out, per_step);
+  return finish();
+}
+
+int dstt_probe_t5(const float* x, const float* w, float* out, int m, int n, int k,
+                  void* stream) {
+  return launch_tiled<false>(x, w, out, m, n, k, stream);
+}
+
+int dstt_probe_t6(const float* x, float* out, int n, void* stream) {
+  return launch_map(x, out, n, Tanh{}, stream);
+}
+
+int dstt_probe_t7(const __nv_bfloat16* x, const __nv_bfloat16* w, float* out, int m, int n,
+                  int k, void* stream) {
+  if (m <= 0 || n <= 0 || k <= 0 || n % 8 != 0 || k % 8 != 0) return (int)cudaErrorInvalidValue;
+  if ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w)) % 16 != 0) {
+    return (int)cudaErrorMisalignedAddress;
+  }
+  const dim3 grid((n + kMmaTile - 1) / kMmaTile, (m + kMmaTile - 1) / kMmaTile);
+  bf16_mma_kernel<<<grid, 128, 0, (cudaStream_t)stream>>>(x, w, out, m, n, k);
+  return finish();
+}
+
+int dstt_probe_t8(const float* x, float* out, int rows, int cols, void* stream) {
+  if (rows <= 0 || cols <= 0) return (int)cudaErrorInvalidValue;
+  const int warps = kThreads / 32;
+  softmax_kernel<<<(rows + warps - 1) / warps, kThreads, 0, (cudaStream_t)stream>>>(
+      x, out, rows, cols);
+  return finish();
+}
+
+int dstt_probe_t9(const float* x, const float* mask, float* out, int n, void* stream) {
+  if (n <= 0) return (int)cudaErrorInvalidValue;
+  mask_kernel<<<map_blocks(n), kThreads, 0, (cudaStream_t)stream>>>(x, mask, out, n);
+  return finish();
+}
+
+int dstt_probe_t10(const float* x, float* out, int n_out, int seg, void* stream) {
+  if (n_out <= 0 || seg <= 0) return (int)cudaErrorInvalidValue;
+  segment_sum_kernel<<<(n_out + kThreads - 1) / kThreads, kThreads, 0, (cudaStream_t)stream>>>(
+      x, out, n_out, seg);
+  return finish();
+}
+
+int dstt_probe_t11(const float* x, float* out, int n, void* stream) {
+  return launch_map(x, out, n, Times2{}, stream);
+}
+
+int dstt_probe_t12(const float* x, float* out, int n, void* stream) {
+  if (n <= 0) return (int)cudaErrorInvalidValue;
+  stage_kernel<<<(n + kStageTile - 1) / kStageTile, kThreads, 0, (cudaStream_t)stream>>>(
+      x, out, n);
+  return finish();
+}
+
+int dstt_probe_t13(const float* q, const float* k, float* out, int m, int n, int depth,
+                   void* stream) {
+  return launch_tiled<true>(q, k, out, m, n, depth, stream);
+}
+
+int dstt_probe_t14(const float* q, const float* k, float* out, int m, int n, int depth,
+                   void* stream) {
+  if (m <= 0 || n <= 0 || depth <= 0) return (int)cudaErrorInvalidValue;
+  const int warps = kThreads / 32;
+  warp_dot_kernel<<<(m * n + warps - 1) / warps, kThreads, 0, (cudaStream_t)stream>>>(
+      q, k, out, m, n, depth);
+  return finish();
+}
+
+}  // extern "C"

@@ -19,20 +19,27 @@ from pathlib import Path
 import torch
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCES = tuple(_PKG / "csrc" / f for f in ("mix_attention.cu", "equi_update.cu", "block_fused.cu"))
+SOURCES = tuple(_PKG / "csrc" / f for f in ("mix_attention.cu", "equi_update.cu", "block_fused.cu",
+                                            "probes.cu"))
 BUILD_DIR = _PKG / "_build"
 LIB_NAME = "libdstt_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 # kernel launches per wrapper, since the process started or reset_launches()
-LAUNCHES = {"mix_attention": 0, "equi_update": 0, "block_fused": 0}
+LAUNCHES = {"mix_attention": 0, "equi_update": 0, "block_fused": 0,
+            **{f"probe_t{i}": 0 for i in range(1, 15)}}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = {
     "dstt_mix_attention": [_P] * 9 + [_I] * 9 + [_P],
     "dstt_equi_update": [_P] * 16 + [_I] * 6 + [_F, _P],
     "dstt_block_fused": [_P, _I, _P, _I, _F, _P],
+    # the Mosaic probes: pointers, then sizes, then the stream
+    **{f"dstt_probe_t{i}": [_P] * 2 + [_I] + [_P] for i in (1, 2, 3, 6, 11, 12)},
+    **{f"dstt_probe_t{i}": [_P] * 2 + [_I] * 2 + [_P] for i in (4, 8, 10)},
+    "dstt_probe_t9": [_P] * 3 + [_I] + [_P],
+    **{f"dstt_probe_t{i}": [_P] * 3 + [_I] * 3 + [_P] for i in (5, 7, 13, 14)},
 }
 
 _lock = threading.Lock()
@@ -87,9 +94,10 @@ def check_rc(name: str, rc: int) -> None:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
 
 
-def check_inputs(name: str, tensors: dict, shapes: dict) -> torch.device:
-    """Every tensor float32, contiguous, on one device (CPU or CUDA), with
-    the expected shape. Returns that device."""
+def check_inputs(name: str, tensors: dict, shapes: dict,
+                 dtype: torch.dtype = torch.float32) -> torch.device:
+    """Every tensor of ``dtype``, contiguous, on one device (CPU or CUDA),
+    with the expected shape. Returns that device."""
     devices = {t.device for t in tensors.values()}
     if len(devices) != 1:
         raise ValueError(f"{name}: inputs on several devices {sorted(map(str, devices))}")
@@ -97,8 +105,8 @@ def check_inputs(name: str, tensors: dict, shapes: dict) -> torch.device:
     if device.type not in ("cpu", "cuda"):
         raise ValueError(f"{name}: tensors on {device}; takes cpu or cuda tensors")
     for key, t in tensors.items():
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name}: {key} is {t.dtype}, expected torch.float32")
+        if t.dtype != dtype:
+            raise TypeError(f"{name}: {key} is {t.dtype}, expected {dtype}")
         if tuple(t.shape) != tuple(shapes[key]):
             raise ValueError(f"{name}: {key} has shape {tuple(t.shape)}, expected {tuple(shapes[key])}")
         if device.type == "cuda" and not t.is_contiguous():

@@ -1,0 +1,60 @@
+"""Run the Mosaic probes' kernels one at a time against their plain versions.
+
+The counterpart of ``tools/diag_mosaic_bisect.py``, which bisects which
+Pallas/Mosaic feature a TPU compile refuses. Here each probe of
+``ops/probes.py`` (a hand-written kernel in ``csrc/probes.cu``) runs on the
+device on seeded inputs at the tool's shapes, and its plain version runs on
+the CPU on the same inputs. It prints ``PASS tN``, or ``FAIL tN: <max
+error> > <tolerance>`` and goes on to the next probe. A build or launch
+error raises.
+
+    python -m diffspectra_tpu_torch.tools.diag_probes [--device cpu]
+
+runs on cuda unless given ``--device cpu`` (the plain versions on both
+sides), and exits 1 if a probe failed.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+
+import torch
+
+from ..device import resolve_device
+from ..ops.probes import PROBES
+
+
+def probe_inputs(name: str, seed: int = 0) -> list:
+    """Unit normals of the probe's shapes and dtype, on the CPU, drawn from
+    ``torch.Generator().manual_seed(seed)``."""
+    probe = PROBES[name]
+    gen = torch.Generator().manual_seed(seed)
+    return [torch.randn(shape, generator=gen).to(probe.dtype) for shape in probe.inputs.values()]
+
+
+def run_probes(device=None, seed: int = 0) -> dict:
+    """Every probe on ``device`` (cuda unless asked) against its plain
+    version on the CPU; prints one line a probe; returns name -> passed."""
+    device = resolve_device(device)
+    passed = {}
+    for name, probe in PROBES.items():
+        inputs = probe_inputs(name, seed)
+        got = probe.wrapper(*(t.to(device) for t in inputs)).cpu()
+        want = probe.reference(*inputs)
+        err = (got - want).abs().max().item()
+        passed[name] = err <= probe.atol
+        print(f"PASS {name}" if passed[name] else f"FAIL {name}: {err:.3e} > {probe.atol:.0e}",
+              flush=True)
+    return passed
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--device", default=None, help="cuda (default) or cpu")
+    args = parser.parse_args(argv)
+    return 0 if all(run_probes(args.device).values()) else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())
