@@ -4,11 +4,15 @@
 
 Phases, each printing its own lines:
   1. the card (name, power limit); TF32 off for matmuls and convolutions;
-  2. build the CUDA kernels from ``diffspectra_tpu_torch/csrc`` with nvcc;
+  2. build the CUDA kernels from ``diffspectra_tpu_torch/csrc`` with nvcc
+     (registers and spills of each kernel from ``-Xptxas=-v``);
   3. each kernel (mix_attention, equi_update, block_fused) against its plain
      PyTorch version at the serving shape (B=10 draws, N=29, flagship
      widths) on a seeded ragged batch, with the kernel's, the plain
-     version's and the bound's times;
+     version's and the bound's times; block_fused also at B=10, N=17, 21,
+     25, 29 and B=80, N=21, 29 (ragged, every output and padding held to
+     1e-4), timed with L2 cold (64 MB written before each call) as well as
+     warm, with each of its five launches' device time from the profiler;
   3b. the Mosaic probes t1 ... t14 (``ops/probes.py``): the probe tool
      ``run_probes`` on cuda, each probe kernel launched once and no plain
      version on cuda; then each probe kernel against its plain version on
@@ -91,11 +95,16 @@ def cuda_time_ms(fn, iters: int, warmup: int = 5) -> float:
 
 
 N_NODES = (29, 21, 17, 29, 5, 25, 12, 29, 1, 19)  # a ragged batch of B graphs
+# block_fused's shapes: the request buckets at B=10 and elucidate_batch's
+# rounds of 80 draws, where rows a tile straddle odd N and tiles are partial
+BLOCK_SHAPES = ((10, 17), (10, 21), (10, 25), (10, 29), (80, 21), (80, 29))
+FLUSH_BYTES = 64 * 2**20  # written between calls to time block_fused with L2 cold
+BLOCK_STAGES = ("attn_stage", "node_in_stage", "node_out_stage", "node_proj_stage", "pair_stage")
 
 
-def ragged_masks(device):
-    node = (torch.arange(N)[None] < torch.tensor(N_NODES)[:, None]).float()
-    edge = node[:, :, None] * node[:, None, :] * (1.0 - torch.eye(N))
+def ragged_masks(device, n_nodes=N_NODES, n=N):
+    node = (torch.arange(n)[None] < torch.tensor(n_nodes)[:, None]).float()
+    edge = node[:, :, None] * node[:, None, :] * (1.0 - torch.eye(n))
     return edge.to(device)
 
 
@@ -131,16 +140,19 @@ def equi_case(gen, dev):
     return args, {}, flops, nbytes
 
 
-def block_case(gen, dev):
-    """block_fused inputs at the serving shape, and the work they need."""
+def block_case(gen, dev, n_nodes=N_NODES, N=N):
+    """block_fused inputs at flagship widths for graphs of ``n_nodes``
+    atoms padded to N (the serving shape by default), and the work they
+    need."""
     from diffspectra_tpu_torch.ops.block_fused import _DATA, _WEIGHTS
 
+    B = len(n_nodes)
     dh, de, heads, out_ch, n_extra = 256, 64, 16, 16, 2
     n_sub = heads - n_extra
     ec, hc, rn, re = n_sub * (heads * out_ch // n_sub), heads * out_ch, 2 * dh, 2 * de
     r = lambda *s, scale=1.0: (torch.randn(*s, generator=gen) * scale).to(dev)
-    edge_mask = ragged_masks(dev)
-    node_mask = (torch.arange(N)[None] < torch.tensor(N_NODES)[:, None]).float()[..., None]
+    edge_mask = ragged_masks(dev, n_nodes, N)
+    node_mask = (torch.arange(N)[None] < torch.tensor(n_nodes)[:, None]).float()[..., None]
     data = dict(
         h=r(B, N, dh), q=r(B, N, ec), k=r(B, N, ec), v=r(B, N, dh), edge_in=r(B, N, N, de),
         d2=r(B, N, N, 1, scale=2.0).abs(), normed_diff=r(B, N, N, 3, scale=0.1),
@@ -210,10 +222,82 @@ def phase_kernels(dev):
         bound_ms, bound_by = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
         say(f"[kernels] {name}: {ms:.4f} ms kernel, {plain_ms:.4f} ms plain version, "
             f"bound {bound_ms:.4f} ms by {bound_by} ({flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.3f} MB)")
-        rows.append(dict(name=name, route="cuda", source=source, replaces=replaces,
-                         max_abs_err=err, max_err=err, ms=ms, plain_ms=plain_ms,
-                         bound_ms=bound_ms, bound_by=bound_by, library_ms=None))
+        row = dict(name=name, route="cuda", source=source, replaces=replaces,
+                   max_abs_err=err, max_err=err, ms=ms, plain_ms=plain_ms,
+                   bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+        if name == "block_fused":
+            row.update(block_extras(dev, gen, lambda: kernel(*args, **kw)))
+            row["max_abs_err"] = row["max_err"] = max(err, row["shapes_max_err"])
+        rows.append(row)
     return rows
+
+
+def block_extras(dev, gen, call):
+    """block_fused beyond the serving shape: against its plain version at
+    each of BLOCK_SHAPES (ragged: one graph of N atoms, the rest 1..N; every
+    output, padding included), then ``call`` (the serving shape) with L2
+    cold (FLUSH_BYTES written before each call): CUDA events a call, and
+    each launch's device time from the profiler, warm and cold."""
+    from diffspectra_tpu_torch.ops.block_fused import block_fused, block_fused_reference
+
+    err = 0.0
+    for batch, n in BLOCK_SHAPES:
+        n_nodes = [n] + torch.randint(1, n + 1, (batch - 1,), generator=gen).tolist()
+        args, kw, _, _ = block_case(gen, dev, n_nodes, n)
+        got, want = block_fused(*args, **kw), block_fused_reference(*args, **kw)
+        torch.cuda.synchronize()
+        for name, g, w in zip(("h_out", "edge_out", "agg"), got, want):
+            e = (g - w).abs().max().item()
+            say(f"[kernels] block_fused B={batch} N={n}: {name} {tuple(g.shape)} max |kernel - "
+                f"plain| = {e:.3e} (tolerance {KERNEL_ATOL['block_fused']:.0e}, max |plain| = "
+                f"{w.abs().max().item():.3e})")
+            assert torch.isfinite(g).all() and e <= KERNEL_ATOL["block_fused"], (batch, n, name)
+            err = max(err, e)
+        del args, got, want
+
+    flush = torch.empty(FLUSH_BYTES // 4, device=dev)
+    pairs = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+             for _ in range(50)]
+    call()
+    for start, end in pairs:
+        flush.fill_(1.0)
+        start.record()
+        call()
+        end.record()
+    torch.cuda.synchronize()
+    cold_ms = sum(s.elapsed_time(e) for s, e in pairs) / len(pairs)
+    warm, cold = stage_ms(call), stage_ms(call, flush)
+    fmt = lambda d: "not measured" if d is None else ", ".join(f"{k} {v:.4f}" for k, v in d.items())
+    total = lambda d: None if d is None else sum(d.values())
+    say(f"[kernels] block_fused B={B} N={N}: {cold_ms:.4f} ms a call with L2 cold (CUDA events, "
+        f"{FLUSH_BYTES >> 20} MB written before each call); device ms a call, L2 warm: "
+        f"{ms_or_none(total(warm))} ({fmt(warm)}); L2 cold: {ms_or_none(total(cold))} ({fmt(cold)})")
+    return dict(shapes_max_err=err, cold_ms=cold_ms, device_ms=total(warm),
+                cold_device_ms=total(cold), stage_ms=warm, cold_stage_ms=cold)
+
+
+def stage_ms(call, flush=None, iters: int = 20, tries: int = 3):
+    """Device time a call of each of block_fused's launches (profiler), with
+    ``flush`` written before each call when given; None after ``tries``
+    windows in which some kernel events did not arrive."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                if flush is not None:
+                    flush.fill_(1.0)
+                call()
+            torch.cuda.synchronize()
+        times, counts = {}, {}
+        for e in prof.key_averages():
+            for stage in BLOCK_STAGES:
+                if e.device_type.name == "CUDA" and stage in e.key:
+                    times[stage] = times.get(stage, 0.0) + e.device_time_total / iters / 1e3
+                    counts[stage] = counts.get(stage, 0) + e.count
+        if all(counts.get(stage, 0) >= iters for stage in BLOCK_STAGES):
+            return {stage: times[stage] for stage in BLOCK_STAGES}
+    return None
 
 
 def device_ms(fn, iters: int = 20, tries: int = 3):
@@ -593,7 +677,7 @@ def phase_profile(path, model, dev):
     rows.sort(key=lambda e: -e.device_time_total)
     say(f"[profile {path}] window {window_us:.0f} us, kernel time {busy_us:.0f} us "
         f"(busy share {busy_us / window_us:.3f})")
-    for e in rows[:10]:
+    for e in rows[:14]:  # block_fused's five launches among them
         say(f"[profile {path}]   {e.device_time_total / 5:10.1f} us/forward  "
             f"x{e.count // 5:<4d} {e.key[:90]}")
 
@@ -619,9 +703,12 @@ def main() -> int:
     t0 = time.perf_counter()
     _lib.build()
     say(f"[build] nvcc built {_lib.LIB_NAME} in {time.perf_counter() - t0:.2f} s")
-    for line in _lib.build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            say(f"[build] {line.strip()}")
+    kernel = "?"
+    for line in _lib.build_log.splitlines():  # ptxas -v: registers and spills by kernel
+        if "Compiling entry function" in line:
+            kernel = line.split("'")[1]
+        elif "registers" in line or "spill" in line:
+            say(f"[build] {kernel}: {line.strip()}")
 
     rows = phase_kernels(dev)
     probe_rows = phase_probes(dev)

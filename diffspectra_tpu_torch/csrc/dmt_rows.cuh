@@ -1,5 +1,5 @@
-// Device code shared by the port's DMT kernels (mix_attention.cu,
-// equi_update.cu, block_fused.cu), for Hopper (sm_90a), f32.
+// Device code shared by the port's per-op DMT kernels (mix_attention.cu,
+// equi_update.cu), for Hopper (sm_90a), f32.
 //
 // Every kernel runs one thread block per row (b, i) of the pair grid, and
 // these functions work on that row's N pairs once their inputs are in

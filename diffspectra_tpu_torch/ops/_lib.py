@@ -1,6 +1,6 @@
 """Build and load the port's CUDA kernels.
 
-The sources under ``csrc/`` (and the header they share) are compiled with ``nvcc`` into one shared
+The sources under ``csrc/`` (and the headers they include) are compiled with ``nvcc`` into one shared
 library with a plain C interface (no PyTorch headers, so the build takes
 seconds), loaded with ``ctypes``. The build runs once per process, at the
 first kernel launch, into ``_build/`` beside the package (listed in
@@ -34,7 +34,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = {
     "dstt_mix_attention": [_P] * 9 + [_I] * 9 + [_P],
     "dstt_equi_update": [_P] * 16 + [_I] * 6 + [_F, _P],
-    "dstt_block_fused": [_P, _I, _P, _I, _F, _P],
+    "dstt_block_fused": [_P, _I, _P, _I, _P, _I, _F, _P],
     # the Mosaic probes: pointers, then sizes, then the stream
     **{f"dstt_probe_t{i}": [_P] * 2 + [_I] + [_P] for i in (1, 2, 3, 6, 11, 12)},
     **{f"dstt_probe_t{i}": [_P] * 2 + [_I] * 2 + [_P] for i in (4, 8, 10)},

@@ -16,6 +16,7 @@ scale_msa, gate_msa, shift_mlp, scale_mlp, gate_mlp), eq_ss ``[B, 2, Dh]``
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
@@ -29,6 +30,108 @@ _WEIGHTS = ("gbf_means", "gbf_stds", "emb_kd", "emb_ke", "emb_b", "w0a", "w1a", 
             "w_hi", "w_hj", "w_e", "w_d", "eq_bias", "eq_k0", "eq_b0", "eq_k1")
 _DATA = ("h", "q", "k", "v", "edge_in", "d2", "normed_diff", "adj", "edge_mask", "node_mask",
          "node_mods4", "edge_mods6", "eq_ss", "gbf_ss")
+
+
+# The kernel's tiles (csrc/block_fused.cu keeps the same numbers)
+PAIR_ROWS = 64  # pairs of a stage A / B tile
+NODE_ROWS = 32  # rows of a node tile, at most; 16 at least
+_WIDE, _NARROW = 128, 64  # output columns of a pass
+_RING, _RING_NARROW = 3 * 8 * _WIDE, 3 * 8 * _NARROW  # a weight's ring: 3 chunks of 8 rows
+_MAX_GATE = 4
+SMS = 132  # H100 SXM
+MAX_SMEM = 232448  # shared memory a block may use, bytes
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _ld(width: int) -> int:
+    """Row stride of a shared-memory tile: 16-byte rows plus 4 floats."""
+    return (width + 3) // 4 * 4 + 4
+
+
+@dataclass(frozen=True)
+class LaunchPlan:
+    """The five launches of one ``block_fused`` call, in stream order:
+    stage A (``attn_stage``) and stage B (``pair_stage``) take one block per
+    tile of ``rows_per_tile`` rows of one molecule (``tiles`` a molecule);
+    N1-N3 (``node_in_stage``, ``node_out_stage``, ``node_proj_stage``) take
+    ``node_tiles`` tiles of 16-31 rows over all B N rows, times their
+    column tiles. ``smem_*`` are bytes of dynamic shared memory a block."""
+
+    batch: int
+    n: int
+    rows_per_tile: int
+    tiles: int
+    node_tiles: int
+    grid_a: int
+    smem_a: int
+    grid_n1: int
+    smem_n1: int
+    grid_n2: int
+    smem_n2: int
+    grid_n3: int
+    smem_n3: int
+    grid_b: int
+    smem_b: int
+
+    def ints(self) -> tuple:
+        """The plan as ``dstt_block_fused`` takes it."""
+        return (self.rows_per_tile, self.tiles, self.node_tiles, self.grid_a, self.smem_a,
+                self.grid_n1, self.smem_n1, self.grid_n2, self.smem_n2, self.grid_n3,
+                self.smem_n3, self.grid_b, self.smem_b)
+
+    def launches(self) -> dict:
+        """Blocks and shared-memory bytes of each launch, in stream order."""
+        return {"attn_stage": (self.grid_a, self.smem_a),
+                "node_in_stage": (self.grid_n1, self.smem_n1),
+                "node_out_stage": (self.grid_n2, self.smem_n2),
+                "node_proj_stage": (self.grid_n3, self.smem_n3),
+                "pair_stage": (self.grid_b, self.smem_b)}
+
+    def pair_tiles(self) -> list:
+        """(molecule, first row, rows) of each stage A / B block, by block index."""
+        out = []
+        for x in range(self.batch * self.tiles):
+            b, t = divmod(x, self.tiles)
+            i0 = t * self.rows_per_tile
+            out.append((b, i0, min(self.rows_per_tile, self.n - i0)))
+        return out
+
+    def node_rows(self) -> list:
+        """[r0, r1) of each node tile over the B N rows."""
+        m = self.batch * self.n
+        return [(t * m // self.node_tiles, (t + 1) * m // self.node_tiles)
+                for t in range(self.node_tiles)]
+
+
+def launch_plan(batch: int, n: int, dh: int, de: int, ec: int, hc: int, heads: int,
+                rn: int, re: int) -> LaunchPlan:
+    """The kernel's launches at these shapes. R = 64 // N rows a tile (the
+    most whose pairs fit a 64-pair tile), or 2 when that leaves SMs idle;
+    node tiles: B N // 16 of them, rows split evenly."""
+    r = min(n, max(1, PAIR_ROWS // n))
+    if batch * _cdiv(n, r) < SMS and r > 2:
+        r = 2
+    tiles = _cdiv(n, r)
+    node_tiles = max(1, batch * n // 16)
+    lde = _ld(de)
+    return LaunchPlan(
+        batch=batch, n=n, rows_per_tile=r, tiles=tiles, node_tiles=node_tiles,
+        grid_a=batch * tiles,
+        smem_a=4 * (PAIR_ROWS * lde + max(2 * PAIR_ROWS * lde, PAIR_ROWS * _ld(max(ec, hc)))
+                    + PAIR_ROWS * heads + _RING),
+        grid_n1=node_tiles * (_cdiv(rn, _WIDE) + _cdiv(de, _WIDE)),
+        smem_n1=4 * (NODE_ROWS * _ld(dh) + _RING),
+        grid_n2=node_tiles * _cdiv(dh, _NARROW),
+        smem_n2=4 * (NODE_ROWS * _ld(rn) + _RING_NARROW),
+        grid_n3=node_tiles * 2 * _cdiv(dh, _WIDE),
+        smem_n3=4 * (NODE_ROWS * _ld(dh) + _RING),
+        grid_b=batch * tiles,
+        smem_b=4 * (2 * PAIR_ROWS * lde + PAIR_ROWS * max(_ld(re), _ld(dh))
+                    + PAIR_ROWS * (_MAX_GATE + 1) + _RING),
+    )
 
 
 def _ln(x, eps: float = 1e-6):
@@ -89,7 +192,7 @@ def block_fused_reference(
 
 def block_fused(*args, set_inf: bool = True, n_heads: int, n_extra: int, out_ch: int,
                 eps_ln: float = 1e-6):
-    """CPU tensors: the plain version. CUDA tensors: the kernel (two
+    """CPU tensors: the plain version. CUDA tensors: the kernel (five
     launches, counted as one call). Arguments as ``block_fused_reference``."""
     if len(args) != len(_DATA) + len(_WEIGHTS):
         raise TypeError(f"block_fused takes {len(_DATA) + len(_WEIGHTS)} tensors, got {len(args)}")
@@ -119,14 +222,22 @@ def block_fused(*args, set_inf: bool = True, n_heads: int, n_extra: int, out_ch:
     if N > 32 or dh % 32 or dh > 1024 or hc != dh or n_extra > 3:
         raise ValueError(f"block_fused kernel: takes N <= 32, Dh = H*C a multiple of 32 up to "
                          f"1024 and A <= 3, got N={N}, Dh={dh}, H*C={hc}, A={n_extra}")
+    plan = launch_plan(B, N, dh, de, ec, hc, n_heads, rn, re)
+    smem = max(bytes_ for _, bytes_ in plan.launches().values())
+    if smem > MAX_SMEM:
+        raise ValueError(f"block_fused kernel: a launch needs {smem} bytes of shared memory at "
+                         f"Dh={dh}, De={de}, over the card's {MAX_SMEM}")
     lib = _lib.build()
     empty = lambda *shape: torch.empty(shape, device=device, dtype=torch.float32)
     outs = (empty(B, N, dh), empty(B, N, N, de), empty(B, N, 3))
-    scratch = (empty(B, N, de), empty(B, N, dh), empty(B, N, dh))  # p, node_i, node_j
-    bufs = (ctypes.c_void_p * (len(args) + 6))(*(t.data_ptr() for t in (*args, *outs, *scratch)))
+    # attn, h1, mid, p, node_i, node_j: passed from one launch to the next
+    scratch = (empty(B, N, hc), empty(B, N, dh), empty(B, N, rn), empty(B, N, de),
+               empty(B, N, dh), empty(B, N, dh))
+    bufs = (ctypes.c_void_p * (len(args) + 9))(*(t.data_ptr() for t in (*args, *outs, *scratch)))
     dims = (ctypes.c_int * 12)(B, N, dh, de, n_sub, ec // n_sub, n_heads, out_ch, n_extra,
                                rn, re, int(set_inf))
-    rc = lib.dstt_block_fused(bufs, len(bufs), dims, len(dims), eps_ln,
+    ints = (ctypes.c_int * 13)(*plan.ints())
+    rc = lib.dstt_block_fused(bufs, len(bufs), dims, len(dims), ints, len(ints), eps_ln,
                               _lib.stream_handle(device))
     _lib.check_rc("block_fused", rc)
     _lib.LAUNCHES["block_fused"] += 1

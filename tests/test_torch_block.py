@@ -14,6 +14,11 @@
    ``state_dict`` keys, and its full-width CPU forward equals the port's
    ``('attn','equi')`` forward within 1e-4 x max|value|.
 4. The wrapper's checks.
+5. The kernel's launch plan (``launch_plan``, which ``csrc/block_fused.cu``
+   recomputes and checks) at N in {8, 17, 21, 25, 29, 32} and B in {1, 3,
+   10, 80}, flagship widths: stage A / B tiles cover each row (b, i) once
+   and never mix molecules, node tiles cover the B N rows with 16-31 rows
+   each, and every launch fits the card's shared memory.
 """
 
 import os
@@ -31,7 +36,8 @@ from diffspectra_tpu_torch import configs
 from diffspectra_tpu_torch.api import load_dmt
 from diffspectra_tpu_torch.data.synthetic import generate
 from diffspectra_tpu_torch.models.dmt import DMT
-from diffspectra_tpu_torch.ops.block_fused import _DATA, _WEIGHTS, block_fused
+from diffspectra_tpu_torch.ops.block_fused import (MAX_SMEM, NODE_ROWS, _DATA, _WEIGHTS,
+                                                   block_fused, launch_plan)
 from diffspectra_tpu_torch.warm_state import load_model_state, random_variables
 from test_torch_dmt import _inputs, _jax_forward, _torch_forward
 
@@ -169,3 +175,52 @@ def test_block_wrapper_checks_its_inputs():
     bad[1] = bad[1].to("meta")
     with pytest.raises(ValueError, match="several devices"):
         block_fused(*bad, **kw)
+
+
+PLAN_N = (8, 17, 21, 25, 29, 32)
+PLAN_B = (1, 3, 10, 80)
+
+
+def _flagship_plan(B, N):
+    # Dh=256, De=64, 16 heads of which 2 adjacency heads (E*sc = 14 * 18)
+    return launch_plan(B, N, dh=256, de=64, ec=252, hc=256, heads=16, rn=512, re=128)
+
+
+@pytest.mark.parametrize("B", PLAN_B)
+@pytest.mark.parametrize("N", PLAN_N)
+def test_launch_plan_pair_tiles_cover_each_row_once(N, B):
+    plan = _flagship_plan(B, N)
+    tiles = plan.pair_tiles()
+    assert plan.grid_a == plan.grid_b == len(tiles) == B * plan.tiles
+    covered = [(b, i) for b, i0, rows in tiles for i in range(i0, i0 + rows)]
+    assert sorted(covered) == [(b, i) for b in range(B) for i in range(N)]
+    for b, i0, rows in tiles:  # one molecule a tile, at most 64 pairs
+        assert 0 <= b < B and 1 <= rows and i0 + rows <= N and rows * N <= 64
+    # two rows a tile at least, so that each pair weight read serves two rows
+    assert plan.rows_per_tile >= 2
+
+
+@pytest.mark.parametrize("B", PLAN_B)
+@pytest.mark.parametrize("N", PLAN_N)
+def test_launch_plan_node_tiles_cover_all_rows(N, B):
+    plan = _flagship_plan(B, N)
+    spans = plan.node_rows()
+    assert len(spans) == plan.node_tiles
+    assert spans[0][0] == 0 and spans[-1][1] == B * N
+    assert all(a[1] == b[0] for a, b in zip(spans, spans[1:]))
+    for r0, r1 in spans:  # 16 rows a node weight at least, unless the batch has fewer
+        assert min(16, B * N) <= r1 - r0 <= NODE_ROWS
+    # column tiles: fn1 and n2e by 128, fn2 by 64, W_hi and W_hj by 128
+    assert plan.grid_n1 == plan.node_tiles * (4 + 1)
+    assert plan.grid_n2 == plan.node_tiles * 4
+    assert plan.grid_n3 == plan.node_tiles * 4
+
+
+@pytest.mark.parametrize("B", PLAN_B)
+@pytest.mark.parametrize("N", PLAN_N)
+def test_launch_plan_fits_shared_memory(N, B):
+    plan = _flagship_plan(B, N)
+    for name, (blocks, smem) in plan.launches().items():
+        assert blocks >= 1 and 0 < smem <= MAX_SMEM, name
+    # the pair stages fit two blocks an SM (228 KB an SM, 1 KB reserved a block)
+    assert 2 * (max(plan.smem_a, plan.smem_b) + 1024) <= 228 * 1024

@@ -1,0 +1,234 @@
+"""``csrc/block_fused.cu`` itself, run on the CPU.
+
+This machine has no nvcc and no GPU, so the CUDA source is compiled with the
+host C++ compiler against a small stand-in for the CUDA runtime: each thread
+block runs as 256 ``std::thread``s, one block after the other, with
+``__syncthreads`` a barrier, warp shuffles an exchange through memory,
+shared memory a NaN-filled array (bytes past the launch's dynamic size must
+stay untouched), and ``cp.async`` a copy made at the latest moment its
+``wait_group`` allows, so that a missing wait reads stale data. Its
+``dstt_block_fused`` is then called through ``ctypes`` on CPU tensors with
+the wrapper's launch plan and held against ``block_fused_reference`` with
+the chip's tolerance (1e-4; measured about 1e-6).
+
+This checks the kernel's tiling, indexing, barriers and copy pipeline, not
+the card's arithmetic or speed; ``chip_smoke.py`` does that on the H100.
+"""
+
+import ctypes
+import shutil
+import subprocess
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from diffspectra_tpu_torch.ops import _lib
+from diffspectra_tpu_torch.ops.block_fused import _DATA, _WEIGHTS, block_fused_reference, launch_plan
+from test_torch_block import block_case
+
+CSRC = Path(__file__).resolve().parent.parent / "diffspectra_tpu_torch" / "csrc"
+
+RUNTIME_H = r"""
+#pragma once
+#include <algorithm>
+#include <cmath>
+#include <cstdint>
+#include <cstring>
+#include <math.h>
+#define __global__
+#define __device__
+#define __host__
+#define __forceinline__ inline
+#define __launch_bounds__(...)
+#define __shared__
+#define __align__(n) __attribute__((aligned(n)))
+struct dim3 { unsigned x, y, z; dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {} };
+struct uint3 { unsigned x, y, z; };
+extern thread_local uint3 threadIdx, blockIdx;
+struct alignas(16) float4 { float x, y, z, w; };
+typedef int cudaError_t;
+enum { cudaSuccess = 0, cudaErrorInvalidValue = 1, cudaErrorInvalidDevice = 101 };
+typedef void* cudaStream_t;
+enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         cudaFuncAttributePreferredSharedMemoryCarveout };
+constexpr int cudaSharedmemCarveoutMaxShared = 100;
+inline cudaError_t cudaFuncSetAttribute(const void*, cudaFuncAttribute, int) { return 0; }
+inline cudaError_t cudaGetDevice(int* d) { *d = 0; return 0; }
+inline cudaError_t cudaGetLastError() { return 0; }
+cudaError_t cudaLaunchKernel(const void*, dim3, dim3, void**, size_t, cudaStream_t);
+void __syncthreads();
+float __shfl_xor_sync(unsigned, float, int);
+template <class T> inline T __ldg(const T* p) { return *p; }
+using std::max;
+using std::min;
+namespace { alignas(16) float smem[65536]; }
+"""
+
+ASYNC_COPY_H = r"""
+#pragma once
+#include <cstring>
+#include <vector>
+namespace dstt {
+struct Copy { void* dst; const void* src; int size, n; };
+extern thread_local std::vector<std::vector<Copy>> committed;
+extern thread_local std::vector<Copy> open_group;
+inline void cp_async16(void* d, const void* s, int n) { open_group.push_back({d, s, 16, n}); }
+inline void cp_async4(void* d, const void* s, int n) { open_group.push_back({d, s, 4, n}); }
+inline void cp_async_commit() { committed.push_back(open_group); open_group.clear(); }
+template <int Pending> inline void cp_async_wait() {
+  while ((int)committed.size() > Pending) {
+    for (const Copy& c : committed.front()) {
+      std::memset(c.dst, 0, c.size);
+      if (c.n) std::memcpy(c.dst, c.src, c.n);
+    }
+    committed.erase(committed.begin());
+  }
+}
+}  // namespace dstt
+"""
+
+HARNESS_CPP = r"""
+#include "block_fused.cu"
+#include <chrono>
+#include <condition_variable>
+#include <cstdio>
+#include <cstdlib>
+#include <mutex>
+#include <thread>
+thread_local uint3 threadIdx, blockIdx;
+namespace dstt {
+thread_local std::vector<std::vector<Copy>> committed;
+thread_local std::vector<Copy> open_group;
+}
+namespace {
+struct Barrier {
+  std::mutex m;
+  std::condition_variable cv;
+  int count = 0, n = 0;
+  long gen = 0;
+  void wait() {
+    std::unique_lock<std::mutex> l(m);
+    const long g = gen;
+    if (++count == n) { count = 0; ++gen; cv.notify_all(); return; }
+    if (!cv.wait_for(l, std::chrono::seconds(300), [&] { return gen != g; })) {
+      std::fprintf(stderr, "barrier not reached by every thread\n");
+      std::abort();
+    }
+  }
+};
+Barrier block_barrier, warp_barrier[32];
+float warp_values[32][32];
+}  // namespace
+void __syncthreads() { block_barrier.wait(); }
+float __shfl_xor_sync(unsigned, float v, int lane_mask) {
+  const int w = threadIdx.x / 32, lane = threadIdx.x % 32;
+  warp_values[w][lane] = v;
+  warp_barrier[w].wait();
+  const float out = warp_values[w][lane ^ lane_mask];
+  warp_barrier[w].wait();
+  return out;
+}
+cudaError_t cudaLaunchKernel(const void* f, dim3 grid, dim3 block, void** args, size_t bytes,
+                             cudaStream_t) {
+  auto kernel = reinterpret_cast<void (*)(Args)>(const_cast<void*>(f));
+  const Args a = *static_cast<Args*>(args[0]);
+  if (bytes > sizeof(smem) || block.x > 1024 || block.x % 32) return cudaErrorInvalidValue;
+  block_barrier.n = block.x;
+  for (auto& b : warp_barrier) b.n = 32;
+  const uint32_t nan_bits = 0x7fc00001u;
+  for (unsigned bx = 0; bx < grid.x; ++bx) {
+    for (size_t i = 0; i < sizeof(smem) / 4; ++i) std::memcpy(&smem[i], &nan_bits, 4);
+    std::vector<std::thread> threads;
+    for (unsigned t = 0; t < block.x; ++t) {
+      threads.emplace_back([=] {
+        threadIdx = {t, 0, 0};
+        blockIdx = {bx, 0, 0};
+        dstt::committed.clear();
+        dstt::open_group.clear();
+        kernel(a);
+      });
+    }
+    for (auto& t : threads) t.join();
+    for (size_t i = bytes / 4; i < sizeof(smem) / 4; ++i) {
+      uint32_t u;
+      std::memcpy(&u, &smem[i], 4);
+      if (u != nan_bits) return cudaErrorInvalidValue;  // wrote past its shared memory
+    }
+  }
+  return cudaSuccess;
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def host_lib(tmp_path_factory):
+    cxx = shutil.which("g++") or shutil.which("c++")
+    if cxx is None:
+        pytest.skip("no host C++ compiler to build csrc/block_fused.cu for the CPU")
+    d = tmp_path_factory.mktemp("block_fused_host")
+    shutil.copy(CSRC / "block_fused.cu", d / "block_fused.cu")
+    (d / "async_copy.cuh").write_text(ASYNC_COPY_H)
+    (d / "include").mkdir()
+    (d / "include" / "cuda_runtime.h").write_text(RUNTIME_H)
+    (d / "harness.cpp").write_text(HARNESS_CPP)
+    cmd = [cxx, "-std=c++17", "-O1", "-shared", "-fPIC", "-pthread", "-I", str(d / "include"),
+           "-o", str(d / "libhost.so"), str(d / "harness.cpp")]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    assert proc.returncode == 0, proc.stderr
+    lib = ctypes.CDLL(str(d / "libhost.so"))
+    lib.dstt_block_fused.argtypes = _lib._ARGTYPES["dstt_block_fused"]
+    lib.dstt_block_fused.restype = ctypes.c_int
+    return lib
+
+
+def _run(lib, arrays, kw, set_inf, plan_ints=None):
+    """The kernel's call as the wrapper makes it, on CPU tensors; plan_ints
+    maps the plan's ints to the ones passed."""
+    args = [torch.from_numpy(a) for a in arrays]
+    named = dict(zip(_DATA + _WEIGHTS, args))
+    B, N, dh = named["h"].shape
+    de = named["edge_in"].shape[-1]
+    heads, n_extra, out_ch = kw["n_heads"], kw["n_extra"], kw["out_ch"]
+    n_sub, hc = heads - n_extra, heads * out_ch
+    ec = n_sub * (hc // n_sub)
+    rn, re = named["fn1_k"].shape[-1], named["fe1_k"].shape[-1]
+    plan = launch_plan(B, N, dh, de, ec, hc, heads, rn, re)
+    nan = lambda *s: torch.full(s, float("nan"))
+    outs = (nan(B, N, dh), nan(B, N, N, de), nan(B, N, 3))
+    scratch = (nan(B, N, hc), nan(B, N, dh), nan(B, N, rn), nan(B, N, de), nan(B, N, dh),
+               nan(B, N, dh))
+    tensors = (*args, *outs, *scratch)
+    bufs = (ctypes.c_void_p * len(tensors))(*(t.data_ptr() for t in tensors))
+    dims = (ctypes.c_int * 12)(B, N, dh, de, n_sub, ec // n_sub, heads, out_ch, n_extra, rn, re,
+                               int(set_inf))
+    ints = plan.ints() if plan_ints is None else plan_ints(plan.ints())
+    ints = (ctypes.c_int * len(ints))(*ints)
+    rc = lib.dstt_block_fused(bufs, len(bufs), dims, len(dims), ints, len(ints), 1e-6, None)
+    return rc, outs, args
+
+
+@pytest.mark.parametrize("n_nodes,N,dh,heads,n_extra,set_inf", [
+    ([5, 8, 3], 8, 32, 4, 2, True),      # ragged, R = 2 rows a tile, 4 tiles a molecule
+    ([3, 1], 3, 32, 4, 1, False),        # odd N: a 1-row last tile; E*sc = 30 (4-byte copies)
+    ([7, 2, 12], 12, 64, 4, 3, True),    # A = 3, two node tiles
+])
+def test_cuda_source_on_the_host_matches_the_plain_version(host_lib, n_nodes, N, dh, heads,
+                                                           n_extra, set_inf):
+    arrays, kw = block_case(np.random.default_rng(4), n_nodes, N, dh, heads, n_extra)
+    rc, got, args = _run(host_lib, arrays, kw, set_inf)
+    assert rc == 0
+    want = block_fused_reference(*args, set_inf=set_inf, **kw)
+    for name, g, w in zip(("h_out", "edge_out", "agg"), got, want):  # padding included
+        assert torch.isfinite(g).all(), name
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=0, atol=1e-4, err_msg=name)
+
+
+@pytest.mark.parametrize("where", [3, 12])  # stage A's blocks, stage B's shared memory
+def test_cuda_source_on_the_host_refuses_a_wrong_plan(host_lib, where):
+    arrays, kw = block_case(np.random.default_rng(5), [5, 8, 3], 8, 32, 4)
+    bump = lambda ints: tuple(v + (i == where) for i, v in enumerate(ints))
+    rc, outs, _ = _run(host_lib, arrays, kw, True, plan_ints=bump)
+    assert rc != 0
+    assert all(torch.isnan(o).all() for o in outs)  # nothing launched
