@@ -9,10 +9,14 @@ Phases, each printing its own lines:
   3. each kernel (mix_attention, equi_update, block_fused) against its plain
      PyTorch version at the serving shape (B=10 draws, N=29, flagship
      widths) on a seeded ragged batch, with the kernel's, the plain
-     version's and the bound's times; block_fused also at B=10, N=17, 21,
-     25, 29 and B=80, N=21, 29 (ragged, every output and padding held to
-     1e-4), timed with L2 cold (64 MB written before each call) as well as
-     warm, with each of its five launches' device time from the profiler;
+     version's and the bound's times; each also at B=10, N=17, 21, 25, 29
+     and B=80, N=21, 29 (ragged, every output and padding held to its
+     tolerance), timed with L2 cold (64 MB written before each call) as
+     well as warm, with each launch's device time from the profiler (five
+     for block_fused); for mix_attention and equi_update also the blocks an
+     SM the card gives them against their launch plan, and the cuBLAS time
+     (torch.matmul, TF32 off) of their dominant products at the same shape
+     as a yardstick the port never calls;
   3b. the Mosaic probes t1 ... t14 (``ops/probes.py``): the probe tool
      ``run_probes`` on cuda, each probe kernel launched once and no plain
      version on cuda; then each probe kernel against its plain version on
@@ -95,11 +99,17 @@ def cuda_time_ms(fn, iters: int, warmup: int = 5) -> float:
 
 
 N_NODES = (29, 21, 17, 29, 5, 25, 12, 29, 1, 19)  # a ragged batch of B graphs
-# block_fused's shapes: the request buckets at B=10 and elucidate_batch's
+# each kernel's shapes: the request buckets at B=10 and elucidate_batch's
 # rounds of 80 draws, where rows a tile straddle odd N and tiles are partial
 BLOCK_SHAPES = ((10, 17), (10, 21), (10, 25), (10, 29), (80, 21), (80, 29))
-FLUSH_BYTES = 64 * 2**20  # written between calls to time block_fused with L2 cold
-BLOCK_STAGES = ("attn_stage", "node_in_stage", "node_out_stage", "node_proj_stage", "pair_stage")
+FLUSH_BYTES = 64 * 2**20  # written between calls to time a kernel with L2 cold
+# the CUDA kernels each wrapper launches, by the profiler's names
+KERNEL_STAGES = {
+    "mix_attention": ("mix_attention_kernel",),
+    "equi_update": ("equi_update_kernel",),
+    "block_fused": ("attn_stage", "node_in_stage", "node_out_stage", "node_proj_stage",
+                    "pair_stage"),
+}
 
 
 def ragged_masks(device, n_nodes=N_NODES, n=N):
@@ -108,14 +118,16 @@ def ragged_masks(device, n_nodes=N_NODES, n=N):
     return edge.to(device)
 
 
-def attention_case(gen, dev):
-    """mix_attention inputs at the serving shape, and the work they need."""
+def attention_case(gen, dev, n_nodes=N_NODES, N=N):
+    """mix_attention inputs for graphs of ``n_nodes`` atoms padded to N (the
+    serving shape by default), and the work they need."""
+    B = len(n_nodes)
     de, n_sub, sub_c, heads, out_ch, n_extra = 64, 14, 18, 16, 16, 2
     r = lambda *s, scale=1.0: (torch.randn(*s, generator=gen) * scale).to(dev)
     extra = (torch.rand(B, N, N, n_extra, generator=gen) > 0.5).float().to(dev)
     args = (r(B, N, n_sub, sub_c), r(B, N, n_sub, sub_c), r(B, N, heads, out_ch),
             r(B, N, N, de), r(de, n_sub * sub_c, scale=de**-0.5),
-            r(de, heads * out_ch, scale=de**-0.5), extra, ragged_masks(dev))
+            r(de, heads * out_ch, scale=de**-0.5), extra, ragged_masks(dev, n_nodes, N))
     ec, hc = n_sub * sub_c, heads * out_ch
     # per pair: two gate projections, their tanh, q*k*e0 and the head sums,
     # the softmax, alpha*v*e1 and the j sum (dense over all N x N pairs)
@@ -124,13 +136,15 @@ def attention_case(gen, dev):
     return args, {"set_inf": True}, flops, nbytes
 
 
-def equi_case(gen, dev):
-    """equi_update inputs at the serving shape, and the work they need."""
+def equi_case(gen, dev, n_nodes=N_NODES, N=N):
+    """equi_update inputs for graphs of ``n_nodes`` atoms padded to N (the
+    serving shape by default), and the work they need."""
+    B = len(n_nodes)
     de, dd, dh, n_adj = 64, 64, 256, 2
     r = lambda *s, scale=1.0: (torch.randn(*s, generator=gen) * scale).to(dev)
     adj = (torch.rand(B, N, N, n_adj, generator=gen) > 0.5).float().to(dev)
     args = (r(B, N, dh), r(B, N, dh), r(B, N, N, de), r(B, N, N, dd), r(B, N, N, 3),
-            adj, ragged_masks(dev), r(de, dh, scale=de**-0.5), r(dd, dh, scale=dd**-0.5),
+            adj, ragged_masks(dev, n_nodes, N), r(de, dh, scale=de**-0.5), r(dd, dh, scale=dd**-0.5),
             r(dh, scale=0.1), r(B, dh, scale=0.1), r(B, dh, scale=0.1),
             r(dh, dh, scale=dh**-0.5), r(dh, scale=0.1), r(dh, 1 + n_adj, scale=dh**-0.5))
     # per pair: the two gate projections, the W0 product, the W1 product, and
@@ -225,33 +239,35 @@ def phase_kernels(dev):
         row = dict(name=name, route="cuda", source=source, replaces=replaces,
                    max_abs_err=err, max_err=err, ms=ms, plain_ms=plain_ms,
                    bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
-        if name == "block_fused":
-            row.update(block_extras(dev, gen, lambda: kernel(*args, **kw)))
-            row["max_abs_err"] = row["max_err"] = max(err, row["shapes_max_err"])
+        row.update(kernel_extras(name, kernel, plain, case, dev, gen, lambda: kernel(*args, **kw)))
+        row["max_abs_err"] = row["max_err"] = max(err, row["shapes_max_err"])
+        if name != "block_fused":
+            row.update(row_tile_extras(name, args, dev))
         rows.append(row)
     return rows
 
 
-def block_extras(dev, gen, call):
-    """block_fused beyond the serving shape: against its plain version at
-    each of BLOCK_SHAPES (ragged: one graph of N atoms, the rest 1..N; every
+def kernel_extras(name, kernel, plain, case, dev, gen, call):
+    """A kernel beyond the serving shape: against its plain version at each
+    of BLOCK_SHAPES (ragged: one graph of N atoms, the rest 1..N; every
     output, padding included), then ``call`` (the serving shape) with L2
     cold (FLUSH_BYTES written before each call): CUDA events a call, and
     each launch's device time from the profiler, warm and cold."""
-    from diffspectra_tpu_torch.ops.block_fused import block_fused, block_fused_reference
-
     err = 0.0
     for batch, n in BLOCK_SHAPES:
         n_nodes = [n] + torch.randint(1, n + 1, (batch - 1,), generator=gen).tolist()
-        args, kw, _, _ = block_case(gen, dev, n_nodes, n)
-        got, want = block_fused(*args, **kw), block_fused_reference(*args, **kw)
+        args, kw, _, _ = case(gen, dev, n_nodes, n)
+        got, want = kernel(*args, **kw), plain(*args, **kw)
         torch.cuda.synchronize()
-        for name, g, w in zip(("h_out", "edge_out", "agg"), got, want):
+        if isinstance(got, torch.Tensor):
+            got, want = (got,), (want,)
+        outs = ("h_out", "edge_out", "agg") if name == "block_fused" else ("out",)
+        for out, g, w in zip(outs, got, want):
             e = (g - w).abs().max().item()
-            say(f"[kernels] block_fused B={batch} N={n}: {name} {tuple(g.shape)} max |kernel - "
-                f"plain| = {e:.3e} (tolerance {KERNEL_ATOL['block_fused']:.0e}, max |plain| = "
+            say(f"[kernels] {name} B={batch} N={n}: {out} {tuple(g.shape)} max |kernel - "
+                f"plain| = {e:.3e} (tolerance {KERNEL_ATOL[name]:.0e}, max |plain| = "
                 f"{w.abs().max().item():.3e})")
-            assert torch.isfinite(g).all() and e <= KERNEL_ATOL["block_fused"], (batch, n, name)
+            assert torch.isfinite(g).all() and e <= KERNEL_ATOL[name], (name, batch, n, out)
             err = max(err, e)
         del args, got, want
 
@@ -266,18 +282,61 @@ def block_extras(dev, gen, call):
         end.record()
     torch.cuda.synchronize()
     cold_ms = sum(s.elapsed_time(e) for s, e in pairs) / len(pairs)
-    warm, cold = stage_ms(call), stage_ms(call, flush)
+    stages = KERNEL_STAGES[name]
+    warm, cold = stage_ms(call, stages), stage_ms(call, stages, flush)
     fmt = lambda d: "not measured" if d is None else ", ".join(f"{k} {v:.4f}" for k, v in d.items())
     total = lambda d: None if d is None else sum(d.values())
-    say(f"[kernels] block_fused B={B} N={N}: {cold_ms:.4f} ms a call with L2 cold (CUDA events, "
+    say(f"[kernels] {name} B={B} N={N}: {cold_ms:.4f} ms a call with L2 cold (CUDA events, "
         f"{FLUSH_BYTES >> 20} MB written before each call); device ms a call, L2 warm: "
         f"{ms_or_none(total(warm))} ({fmt(warm)}); L2 cold: {ms_or_none(total(cold))} ({fmt(cold)})")
     return dict(shapes_max_err=err, cold_ms=cold_ms, device_ms=total(warm),
                 cold_device_ms=total(cold), stage_ms=warm, cold_stage_ms=cold)
 
 
-def stage_ms(call, flush=None, iters: int = 20, tries: int = 3):
-    """Device time a call of each of block_fused's launches (profiler), with
+def row_tile_extras(name, args, dev):
+    """A row-tile kernel's launch plan at the serving shape, the blocks an
+    SM the card gives it (which must be the plan's), and the cuBLAS time
+    (torch.matmul, TF32 off; CUDA events over 200 calls and device time from
+    the profiler) of its dominant products at the same shape: a yardstick
+    the port never calls, not a library call of the kernel's function."""
+    import ctypes
+
+    from diffspectra_tpu_torch.ops import _lib
+    from diffspectra_tpu_torch.ops.equi_update import launch_plan as equi_plan
+    from diffspectra_tpu_torch.ops.mix_attention import launch_plan as attn_plan
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+    r = lambda *s: torch.randn(*s, generator=gen, device=dev)
+    if name == "equi_update":
+        dh, de, dd = args[0].shape[-1], args[2].shape[-1], args[3].shape[-1]
+        plan, sizes = equi_plan(B, N, de, dd, dh), (B, N, de, dd, dh)
+        x1, w1, x2, w2 = r(B * N * N, de + dd), r(de + dd, dh), r(B * N * N, dh), r(dh, dh)
+        products = lambda: (x1 @ w1, x2 @ w2)
+        shapes = f"[{B * N * N}, {de + dd}] @ [{de + dd}, {dh}] + [{B * N * N}, {dh}] @ [{dh}, {dh}]"
+    else:
+        q, v, edge = args[0], args[2], args[3]
+        ec, hc, heads, de = q.shape[2] * q.shape[3], v.shape[2] * v.shape[3], v.shape[2], edge.shape[-1]
+        plan, sizes = attn_plan(B, N, de, ec, hc, heads), (B, N, de, ec, hc, heads)
+        x, w = r(B * N * N, de), r(de, ec + hc)
+        products = lambda: x @ w
+        shapes = f"[{B * N * N}, {de}] @ [{de}, {ec + hc}]"
+    blocks = ctypes.c_int(0)
+    _lib.check_rc(f"{name} occupancy", getattr(_lib.build(), f"dstt_{name}_occupancy")(
+        *sizes, ctypes.byref(blocks)))
+    cublas_ms = cuda_time_ms(products, iters=200)
+    cublas_device_ms = device_ms(products)
+    say(f"[kernels] {name} B={B} N={N}: plan {plan.grid} blocks of {plan.threads} threads, "
+        f"tiles of {plan.tile_rows} pair rows holding {plan.rows_per_tile} rows of a molecule, "
+        f"{plan.smem} bytes of shared memory, "
+        f"{plan.blocks_per_sm} blocks an SM planned, {blocks.value} on the card; cuBLAS "
+        f"yardstick {shapes}: {cublas_ms:.4f} ms, {ms_or_none(cublas_device_ms)} on the device")
+    assert blocks.value == plan.blocks_per_sm, (name, blocks.value, plan)
+    return dict(blocks=plan.grid, tile_rows=plan.tile_rows, smem=plan.smem, blocks_per_sm=blocks.value,
+                cublas_ms=cublas_ms, cublas_device_ms=cublas_device_ms)
+
+
+def stage_ms(call, stages, flush=None, iters: int = 20, tries: int = 3):
+    """Device time a call of each of a kernel's launches (profiler), with
     ``flush`` written before each call when given; None after ``tries``
     windows in which some kernel events did not arrive."""
     from torch.profiler import ProfilerActivity, profile
@@ -291,12 +350,12 @@ def stage_ms(call, flush=None, iters: int = 20, tries: int = 3):
             torch.cuda.synchronize()
         times, counts = {}, {}
         for e in prof.key_averages():
-            for stage in BLOCK_STAGES:
+            for stage in stages:
                 if e.device_type.name == "CUDA" and stage in e.key:
                     times[stage] = times.get(stage, 0.0) + e.device_time_total / iters / 1e3
                     counts[stage] = counts.get(stage, 0) + e.count
-        if all(counts.get(stage, 0) >= iters for stage in BLOCK_STAGES):
-            return {stage: times[stage] for stage in BLOCK_STAGES}
+        if all(counts.get(stage, 0) >= iters for stage in stages):
+            return {stage: times[stage] for stage in stages}
     return None
 
 

@@ -14,73 +14,255 @@
 // E*sc=252, H*C=256) the two gate projections are 2*64*508 operations per
 // pair, about 0.55 GFLOP in all, against about 3.6 MB of inputs and
 // outputs: some 150 operations per byte, so in f32 on the CUDA cores
-// (67 TFLOP/s, 3.35 TB/s) it is bound by operations, not by memory.
+// (67 TFLOP/s, 3.35 TB/s) it is bound by operations. Per row (b, i) W0, W1
+// and the molecule's k and v are 187 KB, so a design that reads them for
+// each row moves 54 MB through L2 a call.
 //
-// What the design does about it. One thread block per row (b, i); thread c
-// owns gate channel c of e0 and of e1 for every j of the row, keeping the
-// 2 x N pre-activations in registers. The row's edge features [N, De] sit
-// in shared memory and are read as broadcasts, and each weight element is
-// read once per block (coalesced, from L2), so the inner loop is N fused
-// multiply-adds per weight load. The [N, N, 508] gate tensors never reach
-// device memory, which is what the TPU kernel kept out of HBM as well.
-// The per-head sums over sc=18 channels (not warp aligned) go through
-// shared memory; the masked softmax over j runs one thread per head.
-// Tensor cores (wgmma, bf16) are later work.
+// What the design does about it. One block per tile of R rows of one
+// molecule (row_tile.cuh: 64 pair rows and 256 threads, or 32 and 128), so
+// [W0 | W1] (one De x (E*sc + H*C) product, in two passes of at most 256
+// columns) streams through the ring once a tile. The tile's edge rows (one
+// contiguous slab, transposed into shared memory), the molecule's k, the
+// tile's q, and extra and the mask of its pairs come in by cp.async. Pass
+// W0 leaves e0 in the 8 x 8 register tiles; its epilogue forms
+// q_i k_j tanh(e0) and writes the products to shared memory over the slab
+// and k, where the threads sum each pair's heads over their sub_c = 18
+// channels (not warp aligned: E*sc is 252, not 256) and add the adjacency
+// logits with set_inf, keeping -1e10 and -1e30 finite. Then the slab comes
+// in again with v and W1's first chunks (cp.async, under the softmax), one
+// warp per (row, head) runs the masked softmax over j (N <= 32: one lane
+// per j), and pass W1's epilogue forms alpha_ij v_j tanh(e1), written over
+// the slab and summed over j by one thread per (row, channel), in order.
+// No [B, N, N, > 3] tensor reaches device memory, as on the TPU.
+//
+// Shared memory, in floats: max(De (TR + 4) + N w, TR w), w = max(ld(E*sc),
+// ld(H*C)), for the slab with k or v, then the products or the messages;
+// R ld(E*sc) of q; TR H softmax weights; the ring (3 x 8 x 256); TR (H + 1)
+// of extra and the mask. At the flagship widths that is 101,632 bytes for
+// TR = 64 and R = 2 (two blocks an SM, at most 128 registers a thread)
+// and 69,200 for TR = 32 (three, at most 170 registers). The plan
+// (ops/mix_attention.py::launch_plan, re-checked here) gives:
+//   B=10: N=17 R=2 90 tiles of 64, N=21 R=2 110, N=25 R=2 130 (one wave
+//         of one block an SM); N=29 R=1 290 tiles of 32 (one wave, at most
+//         three an SM);
+//   B=80: N=17 R=3 480 tiles of 64, N=21 R=3 560, N=25 R=2 1040,
+//         N=29 R=2 1200 (1.8 to 4.5 waves of two an SM).
+// f32 FMAs on the CUDA cores: single TF32 cannot hold the 1e-5 tolerance,
+// and a 3xTF32 mma.sync product was no faster in block_fused (PERF.md).
+// What the chip showed (PERF.md): the two K = 64 passes are the smaller
+// part of the time; the rest is the epilogues and their barriers, in which
+// a faster tanh moved nothing. Where 64-row tiles overflow one wave by a
+// little, tiles of 32 rows are faster (tools/row_tiles.py times both).
 
-#include "dmt_rows.cuh"
+#include "row_tile.cuh"
 
 namespace {
 
-__global__ void mix_attention_kernel(
-    const float* __restrict__ q,      // [B, N, E*sc]
-    const float* __restrict__ k,      // [B, N, E*sc]
-    const float* __restrict__ v,      // [B, N, H*C]
-    const float* __restrict__ edge,   // [B, N, N, De]
-    const float* __restrict__ w0,     // [De, E*sc]
-    const float* __restrict__ w1,     // [De, H*C]
-    const float* __restrict__ extra,  // [B, N, N, X]
-    const float* __restrict__ mask,   // [B, N, N]
-    float* __restrict__ out,          // [B, N, H*C]
-    int n, int de, int n_sub, int sub_c, int heads, int out_ch, int n_extra,
-    int set_inf, float sqrt_c) {
-  extern __shared__ float smem[];
-  const int row = blockIdx.x;  // b * n + i
-  const int b = row / n;
-  const int ec = n_sub * sub_c;
-  const int hc = heads * out_ch;
-  float* edge_s = smem;               // [n, de]
-  float* prod_s = edge_s + n * de;    // [n, ec]
-  float* alpha_s = prod_s + n * ec;   // [n, heads]
+using namespace dstt;
+using namespace dstt::rows;
 
-  const float* edge_row = edge + (size_t)row * n * de;
-  for (int idx = threadIdx.x; idx < n * de; idx += blockDim.x) edge_s[idx] = edge_row[idx];
+constexpr float kMaskInf = -1e30f;  // padding and the diagonal
+constexpr float kNegAdj = -1e10f;   // an adjacency head's zero entry
+
+struct Args {
+  const float *q, *k, *v, *edge, *w0, *w1, *extra, *mask;
+  float* out;
+  int n, de, ec, sub_c, heads, out_ch, n_extra, set_inf, rows_per_tile, tiles;
+  float sqrt_c;
+};
+
+// Shared-memory floats of a tile of tr rows: the transposed slab with k or
+// v, then the products or the messages.
+__host__ __device__ inline int front_floats(int tr, int n, int de, int ec, int hc) {
+  const int ldw = imax(ld_of(ec), ld_of(hc));
+  return imax(de * (tr + 4) + n * ldw, tr * ldw);
+}
+
+Plan make_plan(int batch, int n, int de, int ec, int hc, int heads) {
+  return plan_rows(batch, n, [&](int tr, int r) {
+    return front_floats(tr, n, de, ec, hc) + r * ld_of(ec) + tr * heads + kRing +
+           tr * (heads + 1);
+  });
+}
+
+template <int TR>
+__global__ void __launch_bounds__(Tiling<TR>::kThreads, Tiling<TR>::kMinBlocks)
+    mix_attention_kernel(Args a) {
+  using T = Tiling<TR>;
+  extern __shared__ __align__(16) float smem[];
+  const Tile t = tile_of(a.n, a.rows_per_tile, a.tiles);
+  const int n = a.n, de = a.de, ec = a.ec, hc = a.heads * a.out_ch, heads = a.heads;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int lde0 = ld_of(ec), lde1 = ld_of(hc);
+  float* edge_t = smem;                    // [De, kLdT]: edge, transposed
+  float* kv_s = edge_t + de * T::kLdT;     // [n, lde0]: k; then [n, lde1]: v
+  float* u_s = smem;                       // [TR, lde0]: products; then [TR, lde1]: messages
+  float* q_s = smem + front_floats(TR, n, de, ec, hc);  // [R, lde0]
+  float* alpha_s = q_s + a.rows_per_tile * lde0;       // [TR, heads]
+  float* ring = alpha_s + TR * heads;
+  float* extra_s = ring + kRing;             // [TR, X]
+  float* mask_s = extra_s + TR * heads;      // [TR]
+
+  const float* edge = a.edge + (size_t)t.row0 * n * de;
+  copy_rows_transposed_async<T::kThreads>(edge_t, T::kLdT, edge, de, t.pairs, de);
+  copy_rows_async<T::kThreads>(kv_s, lde0, a.k + (size_t)t.b * n * ec, ec, n, ec);
+  copy_rows_async<T::kThreads>(q_s, lde0, a.q + (size_t)t.row0 * ec, ec, t.rows, ec);
+  copy_async<T::kThreads>(extra_s, a.extra + (size_t)t.row0 * n * a.n_extra, t.pairs * a.n_extra);
+  copy_async<T::kThreads>(mask_s, a.mask + (size_t)t.row0 * n, t.pairs);
+  cp_async_commit();  // lands by the product's first wait
+  const Weight w0{a.w0, a.w0, de, de, ec}, w1{a.w1, a.w1, de, de, hc};
+  start_ring<TR>(w0, ring);
+
+  // q_i k_j tanh(edge @ W0), the learned heads' products
+  float acc[8][8];
+  tile_product<TR>(acc, edge_t, t.pairs, w0, ring);
+#pragma unroll
+  for (int m = 0; m < 8; ++m) {
+    const int p = imin(row_of(m), t.pairs - 1);  // rows past the tile repeat its last
+    const int r = p / n;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int c0 = col_of(4 * h);
+      if (c0 < ec) {
+        const float4 qv = *reinterpret_cast<const float4*>(q_s + r * lde0 + c0);
+        const float4 kv = *reinterpret_cast<const float4*>(kv_s + (p - r * n) * lde0 + c0);
+        float* x = acc[m] + 4 * h;
+        x[0] = qv.x * kv.x * tanhf(x[0]);
+        x[1] = qv.y * kv.y * tanhf(x[1]);
+        x[2] = qv.z * kv.z * tanhf(x[2]);
+        x[3] = qv.w * kv.w * tanhf(x[3]);
+      }
+    }
+  }
+  __syncthreads();  // every thread has read k
+#pragma unroll
+  for (int m = 0; m < 8; ++m) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int c0 = col_of(4 * h);
+      if (c0 < ec) {
+        const float* x = acc[m] + 4 * h;
+        *reinterpret_cast<float4*>(u_s + row_of(m) * lde0 + c0) = make_float4(x[0], x[1], x[2], x[3]);
+      }
+    }
+  }
   __syncthreads();
 
-  dmt::attention_row(edge_s, prod_s, alpha_s, q + (size_t)row * ec, k + (size_t)b * n * ec,
-                     v + (size_t)b * n * hc, w0, w1, extra + (size_t)row * n * n_extra,
-                     mask + (size_t)row * n, out + (size_t)row * hc, n, de, n_sub, sub_c,
-                     heads, out_ch, n_extra, set_inf, sqrt_c);
+  // logits: adjacency heads first, then the learned heads' sums; masked
+  for (int idx = threadIdx.x; idx < t.pairs * heads; idx += T::kThreads) {
+    const int p = idx / heads;
+    const int h = idx - p * heads;
+    float logit;
+    if (h < a.n_extra) {
+      logit = extra_s[p * a.n_extra + h];
+      if (a.set_inf && logit == 0.f) logit = kNegAdj;
+    } else {
+      const float* pr = u_s + p * lde0 + (h - a.n_extra) * a.sub_c;
+      float s = 0.f;
+      for (int u = 0; u < a.sub_c; ++u) s += pr[u];
+      logit = s / a.sqrt_c;
+    }
+    alpha_s[idx] = mask_s[p] > 0.f ? logit : kMaskInf;
+  }
+  __syncthreads();  // the products are read: the slab and v come in under the softmax
+  copy_rows_transposed_async<T::kThreads>(edge_t, T::kLdT, edge, de, t.pairs, de);
+  copy_rows_async<T::kThreads>(kv_s, lde1, a.v + (size_t)t.b * n * hc, hc, n, hc);
+  cp_async_commit();  // lands by the product's first wait
+  start_ring<TR>(w1, ring);
+
+  // softmax over j, one warp per (row, head), one lane per j
+  for (int task = warp; task < t.rows * heads; task += T::kThreads / 32) {
+    const int r = task / heads;
+    float* al = alpha_s + r * n * heads + (task - r * heads);
+    const float x = lane < n ? al[lane * heads] : kMaskInf;
+    const float mx = warp_max(x);
+    const float e = lane < n ? expf(x - mx) : 0.f;
+    const float s = warp_sum(e);
+    if (lane < n) al[lane * heads] = e / s;
+  }
+
+  // alpha_ij v_j tanh(edge @ W1), then the sum over j
+  tile_product<TR>(acc, edge_t, t.pairs, w1, ring);
+  int head[8];  // the head of each of the thread's columns
+#pragma unroll
+  for (int q = 0; q < 8; ++q) head[q] = imin(col_of(q), hc - 1) / a.out_ch;
+#pragma unroll
+  for (int m = 0; m < 8; ++m) {
+    const int p = imin(row_of(m), t.pairs - 1);
+    const int j = p % n;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int c0 = col_of(4 * h);
+      if (c0 < hc) {
+        const float4 vv = *reinterpret_cast<const float4*>(kv_s + j * lde1 + c0);
+        const float vs[4] = {vv.x, vv.y, vv.z, vv.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float& x = acc[m][4 * h + e];
+          x = alpha_s[p * heads + head[4 * h + e]] * vs[e] * tanhf(x);
+        }
+      }
+    }
+  }
+  __syncthreads();  // every thread has read v
+#pragma unroll
+  for (int m = 0; m < 8; ++m) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int c0 = col_of(4 * h);
+      if (c0 < hc) {
+        const float* x = acc[m] + 4 * h;
+        *reinterpret_cast<float4*>(u_s + row_of(m) * lde1 + c0) = make_float4(x[0], x[1], x[2], x[3]);
+      }
+    }
+  }
+  __syncthreads();
+  for (int idx = threadIdx.x; idx < t.rows * hc; idx += T::kThreads) {
+    const int r = idx / hc;
+    const int c = idx - r * hc;
+    const float* msg = u_s + r * n * lde1 + c;
+    float s = 0.f;
+    for (int j = 0; j < n; ++j) s += msg[j * lde1];
+    a.out[(size_t)(t.row0 + r) * hc + c] = s;
+  }
+}
+
+Prepared prepared[2];  // the kernels of 64 and 32 rows a tile
+
+const void* kernel_of(const Plan& p) {
+  return p.tile_rows == 64 ? (const void*)mix_attention_kernel<64>
+                           : (const void*)mix_attention_kernel<32>;
 }
 
 }  // namespace
 
-// Launches on `stream`; the caller checked shapes, types and contiguity.
-// Returns cudaGetLastError() so that a refused launch is seen at once.
+// plan: the wrapper's launch plan (rows a tile, rows of its molecule, tiles
+// a molecule, blocks, threads, shared-memory bytes, blocks an SM), which
+// must equal this file's. Launches on `stream`; the caller checked shapes,
+// types and contiguity. Returns the first CUDA error, so that a refused
+// launch is seen at once.
 extern "C" int dstt_mix_attention(
     const float* q, const float* k, const float* v, const float* edge,
     const float* w0, const float* w1, const float* extra, const float* mask,
     float* out, int batch, int n, int de, int n_sub, int sub_c, int heads,
-    int out_ch, int n_extra, int set_inf, void* stream) {
-  if (n > dmt::kMaxN) return (int)cudaErrorInvalidValue;
-  const int width = max(n_sub * sub_c, heads * out_ch);
-  const int threads = (width + 31) / 32 * 32;
-  if (threads > 1024) return (int)cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * (size_t)n * (de + n_sub * sub_c + heads);
-  cudaError_t err = cudaFuncSetAttribute(
-      mix_attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  mix_attention_kernel<<<batch * n, threads, smem, (cudaStream_t)stream>>>(
-      q, k, v, edge, w0, w1, extra, mask, out, n, de, n_sub, sub_c, heads,
-      out_ch, n_extra, set_inf, sqrtf((float)out_ch));
-  return (int)cudaGetLastError();
+    int out_ch, int n_extra, int set_inf, const int* plan, int n_plan, void* stream) {
+  const int ec = n_sub * sub_c, hc = heads * out_ch;
+  if (batch < 1 || n < 1 || n > kMaxN || de < 1 || n_sub < 1 || sub_c < 1 || out_ch < 1 ||
+      n_extra < 0 || n_extra + n_sub != heads || ec > kCols || hc > kCols || ec % 4 != 0 ||
+      hc % 4 != 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const Plan p = make_plan(batch, n, de, ec, hc, heads);
+  if (!plan_matches(p, plan, n_plan)) return (int)cudaErrorInvalidValue;
+  Args a{q, k, v, edge, w0, w1, extra, mask, out, n, de, ec, sub_c, heads, out_ch, n_extra,
+         set_inf, p.rows_per_tile, p.tiles, sqrtf((float)out_ch)};
+  return (int)launch(prepared[p.tile_rows == 64 ? 0 : 1], kernel_of(p), p, a, stream);
+}
+
+// Blocks an SM of the kernel at these shapes, as the card reports it.
+extern "C" int dstt_mix_attention_occupancy(int batch, int n, int de, int ec, int hc,
+                                            int heads, int* blocks) {
+  const Plan p = make_plan(batch, n, de, ec, hc, heads);
+  if (p.tile_rows == 0) return (int)cudaErrorInvalidValue;
+  return (int)occupancy(prepared[p.tile_rows == 64 ? 0 : 1], kernel_of(p), p, blocks);
 }

@@ -32,8 +32,12 @@ LAUNCHES = {"mix_attention": 0, "equi_update": 0, "block_fused": 0,
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = {
-    "dstt_mix_attention": [_P] * 9 + [_I] * 9 + [_P],
-    "dstt_equi_update": [_P] * 16 + [_I] * 6 + [_F, _P],
+    # pointers, sizes, then the launch plan (ints and their count) and the stream
+    "dstt_mix_attention": [_P] * 9 + [_I] * 9 + [_P, _I, _P],
+    "dstt_equi_update": [_P] * 16 + [_I] * 6 + [_F, _P, _I, _P],
+    # the blocks an SM the card gives a kernel at these sizes: sizes, out
+    "dstt_mix_attention_occupancy": [_I] * 6 + [_P],
+    "dstt_equi_update_occupancy": [_I] * 5 + [_P],
     "dstt_block_fused": [_P, _I, _P, _I, _P, _I, _F, _P],
     # the Mosaic probes: pointers, then sizes, then the stream
     **{f"dstt_probe_t{i}": [_P] * 2 + [_I] + [_P] for i in (1, 2, 3, 6, 11, 12)},

@@ -13,10 +13,26 @@ float32.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 import torch.nn.functional as F
 
 from . import _lib
+from ._row_tile import RING, RowTilePlan, row_tile_plan
+
+
+def launch_plan(batch: int, n: int, de: int, dd: int, dh: int) -> RowTilePlan:
+    """The kernel's launch at these shapes (``csrc/equi_update.cu``
+    recomputes and checks it). Shared memory: the tile's [edge | dist] slab
+    (transposed), node_j and node_i, then the modulated pairs (transposed)
+    over them; the weight ring (then the gates); the row sums of 4 warps for
+    up to 4 gates; adj (up to 3), the mask and normed_diff of the tile's
+    pairs."""
+    def floats(tr, r):
+        front = max(dh * (tr + 4), (de + dd) * (tr + 4) + (n + r) * dh)
+        return front + RING + tr * 4 * 4 + tr * (4 + 3)
+    return row_tile_plan(batch, n, floats)
 
 
 def equi_update_reference(node_i, node_j, edge_attr, dist, normed_diff, adj_extra,
@@ -55,17 +71,19 @@ def equi_update(node_i, node_j, edge_attr, dist, normed_diff, adj_extra, edge_ma
             node_i, node_j, edge_attr, dist, normed_diff, adj_extra, edge_mask,
             w_e, w_d, bias, shift, scale, w0, b0, w1, eps_ln=eps_ln,
         )
-    if N > 32 or dh % 32 or dh > 1024 or n_adj > 3:
-        raise ValueError(f"equi_update kernel: takes N <= 32, Dh a multiple of 32 up to 1024 "
+    if N > 32 or dh % 4 or dh > 256 or n_adj > 3:
+        raise ValueError(f"equi_update kernel: takes N <= 32, Dh a multiple of 4 up to 256 "
                          f"and A <= 3, got N={N}, Dh={dh}, A={n_adj}")
+    plan = launch_plan(B, N, de, dd, dh)
     lib = _lib.build()
     out = torch.empty((B, N, 3), device=device, dtype=torch.float32)
+    ints = (ctypes.c_int * len(plan.ints()))(*plan.ints())
     rc = lib.dstt_equi_update(
         node_i.data_ptr(), node_j.data_ptr(), edge_attr.data_ptr(), dist.data_ptr(),
         normed_diff.data_ptr(), adj_extra.data_ptr(), edge_mask.data_ptr(),
         w_e.data_ptr(), w_d.data_ptr(), bias.data_ptr(), shift.data_ptr(),
         scale.data_ptr(), w0.data_ptr(), b0.data_ptr(), w1.data_ptr(), out.data_ptr(),
-        B, N, de, dd, dh, n_adj, eps_ln, _lib.stream_handle(device),
+        B, N, de, dd, dh, n_adj, eps_ln, ints, len(ints), _lib.stream_handle(device),
     )
     _lib.check_rc("equi_update", rc)
     _lib.LAUNCHES["equi_update"] += 1

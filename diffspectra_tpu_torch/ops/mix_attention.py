@@ -10,14 +10,30 @@ edge_mask ``[B, N, N]`` -> ``[B, N, H*C]``, all float32.
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
 
 from . import _lib
+from ._row_tile import RING, RowTilePlan, ld, row_tile_plan
 
 MASK_INF = -1e30  # padded and diagonal pairs
 NEG_ADJ = -1e10  # an adjacency head's zero entry
+
+
+def launch_plan(batch: int, n: int, de: int, ec: int, hc: int, heads: int) -> RowTilePlan:
+    """The kernel's launch at these shapes (``csrc/mix_attention.cu``
+    recomputes and checks it). Shared memory: the tile's edge slab
+    (transposed) with the molecule's k, then the products; the slab again
+    with v, then the messages; q of the tile's rows; the softmax weights;
+    the weight ring; extra (up to a column a head) and the mask of the
+    tile's pairs."""
+    def floats(tr, r):
+        ldw = max(ld(ec), ld(hc))
+        front = max(de * (tr + 4) + n * ldw, tr * ldw)
+        return front + r * ld(ec) + tr * heads + RING + tr * (heads + 1)
+    return row_tile_plan(batch, n, floats)
 
 
 def mix_attention_reference(q, k, v, edge_attr, w0, w1, extra, edge_mask, *, set_inf=True):
@@ -52,15 +68,19 @@ def mix_attention(q, k, v, edge_attr, w0, w1, extra, edge_mask, *, set_inf=True)
     )
     if device.type == "cpu":
         return mix_attention_reference(q, k, v, edge_attr, w0, w1, extra, edge_mask, set_inf=set_inf)
-    if N > 32 or max(n_sub * sub_c, n_heads * out_ch) > 1024:
-        raise ValueError(f"mix_attention kernel: takes N <= 32 and widths <= 1024, got N={N}")
+    ec, hc = n_sub * sub_c, n_heads * out_ch
+    if N > 32 or ec > 256 or hc > 256 or ec % 4 or hc % 4:
+        raise ValueError(f"mix_attention kernel: takes N <= 32 and widths E*sc, H*C multiples "
+                         f"of 4 up to 256, got N={N}, E*sc={ec}, H*C={hc}")
+    plan = launch_plan(B, N, de, ec, hc, n_heads)
     lib = _lib.build()
-    out = torch.empty((B, N, n_heads * out_ch), device=device, dtype=torch.float32)
+    out = torch.empty((B, N, hc), device=device, dtype=torch.float32)
+    ints = (ctypes.c_int * len(plan.ints()))(*plan.ints())
     rc = lib.dstt_mix_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), edge_attr.data_ptr(),
         w0.data_ptr(), w1.data_ptr(), extra.data_ptr(), edge_mask.data_ptr(),
         out.data_ptr(), B, N, de, n_sub, sub_c, n_heads, out_ch, n_extra,
-        int(set_inf), _lib.stream_handle(device),
+        int(set_inf), ints, len(ints), _lib.stream_handle(device),
     )
     _lib.check_rc("mix_attention", rc)
     _lib.LAUNCHES["mix_attention"] += 1

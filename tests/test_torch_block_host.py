@@ -13,6 +13,9 @@ the chip's tolerance (1e-4; measured about 1e-6).
 
 This checks the kernel's tiling, indexing, barriers and copy pipeline, not
 the card's arithmetic or speed; ``chip_smoke.py`` does that on the H100.
+``build_host_lib`` builds any kernel source of ``csrc/`` that launches
+through ``cudaLaunchKernel`` with one ``Args`` parameter the same way
+(``tests/test_torch_ops_host.py``).
 """
 
 import ctypes
@@ -48,6 +51,7 @@ struct dim3 { unsigned x, y, z; dim3(unsigned a = 1, unsigned b = 1, unsigned c 
 struct uint3 { unsigned x, y, z; };
 extern thread_local uint3 threadIdx, blockIdx;
 struct alignas(16) float4 { float x, y, z, w; };
+inline float4 make_float4(float x, float y, float z, float w) { return {x, y, z, w}; }
 typedef int cudaError_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1, cudaErrorInvalidDevice = 101 };
 typedef void* cudaStream_t;
@@ -57,6 +61,10 @@ constexpr int cudaSharedmemCarveoutMaxShared = 100;
 inline cudaError_t cudaFuncSetAttribute(const void*, cudaFuncAttribute, int) { return 0; }
 inline cudaError_t cudaGetDevice(int* d) { *d = 0; return 0; }
 inline cudaError_t cudaGetLastError() { return 0; }
+inline cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, const void*, int, size_t) {
+  *n = 0;  // no card: the chip run asks the card
+  return 0;
+}
 cudaError_t cudaLaunchKernel(const void*, dim3, dim3, void**, size_t, cudaStream_t);
 void __syncthreads();
 float __shfl_xor_sync(unsigned, float, int);
@@ -90,7 +98,7 @@ template <int Pending> inline void cp_async_wait() {
 """
 
 HARNESS_CPP = r"""
-#include "block_fused.cu"
+#include "KERNEL_SOURCE"
 #include <chrono>
 #include <condition_variable>
 #include <cstdio>
@@ -162,25 +170,38 @@ cudaError_t cudaLaunchKernel(const void* f, dim3 grid, dim3 block, void** args, 
 """
 
 
-@pytest.fixture(scope="module")
-def host_lib(tmp_path_factory):
+def build_host_lib(directory: Path, source: str, argtypes: dict) -> ctypes.CDLL:
+    """Compile ``csrc/<source>`` (and the headers of ``csrc/`` it includes)
+    with the host C++ compiler against the stand-in into ``directory``, and
+    load it with each C entry of ``argtypes`` typed. Skips the test where no
+    host compiler exists."""
     cxx = shutil.which("g++") or shutil.which("c++")
     if cxx is None:
-        pytest.skip("no host C++ compiler to build csrc/block_fused.cu for the CPU")
-    d = tmp_path_factory.mktemp("block_fused_host")
-    shutil.copy(CSRC / "block_fused.cu", d / "block_fused.cu")
-    (d / "async_copy.cuh").write_text(ASYNC_COPY_H)
-    (d / "include").mkdir()
-    (d / "include" / "cuda_runtime.h").write_text(RUNTIME_H)
-    (d / "harness.cpp").write_text(HARNESS_CPP)
-    cmd = [cxx, "-std=c++17", "-O1", "-shared", "-fPIC", "-pthread", "-I", str(d / "include"),
-           "-o", str(d / "libhost.so"), str(d / "harness.cpp")]
+        pytest.skip(f"no host C++ compiler to build csrc/{source} for the CPU")
+    for header in CSRC.glob("*.cuh"):
+        shutil.copy(header, directory / header.name)
+    shutil.copy(CSRC / source, directory / source)
+    (directory / "async_copy.cuh").write_text(ASYNC_COPY_H)
+    (directory / "include").mkdir()
+    (directory / "include" / "cuda_runtime.h").write_text(RUNTIME_H)
+    (directory / "harness.cpp").write_text(HARNESS_CPP.replace("KERNEL_SOURCE", source))
+    cmd = [cxx, "-std=c++17", "-O1", "-shared", "-fPIC", "-pthread", "-I",
+           str(directory / "include"), "-o", str(directory / "libhost.so"),
+           str(directory / "harness.cpp")]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     assert proc.returncode == 0, proc.stderr
-    lib = ctypes.CDLL(str(d / "libhost.so"))
-    lib.dstt_block_fused.argtypes = _lib._ARGTYPES["dstt_block_fused"]
-    lib.dstt_block_fused.restype = ctypes.c_int
+    lib = ctypes.CDLL(str(directory / "libhost.so"))
+    for name, types in argtypes.items():
+        fn = getattr(lib, name)
+        fn.argtypes = types
+        fn.restype = ctypes.c_int
     return lib
+
+
+@pytest.fixture(scope="module")
+def host_lib(tmp_path_factory):
+    return build_host_lib(tmp_path_factory.mktemp("block_fused_host"), "block_fused.cu",
+                          {"dstt_block_fused": _lib._ARGTYPES["dstt_block_fused"]})
 
 
 def _run(lib, arrays, kw, set_inf, plan_ints=None):

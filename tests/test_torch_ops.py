@@ -3,10 +3,16 @@
 at the flagship shape (B=2, N=29), float32, on a ragged masked batch.
 Tolerance atol 2e-5, as ``tests/test_pallas_attention.py`` holds the JAX
 kernel to its reference. Also: the wrappers' checks, and the masking traps
-(-1e30 padding, -1e10 zero adjacency, finite rows).
+(-1e30 padding, -1e10 zero adjacency, finite rows). And the kernels' launch
+plans (``launch_plan``, which ``csrc/equi_update.cu`` and
+``csrc/mix_attention.cu`` recompute and check) at N in {8, 17, 21, 25, 29,
+32} and B in {1, 3, 10, 80}, flagship widths: the tiles cover each row
+(b, i) once, never mix molecules, hold at most 64 pairs, fit the card's
+shared memory, and two blocks fit an SM.
 
 The kernels themselves run on the card only; ``chip_smoke.py`` holds them
-against these plain versions there.
+against these plain versions there (``tests/test_torch_ops_host.py`` runs
+their CUDA source on the CPU).
 """
 
 import jax.numpy as jnp
@@ -18,7 +24,11 @@ from diffspectra_tpu.ops.pallas_attention import mix_attention_reference as jax_
 from diffspectra_tpu.ops.pallas_equi_update import equi_update_reference as jax_equi
 from diffspectra_tpu_torch.api import resolve_device
 from diffspectra_tpu_torch.ops import LAUNCHES
+from diffspectra_tpu_torch.ops._row_tile import (MAX_SMEM, MIN_BLOCKS, ROW_COST, SMEM_PER_SM,
+                                                  SMS, cdiv)
 from diffspectra_tpu_torch.ops.equi_update import equi_update
+from diffspectra_tpu_torch.ops.equi_update import launch_plan as equi_plan
+from diffspectra_tpu_torch.ops.mix_attention import launch_plan as attn_plan
 from diffspectra_tpu_torch.ops.mix_attention import mix_attention, mix_attention_reference
 
 torch.set_num_threads(2)
@@ -141,3 +151,52 @@ def test_cuda_request_without_cuda_raises(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         resolve_device("cuda")
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+PLAN_N = (8, 17, 21, 25, 29, 32)
+PLAN_B = (1, 3, 10, 80)
+PLANS = {  # flagship widths: De = Dd = 64, Dh = H*C = 256, E*sc = 252, 16 heads
+    "equi_update": lambda B, N: equi_plan(B, N, 64, 64, 256),
+    "mix_attention": lambda B, N: attn_plan(B, N, 64, 252, 256, 16),
+}
+
+
+@pytest.mark.parametrize("B", PLAN_B)
+@pytest.mark.parametrize("N", PLAN_N)
+@pytest.mark.parametrize("kernel", sorted(PLANS))
+def test_row_tile_plan_covers_each_row_once(kernel, N, B):
+    plan = PLANS[kernel](B, N)
+    assert plan.tile_rows in (64, 32) and plan.threads == 4 * plan.tile_rows
+    assert plan.grid == B * plan.tiles
+    assert 1 <= plan.rows_per_tile and plan.rows_per_tile * N <= plan.tile_rows
+    seen = []
+    for x, (b, i0, rows) in enumerate(plan.row_tiles()):
+        assert b == x // plan.tiles  # one molecule a block
+        assert 1 <= rows <= plan.rows_per_tile and i0 + rows <= N  # cut to the molecule
+        seen += [(b, i) for i in range(i0, i0 + rows)]
+    assert seen == [(b, i) for b in range(B) for i in range(N)]
+    if B == 10 and 17 <= N <= 25:  # 64-row tiles of R = 2: one wave of at most 130 blocks
+        assert (plan.tile_rows, plan.rows_per_tile, plan.grid) == (64, 2, 10 * -(-N // 2))
+    if B == 10 and N == 29:  # 290 one-row tiles of 32, where 150 of 64 put 2 on 18 SMs
+        assert (plan.tile_rows, plan.rows_per_tile, plan.grid) == (32, 1, 290)
+    if B == 80 and N >= 21:  # many waves either way: the 64-row tiles
+        assert plan.tile_rows == 64
+
+
+@pytest.mark.parametrize("B", PLAN_B)
+@pytest.mark.parametrize("N", PLAN_N)
+@pytest.mark.parametrize("kernel", sorted(PLANS))
+def test_row_tile_plan_fits_its_blocks_an_sm(kernel, N, B):
+    plan = PLANS[kernel](B, N)
+    assert plan.smem <= MAX_SMEM
+    assert 2 <= plan.blocks_per_sm <= MIN_BLOCKS[plan.tile_rows]
+    assert plan.blocks_per_sm * (plan.smem + 1024) <= SMEM_PER_SM
+    assert (plan.blocks_per_sm + 1) * (plan.smem + 1024) > SMEM_PER_SM or \
+        plan.blocks_per_sm == MIN_BLOCKS[plan.tile_rows]
+    # the other tile height would not give the busiest SM less work
+    other = 96 - plan.tile_rows
+    r = min(N, max(1, other // N))
+    if B * cdiv(N, r) < SMS and r > 2:
+        r = 2
+    cost = cdiv(plan.grid, SMS) * ROW_COST[plan.tile_rows]
+    assert cost <= cdiv(B * cdiv(N, r), SMS) * ROW_COST[other]

@@ -1,0 +1,133 @@
+"""``csrc/equi_update.cu`` and ``csrc/mix_attention.cu`` themselves, run on
+the CPU.
+
+Each source is compiled with the host C++ compiler against the stand-in for
+the CUDA runtime of ``tests/test_torch_block_host.py`` (a block's threads
+as ``std::thread``s, ``__syncthreads`` a barrier, shuffles through memory,
+NaN-filled shared memory that must not be written past the launch's size,
+``cp.async`` copies landing only at their wait). Its ``dstt_equi_update``
+and ``dstt_mix_attention`` are called through ``ctypes`` on CPU tensors
+with the wrapper's launch plan and held against the plain versions at the
+chip's tolerance (1e-5, every output, padding included) on ragged batches:
+N in {8, 17, 29}, B in {1, 3} (tiles of 32 rows: one row of a molecule, or
+two at N = 8) and 10 (tiles of 64 rows: two rows, the last tile of an odd N
+partial), ``set_inf`` both ways, A in {1, 2}, flagship and narrow widths, and widths
+whose rows take 4-byte copies. A wrong plan is refused with nothing
+launched.
+
+This checks the kernels' tiling, indexing, barriers and copy pipeline, not
+the card's arithmetic or speed; ``chip_smoke.py`` does that on the H100.
+"""
+
+import ctypes
+
+import numpy as np
+import pytest
+import torch
+
+from diffspectra_tpu_torch.ops import _lib
+from diffspectra_tpu_torch.ops.equi_update import equi_update_reference
+from diffspectra_tpu_torch.ops.equi_update import launch_plan as equi_plan
+from diffspectra_tpu_torch.ops.mix_attention import launch_plan as attn_plan
+from diffspectra_tpu_torch.ops.mix_attention import mix_attention_reference
+from test_torch_block_host import build_host_lib
+from test_torch_ops import _attn_inputs, _equi_inputs
+
+ATOL = 1e-5
+
+
+@pytest.fixture(scope="module")
+def equi_lib(tmp_path_factory):
+    return build_host_lib(tmp_path_factory.mktemp("equi_update_host"), "equi_update.cu",
+                          {"dstt_equi_update": _lib._ARGTYPES["dstt_equi_update"]})
+
+
+@pytest.fixture(scope="module")
+def attn_lib(tmp_path_factory):
+    return build_host_lib(tmp_path_factory.mktemp("mix_attention_host"), "mix_attention.cu",
+                          {"dstt_mix_attention": _lib._ARGTYPES["dstt_mix_attention"]})
+
+
+def _ints(plan, bump=None):
+    """The plan's ints as the wrapper passes them, one of them off by one
+    when ``bump`` names its index."""
+    ints = [v + (i == bump) for i, v in enumerate(plan.ints())]
+    return (ctypes.c_int * len(ints))(*ints)
+
+
+def _equi_call(lib, args, bump=None):
+    B, N, dh = args[0].shape
+    de, dd, n_adj = args[2].shape[-1], args[3].shape[-1], args[5].shape[-1]
+    out = torch.full((B, N, 3), float("nan"))
+    ints = _ints(equi_plan(B, N, de, dd, dh), bump)
+    rc = lib.dstt_equi_update(*(a.data_ptr() for a in args), out.data_ptr(), B, N, de, dd, dh,
+                              n_adj, 1e-6, ints, len(ints), None)
+    return rc, out
+
+
+def _attn_call(lib, args, set_inf, bump=None):
+    q, v, edge, extra = args[0], args[2], args[3], args[6]
+    B, N, n_sub, sub_c = q.shape
+    heads, out_ch = v.shape[2], v.shape[3]
+    de, n_extra = edge.shape[-1], extra.shape[-1]
+    out = torch.full((B, N, heads * out_ch), float("nan"))
+    ints = _ints(attn_plan(B, N, de, n_sub * sub_c, heads * out_ch, heads), bump)
+    rc = lib.dstt_mix_attention(*(a.data_ptr() for a in args), out.data_ptr(), B, N, de, n_sub,
+                                sub_c, heads, out_ch, n_extra, int(set_inf), ints, len(ints),
+                                None)
+    return rc, out
+
+
+EQUI_CASES = {  # B, N, De, Dd, Dh, A; tiles of 32 rows unless named
+    "flagship_N29": (3, 29, 64, 64, 256, 2),
+    "tile64_N17": (10, 17, 16, 16, 64, 2),  # 64-row tiles of two rows, the last partial
+    "N17_ragged_K": (1, 17, 16, 12, 64, 2),  # K = 28: a short last weight chunk
+    "N8_narrow": (1, 8, 8, 8, 32, 1),
+    "N29_4byte_copies": (1, 29, 6, 10, 40, 1),  # edge and dist rows not 16-byte aligned
+}
+
+
+@pytest.mark.parametrize("case", sorted(EQUI_CASES))
+def test_equi_update_source_on_the_host_matches_the_plain_version(equi_lib, case):
+    args = [torch.from_numpy(a) for a in _equi_inputs(11, *EQUI_CASES[case])]
+    rc, got = _equi_call(equi_lib, args)
+    assert rc == 0
+    want = equi_update_reference(*args)
+    assert torch.isfinite(got).all()
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0, atol=ATOL)
+
+
+ATTN_CASES = {  # B, N, De, E, sc, H, C, X, set_inf; tiles of 32 rows unless named
+    "flagship_N29": (3, 29, 64, 14, 18, 16, 16, 2, True),
+    "tile64_N17": (10, 17, 16, 4, 8, 6, 8, 2, True),  # 64-row tiles of two rows, the last partial
+    "flagship_N29_no_set_inf": (1, 29, 64, 14, 18, 16, 16, 2, False),
+    "N17_4byte_copies": (3, 17, 10, 6, 6, 8, 8, 2, False),  # edge rows not 16-byte aligned
+    "N8_narrow": (1, 8, 16, 3, 8, 4, 8, 1, True),
+}
+
+
+@pytest.mark.parametrize("case", sorted(ATTN_CASES))
+def test_mix_attention_source_on_the_host_matches_the_plain_version(attn_lib, case):
+    *shape, set_inf = ATTN_CASES[case]
+    args = [torch.from_numpy(a) for a in _attn_inputs(12, *shape)]
+    rc, got = _attn_call(attn_lib, args, set_inf)
+    assert rc == 0
+    want = mix_attention_reference(*args, set_inf=set_inf)
+    assert torch.isfinite(got).all()
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0, atol=ATOL)
+
+
+@pytest.mark.parametrize("where", [1, 5])  # rows of a molecule a tile, shared-memory bytes
+def test_equi_update_source_refuses_a_wrong_plan(equi_lib, where):
+    args = [torch.from_numpy(a) for a in _equi_inputs(13, *EQUI_CASES["N8_narrow"])]
+    rc, out = _equi_call(equi_lib, args, bump=where)
+    assert rc != 0
+    assert torch.isnan(out).all()  # nothing launched
+
+
+@pytest.mark.parametrize("where", [0, 3])  # rows a tile, blocks
+def test_mix_attention_source_refuses_a_wrong_plan(attn_lib, where):
+    args = [torch.from_numpy(a) for a in _attn_inputs(14, *ATTN_CASES["N8_narrow"][:-1])]
+    rc, out = _attn_call(attn_lib, args, True, bump=where)
+    assert rc != 0
+    assert torch.isnan(out).all()
