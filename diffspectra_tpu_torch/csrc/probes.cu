@@ -1,8 +1,9 @@
-// The Mosaic probes t1 ... t14 of tools/diag_mosaic_bisect.py, for Hopper
-// (sm_90a). f32 unless marked.
+// Twelve of the Mosaic probes t1 ... t14 of tools/diag_mosaic_bisect.py, for
+// Hopper (sm_90a). f32 unless marked. t4 and t5, redesigned for this card,
+// are in probe_tiles.cu.
 //
-// Replaces the fourteen TPU kernels of that tool (functions t1 ... t14, one
-// pl.pallas_call each). The tool bisects which Pallas/Mosaic feature a TPU
+// Replaces twelve of the fourteen TPU kernels of that tool (functions t1 ...
+// t14 but t4 and t5, one pl.pallas_call each). The tool bisects which Pallas/Mosaic feature a TPU
 // compile refuses, one feature a probe: unaligned and high-rank shapes, a
 // grid, 2-D products (f32 and bf16), tanh, a softmax, a masked large
 // negative, a reshape and segment sum, a VMEM scratch. Each kernel here
@@ -12,9 +13,8 @@
 // memory tiles, warp shuffles and, for t7, the bf16 tensor cores.
 //
 // What bounds them on this card. Each probe moves 7 KB to 3.4 MB, so the
-// bound is 2 ns to 1 us: bytes / 3.35 TB/s for all but t5, whose 27 MFLOP
-// of f32 products (0.41 us at 67 TFLOP/s) just outweigh its 1.1 MB. A launch
-// costs a few microseconds, which sets the time of most of them.
+// bound is 2 ns to 1 us: bytes / 3.35 TB/s. A launch costs a few
+// microseconds, which sets the time of most of them.
 //
 // What the design does about it: nothing beyond a simple kernel that is
 // right, with enough threads to cover the data in one wave. They are not
@@ -22,14 +22,13 @@
 //
 //   t1, t2, t11  x * 2                     map_kernel<Times2>
 //   t3           x + 1                     map_kernel<PlusOne>
-//   t4           x + 1 over a grid of 8    one thread block per grid step
 //   t6           tanh(x)                   map_kernel<Tanh>
 //   t9           m > 0 ? x : -1e10         mask_kernel
 //   t12          s = 2x (shared); s + 1    stage_kernel (the VMEM scratch)
 //   t8           softmax over the last axis, one warp per row
 //   t10          [841,252] -> [29,29,14,18].sum(-1), one thread per output
 //   t14          q k^T, one warp per output, shuffle sum over the depth
-//   t5, t13      x @ w and q @ k^T, 16 x 16 shared-memory tiles
+//   t13          q @ k^T, 16 x 16 shared-memory tiles
 //   t7           x @ w, bf16 in, f32 out, mma.sync m16n8k16 on the tensor
 //                cores, 64 x 64 tiles, the 841 rows masked at the edge
 
@@ -65,13 +64,6 @@ __global__ void map_kernel(const float* __restrict__ x, float* __restrict__ out,
   for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n; i += gridDim.x * blockDim.x) {
     out[i] = op(x[i]);
   }
-}
-
-// t4: grid step b (one block) owns x[b] of `per_step` elements, as the
-// BlockSpec (1, 29, 29, 64) cut it on the TPU.
-__global__ void step_kernel(const float* __restrict__ x, float* __restrict__ out, int per_step) {
-  const size_t base = (size_t)blockIdx.x * per_step;
-  for (int i = threadIdx.x; i < per_step; i += blockDim.x) out[base + i] = x[base + i] + 1.0f;
 }
 
 __global__ void mask_kernel(const float* __restrict__ x, const float* __restrict__ m,
@@ -150,11 +142,10 @@ __global__ void warp_dot_kernel(const float* __restrict__ q, const float* __rest
   if (lane == 0) out[pair] = s;
 }
 
-// t5 (b is [K, N]) and t13 (b is [N, K], the product with its transpose):
-// out[M, N] = a[M, K] @ b, f32 sums. A 16 x 16 block of threads owns a
-// 16 x 16 output tile and walks the depth 16 at a time through shared
-// memory; the ragged edges load zeros and store nothing.
-template <bool kTransB>
+// t13 only (t5's product is tile_product_kernel in probe_tiles.cu):
+// out[M, N] = a[M, K] @ b^T, b [N, K], f32 sums. A 16 x 16 block of threads
+// owns a 16 x 16 output tile and walks the depth 16 at a time through
+// shared memory; the ragged edges load zeros and store nothing.
 __global__ void tiled_product_kernel(const float* __restrict__ a, const float* __restrict__ b,
                                      float* __restrict__ out, int M, int N, int K) {
   __shared__ float as[kTile][kTile + 1];  // [row][depth]
@@ -164,12 +155,8 @@ __global__ void tiled_product_kernel(const float* __restrict__ a, const float* _
   float acc = 0.0f;
   for (int k0 = 0; k0 < K; k0 += kTile) {
     as[ty][tx] = (row < M && k0 + tx < K) ? a[(size_t)row * K + k0 + tx] : 0.0f;
-    if (kTransB) {  // read b's rows along the depth, coalesced
-      const int n = blockIdx.x * kTile + ty;
-      bs[tx][ty] = (n < N && k0 + tx < K) ? b[(size_t)n * K + k0 + tx] : 0.0f;
-    } else {
-      bs[ty][tx] = (k0 + ty < K && col < N) ? b[(size_t)(k0 + ty) * N + col] : 0.0f;
-    }
+    const int n = blockIdx.x * kTile + ty;  // read b's rows along the depth, coalesced
+    bs[tx][ty] = (n < N && k0 + tx < K) ? b[(size_t)n * K + k0 + tx] : 0.0f;
     __syncthreads();
     for (int kk = 0; kk < kTile; ++kk) acc += as[ty][kk] * bs[kk][tx];
     __syncthreads();
@@ -269,18 +256,9 @@ int launch_map(const float* x, float* out, int n, Op op, void* stream) {
   return finish();
 }
 
-template <bool kTransB>
-int launch_tiled(const float* a, const float* b, float* out, int m, int n, int k, void* stream) {
-  if (m <= 0 || n <= 0 || k <= 0) return (int)cudaErrorInvalidValue;
-  const dim3 grid((n + kTile - 1) / kTile, (m + kTile - 1) / kTile);
-  tiled_product_kernel<kTransB><<<grid, dim3(kTile, kTile), 0, (cudaStream_t)stream>>>(
-      a, b, out, m, n, k);
-  return finish();
-}
-
 }  // namespace
 
-// One launcher a probe. Each launches on `stream` and returns
+// One launcher a probe (t4 and t5: probe_tiles.cu). Each launches on `stream` and returns
 // cudaGetLastError(), so that a refused launch is seen at once; the caller
 // checked shapes, types and contiguity. Sizes are element counts.
 extern "C" {
@@ -295,17 +273,6 @@ int dstt_probe_t2(const float* x, float* out, int n, void* stream) {
 
 int dstt_probe_t3(const float* x, float* out, int n, void* stream) {
   return launch_map(x, out, n, PlusOne{}, stream);
-}
-
-int dstt_probe_t4(const float* x, float* out, int steps, int per_step, void* stream) {
-  if (steps <= 0 || per_step <= 0) return (int)cudaErrorInvalidValue;
-  step_kernel<<<steps, 1024, 0, (cudaStream_t)stream>>>(x, out, per_step);
-  return finish();
-}
-
-int dstt_probe_t5(const float* x, const float* w, float* out, int m, int n, int k,
-                  void* stream) {
-  return launch_tiled<false>(x, w, out, m, n, k, stream);
 }
 
 int dstt_probe_t6(const float* x, float* out, int n, void* stream) {
@@ -357,7 +324,11 @@ int dstt_probe_t12(const float* x, float* out, int n, void* stream) {
 
 int dstt_probe_t13(const float* q, const float* k, float* out, int m, int n, int depth,
                    void* stream) {
-  return launch_tiled<true>(q, k, out, m, n, depth, stream);
+  if (m <= 0 || n <= 0 || depth <= 0) return (int)cudaErrorInvalidValue;
+  const dim3 grid((n + kTile - 1) / kTile, (m + kTile - 1) / kTile);
+  tiled_product_kernel<<<grid, dim3(kTile, kTile), 0, (cudaStream_t)stream>>>(q, k, out, m, n,
+                                                                             depth);
+  return finish();
 }
 
 int dstt_probe_t14(const float* q, const float* k, float* out, int m, int n, int depth,

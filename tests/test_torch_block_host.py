@@ -2,7 +2,8 @@
 
 This machine has no nvcc and no GPU, so the CUDA source is compiled with the
 host C++ compiler against a small stand-in for the CUDA runtime: each thread
-block runs as 256 ``std::thread``s, one block after the other, with
+block runs as 256 ``std::thread``s, one block after the other (grid.x, then
+grid.y), with
 ``__syncthreads`` a barrier, warp shuffles an exchange through memory,
 shared memory a NaN-filled array (bytes past the launch's dynamic size must
 stay untouched), and ``cp.async`` a copy made at the latest moment its
@@ -53,7 +54,8 @@ extern thread_local uint3 threadIdx, blockIdx;
 struct alignas(16) float4 { float x, y, z, w; };
 inline float4 make_float4(float x, float y, float z, float w) { return {x, y, z, w}; }
 typedef int cudaError_t;
-enum { cudaSuccess = 0, cudaErrorInvalidValue = 1, cudaErrorInvalidDevice = 101 };
+enum { cudaSuccess = 0, cudaErrorInvalidValue = 1, cudaErrorInvalidDevice = 101,
+       cudaErrorMisalignedAddress = 716 };
 typedef void* cudaStream_t;
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize,
                          cudaFuncAttributePreferredSharedMemoryCarveout };
@@ -146,13 +148,14 @@ cudaError_t cudaLaunchKernel(const void* f, dim3 grid, dim3 block, void** args, 
   block_barrier.n = block.x;
   for (auto& b : warp_barrier) b.n = 32;
   const uint32_t nan_bits = 0x7fc00001u;
-  for (unsigned bx = 0; bx < grid.x; ++bx) {
+  for (unsigned b = 0; b < grid.x * grid.y; ++b) {
+    const unsigned bx = b % grid.x, by = b / grid.x;
     for (size_t i = 0; i < sizeof(smem) / 4; ++i) std::memcpy(&smem[i], &nan_bits, 4);
     std::vector<std::thread> threads;
     for (unsigned t = 0; t < block.x; ++t) {
       threads.emplace_back([=] {
         threadIdx = {t, 0, 0};
-        blockIdx = {bx, 0, 0};
+        blockIdx = {bx, by, 0};
         dstt::committed.clear();
         dstt::open_group.clear();
         kernel(a);
