@@ -23,7 +23,7 @@ Phases, each printing its own lines:
      cuda, with the kernel's, the plain version's, the library call's and
      the bound's times (CUDA events over 200 calls, and the kernel's and
      the library call's device time from the profiler); for t4 and t5
-     (``csrc/probe_tiles.cu``) also the launch plan, the device time with
+     (``csrc/probe_tiles.cu``) also the launch shape, the device time with
      L2 cold, the kernel's device time over the library call's, and the
      bound's share of it;
   4. full-width DMT forwards from ``artifacts/warm_qm9s_as.npz`` on cuda
@@ -82,7 +82,7 @@ PROBE_ATOL = {"t1": 0.0, "t2": 0.0, "t3": 0.0, "t4": 0.0, "t9": 0.0, "t11": 0.0,
 FORWARD_RTOL = 1e-3  # of the largest |value|: 8 blocks sum in another order
 PATHS = {"attn_equi": ("attn", "equi"), "block": ("block",)}
 PATH_KERNELS = {"attn_equi": ("mix_attention", "equi_update"), "block": ("block_fused",)}
-# the probes whose kernels take a launch plan, by the profiler's kernel names
+# the probes of csrc/probe_tiles.cu, by the profiler's kernel names
 PROBE_TILE_KERNELS = {"t4": "grid_step_kernel", "t5": "tile_product_kernel"}
 
 
@@ -487,11 +487,20 @@ def phase_probes(dev):
 
 
 def probe_tile_extras(name, p, call, row, dev):
-    """A planned probe kernel (t4, t5): its launch plan, its device time
-    with L2 cold (FLUSH_BYTES written before each call; profiler), its warm
-    device time over the library call's, the bound's share of it, and the
-    rate it reaches warm: bytes for t4, f32 operations for t5."""
-    plan = p.plan(*p.sizes(p.out_shape, *p.inputs.values()))
+    """A probe kernel of ``csrc/probe_tiles.cu`` (t4, t5): its launch
+    shape (t4's grid, t5's launch plan), its device time with L2 cold
+    (FLUSH_BYTES written before each call; profiler), its warm device time
+    over the library call's, the bound's share of it, and the rate it
+    reaches warm: bytes for t4, f32 operations for t5."""
+    from diffspectra_tpu_torch.ops.probes import STEP_THREADS, step_grid
+
+    sizes = p.sizes(p.out_shape, *p.inputs.values())
+    if p.plan is None:  # t4
+        blocks, threads, smem, tile = step_grid(*sizes), STEP_THREADS, 0, ""
+    else:
+        plan = p.plan(*sizes)
+        blocks, threads, smem = plan.grid, plan.threads, plan.smem
+        tile = f" (tiles of {plan.rows} x {plan.cols})"
     flush = torch.empty(FLUSH_BYTES // 4, device=dev)
     cold = stage_ms(call, (PROBE_TILE_KERNELS[name],), flush)
     cold_ms = None if cold is None else sum(cold.values())
@@ -500,14 +509,13 @@ def probe_tile_extras(name, p, call, row, dev):
     share = None if warm is None else row["bound_ms"] / warm
     work, unit = (p.nbytes, "TB/s") if name == "t4" else (p.flops, "TFLOP/s")
     rate = None if warm is None else work / (warm * 1e-3) / 1e12
-    tile = f" (tiles of {plan.rows} x {plan.cols})" if name == "t5" else ""
-    say(f"[probes] {name}: plan {plan.grid} blocks of {plan.threads} threads{tile}, {plan.smem} "
+    say(f"[probes] {name}: plan {blocks} blocks of {threads} threads{tile}, {smem} "
         f"bytes of shared memory; device time {ms_or_none(warm)} warm, {ms_or_none(cold_ms)} with "
         f"L2 cold; library call {ms_or_none(library)} on the device; kernel / library "
         f"{'not measured' if ratio is None else f'{ratio:.3f}'}; bound / kernel "
         f"{'not measured' if share is None else f'{share:.3f}'}; "
         f"{'not measured' if rate is None else f'{rate:.3f}'} {unit}")
-    return dict(blocks=plan.grid, threads=plan.threads, smem=plan.smem, cold_device_ms=cold_ms,
+    return dict(blocks=blocks, threads=threads, smem=smem, cold_device_ms=cold_ms,
                 device_over_library=ratio, bound_share=share, rate=rate, rate_unit=unit)
 
 

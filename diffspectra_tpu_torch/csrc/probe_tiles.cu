@@ -12,19 +12,21 @@
 //   whole grid is one wave over the 132 SMs with every SM's loads in flight
 //   at once, 16 bytes a load; each step's last chunk is masked. A block
 //   reads its step and chunk from blockIdx without a division (on the card
-//   a flat grid that divided blockIdx.x was slower, PERF.md). A
-//   step's floats must be a multiple of 4 and both pointers 16-byte aligned
-//   (no scalar path).
+//   a flat grid that divided blockIdx.x was slower, PERF.md). The launcher
+//   sizes the grid itself from the steps and the floats a step. A step's
+//   floats must be a multiple of 4 and both pointers 16-byte aligned (no
+//   scalar path).
 //
 // t5 (tools/diag_mosaic_bisect.py:85): out[M, N] = x[M, K] @ w[K, N],
 // [841, 64] @ [64, 252].
 //   What bounds it: 27.1 MFLOP, 0.41 us at 67 TFLOP/s f32, over its 1.13
 //   MB (0.34 us): operations. A grid this small cannot come near it; the
 //   yardstick is one cuBLAS call.
-//   What the design does: a block owns an output tile of R x C (the launch
-//   plan's, ops/probes.py::product_plan, re-checked here: 32 x 64 at the
-//   probe's shape, 108 blocks of 128 threads, one wave). Its x rows and w
-//   slab go into dynamic shared memory by 16-byte cp.async in two 32-deep
+//   What the design does: a block owns a 32 x 64 output tile (108 blocks of
+//   128 threads at the probe's shape, one wave over the 132 SMs; of five
+//   tiles timed on the card this one was the fastest, PERF.md), as the
+//   launch plan of ops/probes.py::product_plan says and this source
+//   re-checks. Its x rows and w slab go into dynamic shared memory by 16-byte cp.async in two 32-deep
 //   chunks, one copy group each, zeros past the ragged edges (841 = 26 x 32
 //   + 9 rows, 252 = 3 x 64 + 60 columns) and past K; the second chunk
 //   lands while the first is summed. A warp owns 16 x 32 outputs, a lane
@@ -56,6 +58,8 @@ constexpr int kStepThreads = 128;                               // t4: threads a
 constexpr int kStepVectors = 2;                                 // t4: float4 a thread
 constexpr int kStepChunk = kStepThreads * kStepVectors * 4;     // t4: floats a block
 constexpr int kWarpRows = 16, kWarpCols = 32;                   // t5: a warp's outputs
+constexpr int kTileRows = 32, kTileCols = 64;                   // t5: a block's outputs
+constexpr int kProductThreads = kTileRows * kTileCols / 16;     // t5: 4 x 4 outputs a thread
 // t5: the depth in two chunks of 32, each one cp.async group; K <= 64,
 // zeros past K. With the depth fixed the loops unroll whole, which the
 // card ran faster than a loop over K's chunks (PERF.md).
@@ -63,9 +67,8 @@ constexpr int kKc = 32, kChunks = 2, kMaxDepth = kKc * kChunks;
 // t5: the stride of x's rows in a chunk, floats: 16-byte rows, and 4 rows
 // in other banks
 constexpr int kLdx = kKc + 4;
-// t5: the output tiles the plan weighs (rows, columns), in its order of
-// preference; ops/probes.py::PRODUCT_TILES holds the same.
-constexpr int kProductTiles[][2] = {{32, 64}, {16, 64}, {32, 32}, {64, 64}, {16, 32}};
+// t5: shared bytes a block, x [kChunks][kTileRows][kLdx] and w [kMaxDepth][kTileCols]
+constexpr int kProductSmem = 4 * kChunks * (kTileRows * kLdx + kKc * kTileCols);
 
 // Both kernels' arguments.
 struct Args {
@@ -96,20 +99,19 @@ __global__ void __launch_bounds__(kStepThreads) grid_step_kernel(Args a) {
 }
 
 // t5's operands for depth chunk `ch` (k = 32 ch ... 32 ch + 31) by cp.async
-// into xs [kChunks][R][kLdx] and ws [kMaxDepth][C]; rows past m, columns
-// past n and depths past k as zeros. The caller commits.
-template <int R, int C>
+// into xs [kChunks][kTileRows][kLdx] and ws [kMaxDepth][kTileCols]; rows
+// past m, columns past n and depths past k as zeros. The caller commits.
 __device__ __forceinline__ void load_chunk(const Args& a, float* xs, float* ws, int ch, int row0,
                                            int col0) {
-  constexpr int kThreads = R * C / 16;
+  constexpr int R = kTileRows, C = kTileCols;
   const int k0 = ch * kKc;
-  for (int i = threadIdx.x; i < R * kKc / 4; i += kThreads) {
+  for (int i = threadIdx.x; i < R * kKc / 4; i += kProductThreads) {
     const int r = i / (kKc / 4), k = k0 + 4 * (i % (kKc / 4));
     const bool in = row0 + r < a.m && k < a.k;
     cp_async16(xs + (ch * R + r) * kLdx + k - k0, in ? a.x + (size_t)(row0 + r) * a.k + k : a.x,
                in ? 16 : 0);
   }
-  for (int i = threadIdx.x; i < kKc * C / 4; i += kThreads) {
+  for (int i = threadIdx.x; i < kKc * C / 4; i += kProductThreads) {
     const int k = k0 + i / (C / 4), c = 4 * (i % (C / 4));
     const bool in = k < a.k && col0 + c < a.n;
     cp_async16(ws + k * C + c, in ? a.w + (size_t)k * a.n + col0 + c : a.w, in ? 16 : 0);
@@ -118,7 +120,6 @@ __device__ __forceinline__ void load_chunk(const Args& a, float* xs, float* ws, 
 
 // One depth chunk of the lane's 4 x 4 outputs: xp at its first row of the
 // chunk's x tile, wp at its first column of the chunk's first w row.
-template <int C>
 __device__ __forceinline__ void chunk_fma(float (&acc)[4][4], const float* xp, const float* wp) {
 #pragma unroll
   for (int kk = 0; kk < kKc; kk += 4) {
@@ -130,7 +131,7 @@ __device__ __forceinline__ void chunk_fma(float (&acc)[4][4], const float* xp, c
     }
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      const float4 v = *reinterpret_cast<const float4*>(wp + (kk + j) * C);
+      const float4 v = *reinterpret_cast<const float4*>(wp + (kk + j) * kTileCols);
       wv[j][0] = v.x, wv[j][1] = v.y, wv[j][2] = v.z, wv[j][3] = v.w;
     }
 #pragma unroll
@@ -142,8 +143,8 @@ __device__ __forceinline__ void chunk_fma(float (&acc)[4][4], const float* xp, c
   }
 }
 
-template <int R, int C>
-__global__ void __launch_bounds__(R * C / 16) tile_product_kernel(Args a) {
+__global__ void __launch_bounds__(kProductThreads) tile_product_kernel(Args a) {
+  constexpr int R = kTileRows, C = kTileCols;
   extern __shared__ __align__(16) float smem[];
   float* xs = smem;                          // [kChunks][R][kLdx]
   float* ws = smem + kChunks * R * kLdx;     // [kMaxDepth][C]
@@ -153,7 +154,7 @@ __global__ void __launch_bounds__(R * C / 16) tile_product_kernel(Args a) {
   // is summed
 #pragma unroll
   for (int ch = 0; ch < kChunks; ++ch) {
-    load_chunk<R, C>(a, xs, ws, ch, row0, col0);
+    load_chunk(a, xs, ws, ch, row0, col0);
     cp_async_commit();
   }
 
@@ -165,10 +166,10 @@ __global__ void __launch_bounds__(R * C / 16) tile_product_kernel(Args a) {
   static_assert(kChunks == 2, "one wait a chunk");
   cp_async_wait<1>();
   __syncthreads();
-  chunk_fma<C>(acc, xs + r0 * kLdx, ws + c0);
+  chunk_fma(acc, xs + r0 * kLdx, ws + c0);
   cp_async_wait<0>();
   __syncthreads();
-  chunk_fma<C>(acc, xs + (R + r0) * kLdx, ws + kKc * C + c0);
+  chunk_fma(acc, xs + (R + r0) * kLdx, ws + kKc * C + c0);
 
   if (col0 + c0 >= a.n) return;  // n % 4 == 0: a lane's 4 columns are all in or all out
 #pragma unroll
@@ -181,14 +182,6 @@ __global__ void __launch_bounds__(R * C / 16) tile_product_kernel(Args a) {
   }
 }
 
-// The instantiation of each of kProductTiles, in its order.
-const void* const kProductKernels[] = {
-    (const void*)tile_product_kernel<32, 64>, (const void*)tile_product_kernel<16, 64>,
-    (const void*)tile_product_kernel<32, 32>, (const void*)tile_product_kernel<64, 64>,
-    (const void*)tile_product_kernel<16, 32>};
-constexpr int kNumTiles = sizeof(kProductTiles) / sizeof(kProductTiles[0]);
-static_assert(sizeof(kProductKernels) / sizeof(kProductKernels[0]) == kNumTiles, "a kernel a tile");
-
 bool misaligned(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 != 0; }
 
 bool plan_matches(const int* mine, int n_mine, const int* plan, int n_plan) {
@@ -198,46 +191,15 @@ bool plan_matches(const int* mine, int n_mine, const int* plan, int n_plan) {
   return true;
 }
 
-// t4's launch: blocks a step, blocks, threads.
-struct StepPlan {
-  int blocks_per_step, grid, threads;
-};
-
-StepPlan step_plan(int steps, int per_step) {
-  const int per = cdiv(per_step, kStepChunk);
-  return {per, steps * per, kStepThreads};
-}
-
-// t5's launch: tile rows, tile columns, threads, blocks, shared bytes (and
-// the tile's index in kProductTiles). Of kProductTiles, the one whose
-// busiest SM computes the fewest outputs (ceil(blocks / 132) x R x C), then
-// the one that loads the fewest floats (blocks x (R + C) x K), then the
-// first. Shared memory is at most 34,816 bytes (64 x 64), under the 48 KB a
-// block has without asking.
+// t5's launch: tile rows, tile columns, threads, blocks, shared bytes. The
+// shared memory is under the 48 KB a block has without asking.
 struct ProductPlan {
-  int rows, cols, threads, grid, smem, tile;
+  int rows, cols, threads, grid, smem;
 };
 
-ProductPlan product_plan(int m, int n, int k) {
-  ProductPlan best{};
-  long best_work = 0, best_loads = 0;
-  for (int t = 0; t < kNumTiles; ++t) {
-    ProductPlan p;
-    p.rows = kProductTiles[t][0];
-    p.cols = kProductTiles[t][1];
-    p.threads = p.rows * p.cols / 16;
-    p.grid = cdiv(m, p.rows) * cdiv(n, p.cols);
-    p.smem = 4 * kChunks * (p.rows * kLdx + kKc * p.cols);
-    p.tile = t;
-    const long work = (long)cdiv(p.grid, dstt::rows::kSms) * p.rows * p.cols;
-    const long loads = (long)p.grid * (p.rows + p.cols);
-    if (best.rows == 0 || work < best_work || (work == best_work && loads < best_loads)) {
-      best = p;
-      best_work = work;
-      best_loads = loads;
-    }
-  }
-  return best;
+ProductPlan product_plan(int m, int n) {
+  return {kTileRows, kTileCols, kProductThreads, cdiv(m, kTileRows) * cdiv(n, kTileCols),
+          kProductSmem};
 }
 
 cudaError_t launch(const void* kernel, dim3 grid, int threads, int smem, Args& a, void* stream) {
@@ -253,21 +215,17 @@ cudaError_t launch(const void* kernel, dim3 grid, int threads, int smem, Args& a
 // Each launches on `stream` and returns the first CUDA error, so that a
 // refused launch is seen at once: cudaErrorInvalidValue for a size that is
 // not positive, a step or a row that is not a multiple of 4 floats, a t5
-// depth over 64, or a plan (`plan`, `n_plan` ints) other than this source's own;
+// depth over 64, or a t5 plan (`plan`, `n_plan` ints) other than this source's own;
 // cudaErrorMisalignedAddress for a pointer not 16-byte aligned. Nothing is
 // launched then. The caller checked shapes, types and contiguity.
 extern "C" {
 
-int dstt_probe_t4(const float* x, float* out, int steps, int per_step, const int* plan,
-                  int n_plan, void* stream) {
+int dstt_probe_t4(const float* x, float* out, int steps, int per_step, void* stream) {
   if (steps <= 0 || per_step <= 0 || per_step % 4 != 0) return (int)cudaErrorInvalidValue;
   if (misaligned(x) || misaligned(out)) return (int)cudaErrorMisalignedAddress;
-  const StepPlan p = step_plan(steps, per_step);
-  const int mine[] = {p.blocks_per_step, p.grid, p.threads};
-  if (!plan_matches(mine, 3, plan, n_plan)) return (int)cudaErrorInvalidValue;
   Args a{x, nullptr, out, per_step, 0, 0, 0, 0};
-  const dim3 grid(p.blocks_per_step, steps);
-  return (int)launch((const void*)grid_step_kernel, grid, p.threads, 0, a, stream);
+  const dim3 grid(cdiv(per_step, kStepChunk), steps);
+  return (int)launch((const void*)grid_step_kernel, grid, kStepThreads, 0, a, stream);
 }
 
 int dstt_probe_t5(const float* x, const float* w, float* out, int m, int n, int k,
@@ -276,11 +234,12 @@ int dstt_probe_t5(const float* x, const float* w, float* out, int m, int n, int 
     return (int)cudaErrorInvalidValue;
   }
   if (misaligned(x) || misaligned(w) || misaligned(out)) return (int)cudaErrorMisalignedAddress;
-  const ProductPlan p = product_plan(m, n, k);
+  const ProductPlan p = product_plan(m, n);
   const int mine[] = {p.rows, p.cols, p.threads, p.grid, p.smem};
   if (!plan_matches(mine, 5, plan, n_plan)) return (int)cudaErrorInvalidValue;
   Args a{x, w, out, 0, m, n, k, cdiv(n, p.cols)};
-  return (int)launch(kProductKernels[p.tile], dim3(p.grid), p.threads, p.smem, a, stream);
+  return (int)launch((const void*)tile_product_kernel, dim3(p.grid), p.threads, p.smem, a,
+                     stream);
 }
 
 }  // extern "C"

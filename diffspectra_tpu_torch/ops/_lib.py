@@ -39,13 +39,12 @@ _ARGTYPES = {
     "dstt_mix_attention_occupancy": [_I] * 6 + [_P],
     "dstt_equi_update_occupancy": [_I] * 5 + [_P],
     "dstt_block_fused": [_P, _I, _P, _I, _P, _I, _F, _P],
-    # the Mosaic probes: pointers, then sizes, (t4, t5: the launch plan,)
-    # then the stream
+    # the Mosaic probes: pointers, then sizes, (t5: the launch plan,) then
+    # the stream
     **{f"dstt_probe_t{i}": [_P] * 2 + [_I] + [_P] for i in (1, 2, 3, 6, 11, 12)},
-    **{f"dstt_probe_t{i}": [_P] * 2 + [_I] * 2 + [_P] for i in (8, 10)},
+    **{f"dstt_probe_t{i}": [_P] * 2 + [_I] * 2 + [_P] for i in (4, 8, 10)},
     "dstt_probe_t9": [_P] * 3 + [_I] + [_P],
     **{f"dstt_probe_t{i}": [_P] * 3 + [_I] * 3 + [_P] for i in (7, 13, 14)},
-    "dstt_probe_t4": [_P] * 2 + [_I] * 2 + [_P, _I, _P],
     "dstt_probe_t5": [_P] * 3 + [_I] * 3 + [_P, _I, _P],
 }
 

@@ -11,9 +11,9 @@ gives the line):
   ``t11`` (:136) on [2, 29, 29, 14, 18];
 - ``t3`` (:63) ``x + 1`` on [8, 29, 29, 64]; ``t4`` (:71) the same over a
   grid of 8 steps, each step cut into chunks of one thread block
-  (``step_plan``);
-- ``t5`` (:85) ``x @ w``, [841, 64] @ [64, 252], one thread block an
-  output tile (``product_plan``);
+  (``step_grid``);
+- ``t5`` (:85) ``x @ w``, [841, 64] @ [64, 252], one thread block a
+  32 x 64 output tile (``product_plan``);
 - ``t6`` (:94) ``tanh(x)`` on [256, 256];
 - ``t7`` (:102) ``x @ w``, bf16 [841, 64] @ [64, 256], float32 result;
 - ``t8`` (:111) softmax over the last axis of [29, 29];
@@ -35,6 +35,7 @@ the kernel's launches. None of the probes lies on a serving path.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from dataclasses import dataclass
 from typing import Callable, Optional
@@ -42,7 +43,7 @@ from typing import Callable, Optional
 import torch
 
 from . import _lib
-from ._row_tile import SMS, cdiv
+from ._row_tile import cdiv
 
 TOOL = "tools/diag_mosaic_bisect.py"
 MASKED = -1e10  # t9's large negative, finite
@@ -100,43 +101,16 @@ def t14_reference(q, k):
 
 
 STEP_THREADS, STEP_VECTORS = 128, 2  # t4: threads a block, float4 a thread
-# t5: the output tiles (rows, columns) product_plan weighs, in its order of
-# preference (a warp owns 16 x 32 outputs, a thread 4 x 4); the operands'
-# depth in shared memory, in chunks (K <= 64, zeros past K)
-PRODUCT_TILES = ((32, 64), (16, 64), (32, 32), (64, 64), (16, 32))
+# t5: a block's output tile (a warp owns 16 x 32 outputs, a thread 4 x 4),
+# and the operands' depth in shared memory in chunks (K <= 64, zeros past K)
+PRODUCT_ROWS, PRODUCT_COLS = 32, 64
 PRODUCT_CHUNK, PRODUCT_CHUNKS = 32, 2
 
 
-@dataclass(frozen=True)
-class StepPlan:
-    """t4's launch (``csrc/probe_tiles.cu`` recomputes and checks it): a
-    grid of ``blocks_per_step`` x ``steps`` (``grid`` in all) blocks of
-    ``threads``, each block STEP_VECTORS float4 a thread of its step's
-    ``per_step`` floats, the last chunk of a step partial."""
-
-    steps: int
-    per_step: int
-    blocks_per_step: int
-    grid: int
-    threads: int
-    smem = 0  # bytes of shared memory a block: none
-
-    def ints(self) -> tuple:
-        return (self.blocks_per_step, self.grid, self.threads)
-
-    def chunks(self) -> list:
-        """(step, first float, floats) of each block, by block index."""
-        chunk = self.threads * STEP_VECTORS * 4
-        out = []
-        for x in range(self.grid):
-            step, c = divmod(x, self.blocks_per_step)
-            out.append((step, c * chunk, min(chunk, self.per_step - c * chunk)))
-        return out
-
-
-def step_plan(steps: int, per_step: int) -> StepPlan:
-    per = cdiv(per_step, STEP_THREADS * STEP_VECTORS * 4)
-    return StepPlan(steps, per_step, per, steps * per, STEP_THREADS)
+def step_grid(steps: int, per_step: int) -> int:
+    """t4's blocks, as ``dstt_probe_t4`` sizes its grid: chunks of
+    STEP_THREADS x STEP_VECTORS float4 of each step, the last one partial."""
+    return steps * cdiv(per_step, STEP_THREADS * STEP_VECTORS * 4)
 
 
 @dataclass(frozen=True)
@@ -149,12 +123,10 @@ class ProductPlan:
 
     m: int
     n: int
-    k: int
-    rows: int
-    cols: int
-    threads: int
     grid: int
-    smem: int
+    rows, cols = PRODUCT_ROWS, PRODUCT_COLS
+    threads = PRODUCT_ROWS * PRODUCT_COLS // 16
+    smem = 4 * PRODUCT_CHUNKS * (PRODUCT_ROWS * (PRODUCT_CHUNK + 4) + PRODUCT_CHUNK * PRODUCT_COLS)
 
     def ints(self) -> tuple:
         return (self.rows, self.cols, self.threads, self.grid, self.smem)
@@ -171,41 +143,37 @@ class ProductPlan:
 
 
 def product_plan(m: int, n: int, k: int) -> ProductPlan:
-    """Of PRODUCT_TILES, the one whose busiest SM computes the fewest
-    outputs (ceil(blocks / 132) x rows x cols), then the one that loads the
-    fewest floats (blocks x (rows + cols) x k), then the first."""
     depth = PRODUCT_CHUNK * PRODUCT_CHUNKS
     if k > depth:
         raise ValueError(f"t5: the kernel takes a depth up to {depth}, got {k}")
-    best, best_cost = None, None
-    for rows, cols in PRODUCT_TILES:
-        grid = cdiv(m, rows) * cdiv(n, cols)
-        smem = 4 * PRODUCT_CHUNKS * (rows * (PRODUCT_CHUNK + 4) + PRODUCT_CHUNK * cols)
-        cost = (cdiv(grid, SMS) * rows * cols, grid * (rows + cols))
-        if best is None or cost < best_cost:
-            best = ProductPlan(m, n, k, rows, cols, rows * cols // 16, grid, smem)
-            best_cost = cost
-    return best
+    return ProductPlan(m, n, cdiv(m, PRODUCT_ROWS) * cdiv(n, PRODUCT_COLS))
+
+
+@functools.cache
+def _launch_args(name: str) -> tuple:
+    """Probe ``name``'s launch sizes, then its launch plan's ints (a ctypes
+    array) and their count where it has a plan: made once, since a probe's
+    shapes are fixed."""
+    probe = PROBES[name]
+    sizes = probe.sizes(probe.out_shape, *probe.inputs.values())
+    if probe.plan is None:
+        return sizes
+    ints = probe.plan(*sizes).ints()
+    return (*sizes, (ctypes.c_int * len(ints))(*ints), len(ints))
 
 
 def _run(name: str, reference: Callable, inputs: dict) -> torch.Tensor:
     """Check ``inputs`` against probe ``name``; CPU: ``reference``; CUDA:
     the kernel ``dstt_probe_<name>`` with the pointers of the inputs and the
-    output, then the probe's launch sizes, then its launch plan's ints and
-    their count where it has a plan."""
+    output, then ``_launch_args``."""
     probe = PROBES[name]
     device = _lib.check_inputs(name, inputs, probe.inputs, probe.dtype)
     if device.type == "cpu":
         return reference(*inputs.values())
     lib = _lib.build()
     out = torch.empty(probe.out_shape, device=device, dtype=torch.float32)
-    sizes = probe.sizes(probe.out_shape, *probe.inputs.values())
-    plan = ()
-    if probe.plan is not None:
-        ints = probe.plan(*sizes).ints()
-        plan = ((ctypes.c_int * len(ints))(*ints), len(ints))
     rc = getattr(lib, f"dstt_probe_{name}")(
-        *(t.data_ptr() for t in inputs.values()), out.data_ptr(), *sizes, *plan,
+        *(t.data_ptr() for t in inputs.values()), out.data_ptr(), *_launch_args(name),
         _lib.stream_handle(device))
     _lib.check_rc(f"probe {name}", rc)
     _lib.LAUNCHES[f"probe_{name}"] += 1
@@ -332,8 +300,7 @@ PROBES = {
                 math.prod(_SQUARE), 0.0),
     "t2": Probe(t2, t2_reference, dict(x=_PAIR), _PAIR, _elements, 55, math.prod(_PAIR), 0.0),
     "t3": Probe(t3, t3_reference, dict(x=_GRID), _GRID, _elements, 63, math.prod(_GRID), 0.0),
-    "t4": Probe(t4, t4_reference, dict(x=_GRID), _GRID, _grid, 71, math.prod(_GRID), 0.0,
-                plan=step_plan),
+    "t4": Probe(t4, t4_reference, dict(x=_GRID), _GRID, _grid, 71, math.prod(_GRID), 0.0),
     "t5": Probe(t5, t5_reference, dict(x=(841, 64), w=(64, 252)), (841, 252), _product, 85,
                 2 * 841 * 64 * 252, 1e-4, plan=product_plan),
     "t6": Probe(t6, t6_reference, dict(x=_SQUARE), _SQUARE, _elements, 94,

@@ -26,6 +26,7 @@ these plain versions there.
 """
 
 import importlib.util
+import json
 import os
 import sys
 from types import SimpleNamespace
@@ -40,7 +41,7 @@ from jax.experimental.pallas import tpu as pltpu
 
 from diffspectra_tpu_torch.ops import LAUNCHES, probes
 from diffspectra_tpu_torch.ops.probes import PROBES
-from diffspectra_tpu_torch.tools import diag_probes
+from diffspectra_tpu_torch.tools import diag_probes, probe_calls
 
 torch.set_num_threads(2)
 
@@ -156,3 +157,16 @@ def test_run_probes_raises_without_cuda(monkeypatch):
         diag_probes.run_probes()
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         diag_probes.main([])
+
+
+def test_probe_calls_times_the_wrappers_on_the_cpu(capsys):
+    """The per-call timing tool on the CPU: the wrappers (plain versions)
+    timed, the C entries not measured, one line a probe and a JSON line."""
+    assert probe_calls.main(["--device", "cpu", "--calls", "2", "--rounds", "2",
+                             "--probes", "t4,t5"]) == 0
+    lines = capsys.readouterr().out.splitlines()
+    assert [line.split(":")[0] for line in lines[:2]] == ["[probe_calls] t4", "[probe_calls] t5"]
+    assert all(line.endswith("C entry not measured") for line in lines[:2])
+    rows = json.loads(lines[2])["probes"]
+    assert list(rows) == ["t4", "t5"]
+    assert all(set(row) == {"wrapper"} and row["wrapper"]["median_us"] > 0 for row in rows.values())

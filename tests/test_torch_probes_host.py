@@ -1,19 +1,20 @@
 """``csrc/probe_tiles.cu`` (the probe kernels t4 and t5) itself, run on the
-CPU, and the launch plans of ``ops/probes.py`` that its C entries re-check.
+CPU, and t5's launch plan of ``ops/probes.py`` that its C entry re-checks.
 
 The source is compiled with the host C++ compiler against the stand-in for
 the CUDA runtime of ``tests/test_torch_block_host.py`` (a block's threads
 as ``std::thread``s, ``__syncthreads`` a barrier, NaN-filled shared memory
 that must not be written past the launch's size, ``cp.async`` copies
 landing only at their wait). Its ``dstt_probe_t4`` and ``dstt_probe_t5``
-are called through ``ctypes`` on CPU tensors with the wrapper's launch plan
-and held against the plain versions: t4 exactly, t5 within 1e-4 (the
+are called through ``ctypes`` on CPU tensors as the wrapper calls them (t5
+with its launch plan) and held against the plain versions: t4 exactly, t5 within 1e-4 (the
 probe's tolerance; its sums run along K in another order than the CPU's),
 at the probe shapes and at ragged ones (t4: 1 or 8 steps whose last chunk
 ends mid-block; t5: M in {1, 9, 841}, N in {4, 60, 252}, K in {4, 52, 64}).
 Each output is followed by NaN floats that must stay untouched. A wrong
-plan, a size that is not a multiple of 4 floats and a misaligned pointer
-are each refused with their error code and nothing written.
+plan, a size that is not positive or not a multiple of 4 floats and a
+misaligned pointer are each refused with their error code and nothing
+written. t4 run in place shows its grid covering each float once.
 
 This checks the kernels' tiling, masks and copies, not the card's
 arithmetic or speed; ``chip_smoke.py`` does that on the H100.
@@ -27,9 +28,8 @@ import torch
 
 from diffspectra_tpu_torch.ops import _lib
 from diffspectra_tpu_torch.ops._row_tile import MAX_SMEM, SMS
-from diffspectra_tpu_torch.ops.probes import (PRODUCT_CHUNK, PRODUCT_CHUNKS, PRODUCT_TILES, PROBES,
-                                              STEP_VECTORS, product_plan, step_plan, t4_reference,
-                                              t5_reference)
+from diffspectra_tpu_torch.ops.probes import (PRODUCT_CHUNK, PRODUCT_CHUNKS, PROBES, STEP_THREADS,
+                                              product_plan, step_grid, t4_reference, t5_reference)
 from diffspectra_tpu_torch.tools.diag_probes import probe_inputs
 from test_torch_block_host import build_host_lib
 
@@ -51,15 +51,14 @@ def _plan_args(ints, bump=None):
     return (ctypes.c_int * len(ints))(*ints), len(ints)
 
 
-def _t4(lib, x, bump=None, shift=(0, 0)):
+def _t4(lib, x, shift=(0, 0)):
     """dstt_probe_t4 on x [steps, per_step] into a NaN buffer with a guard
     (and room for an output pointer ``shift`` floats on); returns the code,
     the output and the guard."""
     steps, per_step = x.shape
     buf = torch.full((steps * per_step + GUARD + 4,), float("nan"))
     ptrs = [t.data_ptr() + 4 * s for t, s in zip((x, buf), shift)]
-    plan = _plan_args(step_plan(steps, per_step).ints(), bump)
-    rc = lib.dstt_probe_t4(*ptrs, steps, per_step, *plan, None)
+    rc = lib.dstt_probe_t4(*ptrs, steps, per_step, None)
     return rc, buf[:steps * per_step].view(steps, per_step), buf[steps * per_step:]
 
 
@@ -119,21 +118,20 @@ def test_t5_source_on_ragged_shapes_matches_the_plain_version(lib, m, n, k):
                                atol=PROBES["t5"].atol)
 
 
-T4_REFUSALS = {  # name: (steps, per_step, plan index bumped, pointer shifts, code)
-    "plan_blocks_per_step": (8, 1028, 0, (0, 0), INVALID_VALUE),
-    "plan_grid": (8, 1028, 1, (0, 0), INVALID_VALUE),
-    "plan_threads": (8, 1028, 2, (0, 0), INVALID_VALUE),
-    "per_step_not_a_multiple_of_4": (8, 1030, None, (0, 0), INVALID_VALUE),
-    "x_misaligned": (8, 1028, None, (1, 0), MISALIGNED),
-    "out_misaligned": (8, 1028, None, (0, 1), MISALIGNED),
+T4_REFUSALS = {  # name: (steps, per_step, pointer shifts, code)
+    "no_steps": (0, 1028, (0, 0), INVALID_VALUE),
+    "empty_steps": (8, 0, (0, 0), INVALID_VALUE),
+    "per_step_not_a_multiple_of_4": (8, 1030, (0, 0), INVALID_VALUE),
+    "x_misaligned": (8, 1028, (1, 0), MISALIGNED),
+    "out_misaligned": (8, 1028, (0, 1), MISALIGNED),
 }
 
 
 @pytest.mark.parametrize("case", sorted(T4_REFUSALS))
 def test_t4_source_refuses_with_nothing_written(lib, case):
-    steps, per_step, bump, shift, code = T4_REFUSALS[case]
+    steps, per_step, shift, code = T4_REFUSALS[case]
     x = _normal(0, steps * per_step + 4)  # room for a shifted pointer
-    rc, got, guard = _t4(lib, x[:steps * per_step].view(steps, per_step), bump, shift)
+    rc, got, guard = _t4(lib, x[:steps * per_step].view(steps, per_step), shift)
     assert rc == code
     assert torch.isnan(got).all() and torch.isnan(guard).all()
 
@@ -144,6 +142,7 @@ T5_REFUSALS = {  # name: (m, n, k, plan index bumped, pointer shifts, code)
     "plan_threads": (841, 252, 64, 2, (0, 0, 0), INVALID_VALUE),
     "plan_grid": (841, 252, 64, 3, (0, 0, 0), INVALID_VALUE),
     "plan_smem": (841, 252, 64, 4, (0, 0, 0), INVALID_VALUE),
+    "no_rows": (0, 60, 64, None, (0, 0, 0), INVALID_VALUE),
     "n_not_a_multiple_of_4": (9, 6, 64, None, (0, 0, 0), INVALID_VALUE),
     "k_not_a_multiple_of_4": (9, 60, 6, None, (0, 0, 0), INVALID_VALUE),
     "k_over_64": (9, 60, 68, None, (0, 0, 0), INVALID_VALUE),
@@ -164,14 +163,15 @@ def test_t5_source_refuses_with_nothing_written(lib, case):
 
 @pytest.mark.parametrize("steps,per_step", [(8, 29 * 29 * 64), (1, 4), (8, 1020), (3, 3076),
                                             (16, 1024)])
-def test_step_plan_covers_each_float_once_in_one_wave(steps, per_step):
-    plan = step_plan(steps, per_step)
-    seen = np.zeros((steps, per_step), np.int64)
-    for step, first, count in plan.chunks():
-        assert 0 < count <= plan.threads * STEP_VECTORS * 4
-        seen[step, first:first + count] += 1
-    assert (seen == 1).all()
-    assert plan.threads % 32 == 0 and plan.grid <= SMS * (THREADS_PER_SM // plan.threads)
+def test_step_plan_covers_each_float_once_in_one_wave(lib, steps, per_step):
+    # in place, one block after another: a float that two blocks cover comes
+    # out x + 2, one that none covers x
+    x = _normal(steps + per_step, steps, per_step)
+    want = t4_reference(x)
+    assert lib.dstt_probe_t4(x.data_ptr(), x.data_ptr(), steps, per_step, None) == 0
+    torch.testing.assert_close(x, want, rtol=0, atol=0)
+    assert STEP_THREADS % 32 == 0
+    assert step_grid(steps, per_step) <= SMS * (THREADS_PER_SM // STEP_THREADS)
 
 
 @pytest.mark.parametrize("m,n,k", [(841, 252, 64), (1, 4, 4), (9, 60, 64), (841, 4, 4),
@@ -187,9 +187,6 @@ def test_product_plan_covers_each_output_once_and_fits(m, n, k):
     assert plan.smem == 4 * depth * (plan.rows + plan.cols) + 16 * PRODUCT_CHUNKS * plan.rows
     assert plan.smem <= 48 * 1024 <= MAX_SMEM  # no opt-in to more shared memory needed
     assert plan.threads == plan.rows * plan.cols // 16 and plan.threads % 32 == 0
-    # no other tile gives the busiest SM fewer outputs
-    busiest = lambda r, c: -(-(-(-m // r) * -(-n // c)) // SMS) * r * c
-    assert all(busiest(plan.rows, plan.cols) <= busiest(r, c) for r, c in PRODUCT_TILES)
 
 
 def test_product_plan_at_the_probe_shape_is_one_wave():
