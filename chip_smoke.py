@@ -22,10 +22,10 @@ Phases, each printing its own lines:
      version on cuda; then each probe kernel against its plain version on
      cuda, with the kernel's, the plain version's, the library call's and
      the bound's times (CUDA events over 200 calls, and the kernel's and
-     the library call's device time from the profiler); for t4 and t5
-     (``csrc/probe_tiles.cu``) also the launch shape, the device time with
-     L2 cold, the kernel's device time over the library call's, and the
-     bound's share of it;
+     the library call's device time from the profiler); for t3, t4, t5 and
+     t12 (``csrc/probe_tiles.cu``) also the launch shape, the device time
+     with L2 cold, the kernel's device time over the library call's, the
+     bound's share of it and the rate it reaches;
   4. full-width DMT forwards from ``artifacts/warm_qm9s_as.npz`` on cuda
      (kernels) against the same models on the CPU (plain versions), for
      ``pallas_ops=('attn','equi')`` and ``('block',)``, and the two cuda
@@ -83,7 +83,8 @@ FORWARD_RTOL = 1e-3  # of the largest |value|: 8 blocks sum in another order
 PATHS = {"attn_equi": ("attn", "equi"), "block": ("block",)}
 PATH_KERNELS = {"attn_equi": ("mix_attention", "equi_update"), "block": ("block_fused",)}
 # the probes of csrc/probe_tiles.cu, by the profiler's kernel names
-PROBE_TILE_KERNELS = {"t4": "grid_step_kernel", "t5": "tile_product_kernel"}
+PROBE_TILE_KERNELS = {"t3": "grid_step_kernel", "t4": "grid_step_kernel",
+                      "t5": "tile_product_kernel", "t12": "stage_kernel"}
 
 
 def say(*parts):
@@ -487,17 +488,25 @@ def phase_probes(dev):
 
 
 def probe_tile_extras(name, p, call, row, dev):
-    """A probe kernel of ``csrc/probe_tiles.cu`` (t4, t5): its launch
-    shape (t4's grid, t5's launch plan), its device time with L2 cold
-    (FLUSH_BYTES written before each call; profiler), its warm device time
-    over the library call's, the bound's share of it, and the rate it
-    reaches warm: bytes for t4, f32 operations for t5."""
-    from diffspectra_tpu_torch.ops.probes import STEP_THREADS, step_grid
+    """A probe kernel of ``csrc/probe_tiles.cu`` (t3, t4, t5, t12): its
+    launch shape (t3's and t4's grid of chunks, t5's launch plan, t12's
+    staging tiles), its device time with L2 cold (FLUSH_BYTES written
+    before each call; profiler), its warm device time over the library
+    call's, the bound's share of it, and the rate it reaches warm: bytes for
+    t3, t4 and t12, f32 operations for t5."""
+    from diffspectra_tpu_torch.ops.probes import (STAGE_THREADS, STAGE_VECTORS, STEP_THREADS,
+                                                  stage_grid, step_grid)
 
     sizes = p.sizes(p.out_shape, *p.inputs.values())
-    if p.plan is None:  # t4
-        blocks, threads, smem, tile = step_grid(*sizes), STEP_THREADS, 0, ""
-    else:
+    tile = ""
+    if name == "t3":  # the whole array as one step
+        blocks, threads, smem = step_grid(1, *sizes), STEP_THREADS, 0
+    elif name == "t4":
+        blocks, threads, smem = step_grid(*sizes), STEP_THREADS, 0
+    elif name == "t12":
+        blocks, threads = stage_grid(*sizes), STAGE_THREADS
+        smem = 16 * STAGE_THREADS * STAGE_VECTORS  # the block's float4
+    else:  # t5
         plan = p.plan(*sizes)
         blocks, threads, smem = plan.grid, plan.threads, plan.smem
         tile = f" (tiles of {plan.rows} x {plan.cols})"
@@ -507,7 +516,7 @@ def probe_tile_extras(name, p, call, row, dev):
     warm, library = row["device_ms"], row["library_device_ms"]
     ratio = None if warm is None or library is None else warm / library
     share = None if warm is None else row["bound_ms"] / warm
-    work, unit = (p.nbytes, "TB/s") if name == "t4" else (p.flops, "TFLOP/s")
+    work, unit = (p.flops, "TFLOP/s") if name == "t5" else (p.nbytes, "TB/s")
     rate = None if warm is None else work / (warm * 1e-3) / 1e12
     say(f"[probes] {name}: plan {blocks} blocks of {threads} threads{tile}, {smem} "
         f"bytes of shared memory; device time {ms_or_none(warm)} warm, {ms_or_none(cold_ms)} with "

@@ -1,21 +1,40 @@
-// The Mosaic probes t4 and t5 of tools/diag_mosaic_bisect.py, redesigned
-// for Hopper (sm_90a), f32. The other twelve probes are in probes.cu.
+// The Mosaic probes t3, t4, t5 and t12 of tools/diag_mosaic_bisect.py,
+// redesigned for Hopper (sm_90a), f32. The other ten probes are in probes.cu.
 //
-// t4 (tools/diag_mosaic_bisect.py:71): x + 1 on [8, 29, 29, 64] over a
-// grid of 8 steps, each step finding its slice x[b] from its grid index, as
-// the BlockSpec (1, 29, 29, 64) cut it on the TPU.
-//   What bounds it: 1.72 MB in and 1.72 MB out, 1.03 us at 3.35 TB/s; at
-//   this size the ramp and tail of one wave of blocks weigh as much.
-//   What the design does: the grid stays one over the steps (grid.y), but
-//   each step is cut into chunks of 128 threads x 2 float4 (grid.x: 53
-//   blocks a step at the probe's 53,824 floats, 424 in all), so that the
-//   whole grid is one wave over the 132 SMs with every SM's loads in flight
-//   at once, 16 bytes a load; each step's last chunk is masked. A block
-//   reads its step and chunk from blockIdx without a division (on the card
-//   a flat grid that divided blockIdx.x was slower, PERF.md). The launcher
-//   sizes the grid itself from the steps and the floats a step. A step's
-//   floats must be a multiple of 4 and both pointers 16-byte aligned (no
-//   scalar path).
+// t3 (tools/diag_mosaic_bisect.py:63) and t4 (:71): x + 1 on [8, 29, 29,
+// 64]; t4 over a grid of 8 steps, each step finding its slice x[b] from its
+// grid index, as the BlockSpec (1, 29, 29, 64) cut it on the TPU, t3 on the
+// whole array at once.
+//   What bounds them: 1.72 MB in and 1.72 MB out, 1.03 us at 3.35 TB/s; at
+//   this size the ramp and tail of one wave of blocks weigh as much, and a
+//   launch of a few us is the real floor.
+//   What the design does: one kernel for both. The grid stays one over the
+//   steps (grid.y: 8 for t4, 1 for t3, whose array is one step), but each
+//   step is cut into chunks of 128 threads x 2 float4 (grid.x: 53 blocks a
+//   step at t4's 53,824 floats, 424 in all; 421 at t3's 430,592), so that
+//   the whole grid is one wave over the 132 SMs with every SM's loads in
+//   flight at once, 16 bytes a load; each step's last chunk is masked. A
+//   block reads its step and chunk from blockIdx without a division (on
+//   the card a flat grid that divided blockIdx.x was slower, PERF.md). The
+//   launcher sizes the grid itself from the steps and the floats a step. A
+//   step's floats must be a multiple of 4 and both pointers 16-byte aligned
+//   (no scalar path).
+//
+// t12 (tools/diag_mosaic_bisect.py:144): scratch = 2x in a VMEM scratch
+// buffer, out = scratch + 1, on [256, 256].
+//   What bounds it: 0.26 MB in and 0.26 MB out, 0.16 us at 3.35 TB/s; the
+//   launch of a few us sets the time.
+//   What the design does: the probe's feature is the scratch, so the values
+//   go through shared memory and come back to another warp after a
+//   barrier: a block of 128 threads takes 2 float4 a thread, both loads in
+//   flight before the first shared store (1024 floats, 4 KB of dynamic
+//   shared memory; 64 blocks at the probe's 65,536 floats, one wave), writes
+//   2x to its slots of the tile, and after the barrier each thread reads
+//   the mirrored slots (live - 1 - i, live the block's float4: thread 0
+//   reads what warp 3 wrote), adds 1 and stores them there. On the card
+//   this read 0.00117 ms against 0.00124 for one float4 a thread in 128
+//   blocks (PERF.md). 2x is exact in f32, so 2x + 1 rounds once. The floats
+//   must be a multiple of 4 and both pointers 16-byte aligned.
 //
 // t5 (tools/diag_mosaic_bisect.py:85): out[M, N] = x[M, K] @ w[K, N],
 // [841, 64] @ [64, 252].
@@ -41,8 +60,8 @@
 //   unit normals. K must be at most 64, N and K multiples of 4 and the
 //   three pointers 16-byte aligned.
 //
-// Both kernels launch through cudaLaunchKernel with one Args struct and use
-// dynamic shared memory only, so that the host test's stand-in
+// Each kernel launches through cudaLaunchKernel with one Args struct and
+// uses dynamic shared memory only, so that the host test's stand-in
 // (tests/test_torch_probes_host.py) runs this source on the CPU.
 
 #include "row_tile.cuh"
@@ -54,9 +73,13 @@ using dstt::cp_async_commit;
 using dstt::cp_async_wait;
 using dstt::rows::cdiv;
 
-constexpr int kStepThreads = 128;                               // t4: threads a block
-constexpr int kStepVectors = 2;                                 // t4: float4 a thread
-constexpr int kStepChunk = kStepThreads * kStepVectors * 4;     // t4: floats a block
+constexpr int kStepThreads = 128;                               // t3, t4: threads a block
+constexpr int kStepVectors = 2;                                 // t3, t4: float4 a thread
+constexpr int kStepChunk = kStepThreads * kStepVectors * 4;     // t3, t4: floats a block
+constexpr int kStageThreads = 128;                              // t12: threads a block
+constexpr int kStageVectors = 2;                                // t12: float4 a thread
+constexpr int kStageSlots = kStageThreads * kStageVectors;      // t12: float4 a block
+constexpr int kStageSmem = 16 * kStageSlots;                    // t12: shared bytes a block
 constexpr int kWarpRows = 16, kWarpCols = 32;                   // t5: a warp's outputs
 constexpr int kTileRows = 32, kTileCols = 64;                   // t5: a block's outputs
 constexpr int kProductThreads = kTileRows * kTileCols / 16;     // t5: 4 x 4 outputs a thread
@@ -70,16 +93,16 @@ constexpr int kLdx = kKc + 4;
 // t5: shared bytes a block, x [kChunks][kTileRows][kLdx] and w [kMaxDepth][kTileCols]
 constexpr int kProductSmem = 4 * kChunks * (kTileRows * kLdx + kKc * kTileCols);
 
-// Both kernels' arguments.
+// Every kernel's arguments.
 struct Args {
-  const float* x;  // t4: [steps, per_step]; t5: [m, k]
+  const float* x;  // t3, t4, t12: [steps, per_step]; t5: [m, k]
   const float* w;  // t5: [k, n]
   float* out;
-  int per_step;                   // t4
+  int per_step;                   // t3, t4, t12 (t3, t12: one step, the whole array)
   int m, n, k, col_tiles;         // t5
 };
 
-// t4: block (chunk, step) = blockIdx (x, y).
+// t3, t4: block (chunk, step) = blockIdx (x, y).
 __global__ void __launch_bounds__(kStepThreads) grid_step_kernel(Args a) {
   const float4* x = reinterpret_cast<const float4*>(a.x + (size_t)blockIdx.y * a.per_step);
   float4* out = reinterpret_cast<float4*>(a.out + (size_t)blockIdx.y * a.per_step);
@@ -95,6 +118,37 @@ __global__ void __launch_bounds__(kStepThreads) grid_step_kernel(Args a) {
   for (int e = 0; e < kStepVectors; ++e) {
     const int i = first + e * kStepThreads;
     if (i < n4) out[i] = make_float4(v[e].x + 1.0f, v[e].y + 1.0f, v[e].z + 1.0f, v[e].w + 1.0f);
+  }
+}
+
+// t12: block b stages float4 256 b ... 256 b + 255 (its last block fewer);
+// thread t the slots i = t and t + 128.
+__global__ void __launch_bounds__(kStageThreads) stage_kernel(Args a) {
+  extern __shared__ __align__(16) float smem[];
+  float4* tile = reinterpret_cast<float4*>(smem);  // [kStageSlots]: 2x
+  const int first = blockIdx.x * kStageSlots;      // the block's first float4
+  const int live = min(kStageSlots, a.per_step / 4 - first);
+  float4 v[kStageVectors];
+#pragma unroll
+  for (int e = 0; e < kStageVectors; ++e) {  // every load in flight before the first store
+    const int i = threadIdx.x + e * kStageThreads;
+    if (i < live) v[e] = reinterpret_cast<const float4*>(a.x)[first + i];
+  }
+#pragma unroll
+  for (int e = 0; e < kStageVectors; ++e) {
+    const int i = threadIdx.x + e * kStageThreads;
+    if (i < live) tile[i] = make_float4(2.0f * v[e].x, 2.0f * v[e].y, 2.0f * v[e].z, 2.0f * v[e].w);
+  }
+  __syncthreads();
+#pragma unroll
+  for (int e = 0; e < kStageVectors; ++e) {  // the mirrored slot, which another warp wrote
+    const int i = threadIdx.x + e * kStageThreads;
+    if (i < live) {
+      const int j = live - 1 - i;
+      const float4 s = tile[j];
+      reinterpret_cast<float4*>(a.out)[first + j] =
+          make_float4(s.x + 1.0f, s.y + 1.0f, s.z + 1.0f, s.w + 1.0f);
+    }
   }
 }
 
@@ -214,10 +268,11 @@ cudaError_t launch(const void* kernel, dim3 grid, int threads, int smem, Args& a
 
 // Each launches on `stream` and returns the first CUDA error, so that a
 // refused launch is seen at once: cudaErrorInvalidValue for a size that is
-// not positive, a step or a row that is not a multiple of 4 floats, a t5
-// depth over 64, or a t5 plan (`plan`, `n_plan` ints) other than this source's own;
-// cudaErrorMisalignedAddress for a pointer not 16-byte aligned. Nothing is
-// launched then. The caller checked shapes, types and contiguity.
+// not positive, an array, a step or a row that is not a multiple of 4
+// floats, a t5 depth over 64, or a t5 plan (`plan`, `n_plan` ints) other
+// than this source's own; cudaErrorMisalignedAddress for a pointer not
+// 16-byte aligned. Nothing is launched then. The caller checked shapes,
+// types and contiguity.
 extern "C" {
 
 int dstt_probe_t4(const float* x, float* out, int steps, int per_step, void* stream) {
@@ -226,6 +281,10 @@ int dstt_probe_t4(const float* x, float* out, int steps, int per_step, void* str
   Args a{x, nullptr, out, per_step, 0, 0, 0, 0};
   const dim3 grid(cdiv(per_step, kStepChunk), steps);
   return (int)launch((const void*)grid_step_kernel, grid, kStepThreads, 0, a, stream);
+}
+
+int dstt_probe_t3(const float* x, float* out, int n, void* stream) {
+  return dstt_probe_t4(x, out, 1, n, stream);  // the whole array as one step
 }
 
 int dstt_probe_t5(const float* x, const float* w, float* out, int m, int n, int k,
@@ -240,6 +299,14 @@ int dstt_probe_t5(const float* x, const float* w, float* out, int m, int n, int 
   Args a{x, w, out, 0, m, n, k, cdiv(n, p.cols)};
   return (int)launch((const void*)tile_product_kernel, dim3(p.grid), p.threads, p.smem, a,
                      stream);
+}
+
+int dstt_probe_t12(const float* x, float* out, int n, void* stream) {
+  if (n <= 0 || n % 4 != 0) return (int)cudaErrorInvalidValue;
+  if (misaligned(x) || misaligned(out)) return (int)cudaErrorMisalignedAddress;
+  Args a{x, nullptr, out, n, 0, 0, 0, 0};
+  return (int)launch((const void*)stage_kernel, dim3(cdiv(n, 4 * kStageSlots)), kStageThreads,
+                     kStageSmem, a, stream);
 }
 
 }  // extern "C"

@@ -1,16 +1,16 @@
-// Twelve of the Mosaic probes t1 ... t14 of tools/diag_mosaic_bisect.py, for
-// Hopper (sm_90a). f32 unless marked. t4 and t5, redesigned for this card,
-// are in probe_tiles.cu.
+// Ten of the Mosaic probes t1 ... t14 of tools/diag_mosaic_bisect.py, for
+// Hopper (sm_90a). f32 unless marked. t3, t4, t5 and t12, redesigned for
+// this card, are in probe_tiles.cu.
 //
-// Replaces twelve of the fourteen TPU kernels of that tool (functions t1 ...
-// t14 but t4 and t5, one pl.pallas_call each). The tool bisects which Pallas/Mosaic feature a TPU
-// compile refuses, one feature a probe: unaligned and high-rank shapes, a
-// grid, 2-D products (f32 and bf16), tanh, a softmax, a masked large
-// negative, a reshape and segment sum, a VMEM scratch. Each kernel here
-// computes what its probe computes, at the probe's shapes, and exercises the
-// counterpart feature of this card: masked ragged edges (29 and 841 are no
-// multiples of the warp or the tile), a thread block per grid step, shared
-// memory tiles, warp shuffles and, for t7, the bf16 tensor cores.
+// Replaces ten of the fourteen TPU kernels of that tool (functions t1 ...
+// t14 but t3, t4, t5 and t12, one pl.pallas_call each). The tool bisects
+// which Pallas/Mosaic feature a TPU compile refuses, one feature a probe:
+// unaligned and high-rank shapes, 2-D products (f32 and bf16), tanh, a
+// softmax, a masked large negative, a reshape and segment sum. Each kernel
+// here computes what its probe computes, at the probe's shapes, and
+// exercises the counterpart feature of this card: masked ragged edges (29
+// and 841 are no multiples of the warp or the tile), shared memory tiles,
+// warp shuffles and, for t7, the bf16 tensor cores.
 //
 // What bounds them on this card. Each probe moves 7 KB to 3.4 MB, so the
 // bound is 2 ns to 1 us: bytes / 3.35 TB/s. A launch costs a few
@@ -21,10 +21,8 @@
 // on any serving path.
 //
 //   t1, t2, t11  x * 2                     map_kernel<Times2>
-//   t3           x + 1                     map_kernel<PlusOne>
 //   t6           tanh(x)                   map_kernel<Tanh>
 //   t9           m > 0 ? x : -1e10         mask_kernel
-//   t12          s = 2x (shared); s + 1    stage_kernel (the VMEM scratch)
 //   t8           softmax over the last axis, one warp per row
 //   t10          [841,252] -> [29,29,14,18].sum(-1), one thread per output
 //   t14          q k^T, one warp per output, shuffle sum over the depth
@@ -41,7 +39,6 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kMaxBlocks = 4096;     // map kernels loop past this many blocks
-constexpr int kStageTile = 2048;     // floats a block stages (8 rows of 256)
 constexpr int kTile = 16;            // f32 product tile
 constexpr int kMmaTile = 64;         // bf16 product: rows, columns and depth a block
 constexpr int kMmaPad = 8;           // bf16 of padding a shared row (no bank conflicts)
@@ -49,9 +46,6 @@ constexpr int kChunks = kMmaTile * kMmaTile / 8 / 128;  // 16-byte loads a threa
 
 struct Times2 {
   __device__ float operator()(float x) const { return x * 2.0f; }
-};
-struct PlusOne {
-  __device__ float operator()(float x) const { return x + 1.0f; }
 };
 struct Tanh {
   __device__ float operator()(float x) const { return tanhf(x); }
@@ -70,21 +64,6 @@ __global__ void mask_kernel(const float* __restrict__ x, const float* __restrict
                             float* __restrict__ out, int n) {
   for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n; i += gridDim.x * blockDim.x) {
     out[i] = m[i] > 0.0f ? x[i] : -1e10f;
-  }
-}
-
-// t12: the block's tile is written to shared memory (2x), and after the
-// barrier each thread reads back elements that another thread wrote (the
-// mirrored index), so the result rests on the staging and the barrier.
-__global__ void stage_kernel(const float* __restrict__ x, float* __restrict__ out, int n) {
-  __shared__ float scratch[kStageTile];
-  const size_t base = (size_t)blockIdx.x * kStageTile;
-  const int len = min(kStageTile, (int)(n - base));
-  for (int i = threadIdx.x; i < len; i += blockDim.x) scratch[i] = x[base + i] * 2.0f;
-  __syncthreads();
-  for (int i = threadIdx.x; i < len; i += blockDim.x) {
-    const int j = len - 1 - i;
-    out[base + j] = scratch[j] + 1.0f;
   }
 }
 
@@ -258,9 +237,10 @@ int launch_map(const float* x, float* out, int n, Op op, void* stream) {
 
 }  // namespace
 
-// One launcher a probe (t4 and t5: probe_tiles.cu). Each launches on `stream` and returns
-// cudaGetLastError(), so that a refused launch is seen at once; the caller
-// checked shapes, types and contiguity. Sizes are element counts.
+// One launcher a probe (t3, t4, t5 and t12: probe_tiles.cu). Each launches
+// on `stream` and returns cudaGetLastError(), so that a refused launch is
+// seen at once; the caller checked shapes, types and contiguity. Sizes are
+// element counts.
 extern "C" {
 
 int dstt_probe_t1(const float* x, float* out, int n, void* stream) {
@@ -269,10 +249,6 @@ int dstt_probe_t1(const float* x, float* out, int n, void* stream) {
 
 int dstt_probe_t2(const float* x, float* out, int n, void* stream) {
   return launch_map(x, out, n, Times2{}, stream);
-}
-
-int dstt_probe_t3(const float* x, float* out, int n, void* stream) {
-  return launch_map(x, out, n, PlusOne{}, stream);
 }
 
 int dstt_probe_t6(const float* x, float* out, int n, void* stream) {
@@ -313,13 +289,6 @@ int dstt_probe_t10(const float* x, float* out, int n_out, int seg, void* stream)
 
 int dstt_probe_t11(const float* x, float* out, int n, void* stream) {
   return launch_map(x, out, n, Times2{}, stream);
-}
-
-int dstt_probe_t12(const float* x, float* out, int n, void* stream) {
-  if (n <= 0) return (int)cudaErrorInvalidValue;
-  stage_kernel<<<(n + kStageTile - 1) / kStageTile, kThreads, 0, (cudaStream_t)stream>>>(
-      x, out, n);
-  return finish();
 }
 
 int dstt_probe_t13(const float* q, const float* k, float* out, int m, int n, int depth,

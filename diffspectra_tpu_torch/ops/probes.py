@@ -1,6 +1,6 @@
 """The Mosaic probes of ``tools/diag_mosaic_bisect.py`` as hand-written CUDA
-kernels (``csrc/probes.cu``; t4 and t5 in ``csrc/probe_tiles.cu``), each
-with its plain PyTorch version.
+kernels (``csrc/probes.cu``; t3, t4, t5 and t12 in ``csrc/probe_tiles.cu``),
+each with its plain PyTorch version.
 
 The JAX tool bisects which Pallas/Mosaic feature a TPU compile refuses: one
 small ``pallas_call`` a feature. Wrapper ``tN`` replaces that tool's probe
@@ -10,8 +10,8 @@ gives the line):
 - ``t1`` (:47) ``x * 2`` on [256, 256]; ``t2`` (:55) on [29, 29];
   ``t11`` (:136) on [2, 29, 29, 14, 18];
 - ``t3`` (:63) ``x + 1`` on [8, 29, 29, 64]; ``t4`` (:71) the same over a
-  grid of 8 steps, each step cut into chunks of one thread block
-  (``step_grid``);
+  grid of 8 steps; both cut each step (t3: the whole array) into chunks of
+  one thread block (``step_grid``);
 - ``t5`` (:85) ``x @ w``, [841, 64] @ [64, 252], one thread block a
   32 x 64 output tile (``product_plan``);
 - ``t6`` (:94) ``tanh(x)`` on [256, 256];
@@ -21,7 +21,8 @@ gives the line):
 - ``t10`` (:128) [841, 252] reshaped to [29, 29, 14, 18], summed over the
   last axis;
 - ``t12`` (:144) ``scratch = 2x; out = scratch + 1`` on [256, 256], staged
-  through shared memory as the TPU probe staged it through VMEM;
+  through shared memory as the TPU probe staged it through VMEM, 2 float4
+  a thread (``stage_grid``);
 - ``t13`` (:158) ``q @ k.T``, [29, 252] x 2 -> [29, 29];
 - ``t14`` (:168) ``(q[:, None, :] * k[None, :, :]).sum(-1)``, [29, 64] x 2
   -> [29, 29].
@@ -100,7 +101,8 @@ def t14_reference(q, k):
     return (q[:, None, :] * k[None, :, :]).sum(-1)
 
 
-STEP_THREADS, STEP_VECTORS = 128, 2  # t4: threads a block, float4 a thread
+STEP_THREADS, STEP_VECTORS = 128, 2  # t3, t4: threads a block, float4 a thread
+STAGE_THREADS, STAGE_VECTORS = 128, 2  # t12: threads a block, float4 a thread
 # t5: a block's output tile (a warp owns 16 x 32 outputs, a thread 4 x 4),
 # and the operands' depth in shared memory in chunks (K <= 64, zeros past K)
 PRODUCT_ROWS, PRODUCT_COLS = 32, 64
@@ -109,8 +111,15 @@ PRODUCT_CHUNK, PRODUCT_CHUNKS = 32, 2
 
 def step_grid(steps: int, per_step: int) -> int:
     """t4's blocks, as ``dstt_probe_t4`` sizes its grid: chunks of
-    STEP_THREADS x STEP_VECTORS float4 of each step, the last one partial."""
+    STEP_THREADS x STEP_VECTORS float4 of each step, the last one partial;
+    t3's with ``steps=1`` and its floats as ``per_step``."""
     return steps * cdiv(per_step, STEP_THREADS * STEP_VECTORS * 4)
+
+
+def stage_grid(n: int) -> int:
+    """t12's blocks, as ``dstt_probe_t12`` sizes its grid: tiles of
+    STAGE_THREADS x STAGE_VECTORS float4, the last one partial."""
+    return cdiv(n, STAGE_THREADS * STAGE_VECTORS * 4)
 
 
 @dataclass(frozen=True)

@@ -2,9 +2,9 @@
 
 The counterpart of ``tools/diag_mosaic_bisect.py``, which bisects which
 Pallas/Mosaic feature a TPU compile refuses. Here each probe of
-``ops/probes.py`` (a hand-written kernel in ``csrc/probes.cu``) runs on the
-device on seeded inputs at the tool's shapes, and its plain version runs on
-the CPU on the same inputs. It prints ``PASS tN``, or ``FAIL tN: <max
+``ops/probes.py`` (a hand-written kernel in ``csrc/probes.cu`` or
+``csrc/probe_tiles.cu``) runs on the device on seeded inputs at the tool's
+shapes, and its plain version runs on the CPU on the same inputs. It prints ``PASS tN``, or ``FAIL tN: <max
 error> > <tolerance>`` and goes on to the next probe. A build or launch
 error raises.
 

@@ -1,26 +1,32 @@
-"""``csrc/probe_tiles.cu`` (the probe kernels t4 and t5) itself, run on the
-CPU, and t5's launch plan of ``ops/probes.py`` that its C entry re-checks.
+"""``csrc/probe_tiles.cu`` (the probe kernels t3, t4, t5 and t12) itself, run
+on the CPU, and t5's launch plan of ``ops/probes.py`` that its C entry
+re-checks.
 
 The source is compiled with the host C++ compiler against the stand-in for
 the CUDA runtime of ``tests/test_torch_block_host.py`` (a block's threads
 as ``std::thread``s, ``__syncthreads`` a barrier, NaN-filled shared memory
 that must not be written past the launch's size, ``cp.async`` copies
-landing only at their wait). Its ``dstt_probe_t4`` and ``dstt_probe_t5``
-are called through ``ctypes`` on CPU tensors as the wrapper calls them (t5
-with its launch plan) and held against the plain versions: t4 exactly, t5 within 1e-4 (the
-probe's tolerance; its sums run along K in another order than the CPU's),
-at the probe shapes and at ragged ones (t4: 1 or 8 steps whose last chunk
-ends mid-block; t5: M in {1, 9, 841}, N in {4, 60, 252}, K in {4, 52, 64}).
-Each output is followed by NaN floats that must stay untouched. A wrong
-plan, a size that is not positive or not a multiple of 4 floats and a
-misaligned pointer are each refused with their error code and nothing
-written. t4 run in place shows its grid covering each float once.
+landing only at their wait). Its C entries ``dstt_probe_t3``, ``_t4``,
+``_t5`` and ``_t12`` are called through ``ctypes`` on CPU tensors as the
+wrapper calls them (t5 with its launch plan) and held against the plain
+versions: t3, t4 and t12 exactly, t5 within 1e-4 (the probe's tolerance;
+its sums run along K in another order than the CPU's), at the probe shapes
+and at ragged ones (t4: 1 or 8 steps whose last chunk ends mid-block; t3
+and t12: 4, 508, 516, 1020, 1028 and 2052 floats, whose last block ends
+mid-tile, and t3 at 430,592; t5: M in {1, 9, 841}, N in {4, 60, 252}, K in {4, 52, 64}).
+Since the stand-in's shared memory starts as NaN, a mirrored read of a t12
+slot that no thread wrote fails the exact comparison. Each output is
+followed by NaN floats that must stay untouched. A wrong plan, a size that
+is not positive or not a multiple of 4 floats and a misaligned pointer are
+each refused with their error code and nothing written. t3, t4 and t12 run
+in place show their grids covering each float once, in one wave.
 
 This checks the kernels' tiling, masks and copies, not the card's
 arithmetic or speed; ``chip_smoke.py`` does that on the H100.
 """
 
 import ctypes
+import math
 
 import numpy as np
 import pytest
@@ -28,8 +34,10 @@ import torch
 
 from diffspectra_tpu_torch.ops import _lib
 from diffspectra_tpu_torch.ops._row_tile import MAX_SMEM, SMS
-from diffspectra_tpu_torch.ops.probes import (PRODUCT_CHUNK, PRODUCT_CHUNKS, PROBES, STEP_THREADS,
-                                              product_plan, step_grid, t4_reference, t5_reference)
+from diffspectra_tpu_torch.ops.probes import (PRODUCT_CHUNK, PRODUCT_CHUNKS, PROBES, STAGE_THREADS,
+                                              STEP_THREADS, product_plan, stage_grid, step_grid,
+                                              t3_reference, t4_reference, t5_reference,
+                                              t12_reference)
 from diffspectra_tpu_torch.tools.diag_probes import probe_inputs
 from test_torch_block_host import build_host_lib
 
@@ -40,7 +48,8 @@ THREADS_PER_SM = 2048
 
 @pytest.fixture(scope="module")
 def lib(tmp_path_factory):
-    argtypes = {f"dstt_probe_{n}": _lib._ARGTYPES[f"dstt_probe_{n}"] for n in ("t4", "t5")}
+    argtypes = {f"dstt_probe_{n}": _lib._ARGTYPES[f"dstt_probe_{n}"]
+                for n in ("t3", "t4", "t5", "t12")}
     return build_host_lib(tmp_path_factory.mktemp("probe_tiles_host"), "probe_tiles.cu", argtypes)
 
 
@@ -60,6 +69,19 @@ def _t4(lib, x, shift=(0, 0)):
     ptrs = [t.data_ptr() + 4 * s for t, s in zip((x, buf), shift)]
     rc = lib.dstt_probe_t4(*ptrs, steps, per_step, None)
     return rc, buf[:steps * per_step].view(steps, per_step), buf[steps * per_step:]
+
+
+def _flat(lib, name, x, shift=(0, 0)):
+    """dstt_probe_<name> (t3 or t12) on x's n floats, as _t4."""
+    n = x.numel()
+    buf = torch.full((n + GUARD + 4,), float("nan"))
+    ptrs = [t.data_ptr() + 4 * s for t, s in zip((x, buf), shift)]
+    rc = getattr(lib, f"dstt_probe_{name}")(*ptrs, n, None)
+    return rc, buf[:n], buf[n:]
+
+
+FLAT_REFERENCES = {"t3": t3_reference, "t12": t12_reference}
+FLAT_GRIDS = {"t3": lambda n: step_grid(1, n), "t12": stage_grid}
 
 
 def _t5(lib, x, w, bump=None, shift=(0, 0, 0)):
@@ -91,6 +113,33 @@ def test_t5_source_at_the_probe_shape_matches_the_plain_version(lib):
     assert torch.isfinite(got).all()
     np.testing.assert_allclose(got.numpy(), t5_reference(x, w).numpy(), rtol=0,
                                atol=PROBES["t5"].atol)
+
+
+@pytest.mark.parametrize("name", sorted(FLAT_REFERENCES))
+def test_flat_source_at_the_probe_shape_equals_the_plain_version(lib, name):
+    (x,) = probe_inputs(name, seed=3)
+    rc, got, guard = _flat(lib, name, x)
+    assert rc == 0 and torch.isnan(guard).all()
+    torch.testing.assert_close(got.view(PROBES[name].out_shape), FLAT_REFERENCES[name](x),
+                               rtol=0, atol=0)
+
+
+# floats (a block of either kernel takes 1024): one float4; under half a
+# block, and just over half (the block's second float4 of a thread in part
+# or not at all); a block short by one float4 (its 255 of 256 float4, so a
+# mirrored read of slot 255 - i, never written, reads NaN); a block and one
+# float4; two blocks and one float4; t3 at its probe's size, whose last
+# block is half full
+FLAT_SIZES = [(name, n) for name in sorted(FLAT_REFERENCES)
+              for n in (4, 508, 516, 1020, 1028, 2052)]
+
+
+@pytest.mark.parametrize("name,n", FLAT_SIZES + [("t3", 8 * 29 * 29 * 64)])
+def test_flat_source_on_ragged_sizes_equals_the_plain_version(lib, name, n):
+    x = _normal(n, n)
+    rc, got, guard = _flat(lib, name, x)
+    assert rc == 0 and torch.isnan(guard).all()
+    torch.testing.assert_close(got, FLAT_REFERENCES[name](x), rtol=0, atol=0)
 
 
 # per-step floats: one float4, a chunk short by one float4, a chunk and one
@@ -136,6 +185,24 @@ def test_t4_source_refuses_with_nothing_written(lib, case):
     assert torch.isnan(got).all() and torch.isnan(guard).all()
 
 
+FLAT_REFUSALS = {  # name: (n, pointer shifts, code)
+    "empty": (0, (0, 0), INVALID_VALUE),
+    "n_not_a_multiple_of_4": (1030, (0, 0), INVALID_VALUE),
+    "x_misaligned": (1028, (1, 0), MISALIGNED),
+    "out_misaligned": (1028, (0, 1), MISALIGNED),
+}
+
+
+@pytest.mark.parametrize("case", sorted(FLAT_REFUSALS))
+@pytest.mark.parametrize("name", sorted(FLAT_REFERENCES))
+def test_flat_source_refuses_with_nothing_written(lib, name, case):
+    n, shift, code = FLAT_REFUSALS[case]
+    x = _normal(0, n + 4)  # room for a shifted pointer
+    rc, got, guard = _flat(lib, name, x[:n], shift)
+    assert rc == code
+    assert torch.isnan(got).all() and torch.isnan(guard).all()
+
+
 T5_REFUSALS = {  # name: (m, n, k, plan index bumped, pointer shifts, code)
     "plan_rows": (841, 252, 64, 0, (0, 0, 0), INVALID_VALUE),
     "plan_cols": (841, 252, 64, 1, (0, 0, 0), INVALID_VALUE),
@@ -172,6 +239,25 @@ def test_step_plan_covers_each_float_once_in_one_wave(lib, steps, per_step):
     torch.testing.assert_close(x, want, rtol=0, atol=0)
     assert STEP_THREADS % 32 == 0
     assert step_grid(steps, per_step) <= SMS * (THREADS_PER_SM // STEP_THREADS)
+
+
+@pytest.mark.parametrize("name,n", [("t3", 8 * 29 * 29 * 64), ("t12", 256 * 256)] + FLAT_SIZES)
+def test_flat_grids_cover_each_float_once_in_one_wave(lib, name, n):
+    # in place, one block after another: a float that two blocks cover comes
+    # out x + 2 (t3) or 2(2x + 1) + 1 (t12), one that none covers x
+    x = _normal(n + 1, n)
+    want = FLAT_REFERENCES[name](x)
+    assert getattr(lib, f"dstt_probe_{name}")(x.data_ptr(), x.data_ptr(), n, None) == 0
+    torch.testing.assert_close(x, want, rtol=0, atol=0)
+    assert STEP_THREADS % 32 == 0 and STAGE_THREADS % 32 == 0
+    blocks_per_sm = THREADS_PER_SM // (STEP_THREADS if name == "t3" else STAGE_THREADS)
+    assert FLAT_GRIDS[name](n) <= SMS * blocks_per_sm
+
+
+def test_flat_grids_at_the_probe_shapes():
+    # t3: 421 blocks of 128 threads; t12: 64 blocks of 128, at most one an SM
+    assert step_grid(1, math.prod(PROBES["t3"].out_shape)) == 421
+    assert stage_grid(math.prod(PROBES["t12"].out_shape)) == 64 <= SMS
 
 
 @pytest.mark.parametrize("m,n,k", [(841, 252, 64), (1, 4, 4), (9, 60, 64), (841, 4, 4),
