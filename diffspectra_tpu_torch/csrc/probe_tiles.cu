@@ -32,9 +32,9 @@
 //   2x to its slots of the tile, and after the barrier each thread reads
 //   the mirrored slots (live - 1 - i, live the block's float4: thread 0
 //   reads what warp 3 wrote), adds 1 and stores them there. On the card
-//   this read 0.00117 ms against 0.00124 for one float4 a thread in 128
-//   blocks (PERF.md). 2x is exact in f32, so 2x + 1 rounds once. The floats
-//   must be a multiple of 4 and both pointers 16-byte aligned.
+//   this ran faster than one float4 a thread in 128 blocks (PERF.md). 2x is
+//   exact in f32, so 2x + 1 rounds once. The floats must be a multiple of 4
+//   and both pointers 16-byte aligned.
 //
 // t5 (tools/diag_mosaic_bisect.py:85): out[M, N] = x[M, K] @ w[K, N],
 // [841, 64] @ [64, 252].
