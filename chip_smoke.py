@@ -23,9 +23,10 @@ Phases, each printing its own lines:
      cuda, with the kernel's, the plain version's, the library call's and
      the bound's times (CUDA events over 200 calls, and the kernel's and
      the library call's device time from the profiler); for t3, t4, t5 and
-     t12 (``csrc/probe_tiles.cu``) also the launch shape, the device time
-     with L2 cold, the kernel's device time over the library call's, the
-     bound's share of it and the rate it reaches;
+     t12 (``csrc/probe_tiles.cu``) also the device time with L2 cold and
+     the launch shape (grid, block, shared bytes, registers) the profiler
+     recorded in that window, the kernel's device time over the library
+     call's, the bound's share of it and the rate it reaches;
   4. full-width DMT forwards from ``artifacts/warm_qm9s_as.npz`` on cuda
      (kernels) against the same models on the CPU (plain versions), for
      ``pallas_ops=('attn','equi')`` and ``('block',)``, and the two cuda
@@ -52,6 +53,7 @@ from __future__ import annotations
 
 import copy
 import json
+import math
 import os
 import subprocess
 import sys
@@ -345,6 +347,12 @@ def stage_ms(call, stages, flush=None, iters: int = 20, tries: int = 3):
     """Device time a call of each of a kernel's launches (profiler), with
     ``flush`` written before each call when given; None after ``tries``
     windows in which some kernel events did not arrive."""
+    return profile_stages(call, stages, flush, iters, tries)[0]
+
+
+def profile_stages(call, stages, flush=None, iters: int = 20, tries: int = 3):
+    """``stage_ms``'s times, and the profile of the window they came from
+    (of the last window when they are None)."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(tries):
@@ -361,8 +369,36 @@ def stage_ms(call, stages, flush=None, iters: int = 20, tries: int = 3):
                     times[stage] = times.get(stage, 0.0) + e.device_time_total / iters / 1e3
                     counts[stage] = counts.get(stage, 0) + e.count
         if all(counts.get(stage, 0) >= iters for stage in stages):
-            return {stage: times[stage] for stage in stages}
-    return None
+            return {stage: times[stage] for stage in stages}, prof
+    return None, prof
+
+
+def launch_shape(prof, kernel):
+    """Grid, block, shared bytes and registers a thread of ``kernel``'s
+    launches in a profile, as CUPTI recorded them in the profiler's trace
+    (written to the build directory and read back); None where the trace
+    carries no launch shape. Fails if two launches differ."""
+    from diffspectra_tpu_torch.ops import _lib
+
+    _lib.BUILD_DIR.mkdir(exist_ok=True)
+    path = _lib.BUILD_DIR / f"trace.{os.getpid()}.json"
+    try:
+        prof.export_chrome_trace(str(path))
+        events = json.loads(path.read_text())["traceEvents"]
+    finally:
+        path.unlink(missing_ok=True)
+    shapes = set()
+    for e in events:
+        args = e.get("args", {})
+        if e.get("cat") == "kernel" and kernel in e.get("name", "") and "grid" in args:
+            shapes.add((tuple(args["grid"]), tuple(args["block"]), args.get("shared memory"),
+                        args.get("registers per thread")))
+    if not shapes:
+        say(f"[probes] {kernel}: no launch shape in the profiler's trace")
+        return None
+    assert len(shapes) == 1, (kernel, shapes)
+    grid, block, smem, registers = shapes.pop()
+    return dict(grid=grid, block=block, smem=smem, registers=registers)
 
 
 def device_ms(fn, iters: int = 20, tries: int = 3):
@@ -489,43 +525,46 @@ def phase_probes(dev):
 
 def probe_tile_extras(name, p, call, row, dev):
     """A probe kernel of ``csrc/probe_tiles.cu`` (t3, t4, t5, t12): its
-    launch shape (t3's and t4's grid of chunks, t5's launch plan, t12's
-    staging tiles), its device time with L2 cold (FLUSH_BYTES written
-    before each call; profiler), its warm device time over the library
-    call's, the bound's share of it, and the rate it reaches warm: bytes for
-    t3, t4 and t12, f32 operations for t5."""
-    from diffspectra_tpu_torch.ops.probes import (STAGE_THREADS, STAGE_VECTORS, STEP_THREADS,
-                                                  stage_grid, step_grid)
-
-    sizes = p.sizes(p.out_shape, *p.inputs.values())
-    tile = ""
-    if name == "t3":  # the whole array as one step
-        blocks, threads, smem = step_grid(1, *sizes), STEP_THREADS, 0
-    elif name == "t4":
-        blocks, threads, smem = step_grid(*sizes), STEP_THREADS, 0
-    elif name == "t12":
-        blocks, threads = stage_grid(*sizes), STAGE_THREADS
-        smem = 16 * STAGE_THREADS * STAGE_VECTORS  # the block's float4
-    else:  # t5
-        plan = p.plan(*sizes)
-        blocks, threads, smem = plan.grid, plan.threads, plan.smem
-        tile = f" (tiles of {plan.rows} x {plan.cols})"
+    device time with L2 cold (FLUSH_BYTES written before each call;
+    profiler) and its launch shape in that window, from the profiler's
+    trace (t5's must be its launch plan; every block of each must fit on
+    the card's SMs at once, as far as threads go), its warm device time
+    over the library call's, the bound's share of it, and the rate it
+    reaches warm: bytes for t3, t4 and t12, f32 operations for t5."""
+    kernel = PROBE_TILE_KERNELS[name]
     flush = torch.empty(FLUSH_BYTES // 4, device=dev)
-    cold = stage_ms(call, (PROBE_TILE_KERNELS[name],), flush)
+    cold, prof = profile_stages(call, (kernel,), flush)
     cold_ms = None if cold is None else sum(cold.values())
+    shape = launch_shape(prof, kernel)
+    if shape is None:
+        blocks = threads = smem = registers = None
+        launch = "launch shape not measured"
+    else:
+        blocks, threads = math.prod(shape["grid"]), math.prod(shape["block"])
+        smem, registers = shape["smem"], shape["registers"]
+        launch = (f"grid {shape['grid']} ({blocks} blocks) of {shape['block']} threads, "
+                  f"{smem} bytes of shared memory, {registers} registers a thread")
+        props = torch.cuda.get_device_properties(dev)
+        assert blocks <= props.multi_processor_count * (
+            props.max_threads_per_multi_processor // threads), (name, shape)
+    if p.plan is not None:  # t5
+        plan = p.plan(*p.sizes(p.out_shape, *p.inputs.values()))
+        launch += f" (plan: {plan.grid} tiles of {plan.rows} x {plan.cols})"
+        assert shape is None or (blocks, threads, smem) == (plan.grid, plan.threads, plan.smem), (
+            shape, plan)
     warm, library = row["device_ms"], row["library_device_ms"]
     ratio = None if warm is None or library is None else warm / library
     share = None if warm is None else row["bound_ms"] / warm
     work, unit = (p.flops, "TFLOP/s") if name == "t5" else (p.nbytes, "TB/s")
     rate = None if warm is None else work / (warm * 1e-3) / 1e12
-    say(f"[probes] {name}: plan {blocks} blocks of {threads} threads{tile}, {smem} "
-        f"bytes of shared memory; device time {ms_or_none(warm)} warm, {ms_or_none(cold_ms)} with "
-        f"L2 cold; library call {ms_or_none(library)} on the device; kernel / library "
-        f"{'not measured' if ratio is None else f'{ratio:.3f}'}; bound / kernel "
+    say(f"[probes] {name}: {launch} (profiler); device time {ms_or_none(warm)} warm, "
+        f"{ms_or_none(cold_ms)} with L2 cold; library call {ms_or_none(library)} on the device; "
+        f"kernel / library {'not measured' if ratio is None else f'{ratio:.3f}'}; bound / kernel "
         f"{'not measured' if share is None else f'{share:.3f}'}; "
         f"{'not measured' if rate is None else f'{rate:.3f}'} {unit}")
-    return dict(blocks=blocks, threads=threads, smem=smem, cold_device_ms=cold_ms,
-                device_over_library=ratio, bound_share=share, rate=rate, rate_unit=unit)
+    return dict(blocks=blocks, threads=threads, smem=smem, registers=registers,
+                cold_device_ms=cold_ms, device_over_library=ratio, bound_share=share, rate=rate,
+                rate_unit=unit)
 
 
 def forward_inputs(dev, has_cond: bool):

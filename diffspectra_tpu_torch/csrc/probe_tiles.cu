@@ -73,13 +73,11 @@ using dstt::cp_async_commit;
 using dstt::cp_async_wait;
 using dstt::rows::cdiv;
 
-constexpr int kStepThreads = 128;                               // t3, t4: threads a block
-constexpr int kStepVectors = 2;                                 // t3, t4: float4 a thread
-constexpr int kStepChunk = kStepThreads * kStepVectors * 4;     // t3, t4: floats a block
-constexpr int kStageThreads = 128;                              // t12: threads a block
-constexpr int kStageVectors = 2;                                // t12: float4 a thread
-constexpr int kStageSlots = kStageThreads * kStageVectors;      // t12: float4 a block
-constexpr int kStageSmem = 16 * kStageSlots;                    // t12: shared bytes a block
+// t3, t4 and t12: one chunk of a flat array a block, 128 threads x 2 float4
+constexpr int kChunkThreads = 128;
+constexpr int kChunkVectors = 2;
+constexpr int kChunkSlots = kChunkThreads * kChunkVectors;      // float4 a chunk
+constexpr int kStageSmem = 16 * kChunkSlots;                    // t12: shared bytes a block
 constexpr int kWarpRows = 16, kWarpCols = 32;                   // t5: a warp's outputs
 constexpr int kTileRows = 32, kTileCols = 64;                   // t5: a block's outputs
 constexpr int kProductThreads = kTileRows * kTileCols / 16;     // t5: 4 x 4 outputs a thread
@@ -103,46 +101,46 @@ struct Args {
 };
 
 // t3, t4: block (chunk, step) = blockIdx (x, y).
-__global__ void __launch_bounds__(kStepThreads) grid_step_kernel(Args a) {
+__global__ void __launch_bounds__(kChunkThreads) grid_step_kernel(Args a) {
   const float4* x = reinterpret_cast<const float4*>(a.x + (size_t)blockIdx.y * a.per_step);
   float4* out = reinterpret_cast<float4*>(a.out + (size_t)blockIdx.y * a.per_step);
   const int n4 = a.per_step / 4;
-  const int first = blockIdx.x * (kStepChunk / 4) + threadIdx.x;
-  float4 v[kStepVectors];
+  const int first = blockIdx.x * kChunkSlots + threadIdx.x;
+  float4 v[kChunkVectors];
 #pragma unroll
-  for (int e = 0; e < kStepVectors; ++e) {  // every load in flight before the first store
-    const int i = first + e * kStepThreads;
+  for (int e = 0; e < kChunkVectors; ++e) {  // every load in flight before the first store
+    const int i = first + e * kChunkThreads;
     if (i < n4) v[e] = x[i];
   }
 #pragma unroll
-  for (int e = 0; e < kStepVectors; ++e) {
-    const int i = first + e * kStepThreads;
+  for (int e = 0; e < kChunkVectors; ++e) {
+    const int i = first + e * kChunkThreads;
     if (i < n4) out[i] = make_float4(v[e].x + 1.0f, v[e].y + 1.0f, v[e].z + 1.0f, v[e].w + 1.0f);
   }
 }
 
 // t12: block b stages float4 256 b ... 256 b + 255 (its last block fewer);
 // thread t the slots i = t and t + 128.
-__global__ void __launch_bounds__(kStageThreads) stage_kernel(Args a) {
+__global__ void __launch_bounds__(kChunkThreads) stage_kernel(Args a) {
   extern __shared__ __align__(16) float smem[];
-  float4* tile = reinterpret_cast<float4*>(smem);  // [kStageSlots]: 2x
-  const int first = blockIdx.x * kStageSlots;      // the block's first float4
-  const int live = min(kStageSlots, a.per_step / 4 - first);
-  float4 v[kStageVectors];
+  float4* tile = reinterpret_cast<float4*>(smem);  // [kChunkSlots]: 2x
+  const int first = blockIdx.x * kChunkSlots;      // the block's first float4
+  const int live = min(kChunkSlots, a.per_step / 4 - first);
+  float4 v[kChunkVectors];
 #pragma unroll
-  for (int e = 0; e < kStageVectors; ++e) {  // every load in flight before the first store
-    const int i = threadIdx.x + e * kStageThreads;
+  for (int e = 0; e < kChunkVectors; ++e) {  // every load in flight before the first store
+    const int i = threadIdx.x + e * kChunkThreads;
     if (i < live) v[e] = reinterpret_cast<const float4*>(a.x)[first + i];
   }
 #pragma unroll
-  for (int e = 0; e < kStageVectors; ++e) {
-    const int i = threadIdx.x + e * kStageThreads;
+  for (int e = 0; e < kChunkVectors; ++e) {
+    const int i = threadIdx.x + e * kChunkThreads;
     if (i < live) tile[i] = make_float4(2.0f * v[e].x, 2.0f * v[e].y, 2.0f * v[e].z, 2.0f * v[e].w);
   }
   __syncthreads();
 #pragma unroll
-  for (int e = 0; e < kStageVectors; ++e) {  // the mirrored slot, which another warp wrote
-    const int i = threadIdx.x + e * kStageThreads;
+  for (int e = 0; e < kChunkVectors; ++e) {  // the mirrored slot, which another warp wrote
+    const int i = threadIdx.x + e * kChunkThreads;
     if (i < live) {
       const int j = live - 1 - i;
       const float4 s = tile[j];
@@ -279,8 +277,8 @@ int dstt_probe_t4(const float* x, float* out, int steps, int per_step, void* str
   if (steps <= 0 || per_step <= 0 || per_step % 4 != 0) return (int)cudaErrorInvalidValue;
   if (misaligned(x) || misaligned(out)) return (int)cudaErrorMisalignedAddress;
   Args a{x, nullptr, out, per_step, 0, 0, 0, 0};
-  const dim3 grid(cdiv(per_step, kStepChunk), steps);
-  return (int)launch((const void*)grid_step_kernel, grid, kStepThreads, 0, a, stream);
+  const dim3 grid(cdiv(per_step, 4 * kChunkSlots), steps);
+  return (int)launch((const void*)grid_step_kernel, grid, kChunkThreads, 0, a, stream);
 }
 
 int dstt_probe_t3(const float* x, float* out, int n, void* stream) {
@@ -305,7 +303,7 @@ int dstt_probe_t12(const float* x, float* out, int n, void* stream) {
   if (n <= 0 || n % 4 != 0) return (int)cudaErrorInvalidValue;
   if (misaligned(x) || misaligned(out)) return (int)cudaErrorMisalignedAddress;
   Args a{x, nullptr, out, n, 0, 0, 0, 0};
-  return (int)launch((const void*)stage_kernel, dim3(cdiv(n, 4 * kStageSlots)), kStageThreads,
+  return (int)launch((const void*)stage_kernel, dim3(cdiv(n, 4 * kChunkSlots)), kChunkThreads,
                      kStageSmem, a, stream);
 }
 

@@ -11,7 +11,7 @@ gives the line):
   ``t11`` (:136) on [2, 29, 29, 14, 18];
 - ``t3`` (:63) ``x + 1`` on [8, 29, 29, 64]; ``t4`` (:71) the same over a
   grid of 8 steps; both cut each step (t3: the whole array) into chunks of
-  one thread block (``step_grid``);
+  one thread block, which their C entries size;
 - ``t5`` (:85) ``x @ w``, [841, 64] @ [64, 252], one thread block a
   32 x 64 output tile (``product_plan``);
 - ``t6`` (:94) ``tanh(x)`` on [256, 256];
@@ -22,7 +22,7 @@ gives the line):
   last axis;
 - ``t12`` (:144) ``scratch = 2x; out = scratch + 1`` on [256, 256], staged
   through shared memory as the TPU probe staged it through VMEM, 2 float4
-  a thread (``stage_grid``);
+  a thread;
 - ``t13`` (:158) ``q @ k.T``, [29, 252] x 2 -> [29, 29];
 - ``t14`` (:168) ``(q[:, None, :] * k[None, :, :]).sum(-1)``, [29, 64] x 2
   -> [29, 29].
@@ -101,25 +101,10 @@ def t14_reference(q, k):
     return (q[:, None, :] * k[None, :, :]).sum(-1)
 
 
-STEP_THREADS, STEP_VECTORS = 128, 2  # t3, t4: threads a block, float4 a thread
-STAGE_THREADS, STAGE_VECTORS = 128, 2  # t12: threads a block, float4 a thread
 # t5: a block's output tile (a warp owns 16 x 32 outputs, a thread 4 x 4),
 # and the operands' depth in shared memory in chunks (K <= 64, zeros past K)
 PRODUCT_ROWS, PRODUCT_COLS = 32, 64
 PRODUCT_CHUNK, PRODUCT_CHUNKS = 32, 2
-
-
-def step_grid(steps: int, per_step: int) -> int:
-    """t4's blocks, as ``dstt_probe_t4`` sizes its grid: chunks of
-    STEP_THREADS x STEP_VECTORS float4 of each step, the last one partial;
-    t3's with ``steps=1`` and its floats as ``per_step``."""
-    return steps * cdiv(per_step, STEP_THREADS * STEP_VECTORS * 4)
-
-
-def stage_grid(n: int) -> int:
-    """t12's blocks, as ``dstt_probe_t12`` sizes its grid: tiles of
-    STAGE_THREADS x STAGE_VECTORS float4, the last one partial."""
-    return cdiv(n, STAGE_THREADS * STAGE_VECTORS * 4)
 
 
 @dataclass(frozen=True)

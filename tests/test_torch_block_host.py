@@ -16,7 +16,8 @@ This checks the kernel's tiling, indexing, barriers and copy pipeline, not
 the card's arithmetic or speed; ``chip_smoke.py`` does that on the H100.
 ``build_host_lib`` builds any kernel source of ``csrc/`` that launches
 through ``cudaLaunchKernel`` with one ``Args`` parameter the same way
-(``tests/test_torch_ops_host.py``).
+(``tests/test_torch_ops_host.py``); ``last_launch`` reads the grid, block
+and shared bytes of the last launch the stand-in accepted.
 """
 
 import ctypes
@@ -130,7 +131,13 @@ struct Barrier {
 };
 Barrier block_barrier, warp_barrier[32];
 float warp_values[32][32];
+unsigned last_launch[7];  // grid x, y, z, block x, y, z, shared bytes
+int launches = 0;
 }  // namespace
+extern "C" int dstt_host_last_launch(unsigned* out) {
+  std::memcpy(out, last_launch, sizeof(last_launch));
+  return launches;
+}
 void __syncthreads() { block_barrier.wait(); }
 float __shfl_xor_sync(unsigned, float v, int lane_mask) {
   const int w = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -145,6 +152,9 @@ cudaError_t cudaLaunchKernel(const void* f, dim3 grid, dim3 block, void** args, 
   auto kernel = reinterpret_cast<void (*)(Args)>(const_cast<void*>(f));
   const Args a = *static_cast<Args*>(args[0]);
   if (bytes > sizeof(smem) || block.x > 1024 || block.x % 32) return cudaErrorInvalidValue;
+  const unsigned shape[7] = {grid.x, grid.y, grid.z, block.x, block.y, block.z, (unsigned)bytes};
+  std::memcpy(last_launch, shape, sizeof(shape));
+  ++launches;
   block_barrier.n = block.x;
   for (auto& b : warp_barrier) b.n = 32;
   const uint32_t nan_bits = 0x7fc00001u;
@@ -199,6 +209,15 @@ def build_host_lib(directory: Path, source: str, argtypes: dict) -> ctypes.CDLL:
         fn.argtypes = types
         fn.restype = ctypes.c_int
     return lib
+
+
+def last_launch(lib: ctypes.CDLL) -> tuple:
+    """The stand-in's launches so far, and the last one's grid (x, y, z),
+    block (x, y, z) and dynamic shared bytes, as the C entry passed them to
+    ``cudaLaunchKernel``."""
+    shape = (ctypes.c_uint * 7)()
+    count = lib.dstt_host_last_launch(shape)
+    return count, tuple(shape[:3]), tuple(shape[3:6]), shape[6]
 
 
 @pytest.fixture(scope="module")

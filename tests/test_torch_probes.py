@@ -141,13 +141,21 @@ def test_run_probes_on_the_cpu_passes_every_probe(capsys):
 
 
 def test_run_probes_reports_a_failure_and_goes_on(monkeypatch, capsys):
-    """A wrapper whose result is off fails its probe alone; the tool goes
-    on to the next probe and exits 1."""
-    monkeypatch.setattr(probes, "t3_reference", lambda x: x + 2.0)
+    """A wrapper whose result is off fails its probe alone, with the
+    element where it is most off; the tool goes on to the next probe and
+    exits 1."""
+    off = torch.zeros(PROBES["t3"].out_shape)
+    off[3, 1, 4, 1] = 0.5
+    monkeypatch.setattr(probes, "t3_reference", lambda x: x + 1.5 + off)
     passed = diag_probes.run_probes(device="cpu")
     assert [name for name, ok in passed.items() if not ok] == ["t3"]
     lines = capsys.readouterr().out.splitlines()
-    assert len(lines) == 14 and lines[2] == "FAIL t3: 1.000e+00 > 0e+00"
+    (x,) = diag_probes.probe_inputs("t3")
+    at = (3, 1, 4, 1)
+    got, want = (x + 1.5 + off)[at].item(), (x + 1.0)[at].item()
+    assert len(lines) == 14 and lines[2] == (
+        f"FAIL t3: 1.000e+00 > 0e+00 at {at}: x = {x[at].item():.9e}, "
+        f"kernel {got:.9e}, plain {want:.9e}")
     assert diag_probes.main(["--device", "cpu"]) == 1
 
 

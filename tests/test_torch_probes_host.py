@@ -18,15 +18,18 @@ Since the stand-in's shared memory starts as NaN, a mirrored read of a t12
 slot that no thread wrote fails the exact comparison. Each output is
 followed by NaN floats that must stay untouched. A wrong plan, a size that
 is not positive or not a multiple of 4 floats and a misaligned pointer are
-each refused with their error code and nothing written. t3, t4 and t12 run
-in place show their grids covering each float once, in one wave.
+each refused with their error code, nothing launched and nothing written.
+t3, t4 and t12 run in place show their grids covering each float once, in
+one wave. The stand-in records the grid, block and shared bytes each C
+entry launches with, and these are held to the design's: 1024 floats a
+block of 128 threads for t3, t4 and t12 (t12 with 4 KB of shared memory),
+t5's plan.
 
 This checks the kernels' tiling, masks and copies, not the card's
 arithmetic or speed; ``chip_smoke.py`` does that on the H100.
 """
 
 import ctypes
-import math
 
 import numpy as np
 import pytest
@@ -34,16 +37,19 @@ import torch
 
 from diffspectra_tpu_torch.ops import _lib
 from diffspectra_tpu_torch.ops._row_tile import MAX_SMEM, SMS
-from diffspectra_tpu_torch.ops.probes import (PRODUCT_CHUNK, PRODUCT_CHUNKS, PROBES, STAGE_THREADS,
-                                              STEP_THREADS, product_plan, stage_grid, step_grid,
+from diffspectra_tpu_torch.ops._row_tile import cdiv
+from diffspectra_tpu_torch.ops.probes import (PRODUCT_CHUNK, PRODUCT_CHUNKS, PROBES, product_plan,
                                               t3_reference, t4_reference, t5_reference,
                                               t12_reference)
 from diffspectra_tpu_torch.tools.diag_probes import probe_inputs
-from test_torch_block_host import build_host_lib
+from test_torch_block_host import build_host_lib, last_launch
 
 INVALID_VALUE, MISALIGNED = 1, 716  # cudaErrorInvalidValue, cudaErrorMisalignedAddress
 GUARD = 64  # NaN floats after each output, which the kernel must not write
 THREADS_PER_SM = 2048
+# t3's, t4's and t12's blocks: 128 threads, each 2 float4, so 1024 floats a
+# block; t12 stages them in 4 KB of shared memory
+CHUNK_THREADS, CHUNK_FLOATS, STAGE_SMEM = 128, 1024, 4096
 
 
 @pytest.fixture(scope="module")
@@ -81,7 +87,14 @@ def _flat(lib, name, x, shift=(0, 0)):
 
 
 FLAT_REFERENCES = {"t3": t3_reference, "t12": t12_reference}
-FLAT_GRIDS = {"t3": lambda n: step_grid(1, n), "t12": stage_grid}
+FLAT_SMEM = {"t3": 0, "t12": STAGE_SMEM}
+
+
+def _one_wave(grid, block):
+    """Every block of the launch resident at once on the card's SMs, as far
+    as its threads go (at most THREADS_PER_SM an SM)."""
+    assert block[0] % 32 == 0 and block[1:] == (1, 1)
+    return grid[0] * grid[1] * grid[2] <= SMS * (THREADS_PER_SM // block[0])
 
 
 def _t5(lib, x, w, bump=None, shift=(0, 0, 0)):
@@ -180,8 +193,9 @@ T4_REFUSALS = {  # name: (steps, per_step, pointer shifts, code)
 def test_t4_source_refuses_with_nothing_written(lib, case):
     steps, per_step, shift, code = T4_REFUSALS[case]
     x = _normal(0, steps * per_step + 4)  # room for a shifted pointer
+    launches = last_launch(lib)[0]
     rc, got, guard = _t4(lib, x[:steps * per_step].view(steps, per_step), shift)
-    assert rc == code
+    assert rc == code and last_launch(lib)[0] == launches
     assert torch.isnan(got).all() and torch.isnan(guard).all()
 
 
@@ -198,8 +212,9 @@ FLAT_REFUSALS = {  # name: (n, pointer shifts, code)
 def test_flat_source_refuses_with_nothing_written(lib, name, case):
     n, shift, code = FLAT_REFUSALS[case]
     x = _normal(0, n + 4)  # room for a shifted pointer
+    launches = last_launch(lib)[0]
     rc, got, guard = _flat(lib, name, x[:n], shift)
-    assert rc == code
+    assert rc == code and last_launch(lib)[0] == launches
     assert torch.isnan(got).all() and torch.isnan(guard).all()
 
 
@@ -223,8 +238,9 @@ T5_REFUSALS = {  # name: (m, n, k, plan index bumped, pointer shifts, code)
 def test_t5_source_refuses_with_nothing_written(lib, case):
     m, n, k, bump, shift, code = T5_REFUSALS[case]
     x, w = _normal(1, m * k + 4), _normal(2, k * n + 4)  # room for shifted pointers
+    launches = last_launch(lib)[0]
     rc, got, guard = _t5(lib, x[:m * k].view(m, k), w[:k * n].view(k, n), bump, shift)
-    assert rc == code
+    assert rc == code and last_launch(lib)[0] == launches
     assert torch.isnan(got).all() and torch.isnan(guard).all()
 
 
@@ -237,8 +253,10 @@ def test_step_plan_covers_each_float_once_in_one_wave(lib, steps, per_step):
     want = t4_reference(x)
     assert lib.dstt_probe_t4(x.data_ptr(), x.data_ptr(), steps, per_step, None) == 0
     torch.testing.assert_close(x, want, rtol=0, atol=0)
-    assert STEP_THREADS % 32 == 0
-    assert step_grid(steps, per_step) <= SMS * (THREADS_PER_SM // STEP_THREADS)
+    _, grid, block, smem = last_launch(lib)
+    assert grid == (cdiv(per_step, CHUNK_FLOATS), steps, 1)
+    assert block == (CHUNK_THREADS, 1, 1) and smem == 0
+    assert _one_wave(grid, block)
 
 
 @pytest.mark.parametrize("name,n", [("t3", 8 * 29 * 29 * 64), ("t12", 256 * 256)] + FLAT_SIZES)
@@ -249,15 +267,31 @@ def test_flat_grids_cover_each_float_once_in_one_wave(lib, name, n):
     want = FLAT_REFERENCES[name](x)
     assert getattr(lib, f"dstt_probe_{name}")(x.data_ptr(), x.data_ptr(), n, None) == 0
     torch.testing.assert_close(x, want, rtol=0, atol=0)
-    assert STEP_THREADS % 32 == 0 and STAGE_THREADS % 32 == 0
-    blocks_per_sm = THREADS_PER_SM // (STEP_THREADS if name == "t3" else STAGE_THREADS)
-    assert FLAT_GRIDS[name](n) <= SMS * blocks_per_sm
+    _, grid, block, smem = last_launch(lib)
+    assert grid == (cdiv(n, CHUNK_FLOATS), 1, 1)
+    assert block == (CHUNK_THREADS, 1, 1) and smem == FLAT_SMEM[name]
+    assert _one_wave(grid, block)
 
 
-def test_flat_grids_at_the_probe_shapes():
-    # t3: 421 blocks of 128 threads; t12: 64 blocks of 128, at most one an SM
-    assert step_grid(1, math.prod(PROBES["t3"].out_shape)) == 421
-    assert stage_grid(math.prod(PROBES["t12"].out_shape)) == 64 <= SMS
+def test_flat_grids_at_the_probe_shapes(lib):
+    # as the C entries launch them: t3 421 blocks of 128 threads; t12 64
+    # blocks of 128 with 4 KB of shared memory, at most one an SM
+    for name, blocks, smem in (("t3", 421, 0), ("t12", 64, STAGE_SMEM)):
+        (x,) = probe_inputs(name, seed=4)
+        assert _flat(lib, name, x)[0] == 0
+        assert last_launch(lib)[1:] == ((blocks, 1, 1), (CHUNK_THREADS, 1, 1), smem)
+    assert 64 <= SMS
+
+
+def test_t4_and_t5_launch_at_the_probe_shapes(lib):
+    # t4: 53 chunks of each of 8 steps; t5: its plan, 108 tiles of 32 x 64
+    (x,) = probe_inputs("t4", seed=4)
+    assert _t4(lib, x.reshape(x.shape[0], -1))[0] == 0
+    assert last_launch(lib)[1:] == ((53, 8, 1), (CHUNK_THREADS, 1, 1), 0)
+    assert _one_wave(*last_launch(lib)[1:3])
+    plan = product_plan(841, 252, 64)
+    assert _t5(lib, *probe_inputs("t5", seed=4))[0] == 0
+    assert last_launch(lib)[1:] == ((plan.grid, 1, 1), (plan.threads, 1, 1), plan.smem)
 
 
 @pytest.mark.parametrize("m,n,k", [(841, 252, 64), (1, 4, 4), (9, 60, 64), (841, 4, 4),
