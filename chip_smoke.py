@@ -22,11 +22,13 @@ Phases, each printing its own lines:
      version on cuda; then each probe kernel against its plain version on
      cuda, with the kernel's, the plain version's, the library call's and
      the bound's times (CUDA events over 200 calls, and the kernel's and
-     the library call's device time from the profiler); for t3, t4, t5 and
-     t12 (``csrc/probe_tiles.cu``) also the device time with L2 cold and
-     the launch shape (grid, block, shared bytes, registers) the profiler
-     recorded in that window, the kernel's device time over the library
-     call's, the bound's share of it and the rate it reaches;
+     the library call's device time from the profiler); for t3, t4, t5,
+     t7, t11 and t12 (``csrc/probe_tiles.cu``) also the device time with
+     L2 cold, the kernel's name and launch shape (grid, block, shared
+     bytes, registers) as the profiler recorded them in that window, every
+     block resident at once, the kernel's device time over the library
+     call's, the bound's share of it and the rate it reaches (TB/s where
+     bytes bound it, TFLOP/s where operations do);
   4. full-width DMT forwards from ``artifacts/warm_qm9s_as.npz`` on cuda
      (kernels) against the same models on the CPU (plain versions), for
      ``pallas_ops=('attn','equi')`` and ``('block',)``, and the two cuda
@@ -84,9 +86,11 @@ PROBE_ATOL = {"t1": 0.0, "t2": 0.0, "t3": 0.0, "t4": 0.0, "t9": 0.0, "t11": 0.0,
 FORWARD_RTOL = 1e-3  # of the largest |value|: 8 blocks sum in another order
 PATHS = {"attn_equi": ("attn", "equi"), "block": ("block",)}
 PATH_KERNELS = {"attn_equi": ("mix_attention", "equi_update"), "block": ("block_fused",)}
-# the probes of csrc/probe_tiles.cu, by the profiler's kernel names
+# the probes of csrc/probe_tiles.cu, by the profiler's kernel names (t3, t4:
+# grid_step_kernel<PlusOne>, t11: grid_step_kernel<Times2>)
 PROBE_TILE_KERNELS = {"t3": "grid_step_kernel", "t4": "grid_step_kernel",
-                      "t5": "tile_product_kernel", "t12": "stage_kernel"}
+                      "t5": "tile_product_kernel", "t7": "mma_tile_kernel",
+                      "t11": "grid_step_kernel", "t12": "stage_kernel"}
 
 
 def say(*parts):
@@ -374,10 +378,11 @@ def profile_stages(call, stages, flush=None, iters: int = 20, tries: int = 3):
 
 
 def launch_shape(prof, kernel):
-    """Grid, block, shared bytes and registers a thread of ``kernel``'s
-    launches in a profile, as CUPTI recorded them in the profiler's trace
-    (written to the build directory and read back); None where the trace
-    carries no launch shape. Fails if two launches differ."""
+    """Full name, grid, block, shared bytes and registers a thread of the
+    launches of the kernel whose name holds ``kernel`` in a profile, as
+    CUPTI recorded them in the profiler's trace (written to the build
+    directory and read back); None where the trace carries no launch shape.
+    Fails if two launches differ."""
     from diffspectra_tpu_torch.ops import _lib
 
     _lib.BUILD_DIR.mkdir(exist_ok=True)
@@ -391,14 +396,14 @@ def launch_shape(prof, kernel):
     for e in events:
         args = e.get("args", {})
         if e.get("cat") == "kernel" and kernel in e.get("name", "") and "grid" in args:
-            shapes.add((tuple(args["grid"]), tuple(args["block"]), args.get("shared memory"),
-                        args.get("registers per thread")))
+            shapes.add((e["name"], tuple(args["grid"]), tuple(args["block"]),
+                        args.get("shared memory"), args.get("registers per thread")))
     if not shapes:
         say(f"[probes] {kernel}: no launch shape in the profiler's trace")
         return None
     assert len(shapes) == 1, (kernel, shapes)
-    grid, block, smem, registers = shapes.pop()
-    return dict(grid=grid, block=block, smem=smem, registers=registers)
+    name, grid, block, smem, registers = shapes.pop()
+    return dict(name=name, grid=grid, block=block, smem=smem, registers=registers)
 
 
 def device_ms(fn, iters: int = 20, tries: int = 3):
@@ -524,26 +529,27 @@ def phase_probes(dev):
 
 
 def probe_tile_extras(name, p, call, row, dev):
-    """A probe kernel of ``csrc/probe_tiles.cu`` (t3, t4, t5, t12): its
-    device time with L2 cold (FLUSH_BYTES written before each call;
-    profiler) and its launch shape in that window, from the profiler's
-    trace (t5's must be its launch plan; every block of each must fit on
-    the card's SMs at once, as far as threads go), its warm device time
-    over the library call's, the bound's share of it, and the rate it
-    reaches warm: bytes for t3, t4 and t12, f32 operations for t5."""
+    """A probe kernel of ``csrc/probe_tiles.cu`` (t3, t4, t5, t7, t11,
+    t12): its device time with L2 cold (FLUSH_BYTES written before each
+    call; profiler) and its name and launch shape in that window, from the
+    profiler's trace (t5's must be its launch plan; every block of each
+    must fit on the card's SMs at once, as far as threads go), its warm
+    device time over the library call's, the bound's share of it, and the
+    rate it reaches warm in what bounds it (``row["bound_by"]``): bytes, or
+    operations."""
     kernel = PROBE_TILE_KERNELS[name]
     flush = torch.empty(FLUSH_BYTES // 4, device=dev)
     cold, prof = profile_stages(call, (kernel,), flush)
     cold_ms = None if cold is None else sum(cold.values())
     shape = launch_shape(prof, kernel)
     if shape is None:
-        blocks = threads = smem = registers = None
+        kernel_name = blocks = threads = smem = registers = None
         launch = "launch shape not measured"
     else:
         blocks, threads = math.prod(shape["grid"]), math.prod(shape["block"])
-        smem, registers = shape["smem"], shape["registers"]
-        launch = (f"grid {shape['grid']} ({blocks} blocks) of {shape['block']} threads, "
-                  f"{smem} bytes of shared memory, {registers} registers a thread")
+        kernel_name, smem, registers = shape["name"], shape["smem"], shape["registers"]
+        launch = (f"{kernel_name}: grid {shape['grid']} ({blocks} blocks) of {shape['block']} "
+                  f"threads, {smem} bytes of shared memory, {registers} registers a thread")
         props = torch.cuda.get_device_properties(dev)
         assert blocks <= props.multi_processor_count * (
             props.max_threads_per_multi_processor // threads), (name, shape)
@@ -555,14 +561,14 @@ def probe_tile_extras(name, p, call, row, dev):
     warm, library = row["device_ms"], row["library_device_ms"]
     ratio = None if warm is None or library is None else warm / library
     share = None if warm is None else row["bound_ms"] / warm
-    work, unit = (p.flops, "TFLOP/s") if name == "t5" else (p.nbytes, "TB/s")
+    work, unit = (p.flops, "TFLOP/s") if row["bound_by"] == "operations" else (p.nbytes, "TB/s")
     rate = None if warm is None else work / (warm * 1e-3) / 1e12
     say(f"[probes] {name}: {launch} (profiler); device time {ms_or_none(warm)} warm, "
         f"{ms_or_none(cold_ms)} with L2 cold; library call {ms_or_none(library)} on the device; "
         f"kernel / library {'not measured' if ratio is None else f'{ratio:.3f}'}; bound / kernel "
         f"{'not measured' if share is None else f'{share:.3f}'}; "
         f"{'not measured' if rate is None else f'{rate:.3f}'} {unit}")
-    return dict(blocks=blocks, threads=threads, smem=smem, registers=registers,
+    return dict(kernel=kernel_name, blocks=blocks, threads=threads, smem=smem, registers=registers,
                 cold_device_ms=cold_ms, device_over_library=ratio, bound_share=share, rate=rate,
                 rate_unit=unit)
 

@@ -1,24 +1,28 @@
-// The Mosaic probes t3, t4, t5 and t12 of tools/diag_mosaic_bisect.py,
-// redesigned for Hopper (sm_90a), f32. The other ten probes are in probes.cu.
+// The Mosaic probes t3, t4, t5, t7, t11 and t12 of
+// tools/diag_mosaic_bisect.py, redesigned for Hopper (sm_90a), f32 unless
+// marked. The other eight probes are in probes.cu.
 //
 // t3 (tools/diag_mosaic_bisect.py:63) and t4 (:71): x + 1 on [8, 29, 29,
 // 64]; t4 over a grid of 8 steps, each step finding its slice x[b] from its
 // grid index, as the BlockSpec (1, 29, 29, 64) cut it on the TPU, t3 on the
-// whole array at once.
-//   What bounds them: 1.72 MB in and 1.72 MB out, 1.03 us at 3.35 TB/s; at
-//   this size the ramp and tail of one wave of blocks weigh as much, and a
-//   launch of a few us is the real floor.
-//   What the design does: one kernel for both. The grid stays one over the
-//   steps (grid.y: 8 for t4, 1 for t3, whose array is one step), but each
-//   step is cut into chunks of 128 threads x 2 float4 (grid.x: 53 blocks a
-//   step at t4's 53,824 floats, 424 in all; 421 at t3's 430,592), so that
-//   the whole grid is one wave over the 132 SMs with every SM's loads in
-//   flight at once, 16 bytes a load; each step's last chunk is masked. A
-//   block reads its step and chunk from blockIdx without a division (on
-//   the card a flat grid that divided blockIdx.x was slower, PERF.md). The
-//   launcher sizes the grid itself from the steps and the floats a step. A
-//   step's floats must be a multiple of 4 and both pointers 16-byte aligned
-//   (no scalar path).
+// whole array at once. t11 (:136): x * 2 on [2, 29, 29, 14, 18], 423,864
+// floats, the whole array at once.
+//   What bounds them: t3 and t4 move 1.72 MB in and 1.72 MB out, 1.03 us
+//   at 3.35 TB/s, t11 1.70 MB each way; at this size the ramp and tail of
+//   one wave of blocks weigh as much, and a launch of a few us is the real
+//   floor.
+//   What the design does: one kernel for the three, its elementwise
+//   operation a template parameter (PlusOne, Times2). The grid stays one
+//   over the steps (grid.y: 8 for t4, 1 for t3 and t11, whose arrays are
+//   one step), but each step is cut into chunks of 128 threads x 2 float4
+//   (grid.x: 53 blocks a step at t4's 53,824 floats, 424 in all; 421 at
+//   t3's 430,592; 414 at t11's), so that the whole grid is one wave over
+//   the 132 SMs with every SM's loads in flight at once, 16 bytes a load;
+//   each step's last chunk is masked. A block reads its step and chunk from
+//   blockIdx without a division (on the card a flat grid that divided
+//   blockIdx.x was slower, PERF.md). The launcher sizes the grid itself
+//   from the steps and the floats a step. A step's floats must be a
+//   multiple of 4 and both pointers 16-byte aligned (no scalar path).
 //
 // t12 (tools/diag_mosaic_bisect.py:144): scratch = 2x in a VMEM scratch
 // buffer, out = scratch + 1, on [256, 256].
@@ -60,10 +64,43 @@
 //   unit normals. K must be at most 64, N and K multiples of 4 and the
 //   three pointers 16-byte aligned.
 //
+// t7 (tools/diag_mosaic_bisect.py:102): out[M, N] (f32) = x[M, K] (bf16) @
+// w[K, N] (bf16), [841, 64] @ [64, 256].
+//   What bounds it: 0.11 MB of bf16 in and 0.86 MB of f32 out, 0.30 us at
+//   3.35 TB/s; its 27.6 MFLOP take 0.03 us at the bf16 tensor-core rate. So
+//   the launch, the operands' trip and the stores set its time, not the
+//   tensor cores.
+//   What the design does: t5's copy pipeline with the sums on the tensor
+//   cores. A block of four warps owns a 64 x 32 output tile (2-D grid of
+//   column and row tiles: 8 x 14 = 112 blocks at the probe's shape, one wave
+//   over the 132 SMs; the 64 x 64 tiles before left 76 SMs idle; on the
+//   card t5's 32 x 64 tile, 108 blocks, was 2% slower, PERF.md), and warp w
+//   its rows 16 w ... 16 w + 15, 16 x 32 outputs, as four mma.sync
+//   m16n8k16 tiles with f32 sums in registers. The x rows and the
+//   w slab go straight into dynamic shared memory by 16-byte cp.async in two
+//   32-deep chunks, one copy group each, so that the second lands while the
+//   first is multiplied; rows past M, columns past N and depths past K load
+//   zeros. Shared rows are padded by 16 bytes, so that the 8 rows an
+//   ldmatrix reads fall in 8 different groups of 4 banks. A fragments come
+//   by one ldmatrix.x4 a k16 step; B fragments straight from w's [k][n]
+//   layout by ldmatrix.x4.trans, two n8 tiles an instruction, with no
+//   transpose through registers. After a barrier the f32 tile is staged
+//   through the operands' shared memory and stored as float4 rows,
+//   neighbouring threads on neighbouring addresses; rows past M are not
+//   stored. Why not wgmma with TMA: the tensor work is a tenth of the bound
+//   set by bytes and a small part of a launch of about a microsecond, so
+//   wgmma's 64-row warpgroup tile buys throughput this probe cannot use,
+//   and its swizzled shared-memory descriptors have no CPU stand-in to
+//   check them (mma.cuh's instructions do). K must be at most 64, N and K
+//   multiples of 8 and the three pointers 16-byte aligned.
+//
 // Each kernel launches through cudaLaunchKernel with one Args struct and
 // uses dynamic shared memory only, so that the host test's stand-in
 // (tests/test_torch_probes_host.py) runs this source on the CPU.
 
+#include <cuda_bf16.h>
+
+#include "mma.cuh"
 #include "row_tile.cuh"
 
 namespace {
@@ -72,8 +109,9 @@ using dstt::cp_async16;
 using dstt::cp_async_commit;
 using dstt::cp_async_wait;
 using dstt::rows::cdiv;
+using bf16 = __nv_bfloat16;
 
-// t3, t4 and t12: one chunk of a flat array a block, 128 threads x 2 float4
+// t3, t4, t11 and t12: one chunk of a flat array a block, 128 threads x 2 float4
 constexpr int kChunkThreads = 128;
 constexpr int kChunkVectors = 2;
 constexpr int kChunkSlots = kChunkThreads * kChunkVectors;      // float4 a chunk
@@ -90,17 +128,40 @@ constexpr int kKc = 32, kChunks = 2, kMaxDepth = kKc * kChunks;
 constexpr int kLdx = kKc + 4;
 // t5: shared bytes a block, x [kChunks][kTileRows][kLdx] and w [kMaxDepth][kTileCols]
 constexpr int kProductSmem = 4 * kChunks * (kTileRows * kLdx + kKc * kTileCols);
+// t7: a block's outputs, four warps of 16 x 32 each (tools/t7_tiles.py
+// times 32 x 64 against it); the depth in t5's two chunks of 32
+constexpr int kMmaRows = 64, kMmaCols = 32;
+constexpr int kMmaThreads = 128;
+constexpr int kMmaWarpsC = kMmaCols / 32;
+static_assert(kMmaRows / 16 * kMmaWarpsC * 32 == kMmaThreads, "four warps of 16 x 32");
+// t7: the strides of shared rows, 16 bytes of padding each: x [kMmaRows][kLda]
+// and w [kMaxDepth][kLdb] bf16, then the output tile [kMmaRows][kLdo] f32 in
+// the same memory (8 floats of padding: the float2 stores of a half-warp's
+// four rows fall in other banks)
+constexpr int kLda = kMaxDepth + 8, kLdb = kMmaCols + 8, kLdo = kMmaCols + 8;
+constexpr int kMmaSmem = 2 * (kMmaRows * kLda + kMaxDepth * kLdb);
+static_assert(4 * kMmaRows * kLdo <= kMmaSmem, "the output tile fits the operands' memory");
 
 // Every kernel's arguments.
 struct Args {
-  const float* x;  // t3, t4, t12: [steps, per_step]; t5: [m, k]
+  const float* x;  // t3, t4, t11, t12: [steps, per_step]; t5: [m, k]
   const float* w;  // t5: [k, n]
   float* out;
-  int per_step;                   // t3, t4, t12 (t3, t12: one step, the whole array)
-  int m, n, k, col_tiles;         // t5
+  int per_step;                   // t3, t4, t11, t12 (all but t4: one step, the whole array)
+  int m, n, k, col_tiles;         // t5; t7: m, n, k
+  const bf16* xb;                 // t7: [m, k]
+  const bf16* wb;                 // t7: [k, n]
 };
 
-// t3, t4: block (chunk, step) = blockIdx (x, y).
+struct PlusOne {  // t3, t4
+  __device__ float operator()(float v) const { return v + 1.0f; }
+};
+struct Times2 {  // t11
+  __device__ float operator()(float v) const { return v * 2.0f; }
+};
+
+// t3, t4, t11: block (chunk, step) = blockIdx (x, y).
+template <class Op>
 __global__ void __launch_bounds__(kChunkThreads) grid_step_kernel(Args a) {
   const float4* x = reinterpret_cast<const float4*>(a.x + (size_t)blockIdx.y * a.per_step);
   float4* out = reinterpret_cast<float4*>(a.out + (size_t)blockIdx.y * a.per_step);
@@ -112,10 +173,11 @@ __global__ void __launch_bounds__(kChunkThreads) grid_step_kernel(Args a) {
     const int i = first + e * kChunkThreads;
     if (i < n4) v[e] = x[i];
   }
+  const Op op{};
 #pragma unroll
   for (int e = 0; e < kChunkVectors; ++e) {
     const int i = first + e * kChunkThreads;
-    if (i < n4) out[i] = make_float4(v[e].x + 1.0f, v[e].y + 1.0f, v[e].z + 1.0f, v[e].w + 1.0f);
+    if (i < n4) out[i] = make_float4(op(v[e].x), op(v[e].y), op(v[e].z), op(v[e].w));
   }
 }
 
@@ -234,6 +296,91 @@ __global__ void __launch_bounds__(kProductThreads) tile_product_kernel(Args a) {
   }
 }
 
+// t7's operands for depth chunk `ch` (k = 32 ch ... 32 ch + 31) by cp.async
+// into xs [kMmaRows][kLda] and ws [kMaxDepth][kLdb], 8 bf16 a copy; rows
+// past m, columns past n and depths past k as zeros (n and k are multiples
+// of 8, so a copy is all in or all out). The caller commits.
+__device__ __forceinline__ void load_mma_chunk(const Args& a, bf16* xs, bf16* ws, int ch, int row0,
+                                               int col0) {
+  const int k0 = ch * kKc;
+  for (int i = threadIdx.x; i < kMmaRows * kKc / 8; i += kMmaThreads) {
+    const int r = i / (kKc / 8), k = k0 + 8 * (i % (kKc / 8));
+    const bool in = row0 + r < a.m && k < a.k;
+    cp_async16(xs + r * kLda + k, in ? a.xb + (size_t)(row0 + r) * a.k + k : a.xb, in ? 16 : 0);
+  }
+  for (int i = threadIdx.x; i < kKc * kMmaCols / 8; i += kMmaThreads) {
+    const int k = k0 + i / (kMmaCols / 8), c = 8 * (i % (kMmaCols / 8));
+    const bool in = k < a.k && col0 + c < a.n;
+    cp_async16(ws + k * kLdb + c, in ? a.wb + (size_t)k * a.n + col0 + c : a.wb, in ? 16 : 0);
+  }
+}
+
+// One depth chunk of a warp's 16 x 32 outputs: pa at the lane's ldmatrix
+// row of x (row l % 16, k 8 (l / 16)), pb at its row of w (k l % 16,
+// column 8 (l / 16) of the warp's first n8 pair), both at the chunk's
+// first k. acc[nt] is n8 tile nt.
+__device__ __forceinline__ void mma_chunk(float (&acc)[4][4], const bf16* pa, const bf16* pb) {
+#pragma unroll
+  for (int ks = 0; ks < kKc; ks += 16) {
+    uint32_t af[4], bf[2][4];  // bf[p]: b0, b1 of n8 tile 2p, then of 2p + 1
+    dstt::ldmatrix_x4(af, pa + ks);
+    dstt::ldmatrix_x4_trans(bf[0], pb + ks * kLdb);
+    dstt::ldmatrix_x4_trans(bf[1], pb + ks * kLdb + 16);
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      dstt::mma_bf16_16816(acc[nt], af, bf[nt / 2][2 * (nt % 2)], bf[nt / 2][2 * (nt % 2) + 1]);
+    }
+  }
+}
+
+// t7: block (column tile, row tile) = blockIdx (x, y).
+__global__ void __launch_bounds__(kMmaThreads) mma_tile_kernel(Args a) {
+  extern __shared__ __align__(16) float smem[];
+  bf16* xs = reinterpret_cast<bf16*>(smem);  // [kMmaRows][kLda]: x[row][k]
+  bf16* ws = xs + kMmaRows * kLda;           // [kMaxDepth][kLdb]: w[k][column]
+  const int row0 = blockIdx.y * kMmaRows, col0 = blockIdx.x * kMmaCols;
+  // one group of copies a chunk, so that the second lands while the first
+  // is multiplied
+#pragma unroll
+  for (int ch = 0; ch < kChunks; ++ch) {
+    load_mma_chunk(a, xs, ws, ch, row0, col0);
+    cp_async_commit();
+  }
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wr = warp / kMmaWarpsC * 16, wc = warp % kMmaWarpsC * 32;  // the warp's first output
+  const bf16* pa = xs + (wr + lane % 16) * kLda + 8 * (lane / 16);
+  const bf16* pb = ws + (lane % 16) * kLdb + wc + 8 * (lane / 16);
+  float acc[4][4] = {};
+  static_assert(kChunks == 2, "one wait a chunk");
+  cp_async_wait<1>();
+  __syncthreads();
+  mma_chunk(acc, pa, pb);
+  cp_async_wait<0>();
+  __syncthreads();
+  mma_chunk(acc, pa + kKc, pb + kKc * kLdb);
+
+  __syncthreads();  // every warp is done with the operands: their memory takes the output
+  float* os = smem;  // [kMmaRows][kLdo]
+  const int g = lane / 4, t = lane % 4;
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {  // C fragment rows g and g + 8
+      *reinterpret_cast<float2*>(os + (wr + g + 8 * h) * kLdo + wc + 8 * nt + 2 * t) =
+          make_float2(acc[nt][2 * h], acc[nt][2 * h + 1]);
+    }
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < kMmaRows * kMmaCols / 4; i += kMmaThreads) {
+    const int r = i / (kMmaCols / 4), c = 4 * (i % (kMmaCols / 4));
+    if (row0 + r < a.m && col0 + c < a.n) {  // n % 8 == 0: a float4 is all in or all out
+      *reinterpret_cast<float4*>(a.out + (size_t)(row0 + r) * a.n + col0 + c) =
+          *reinterpret_cast<const float4*>(os + r * kLdo + c);
+    }
+  }
+}
+
 bool misaligned(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 != 0; }
 
 bool plan_matches(const int* mine, int n_mine, const int* plan, int n_plan) {
@@ -262,27 +409,37 @@ cudaError_t launch(const void* kernel, dim3 grid, int threads, int smem, Args& a
   return cudaGetLastError();
 }
 
+// grid_step_kernel<Op> over `steps` steps of `per_step` floats.
+template <class Op>
+int launch_steps(const float* x, float* out, int steps, int per_step, void* stream) {
+  if (steps <= 0 || per_step <= 0 || per_step % 4 != 0) return (int)cudaErrorInvalidValue;
+  if (misaligned(x) || misaligned(out)) return (int)cudaErrorMisalignedAddress;
+  Args a{x, nullptr, out, per_step, 0, 0, 0, 0};
+  const dim3 grid(cdiv(per_step, 4 * kChunkSlots), steps);
+  return (int)launch((const void*)grid_step_kernel<Op>, grid, kChunkThreads, 0, a, stream);
+}
+
 }  // namespace
 
 // Each launches on `stream` and returns the first CUDA error, so that a
 // refused launch is seen at once: cudaErrorInvalidValue for a size that is
 // not positive, an array, a step or a row that is not a multiple of 4
-// floats, a t5 depth over 64, or a t5 plan (`plan`, `n_plan` ints) other
-// than this source's own; cudaErrorMisalignedAddress for a pointer not
-// 16-byte aligned. Nothing is launched then. The caller checked shapes,
-// types and contiguity.
+// floats (t7: N or K not a multiple of 8), a t5 or t7 depth over 64, or a
+// t5 plan (`plan`, `n_plan` ints) other than this source's own;
+// cudaErrorMisalignedAddress for a pointer not 16-byte aligned. Nothing is
+// launched then. The caller checked shapes, types and contiguity.
 extern "C" {
 
 int dstt_probe_t4(const float* x, float* out, int steps, int per_step, void* stream) {
-  if (steps <= 0 || per_step <= 0 || per_step % 4 != 0) return (int)cudaErrorInvalidValue;
-  if (misaligned(x) || misaligned(out)) return (int)cudaErrorMisalignedAddress;
-  Args a{x, nullptr, out, per_step, 0, 0, 0, 0};
-  const dim3 grid(cdiv(per_step, 4 * kChunkSlots), steps);
-  return (int)launch((const void*)grid_step_kernel, grid, kChunkThreads, 0, a, stream);
+  return launch_steps<PlusOne>(x, out, steps, per_step, stream);
 }
 
 int dstt_probe_t3(const float* x, float* out, int n, void* stream) {
-  return dstt_probe_t4(x, out, 1, n, stream);  // the whole array as one step
+  return launch_steps<PlusOne>(x, out, 1, n, stream);  // the whole array as one step
+}
+
+int dstt_probe_t11(const float* x, float* out, int n, void* stream) {
+  return launch_steps<Times2>(x, out, 1, n, stream);  // the whole array as one step
 }
 
 int dstt_probe_t5(const float* x, const float* w, float* out, int m, int n, int k,
@@ -305,6 +462,16 @@ int dstt_probe_t12(const float* x, float* out, int n, void* stream) {
   Args a{x, nullptr, out, n, 0, 0, 0, 0};
   return (int)launch((const void*)stage_kernel, dim3(cdiv(n, 4 * kChunkSlots)), kChunkThreads,
                      kStageSmem, a, stream);
+}
+
+int dstt_probe_t7(const bf16* x, const bf16* w, float* out, int m, int n, int k, void* stream) {
+  if (m <= 0 || n <= 0 || k <= 0 || k > kMaxDepth || n % 8 != 0 || k % 8 != 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (misaligned(x) || misaligned(w) || misaligned(out)) return (int)cudaErrorMisalignedAddress;
+  Args a{nullptr, nullptr, out, 0, m, n, k, 0, x, w};
+  const dim3 grid(cdiv(n, kMmaCols), cdiv(m, kMmaRows));
+  return (int)launch((const void*)mma_tile_kernel, grid, kMmaThreads, kMmaSmem, a, stream);
 }
 
 }  // extern "C"

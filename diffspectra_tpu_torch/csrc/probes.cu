@@ -1,48 +1,40 @@
-// Ten of the Mosaic probes t1 ... t14 of tools/diag_mosaic_bisect.py, for
-// Hopper (sm_90a). f32 unless marked. t3, t4, t5 and t12, redesigned for
-// this card, are in probe_tiles.cu.
+// Eight of the Mosaic probes t1 ... t14 of tools/diag_mosaic_bisect.py, for
+// Hopper (sm_90a), f32: t1, t2, t6, t8, t9, t10, t13 and t14. t3, t4, t5,
+// t7, t11 and t12, redesigned for this card, are in probe_tiles.cu.
 //
-// Replaces ten of the fourteen TPU kernels of that tool (functions t1 ...
-// t14 but t3, t4, t5 and t12, one pl.pallas_call each). The tool bisects
-// which Pallas/Mosaic feature a TPU compile refuses, one feature a probe:
-// unaligned and high-rank shapes, 2-D products (f32 and bf16), tanh, a
-// softmax, a masked large negative, a reshape and segment sum. Each kernel
-// here computes what its probe computes, at the probe's shapes, and
+// Replaces eight of the fourteen TPU kernels of that tool (one
+// pl.pallas_call each). The tool bisects which Pallas/Mosaic feature a TPU
+// compile refuses, one feature a probe: unaligned shapes, a 2-D product,
+// tanh, a softmax, a masked large negative, a reshape and segment sum. Each
+// kernel here computes what its probe computes, at the probe's shapes, and
 // exercises the counterpart feature of this card: masked ragged edges (29
-// and 841 are no multiples of the warp or the tile), shared memory tiles,
-// warp shuffles and, for t7, the bf16 tensor cores.
+// and 841 are no multiples of the warp or the tile), shared memory tiles
+// and warp shuffles.
 //
-// What bounds them on this card. Each probe moves 7 KB to 3.4 MB, so the
-// bound is 2 ns to 1 us: bytes / 3.35 TB/s. A launch costs a few
+// What bounds them on this card. Each probe moves 7 KB to 0.9 MB, so the
+// bound is 2 ns to 0.3 us: bytes / 3.35 TB/s. A launch costs a few
 // microseconds, which sets the time of most of them.
 //
 // What the design does about it: nothing beyond a simple kernel that is
 // right, with enough threads to cover the data in one wave. They are not
 // on any serving path.
 //
-//   t1, t2, t11  x * 2                     map_kernel<Times2>
+//   t1, t2       x * 2                     map_kernel<Times2>
 //   t6           tanh(x)                   map_kernel<Tanh>
 //   t9           m > 0 ? x : -1e10         mask_kernel
 //   t8           softmax over the last axis, one warp per row
 //   t10          [841,252] -> [29,29,14,18].sum(-1), one thread per output
 //   t14          q k^T, one warp per output, shuffle sum over the depth
 //   t13          q @ k^T, 16 x 16 shared-memory tiles
-//   t7           x @ w, bf16 in, f32 out, mma.sync m16n8k16 on the tensor
-//                cores, 64 x 64 tiles, the 841 rows masked at the edge
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
-
-#include <cstdint>
+#include <math.h>
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kMaxBlocks = 4096;     // map kernels loop past this many blocks
 constexpr int kTile = 16;            // f32 product tile
-constexpr int kMmaTile = 64;         // bf16 product: rows, columns and depth a block
-constexpr int kMmaPad = 8;           // bf16 of padding a shared row (no bank conflicts)
-constexpr int kChunks = kMmaTile * kMmaTile / 8 / 128;  // 16-byte loads a thread a tile
 
 struct Times2 {
   __device__ float operator()(float x) const { return x * 2.0f; }
@@ -143,89 +135,6 @@ __global__ void tiled_product_kernel(const float* __restrict__ a, const float* _
   if (row < M && col < N) out[(size_t)row * N + col] = acc;
 }
 
-__device__ uint32_t load_pair(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);  // two bf16, the lower index in the low half
-}
-
-// t7: out[M, N] (f32) = a[M, K] (bf16) @ b[K, N] (bf16). A block of four
-// warps owns a 64 x 64 output tile; warp w its rows 16w ... 16w + 15, as
-// eight m16n8k16 tiles whose f32 sums stay in registers. The depth goes 64
-// at a time through shared memory, a as [row][k] and b transposed to
-// [n][k], so that each fragment register is one 32-bit load of two
-// neighbouring k. K and N are multiples of 8 and both operands 16-byte
-// aligned, for the 16-byte loads. Fragment layout (PTX ISA, mma.m16n8k16,
-// .bf16): g = lane / 4, t = lane % 4; A registers (g, 2t), (g + 8, 2t),
-// (g, 2t + 8), (g + 8, 2t + 8); B registers (k = 2t, n = g), (k = 2t + 8,
-// n = g); C (g, 2t), (g, 2t + 1), (g + 8, 2t), (g + 8, 2t + 1). Rows,
-// columns and depth past the edge load zeros; rows past M store nothing.
-__global__ void __launch_bounds__(128) bf16_mma_kernel(const __nv_bfloat16* __restrict__ a,
-                                                       const __nv_bfloat16* __restrict__ b,
-                                                       float* __restrict__ out, int M, int N,
-                                                       int K) {
-  __shared__ __align__(16) __nv_bfloat16 as[kMmaTile][kMmaTile + kMmaPad];  // [row][k]
-  __shared__ __align__(16) __nv_bfloat16 bs[kMmaTile][kMmaTile + kMmaPad];  // [n][k]
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int row0 = blockIdx.y * kMmaTile, col0 = blockIdx.x * kMmaTile;
-  float acc[8][4] = {};
-  for (int k0 = 0; k0 < K; k0 += kMmaTile) {
-    // Each thread loads kChunks 16-byte chunks (8 bf16) of a and of b, all
-    // in flight before the first is stored, so that the tile costs one
-    // memory latency and not one a loop step.
-    uint4 va[kChunks], vb[kChunks];
-#pragma unroll
-    for (int it = 0; it < kChunks; ++it) {
-      const int chunk = threadIdx.x + it * 128;
-      const int r = chunk / 8, c = chunk % 8 * 8;  // a: row r, k c ... c + 7
-      va[it] = (row0 + r < M && k0 + c < K)
-                   ? *reinterpret_cast<const uint4*>(a + (size_t)(row0 + r) * K + k0 + c)
-                   : make_uint4(0, 0, 0, 0);
-      vb[it] = (k0 + r < K && col0 + c < N)  // b: k r, n c ... c + 7
-                   ? *reinterpret_cast<const uint4*>(b + (size_t)(k0 + r) * N + col0 + c)
-                   : make_uint4(0, 0, 0, 0);
-    }
-#pragma unroll
-    for (int it = 0; it < kChunks; ++it) {
-      const int chunk = threadIdx.x + it * 128;
-      const int r = chunk / 8, c = chunk % 8 * 8;
-      *reinterpret_cast<uint4*>(&as[r][c]) = va[it];
-      const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&vb[it]);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) bs[c + j][r] = e[j];  // transposed to [n][k]
-    }
-    __syncthreads();
-    const int r = warp * 16 + g;
-    for (int ks = 0; ks < kMmaTile; ks += 16) {
-      const uint32_t a0 = load_pair(&as[r][ks + 2 * t]);
-      const uint32_t a1 = load_pair(&as[r + 8][ks + 2 * t]);
-      const uint32_t a2 = load_pair(&as[r][ks + 2 * t + 8]);
-      const uint32_t a3 = load_pair(&as[r + 8][ks + 2 * t + 8]);
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        const uint32_t b0 = load_pair(&bs[nt * 8 + g][ks + 2 * t]);
-        const uint32_t b1 = load_pair(&bs[nt * 8 + g][ks + 2 * t + 8]);
-        asm volatile(
-            "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-            "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-            : "+f"(acc[nt][0]), "+f"(acc[nt][1]), "+f"(acc[nt][2]), "+f"(acc[nt][3])
-            : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-      }
-    }
-    __syncthreads();
-  }
-  const int row = row0 + warp * 16 + g;
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt) {
-    const int col = col0 + nt * 8 + 2 * t;
-    for (int half = 0; half < 2; ++half) {
-      const int rr = row + 8 * half;
-      if (rr >= M) continue;
-      if (col < N) out[(size_t)rr * N + col] = acc[nt][2 * half];
-      if (col + 1 < N) out[(size_t)rr * N + col + 1] = acc[nt][2 * half + 1];
-    }
-  }
-}
-
 int finish() { return (int)cudaGetLastError(); }
 
 template <class Op>
@@ -237,7 +146,7 @@ int launch_map(const float* x, float* out, int n, Op op, void* stream) {
 
 }  // namespace
 
-// One launcher a probe (t3, t4, t5 and t12: probe_tiles.cu). Each launches
+// One launcher a probe (t3, t4, t5, t7, t11 and t12: probe_tiles.cu). Each launches
 // on `stream` and returns cudaGetLastError(), so that a refused launch is
 // seen at once; the caller checked shapes, types and contiguity. Sizes are
 // element counts.
@@ -253,17 +162,6 @@ int dstt_probe_t2(const float* x, float* out, int n, void* stream) {
 
 int dstt_probe_t6(const float* x, float* out, int n, void* stream) {
   return launch_map(x, out, n, Tanh{}, stream);
-}
-
-int dstt_probe_t7(const __nv_bfloat16* x, const __nv_bfloat16* w, float* out, int m, int n,
-                  int k, void* stream) {
-  if (m <= 0 || n <= 0 || k <= 0 || n % 8 != 0 || k % 8 != 0) return (int)cudaErrorInvalidValue;
-  if ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w)) % 16 != 0) {
-    return (int)cudaErrorMisalignedAddress;
-  }
-  const dim3 grid((n + kMmaTile - 1) / kMmaTile, (m + kMmaTile - 1) / kMmaTile);
-  bf16_mma_kernel<<<grid, 128, 0, (cudaStream_t)stream>>>(x, w, out, m, n, k);
-  return finish();
 }
 
 int dstt_probe_t8(const float* x, float* out, int rows, int cols, void* stream) {
@@ -285,10 +183,6 @@ int dstt_probe_t10(const float* x, float* out, int n_out, int seg, void* stream)
   segment_sum_kernel<<<(n_out + kThreads - 1) / kThreads, kThreads, 0, (cudaStream_t)stream>>>(
       x, out, n_out, seg);
   return finish();
-}
-
-int dstt_probe_t11(const float* x, float* out, int n, void* stream) {
-  return launch_map(x, out, n, Times2{}, stream);
 }
 
 int dstt_probe_t13(const float* q, const float* k, float* out, int m, int n, int depth,

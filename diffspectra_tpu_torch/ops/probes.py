@@ -1,6 +1,6 @@
 """The Mosaic probes of ``tools/diag_mosaic_bisect.py`` as hand-written CUDA
-kernels (``csrc/probes.cu``; t3, t4, t5 and t12 in ``csrc/probe_tiles.cu``),
-each with its plain PyTorch version.
+kernels (``csrc/probes.cu``; t3, t4, t5, t7, t11 and t12 in
+``csrc/probe_tiles.cu``), each with its plain PyTorch version.
 
 The JAX tool bisects which Pallas/Mosaic feature a TPU compile refuses: one
 small ``pallas_call`` a feature. Wrapper ``tN`` replaces that tool's probe
@@ -8,14 +8,17 @@ small ``pallas_call`` a feature. Wrapper ``tN`` replaces that tool's probe
 gives the line):
 
 - ``t1`` (:47) ``x * 2`` on [256, 256]; ``t2`` (:55) on [29, 29];
-  ``t11`` (:136) on [2, 29, 29, 14, 18];
 - ``t3`` (:63) ``x + 1`` on [8, 29, 29, 64]; ``t4`` (:71) the same over a
-  grid of 8 steps; both cut each step (t3: the whole array) into chunks of
-  one thread block, which their C entries size;
+  grid of 8 steps; ``t11`` (:136) ``x * 2`` on [2, 29, 29, 14, 18]; the
+  three share one kernel, its operation a template parameter, that cuts
+  each step (t3, t11: the whole array) into chunks of one thread block,
+  which their C entries size;
 - ``t5`` (:85) ``x @ w``, [841, 64] @ [64, 252], one thread block a
   32 x 64 output tile (``product_plan``);
 - ``t6`` (:94) ``tanh(x)`` on [256, 256];
-- ``t7`` (:102) ``x @ w``, bf16 [841, 64] @ [64, 256], float32 result;
+- ``t7`` (:102) ``x @ w``, bf16 [841, 64] @ [64, 256], float32 result, on
+  the tensor cores (``mma.sync``), one thread block a 64 x 32 output tile,
+  its operands by ``cp.async`` and ``ldmatrix``, which its C entry sizes;
 - ``t8`` (:111) softmax over the last axis of [29, 29];
 - ``t9`` (:119) ``where(m > 0, x, -1e10)`` on [29, 29];
 - ``t10`` (:128) [841, 252] reshaped to [29, 29, 14, 18], summed over the

@@ -32,23 +32,25 @@ VARIANTS = {"plan": (64, 32), "only64": (64,), "only32": (32,)}
 PLAN_LOOP = "for (int tr : {64, 32})"
 
 
-def build_variant(name: str, heights: tuple) -> ctypes.CDLL:
-    """The two row-tile sources with plan_rows limited to ``heights``."""
-    out = _lib.BUILD_DIR / "row_tiles" / name
+def build_variant(name: str, file: str, old: str, new: str, sources: tuple,
+                  entries: tuple) -> ctypes.CDLL:
+    """``csrc/`` copied into ``_build/<name>`` with ``old`` replaced by
+    ``new`` in ``file``, ``sources`` of it built with nvcc into one library
+    and loaded, its C entries whose names start with one of ``entries``
+    typed."""
+    out = _lib.BUILD_DIR / name
     shutil.rmtree(out, ignore_errors=True)
     shutil.copytree(_lib._PKG / "csrc", out)
-    header = out / "row_tile.cuh"
-    text = header.read_text()
-    assert PLAN_LOOP in text, "plan_rows changed: update this tool"
-    header.write_text(text.replace(PLAN_LOOP, "for (int tr : {%s})" % ", ".join(map(str, heights))))
-    cmd = [_lib._nvcc(), *_lib.NVCC_FLAGS, "-o", str(out / "lib.so"),
-           str(out / "equi_update.cu"), str(out / "mix_attention.cu")]
+    text = (out / file).read_text()
+    assert old in text, f"{file} no longer holds {old!r}: update this tool"
+    (out / file).write_text(text.replace(old, new))
+    cmd = [_lib._nvcc(), *_lib.NVCC_FLAGS, "-o", str(out / "lib.so"), *(str(out / s) for s in sources)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name}:\n{proc.stderr}")
     lib = ctypes.CDLL(str(out / "lib.so"))
     for fn, types in _lib._ARGTYPES.items():
-        if fn.startswith(("dstt_equi_update", "dstt_mix_attention")):
+        if fn.startswith(entries):
             getattr(lib, fn).argtypes = types
             getattr(lib, fn).restype = ctypes.c_int
     return lib
@@ -97,7 +99,11 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
     print(torch.cuda.get_device_name(0), flush=True)
-    libs = {name: build_variant(name, heights) for name, heights in VARIANTS.items()}
+    libs = {name: build_variant(f"row_tiles/{name}", "row_tile.cuh", PLAN_LOOP,
+                                "for (int tr : {%s})" % ", ".join(map(str, heights)),
+                                ("equi_update.cu", "mix_attention.cu"),
+                                ("dstt_equi_update", "dstt_mix_attention"))
+            for name, heights in VARIANTS.items()}
     gen = torch.Generator().manual_seed(0)
     inputs = {shape: cases(*shape, gen, dev) for shape in SHAPES}
     saved = _lib._lib, _row_tile.TILE_ROWS

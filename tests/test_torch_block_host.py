@@ -6,8 +6,13 @@ block runs as 256 ``std::thread``s, one block after the other (grid.x, then
 grid.y), with
 ``__syncthreads`` a barrier, warp shuffles an exchange through memory,
 shared memory a NaN-filled array (bytes past the launch's dynamic size must
-stay untouched), and ``cp.async`` a copy made at the latest moment its
-``wait_group`` allows, so that a missing wait reads stale data. Its
+stay untouched), ``cp.async`` a copy made at the latest moment its
+``wait_group`` allows, so that a missing wait reads stale data, and the
+tensor-core instructions of ``csrc/mma.cuh`` (``ldmatrix`` x4, plain and
+transposed, and the m16n8k16 bf16 ``mma``) warp collectives: each lane posts
+its row address or its fragment registers, meets the other lanes at the warp
+barrier, and takes its result by the PTX ISA's fragment layout, with
+``__nv_bfloat16`` 16 raw bits. Its
 ``dstt_block_fused`` is then called through ``ctypes`` on CPU tensors with
 the wrapper's launch plan and held against ``block_fused_reference`` with
 the chip's tolerance (1e-4; measured about 1e-6).
@@ -54,6 +59,8 @@ struct uint3 { unsigned x, y, z; };
 extern thread_local uint3 threadIdx, blockIdx;
 struct alignas(16) float4 { float x, y, z, w; };
 inline float4 make_float4(float x, float y, float z, float w) { return {x, y, z, w}; }
+struct alignas(8) float2 { float x, y; };
+inline float2 make_float2(float x, float y) { return {x, y}; }
 typedef int cudaError_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1, cudaErrorInvalidDevice = 101,
        cudaErrorMisalignedAddress = 716 };
@@ -70,6 +77,7 @@ inline cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, const v
 }
 cudaError_t cudaLaunchKernel(const void*, dim3, dim3, void**, size_t, cudaStream_t);
 void __syncthreads();
+void __syncwarp(unsigned mask = 0xffffffffu);
 float __shfl_xor_sync(unsigned, float, int);
 template <class T> inline T __ldg(const T* p) { return *p; }
 using std::max;
@@ -95,6 +103,73 @@ template <int Pending> inline void cp_async_wait() {
       if (c.n) std::memcpy(c.dst, c.src, c.n);
     }
     committed.erase(committed.begin());
+  }
+}
+}  // namespace dstt
+"""
+
+CUDA_BF16_H = r"""
+#pragma once
+#include <cstdint>
+struct __nv_bfloat16 { uint16_t bits; };
+"""
+
+MMA_H = r"""
+#pragma once
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+namespace dstt {
+namespace emu {
+inline const void* rows[32][32];  // [warp][lane]: the row address a lane gives ldmatrix
+inline uint32_t frags[32][32][6];  // [warp][lane]: a lane's a0 ... a3, b0, b1 for mma
+inline float value(uint32_t reg, int high) {  // one bf16 of a register as a float
+  const uint32_t u = (high ? reg >> 16 : reg & 0xffffu) << 16;
+  float f;
+  std::memcpy(&f, &u, 4);
+  return f;
+}
+inline void ldmatrix(uint32_t (&r)[4], const void* smem, bool trans) {
+  const int w = threadIdx.x / 32, l = threadIdx.x % 32;
+  rows[w][l] = smem;
+  __syncwarp();
+  for (int i = 0; i < 4; ++i) {  // matrix i: the rows lanes 8i ... 8i + 7 gave
+    uint16_t e[2];
+    for (int j = 0; j < 2; ++j) {
+      const int row = trans ? 2 * (l % 4) + j : l / 4, col = trans ? l / 4 : 2 * (l % 4) + j;
+      std::memcpy(&e[j], static_cast<const char*>(rows[w][8 * i + row]) + 2 * col, 2);
+    }
+    r[i] = e[0] | uint32_t(e[1]) << 16;
+  }
+  __syncwarp();
+}
+}  // namespace emu
+inline void ldmatrix_x4(uint32_t (&r)[4], const void* smem) { emu::ldmatrix(r, smem, false); }
+inline void ldmatrix_x4_trans(uint32_t (&r)[4], const void* smem) { emu::ldmatrix(r, smem, true); }
+inline void mma_bf16_16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  const int w = threadIdx.x / 32, l = threadIdx.x % 32;
+  uint32_t* mine = emu::frags[w][l];
+  for (int i = 0; i < 4; ++i) mine[i] = a[i];
+  mine[4] = b0;
+  mine[5] = b1;
+  __syncwarp();
+  float A[16][16], B[16][8];  // the warp's operands, gathered from every lane's registers
+  for (int lane = 0; lane < 32; ++lane) {
+    const int g = lane / 4, t = lane % 4;
+    const uint32_t* f = emu::frags[w][lane];
+    for (int j = 0; j < 2; ++j) {
+      A[g][2 * t + j] = emu::value(f[0], j);
+      A[g + 8][2 * t + j] = emu::value(f[1], j);
+      A[g][2 * t + 8 + j] = emu::value(f[2], j);
+      A[g + 8][2 * t + 8 + j] = emu::value(f[3], j);
+      B[2 * t + j][g] = emu::value(f[4], j);
+      B[2 * t + 8 + j][g] = emu::value(f[5], j);
+    }
+  }
+  __syncwarp();
+  const int g = l / 4, t = l % 4;
+  for (int i = 0; i < 4; ++i) {  // c0 (g, 2t), c1 (g, 2t + 1), c2 (g + 8, 2t), c3 (g + 8, 2t + 1)
+    const int row = g + 8 * (i / 2), col = 2 * t + i % 2;
+    for (int k = 0; k < 16; ++k) c[i] += A[row][k] * B[k][col];
   }
 }
 }  // namespace dstt
@@ -139,6 +214,7 @@ extern "C" int dstt_host_last_launch(unsigned* out) {
   return launches;
 }
 void __syncthreads() { block_barrier.wait(); }
+void __syncwarp(unsigned) { warp_barrier[threadIdx.x / 32].wait(); }
 float __shfl_xor_sync(unsigned, float v, int lane_mask) {
   const int w = threadIdx.x / 32, lane = threadIdx.x % 32;
   warp_values[w][lane] = v;
@@ -183,20 +259,26 @@ cudaError_t cudaLaunchKernel(const void* f, dim3 grid, dim3 block, void** args, 
 """
 
 
-def build_host_lib(directory: Path, source: str, argtypes: dict) -> ctypes.CDLL:
-    """Compile ``csrc/<source>`` (and the headers of ``csrc/`` it includes)
-    with the host C++ compiler against the stand-in into ``directory``, and
-    load it with each C entry of ``argtypes`` typed. Skips the test where no
-    host compiler exists."""
+def build_host_lib(directory: Path, source: str, argtypes: dict, text: str = None) -> ctypes.CDLL:
+    """Compile ``csrc/<source>`` (or, given ``text``, that source under the
+    name ``source``), with the headers of ``csrc/`` it includes, with the
+    host C++ compiler against the stand-in into ``directory``, and load it
+    with each C entry of ``argtypes`` typed. Skips the test where no host
+    compiler exists."""
     cxx = shutil.which("g++") or shutil.which("c++")
     if cxx is None:
         pytest.skip(f"no host C++ compiler to build csrc/{source} for the CPU")
     for header in CSRC.glob("*.cuh"):
         shutil.copy(header, directory / header.name)
-    shutil.copy(CSRC / source, directory / source)
+    if text is None:
+        shutil.copy(CSRC / source, directory / source)
+    else:
+        (directory / source).write_text(text)
     (directory / "async_copy.cuh").write_text(ASYNC_COPY_H)
+    (directory / "mma.cuh").write_text(MMA_H)
     (directory / "include").mkdir()
     (directory / "include" / "cuda_runtime.h").write_text(RUNTIME_H)
+    (directory / "include" / "cuda_bf16.h").write_text(CUDA_BF16_H)
     (directory / "harness.cpp").write_text(HARNESS_CPP.replace("KERNEL_SOURCE", source))
     cmd = [cxx, "-std=c++17", "-O1", "-shared", "-fPIC", "-pthread", "-I",
            str(directory / "include"), "-o", str(directory / "libhost.so"),

@@ -1,29 +1,36 @@
-"""``csrc/probe_tiles.cu`` (the probe kernels t3, t4, t5 and t12) itself, run
-on the CPU, and t5's launch plan of ``ops/probes.py`` that its C entry
-re-checks.
+"""``csrc/probe_tiles.cu`` (the probe kernels t3, t4, t5, t7, t11 and t12)
+itself, run on the CPU, and t5's launch plan of ``ops/probes.py`` that its
+C entry re-checks.
 
 The source is compiled with the host C++ compiler against the stand-in for
 the CUDA runtime of ``tests/test_torch_block_host.py`` (a block's threads
 as ``std::thread``s, ``__syncthreads`` a barrier, NaN-filled shared memory
 that must not be written past the launch's size, ``cp.async`` copies
-landing only at their wait). Its C entries ``dstt_probe_t3``, ``_t4``,
-``_t5`` and ``_t12`` are called through ``ctypes`` on CPU tensors as the
-wrapper calls them (t5 with its launch plan) and held against the plain
-versions: t3, t4 and t12 exactly, t5 within 1e-4 (the probe's tolerance;
-its sums run along K in another order than the CPU's), at the probe shapes
-and at ragged ones (t4: 1 or 8 steps whose last chunk ends mid-block; t3
-and t12: 4, 508, 516, 1020, 1028 and 2052 floats, whose last block ends
-mid-tile, and t3 at 430,592; t5: M in {1, 9, 841}, N in {4, 60, 252}, K in {4, 52, 64}).
-Since the stand-in's shared memory starts as NaN, a mirrored read of a t12
-slot that no thread wrote fails the exact comparison. Each output is
-followed by NaN floats that must stay untouched. A wrong plan, a size that
-is not positive or not a multiple of 4 floats and a misaligned pointer are
-each refused with their error code, nothing launched and nothing written.
-t3, t4 and t12 run in place show their grids covering each float once, in
-one wave. The stand-in records the grid, block and shared bytes each C
-entry launches with, and these are held to the design's: 1024 floats a
-block of 128 threads for t3, t4 and t12 (t12 with 4 KB of shared memory),
-t5's plan.
+landing only at their wait, ``ldmatrix`` and the bf16 ``mma`` as warp
+collectives by the PTX ISA's fragment layout). Its C entries
+``dstt_probe_t3``, ``_t4``, ``_t5``, ``_t7``, ``_t11`` and ``_t12`` are
+called through ``ctypes`` on CPU tensors as the wrapper calls them (t5 with
+its launch plan) and held against the plain versions: t3, t4, t11 and t12
+exactly, t5 and t7 within 1e-4 (the probes' tolerance; their sums run along
+K in another order than the CPU's), at the probe shapes and at ragged ones
+(t4: 1 or 8 steps whose last chunk ends mid-block; t3, t11 and t12: 4, 508,
+516, 1020, 1028 and 2052 floats, whose last block ends mid-tile, and t3 at
+430,592; t5: M in {1, 9, 841}, N in {4, 60, 252}, K in {4, 52, 64}; t7: M in
+{1, 9, 33, 841}, N in {8, 56, 256}, K in {8, 40, 64}). Since the stand-in's
+shared memory starts as NaN, a mirrored read of a t12 slot that no thread
+wrote, or a t7 operand read where no copy landed, fails the comparison. Each
+output is followed by NaN floats that must stay untouched. A wrong plan, a
+size that is not positive or not a multiple of 4 floats (t7: 8), a depth
+over 64 and a misaligned pointer are each refused with their error code,
+nothing launched and nothing written. t3, t4, t11 and t12 run in place show
+their grids covering each float once, in one wave. The stand-in records the
+grid, block and shared bytes each C entry launches with, and these are held
+to the design's: 1024 floats a block of 128 threads for t3, t4, t11 and t12
+(t12 with 4 KB of shared memory), t5's plan, t7's 64 x 32 tiles (and the
+32 x 64 of ``tools/t7_tiles.py``'s variant). The
+emulated ``mma`` itself is held to true 16 x 16 x 16 products of basis
+matrices, its fragments loaded by ``ldmatrix`` and, apart from it, by the
+PTX ISA's layout written out element by element.
 
 This checks the kernels' tiling, masks and copies, not the card's
 arithmetic or speed; ``chip_smoke.py`` does that on the H100.
@@ -40,22 +47,27 @@ from diffspectra_tpu_torch.ops._row_tile import MAX_SMEM, SMS
 from diffspectra_tpu_torch.ops._row_tile import cdiv
 from diffspectra_tpu_torch.ops.probes import (PRODUCT_CHUNK, PRODUCT_CHUNKS, PROBES, product_plan,
                                               t3_reference, t4_reference, t5_reference,
-                                              t12_reference)
+                                              t7_reference, t11_reference, t12_reference)
 from diffspectra_tpu_torch.tools.diag_probes import probe_inputs
-from test_torch_block_host import build_host_lib, last_launch
+from diffspectra_tpu_torch.tools.t7_tiles import SOURCE_TILE, TILES, tile_line
+from test_torch_block_host import CSRC, build_host_lib, last_launch
 
 INVALID_VALUE, MISALIGNED = 1, 716  # cudaErrorInvalidValue, cudaErrorMisalignedAddress
 GUARD = 64  # NaN floats after each output, which the kernel must not write
 THREADS_PER_SM = 2048
-# t3's, t4's and t12's blocks: 128 threads, each 2 float4, so 1024 floats a
-# block; t12 stages them in 4 KB of shared memory
+# t3's, t4's, t11's and t12's blocks: 128 threads, each 2 float4, so 1024
+# floats a block; t12 stages them in 4 KB of shared memory
 CHUNK_THREADS, CHUNK_FLOATS, STAGE_SMEM = 128, 1024, 4096
+# t7's blocks: 128 threads a 64 x 32 output tile; x [64][64 + 8] and w
+# [64][32 + 8] bf16 in shared memory
+MMA_ROWS, MMA_COLS, MMA_THREADS = 64, 32, 128
+MMA_SMEM = 2 * (MMA_ROWS * 72 + 64 * (MMA_COLS + 8))
 
 
 @pytest.fixture(scope="module")
 def lib(tmp_path_factory):
     argtypes = {f"dstt_probe_{n}": _lib._ARGTYPES[f"dstt_probe_{n}"]
-                for n in ("t3", "t4", "t5", "t12")}
+                for n in ("t3", "t4", "t5", "t7", "t11", "t12")}
     return build_host_lib(tmp_path_factory.mktemp("probe_tiles_host"), "probe_tiles.cu", argtypes)
 
 
@@ -78,7 +90,7 @@ def _t4(lib, x, shift=(0, 0)):
 
 
 def _flat(lib, name, x, shift=(0, 0)):
-    """dstt_probe_<name> (t3 or t12) on x's n floats, as _t4."""
+    """dstt_probe_<name> (t3, t11 or t12) on x's n floats, as _t4."""
     n = x.numel()
     buf = torch.full((n + GUARD + 4,), float("nan"))
     ptrs = [t.data_ptr() + 4 * s for t, s in zip((x, buf), shift)]
@@ -86,8 +98,8 @@ def _flat(lib, name, x, shift=(0, 0)):
     return rc, buf[:n], buf[n:]
 
 
-FLAT_REFERENCES = {"t3": t3_reference, "t12": t12_reference}
-FLAT_SMEM = {"t3": 0, "t12": STAGE_SMEM}
+FLAT_REFERENCES = {"t3": t3_reference, "t11": t11_reference, "t12": t12_reference}
+FLAT_SMEM = {"t3": 0, "t11": 0, "t12": STAGE_SMEM}
 
 
 def _one_wave(grid, block):
@@ -105,6 +117,19 @@ def _t5(lib, x, w, bump=None, shift=(0, 0, 0)):
     # past the kernel's depth (K > 64) the plan of K = 64, for the C entry to refuse K
     ints = product_plan(m, n, min(k, PRODUCT_CHUNK * PRODUCT_CHUNKS)).ints()
     rc = lib.dstt_probe_t5(*ptrs, m, n, k, *_plan_args(ints, bump), None)
+    return rc, buf[:m * n].view(m, n), buf[m * n:]
+
+
+def _t7(lib, x, w, shift=(0, 0, 0)):
+    """dstt_probe_t7 on bf16 x [m, k] and w [k, n], each copied in front of
+    GUARD NaN (so that a read past its end makes the product NaN), as _t4
+    (shifts in elements)."""
+    (m, k), n = x.shape, w.shape[1]
+    x, w = (torch.cat([t.flatten(), torch.full((GUARD,), float("nan"), dtype=t.dtype)])
+            for t in (x, w))
+    buf = torch.full((m * n + GUARD + 4,), float("nan"))
+    ptrs = [t.data_ptr() + t.element_size() * s for t, s in zip((x, w, buf), shift)]
+    rc = lib.dstt_probe_t7(*ptrs, m, n, k, None)
     return rc, buf[:m * n].view(m, n), buf[m * n:]
 
 
@@ -137,7 +162,7 @@ def test_flat_source_at_the_probe_shape_equals_the_plain_version(lib, name):
                                rtol=0, atol=0)
 
 
-# floats (a block of either kernel takes 1024): one float4; under half a
+# floats (a block of each kernel takes 1024): one float4; under half a
 # block, and just over half (the block's second float4 of a thread in part
 # or not at all); a block short by one float4 (its 255 of 256 float4, so a
 # mirrored read of slot 255 - i, never written, reads NaN); a block and one
@@ -259,10 +284,11 @@ def test_step_plan_covers_each_float_once_in_one_wave(lib, steps, per_step):
     assert _one_wave(grid, block)
 
 
-@pytest.mark.parametrize("name,n", [("t3", 8 * 29 * 29 * 64), ("t12", 256 * 256)] + FLAT_SIZES)
+@pytest.mark.parametrize("name,n", [("t3", 8 * 29 * 29 * 64), ("t11", 2 * 29 * 29 * 14 * 18),
+                                    ("t12", 256 * 256)] + FLAT_SIZES)
 def test_flat_grids_cover_each_float_once_in_one_wave(lib, name, n):
     # in place, one block after another: a float that two blocks cover comes
-    # out x + 2 (t3) or 2(2x + 1) + 1 (t12), one that none covers x
+    # out x + 2 (t3), 4x (t11) or 2(2x + 1) + 1 (t12), one that none covers x
     x = _normal(n + 1, n)
     want = FLAT_REFERENCES[name](x)
     assert getattr(lib, f"dstt_probe_{name}")(x.data_ptr(), x.data_ptr(), n, None) == 0
@@ -274,9 +300,10 @@ def test_flat_grids_cover_each_float_once_in_one_wave(lib, name, n):
 
 
 def test_flat_grids_at_the_probe_shapes(lib):
-    # as the C entries launch them: t3 421 blocks of 128 threads; t12 64
-    # blocks of 128 with 4 KB of shared memory, at most one an SM
-    for name, blocks, smem in (("t3", 421, 0), ("t12", 64, STAGE_SMEM)):
+    # as the C entries launch them: t3 421 and t11 414 blocks of 128
+    # threads; t12 64 blocks of 128 with 4 KB of shared memory, at most one
+    # an SM
+    for name, blocks, smem in (("t3", 421, 0), ("t11", 414, 0), ("t12", 64, STAGE_SMEM)):
         (x,) = probe_inputs(name, seed=4)
         assert _flat(lib, name, x)[0] == 0
         assert last_launch(lib)[1:] == ((blocks, 1, 1), (CHUNK_THREADS, 1, 1), smem)
@@ -318,3 +345,168 @@ def test_product_plan_at_the_probe_shape_is_one_wave():
 def test_product_plan_refuses_a_depth_over_64():
     with pytest.raises(ValueError, match="depth up to 64"):
         product_plan(841, 252, 68)
+
+
+def test_t7_source_at_the_probe_shape_matches_the_plain_version(lib):
+    x, w = probe_inputs("t7", seed=3)
+    rc, got, guard = _t7(lib, x, w)
+    assert rc == 0 and torch.isnan(guard).all()
+    assert torch.isfinite(got).all()
+    np.testing.assert_allclose(got.numpy(), t7_reference(x, w).numpy(), rtol=0,
+                               atol=PROBES["t7"].atol)
+    # 14 row tiles of 64 (the last of 9 rows) by 8 column tiles of 32, one wave
+    assert last_launch(lib)[1:] == ((8, 14, 1), (MMA_THREADS, 1, 1), MMA_SMEM)
+    assert _one_wave(*last_launch(lib)[1:3]) and 8 * 14 <= SMS
+    assert MMA_SMEM <= 48 * 1024  # no opt-in to more shared memory needed
+
+
+# M: one row, a partial tile, a half tile and one row, the probe's 841 (13
+# tiles and 9 rows); N: one n8 tile, a whole column tile and a partial one of
+# 3 n8 tiles, eight whole; K:
+# one k8 of the first chunk, a partial second chunk, both whole
+@pytest.mark.parametrize("k", [8, 40, 64])
+@pytest.mark.parametrize("n", [8, 56, 256])
+@pytest.mark.parametrize("m", [1, 9, 33, 841])
+def test_t7_source_on_ragged_shapes_matches_the_plain_version(lib, m, n, k):
+    x = _normal(m + n + k, m, k).to(torch.bfloat16)
+    w = _normal(m * n * k, k, n).to(torch.bfloat16)
+    rc, got, guard = _t7(lib, x, w)
+    assert rc == 0 and torch.isnan(guard).all()
+    assert torch.isfinite(got).all()  # no NaN shared memory read as an operand
+    np.testing.assert_allclose(got.numpy(), t7_reference(x, w).numpy(), rtol=0,
+                               atol=PROBES["t7"].atol)
+    assert last_launch(lib)[1:] == ((cdiv(n, MMA_COLS), cdiv(m, MMA_ROWS), 1),
+                                    (MMA_THREADS, 1, 1), MMA_SMEM)
+
+
+T7_REFUSALS = {  # name: (m, n, k, pointer shifts in elements, code)
+    "no_rows": (0, 56, 64, (0, 0, 0), INVALID_VALUE),
+    "no_columns": (9, 0, 64, (0, 0, 0), INVALID_VALUE),
+    "no_depth": (9, 56, 0, (0, 0, 0), INVALID_VALUE),
+    "n_not_a_multiple_of_8": (9, 60, 64, (0, 0, 0), INVALID_VALUE),
+    "k_not_a_multiple_of_8": (9, 56, 60, (0, 0, 0), INVALID_VALUE),
+    "k_over_64": (9, 56, 72, (0, 0, 0), INVALID_VALUE),
+    "x_misaligned": (9, 56, 64, (4, 0, 0), MISALIGNED),
+    "w_misaligned": (9, 56, 64, (0, 4, 0), MISALIGNED),
+    "out_misaligned": (9, 56, 64, (0, 0, 2), MISALIGNED),
+}
+
+
+@pytest.mark.parametrize("case", sorted(T7_REFUSALS))
+def test_t7_source_refuses_with_nothing_written(lib, case):
+    m, n, k, shift, code = T7_REFUSALS[case]
+    x = _normal(1, m * k + 8).to(torch.bfloat16)  # room for shifted pointers
+    w = _normal(2, k * n + 8).to(torch.bfloat16)
+    launches = last_launch(lib)[0]
+    rc, got, guard = _t7(lib, x[:m * k].view(m, k), w[:k * n].view(k, n), shift)
+    assert rc == code and last_launch(lib)[0] == launches
+    assert torch.isnan(got).all() and torch.isnan(guard).all()
+
+
+# One warp a block multiplies a[p] [16][16] by b[p] [16][16] (bf16,
+# row-major, b as [k][n]) into c[p] [16][16] with two m16n8k16 mma, n8 tiles
+# 0 and 1. The fragments come by ldmatrix from shared memory as
+# probe_tiles.cu loads them, or, apart from it, from the PTX ISA's fragment
+# layout written out element by element; C is stored by that layout.
+MMA_PRODUCT_CU = r"""
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include "async_copy.cuh"  // the harness's copy queues
+#include "mma.cuh"
+namespace {
+struct Args { const uint16_t* a; const uint16_t* b; float* c; int by_ldmatrix; };
+uint32_t pair(const uint16_t* m, int r0, int c0, int r1, int c1) {
+  return m[16 * r0 + c0] | uint32_t(m[16 * r1 + c1]) << 16;
+}
+__global__ void product_kernel(Args args) {
+  extern __shared__ __align__(16) float smem[];
+  const int p = blockIdx.x, l = threadIdx.x, g = l / 4, t = l % 4;
+  const uint16_t* a = args.a + 256 * p;
+  const uint16_t* b = args.b + 256 * p;
+  float* c = args.c + 256 * p;
+  uint32_t af[4], bf[4];  // bf: b0, b1 of n8 tile 0, then of tile 1
+  if (args.by_ldmatrix) {
+    uint16_t* as = reinterpret_cast<uint16_t*>(smem);
+    uint16_t* bs = as + 256;
+    for (int i = l; i < 256; i += 32) as[i] = a[i], bs[i] = b[i];
+    __syncthreads();
+    dstt::ldmatrix_x4(af, as + 16 * (l % 16) + 8 * (l / 16));
+    dstt::ldmatrix_x4_trans(bf, bs + 16 * (l % 16) + 8 * (l / 16));
+  } else {
+    af[0] = pair(a, g, 2 * t, g, 2 * t + 1);
+    af[1] = pair(a, g + 8, 2 * t, g + 8, 2 * t + 1);
+    af[2] = pair(a, g, 2 * t + 8, g, 2 * t + 9);
+    af[3] = pair(a, g + 8, 2 * t + 8, g + 8, 2 * t + 9);
+    for (int nt = 0; nt < 2; ++nt) {
+      bf[2 * nt] = pair(b, 2 * t, 8 * nt + g, 2 * t + 1, 8 * nt + g);
+      bf[2 * nt + 1] = pair(b, 2 * t + 8, 8 * nt + g, 2 * t + 9, 8 * nt + g);
+    }
+  }
+  for (int nt = 0; nt < 2; ++nt) {
+    float acc[4] = {};
+    dstt::mma_bf16_16816(acc, af, bf[2 * nt], bf[2 * nt + 1]);
+    const int col = 8 * nt + 2 * t;
+    c[16 * g + col] = acc[0];
+    c[16 * g + col + 1] = acc[1];
+    c[16 * (g + 8) + col] = acc[2];
+    c[16 * (g + 8) + col + 1] = acc[3];
+  }
+}
+}  // namespace
+extern "C" int mma_product(const void* a, const void* b, float* c, int pairs, int by_ldmatrix) {
+  Args args{static_cast<const uint16_t*>(a), static_cast<const uint16_t*>(b), c, by_ldmatrix};
+  void* params[] = {&args};
+  return cudaLaunchKernel((const void*)product_kernel, dim3(pairs), dim3(32), params, 1024, nullptr);
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def mma_lib(tmp_path_factory):
+    P, I = ctypes.c_void_p, ctypes.c_int
+    return build_host_lib(tmp_path_factory.mktemp("mma_host"), "mma_product.cu",
+                          {"mma_product": [P, P, P, I, I]}, text=MMA_PRODUCT_CU)
+
+
+def _basis_pairs(which):
+    """256 products a @ b: a each basis matrix E_ij with b the integers 1 ...
+    256 (all exact in bf16, and every sum exact in f32), or b each E_kn with
+    a those integers."""
+    basis = np.eye(256, dtype=np.float32).reshape(256, 16, 16)
+    ints = np.arange(1, 257, dtype=np.float32).reshape(1, 16, 16).repeat(256, 0)
+    return (basis, ints) if which == "a_basis" else (ints, basis)
+
+
+@pytest.mark.parametrize("which", ["a_basis", "b_basis"])
+@pytest.mark.parametrize("by_ldmatrix", [0, 1])
+def test_emulated_mma_gives_the_true_product_of_basis_matrices(mma_lib, which, by_ldmatrix):
+    a, b = _basis_pairs(which)
+    ta, tb = (torch.from_numpy(v).to(torch.bfloat16) for v in (a, b))
+    assert torch.equal(ta.float(), torch.from_numpy(a)) and torch.equal(tb.float(), torch.from_numpy(b))
+    c = torch.full((256, 16, 16), float("nan"))
+    assert mma_lib.mma_product(ta.data_ptr(), tb.data_ptr(), c.data_ptr(), 256, by_ldmatrix) == 0
+    np.testing.assert_array_equal(c.numpy(), a @ b)
+
+
+@pytest.fixture(scope="module")
+def wide_lib(tmp_path_factory):
+    """probe_tiles.cu with t7's 32 x 64 tile, as ``tools/t7_tiles.py``
+    builds it for the card."""
+    text = (CSRC / "probe_tiles.cu").read_text()
+    assert tile_line(*SOURCE_TILE) in text and SOURCE_TILE == (MMA_ROWS, MMA_COLS)
+    return build_host_lib(tmp_path_factory.mktemp("t7_wide_host"), "probe_tiles.cu",
+                          {"dstt_probe_t7": _lib._ARGTYPES["dstt_probe_t7"]},
+                          text=text.replace(tile_line(*SOURCE_TILE), tile_line(*TILES["32x64"])))
+
+
+@pytest.mark.parametrize("m,n,k", [(841, 256, 64), (33, 56, 40)])
+def test_t7_tool_variant_with_32_x_64_tiles_matches_the_plain_version(wide_lib, m, n, k):
+    x = _normal(m + n + k, m, k).to(torch.bfloat16)
+    w = _normal(m * n * k, k, n).to(torch.bfloat16)
+    rc, got, guard = _t7(wide_lib, x, w)
+    assert rc == 0 and torch.isnan(guard).all() and torch.isfinite(got).all()
+    np.testing.assert_allclose(got.numpy(), t7_reference(x, w).numpy(), rtol=0,
+                               atol=PROBES["t7"].atol)
+    # 32 x 64 tiles, a 2 x 2 of warps: x [32][72] and w [64][64 + 8] bf16
+    assert last_launch(wide_lib)[1:] == ((cdiv(n, 64), cdiv(m, 32), 1), (MMA_THREADS, 1, 1),
+                                         2 * (32 * 72 + 64 * 72))
