@@ -22,8 +22,8 @@ Phases, each printing its own lines:
      version on cuda; then each probe kernel against its plain version on
      cuda, with the kernel's, the plain version's, the library call's and
      the bound's times (CUDA events over 200 calls, and the kernel's and
-     the library call's device time from the profiler); for t3, t4, t5,
-     t7, t11 and t12 (``csrc/probe_tiles.cu``) also the device time with
+     the library call's device time from the profiler); for t1, t3, t4,
+     t5, t6, t7, t11 and t12 (``csrc/probe_tiles.cu``) also the device time with
      L2 cold, the kernel's name and launch shape (grid, block, shared
      bytes, registers) as the profiler recorded them in that window, every
      block resident at once, the kernel's device time over the library
@@ -87,10 +87,14 @@ FORWARD_RTOL = 1e-3  # of the largest |value|: 8 blocks sum in another order
 PATHS = {"attn_equi": ("attn", "equi"), "block": ("block",)}
 PATH_KERNELS = {"attn_equi": ("mix_attention", "equi_update"), "block": ("block_fused",)}
 # the probes of csrc/probe_tiles.cu, by the profiler's kernel names (t3, t4:
-# grid_step_kernel<PlusOne>, t11: grid_step_kernel<Times2>)
-PROBE_TILE_KERNELS = {"t3": "grid_step_kernel", "t4": "grid_step_kernel",
-                      "t5": "tile_product_kernel", "t7": "mma_tile_kernel",
+# grid_step_kernel<PlusOne>, t1, t11: grid_step_kernel<Times2>, t6:
+# grid_step_kernel<Tanh>)
+PROBE_TILE_KERNELS = {"t1": "grid_step_kernel", "t3": "grid_step_kernel",
+                      "t4": "grid_step_kernel", "t5": "tile_product_kernel",
+                      "t6": "grid_step_kernel", "t7": "mma_tile_kernel",
                       "t11": "grid_step_kernel", "t12": "stage_kernel"}
+# the operation each probe's instance of the templated kernel must name
+PROBE_TILE_OPS = {"t1": "Times2", "t3": "PlusOne", "t4": "PlusOne", "t6": "Tanh", "t11": "Times2"}
 
 
 def say(*parts):
@@ -529,11 +533,12 @@ def phase_probes(dev):
 
 
 def probe_tile_extras(name, p, call, row, dev):
-    """A probe kernel of ``csrc/probe_tiles.cu`` (t3, t4, t5, t7, t11,
-    t12): its device time with L2 cold (FLUSH_BYTES written before each
+    """A probe kernel of ``csrc/probe_tiles.cu`` (t1, t3, t4, t5, t6, t7,
+    t11, t12): its device time with L2 cold (FLUSH_BYTES written before each
     call; profiler) and its name and launch shape in that window, from the
-    profiler's trace (t5's must be its launch plan; every block of each
-    must fit on the card's SMs at once, as far as threads go), its warm
+    profiler's trace (t5's must be its launch plan; the templated
+    kernel's must name the probe's operation; every block of each must fit
+    on the card's SMs at once, as far as threads go), its warm
     device time over the library call's, the bound's share of it, and the
     rate it reaches warm in what bounds it (``row["bound_by"]``): bytes, or
     operations."""
@@ -553,6 +558,7 @@ def probe_tile_extras(name, p, call, row, dev):
         props = torch.cuda.get_device_properties(dev)
         assert blocks <= props.multi_processor_count * (
             props.max_threads_per_multi_processor // threads), (name, shape)
+        assert PROBE_TILE_OPS.get(name, "") in kernel_name, (name, kernel_name)
     if p.plan is not None:  # t5
         plan = p.plan(*p.sizes(p.out_shape, *p.inputs.values()))
         launch += f" (plan: {plan.grid} tiles of {plan.rows} x {plan.cols})"

@@ -1,28 +1,33 @@
-// The Mosaic probes t3, t4, t5, t7, t11 and t12 of
+// The Mosaic probes t1, t3, t4, t5, t6, t7, t11 and t12 of
 // tools/diag_mosaic_bisect.py, redesigned for Hopper (sm_90a), f32 unless
-// marked. The other eight probes are in probes.cu.
+// marked. The other six probes are in probes.cu.
 //
 // t3 (tools/diag_mosaic_bisect.py:63) and t4 (:71): x + 1 on [8, 29, 29,
 // 64]; t4 over a grid of 8 steps, each step finding its slice x[b] from its
 // grid index, as the BlockSpec (1, 29, 29, 64) cut it on the TPU, t3 on the
 // whole array at once. t11 (:136): x * 2 on [2, 29, 29, 14, 18], 423,864
-// floats, the whole array at once.
+// floats, the whole array at once. t1 (:47): x * 2, and t6 (:94): tanh(x),
+// each on [256, 256], 65,536 floats, the whole array at once.
 //   What bounds them: t3 and t4 move 1.72 MB in and 1.72 MB out, 1.03 us
 //   at 3.35 TB/s, t11 1.70 MB each way; at this size the ramp and tail of
-//   one wave of blocks weigh as much, and a launch of a few us is the real
-//   floor.
-//   What the design does: one kernel for the three, its elementwise
-//   operation a template parameter (PlusOne, Times2). The grid stays one
-//   over the steps (grid.y: 8 for t4, 1 for t3 and t11, whose arrays are
-//   one step), but each step is cut into chunks of 128 threads x 2 float4
-//   (grid.x: 53 blocks a step at t4's 53,824 floats, 424 in all; 421 at
-//   t3's 430,592; 414 at t11's), so that the whole grid is one wave over
-//   the 132 SMs with every SM's loads in flight at once, 16 bytes a load;
-//   each step's last chunk is masked. A block reads its step and chunk from
-//   blockIdx without a division (on the card a flat grid that divided
-//   blockIdx.x was slower, PERF.md). The launcher sizes the grid itself
-//   from the steps and the floats a step. A step's floats must be a
-//   multiple of 4 and both pointers 16-byte aligned (no scalar path).
+//   one wave of blocks weigh as much, and a launch of about 1.1 us on the
+//   card is the real floor (PERF.md). t1 and t6 move 0.26 MB in and 0.26 MB out, 0.157 us at 3.35
+//   TB/s, so the launch alone sets their time.
+//   What the design does: one kernel for the five, its elementwise
+//   operation a template parameter (PlusOne, Times2, Tanh). The grid stays
+//   one over the steps (grid.y: 8 for t4, 1 for the others, whose arrays
+//   are one step), but each step is cut into chunks of 128 threads x 2
+//   float4 (grid.x: 53 blocks a step at t4's 53,824 floats, 424 in all;
+//   421 at t3's 430,592; 414 at t11's; 64 at t1's and t6's 65,536), so
+//   that the whole grid is one wave over the 132 SMs with every SM's loads
+//   in flight at once, 16 bytes a load; each step's last chunk is masked.
+//   A block reads its step and chunk from blockIdx without a division (on
+//   the card a flat grid that divided blockIdx.x was slower, PERF.md). The
+//   launcher sizes the grid itself from the steps and the floats a step. A
+//   step's floats must be a multiple of 4 and both pointers 16-byte
+//   aligned (no scalar path). Tanh is the precise tanhf (a few ulp), never
+//   __tanhf or tanh.approx.f32, whose relative error of about 2^-11 would
+//   break t6's 1e-6; the build passes no fast-math flag.
 //
 // t12 (tools/diag_mosaic_bisect.py:144): scratch = 2x in a VMEM scratch
 // buffer, out = scratch + 1, on [256, 256].
@@ -111,7 +116,7 @@ using dstt::cp_async_wait;
 using dstt::rows::cdiv;
 using bf16 = __nv_bfloat16;
 
-// t3, t4, t11 and t12: one chunk of a flat array a block, 128 threads x 2 float4
+// t1, t3, t4, t6, t11 and t12: one chunk of a flat array a block, 128 threads x 2 float4
 constexpr int kChunkThreads = 128;
 constexpr int kChunkVectors = 2;
 constexpr int kChunkSlots = kChunkThreads * kChunkVectors;      // float4 a chunk
@@ -144,10 +149,10 @@ static_assert(4 * kMmaRows * kLdo <= kMmaSmem, "the output tile fits the operand
 
 // Every kernel's arguments.
 struct Args {
-  const float* x;  // t3, t4, t11, t12: [steps, per_step]; t5: [m, k]
+  const float* x;  // the flat probes: [steps, per_step]; t5: [m, k]
   const float* w;  // t5: [k, n]
   float* out;
-  int per_step;                   // t3, t4, t11, t12 (all but t4: one step, the whole array)
+  int per_step;                   // the flat probes (all but t4: one step, the whole array)
   int m, n, k, col_tiles;         // t5; t7: m, n, k
   const bf16* xb;                 // t7: [m, k]
   const bf16* wb;                 // t7: [k, n]
@@ -156,11 +161,14 @@ struct Args {
 struct PlusOne {  // t3, t4
   __device__ float operator()(float v) const { return v + 1.0f; }
 };
-struct Times2 {  // t11
+struct Times2 {  // t1, t11
   __device__ float operator()(float v) const { return v * 2.0f; }
 };
+struct Tanh {  // t6: the precise tanhf
+  __device__ float operator()(float v) const { return tanhf(v); }
+};
 
-// t3, t4, t11: block (chunk, step) = blockIdx (x, y).
+// t1, t3, t4, t6, t11: block (chunk, step) = blockIdx (x, y).
 template <class Op>
 __global__ void __launch_bounds__(kChunkThreads) grid_step_kernel(Args a) {
   const float4* x = reinterpret_cast<const float4*>(a.x + (size_t)blockIdx.y * a.per_step);
@@ -430,12 +438,20 @@ int launch_steps(const float* x, float* out, int steps, int per_step, void* stre
 // launched then. The caller checked shapes, types and contiguity.
 extern "C" {
 
+int dstt_probe_t1(const float* x, float* out, int n, void* stream) {
+  return launch_steps<Times2>(x, out, 1, n, stream);  // the whole array as one step
+}
+
 int dstt_probe_t4(const float* x, float* out, int steps, int per_step, void* stream) {
   return launch_steps<PlusOne>(x, out, steps, per_step, stream);
 }
 
 int dstt_probe_t3(const float* x, float* out, int n, void* stream) {
   return launch_steps<PlusOne>(x, out, 1, n, stream);  // the whole array as one step
+}
+
+int dstt_probe_t6(const float* x, float* out, int n, void* stream) {
+  return launch_steps<Tanh>(x, out, 1, n, stream);  // the whole array as one step
 }
 
 int dstt_probe_t11(const float* x, float* out, int n, void* stream) {

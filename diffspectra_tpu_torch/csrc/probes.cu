@@ -1,11 +1,11 @@
-// Eight of the Mosaic probes t1 ... t14 of tools/diag_mosaic_bisect.py, for
-// Hopper (sm_90a), f32: t1, t2, t6, t8, t9, t10, t13 and t14. t3, t4, t5,
+// Six of the Mosaic probes t1 ... t14 of tools/diag_mosaic_bisect.py, for
+// Hopper (sm_90a), f32: t2, t8, t9, t10, t13 and t14. t1, t3, t4, t5, t6,
 // t7, t11 and t12, redesigned for this card, are in probe_tiles.cu.
 //
-// Replaces eight of the fourteen TPU kernels of that tool (one
+// Replaces six of the fourteen TPU kernels of that tool (one
 // pl.pallas_call each). The tool bisects which Pallas/Mosaic feature a TPU
 // compile refuses, one feature a probe: unaligned shapes, a 2-D product,
-// tanh, a softmax, a masked large negative, a reshape and segment sum. Each
+// a softmax, a masked large negative, a reshape and segment sum. Each
 // kernel here computes what its probe computes, at the probe's shapes, and
 // exercises the counterpart feature of this card: masked ragged edges (29
 // and 841 are no multiples of the warp or the tile), shared memory tiles
@@ -19,8 +19,7 @@
 // right, with enough threads to cover the data in one wave. They are not
 // on any serving path.
 //
-//   t1, t2       x * 2                     map_kernel<Times2>
-//   t6           tanh(x)                   map_kernel<Tanh>
+//   t2           x * 2, map_kernel<Times2> (841 floats: no multiple of 4)
 //   t9           m > 0 ? x : -1e10         mask_kernel
 //   t8           softmax over the last axis, one warp per row
 //   t10          [841,252] -> [29,29,14,18].sum(-1), one thread per output
@@ -38,9 +37,6 @@ constexpr int kTile = 16;            // f32 product tile
 
 struct Times2 {
   __device__ float operator()(float x) const { return x * 2.0f; }
-};
-struct Tanh {
-  __device__ float operator()(float x) const { return tanhf(x); }
 };
 
 int map_blocks(int n) { return max(1, min(kMaxBlocks, (n + kThreads - 1) / kThreads)); }
@@ -146,22 +142,14 @@ int launch_map(const float* x, float* out, int n, Op op, void* stream) {
 
 }  // namespace
 
-// One launcher a probe (t3, t4, t5, t7, t11 and t12: probe_tiles.cu). Each launches
+// One launcher a probe (t1, t3, t4, t5, t6, t7, t11 and t12: probe_tiles.cu). Each launches
 // on `stream` and returns cudaGetLastError(), so that a refused launch is
 // seen at once; the caller checked shapes, types and contiguity. Sizes are
 // element counts.
 extern "C" {
 
-int dstt_probe_t1(const float* x, float* out, int n, void* stream) {
-  return launch_map(x, out, n, Times2{}, stream);
-}
-
 int dstt_probe_t2(const float* x, float* out, int n, void* stream) {
   return launch_map(x, out, n, Times2{}, stream);
-}
-
-int dstt_probe_t6(const float* x, float* out, int n, void* stream) {
-  return launch_map(x, out, n, Tanh{}, stream);
 }
 
 int dstt_probe_t8(const float* x, float* out, int rows, int cols, void* stream) {

@@ -1,5 +1,5 @@
 """The Mosaic probes of ``tools/diag_mosaic_bisect.py`` as hand-written CUDA
-kernels (``csrc/probes.cu``; t3, t4, t5, t7, t11 and t12 in
+kernels (``csrc/probes.cu``; t1, t3, t4, t5, t6, t7, t11 and t12 in
 ``csrc/probe_tiles.cu``), each with its plain PyTorch version.
 
 The JAX tool bisects which Pallas/Mosaic feature a TPU compile refuses: one
@@ -9,10 +9,10 @@ gives the line):
 
 - ``t1`` (:47) ``x * 2`` on [256, 256]; ``t2`` (:55) on [29, 29];
 - ``t3`` (:63) ``x + 1`` on [8, 29, 29, 64]; ``t4`` (:71) the same over a
-  grid of 8 steps; ``t11`` (:136) ``x * 2`` on [2, 29, 29, 14, 18]; the
-  three share one kernel, its operation a template parameter, that cuts
-  each step (t3, t11: the whole array) into chunks of one thread block,
-  which their C entries size;
+  grid of 8 steps; ``t11`` (:136) ``x * 2`` on [2, 29, 29, 14, 18]; t1,
+  t3, t4, t6 and t11 share one kernel, its operation a template
+  parameter, that cuts each step (all but t4: the whole array) into
+  chunks of one thread block, which their C entries size;
 - ``t5`` (:85) ``x @ w``, [841, 64] @ [64, 252], one thread block a
   32 x 64 output tile (``product_plan``);
 - ``t6`` (:94) ``tanh(x)`` on [256, 256];

@@ -1,5 +1,5 @@
-"""``csrc/probe_tiles.cu`` (the probe kernels t3, t4, t5, t7, t11 and t12)
-itself, run on the CPU, and t5's launch plan of ``ops/probes.py`` that its
+"""``csrc/probe_tiles.cu`` (the probe kernels t1, t3, t4, t5, t6, t7, t11
+and t12) itself, run on the CPU, and t5's launch plan of ``ops/probes.py`` that its
 C entry re-checks.
 
 The source is compiled with the host C++ compiler against the stand-in for
@@ -8,12 +8,14 @@ as ``std::thread``s, ``__syncthreads`` a barrier, NaN-filled shared memory
 that must not be written past the launch's size, ``cp.async`` copies
 landing only at their wait, ``ldmatrix`` and the bf16 ``mma`` as warp
 collectives by the PTX ISA's fragment layout). Its C entries
-``dstt_probe_t3``, ``_t4``, ``_t5``, ``_t7``, ``_t11`` and ``_t12`` are
-called through ``ctypes`` on CPU tensors as the wrapper calls them (t5 with
-its launch plan) and held against the plain versions: t3, t4, t11 and t12
-exactly, t5 and t7 within 1e-4 (the probes' tolerance; their sums run along
-K in another order than the CPU's), at the probe shapes and at ragged ones
-(t4: 1 or 8 steps whose last chunk ends mid-block; t3, t11 and t12: 4, 508,
+``dstt_probe_t1``, ``_t3``, ``_t4``, ``_t5``, ``_t6``, ``_t7``, ``_t11`` and
+``_t12`` are called through ``ctypes`` on CPU tensors as the wrapper calls
+them (t5 with its launch plan) and held against the plain versions: t1, t3,
+t4, t11 and t12 exactly, t6 within 1e-6 (the probe's tolerance: the host's
+tanhf and ``torch.tanh`` may differ by an ulp), t5 and t7 within 1e-4 (the
+probes' tolerance; their sums run along K in another order than the CPU's),
+at the probe shapes and at ragged ones (t4: 1 or 8 steps whose last chunk
+ends mid-block; t1, t3, t6, t11 and t12: 4, 508,
 516, 1020, 1028 and 2052 floats, whose last block ends mid-tile, and t3 at
 430,592; t5: M in {1, 9, 841}, N in {4, 60, 252}, K in {4, 52, 64}; t7: M in
 {1, 9, 33, 841}, N in {8, 56, 256}, K in {8, 40, 64}). Since the stand-in's
@@ -22,11 +24,13 @@ wrote, or a t7 operand read where no copy landed, fails the comparison. Each
 output is followed by NaN floats that must stay untouched. A wrong plan, a
 size that is not positive or not a multiple of 4 floats (t7: 8), a depth
 over 64 and a misaligned pointer are each refused with their error code,
-nothing launched and nothing written. t3, t4, t11 and t12 run in place show
-their grids covering each float once, in one wave. The stand-in records the
-grid, block and shared bytes each C entry launches with, and these are held
-to the design's: 1024 floats a block of 128 threads for t3, t4, t11 and t12
-(t12 with 4 KB of shared memory), t5's plan, t7's 64 x 32 tiles (and the
+nothing launched and nothing written. t1, t3, t4, t6, t11 and t12 run in
+place show their grids covering each float once, in one wave (a float
+covered twice comes out 4x, x + 2, tanh(tanh(x)) or 2(2x + 1) + 1). The
+stand-in records the grid, block and shared bytes each C entry launches
+with, and these are held to the design's: 1024 floats a block of 128
+threads for t1, t3, t4, t6, t11 and t12 (64 blocks for t1 and t6 at their
+probe's 65,536 floats; t12 with 4 KB of shared memory), t5's plan, t7's 64 x 32 tiles (and the
 32 x 64 of ``tools/t7_tiles.py``'s variant). The
 emulated ``mma`` itself is held to true 16 x 16 x 16 products of basis
 matrices, its fragments loaded by ``ldmatrix`` and, apart from it, by the
@@ -46,8 +50,9 @@ from diffspectra_tpu_torch.ops import _lib
 from diffspectra_tpu_torch.ops._row_tile import MAX_SMEM, SMS
 from diffspectra_tpu_torch.ops._row_tile import cdiv
 from diffspectra_tpu_torch.ops.probes import (PRODUCT_CHUNK, PRODUCT_CHUNKS, PROBES, product_plan,
-                                              t3_reference, t4_reference, t5_reference,
-                                              t7_reference, t11_reference, t12_reference)
+                                              t1_reference, t3_reference, t4_reference,
+                                              t5_reference, t6_reference, t7_reference,
+                                              t11_reference, t12_reference)
 from diffspectra_tpu_torch.tools.diag_probes import probe_inputs
 from diffspectra_tpu_torch.tools.t7_tiles import SOURCE_TILE, TILES, tile_line
 from test_torch_block_host import CSRC, build_host_lib, last_launch
@@ -55,7 +60,7 @@ from test_torch_block_host import CSRC, build_host_lib, last_launch
 INVALID_VALUE, MISALIGNED = 1, 716  # cudaErrorInvalidValue, cudaErrorMisalignedAddress
 GUARD = 64  # NaN floats after each output, which the kernel must not write
 THREADS_PER_SM = 2048
-# t3's, t4's, t11's and t12's blocks: 128 threads, each 2 float4, so 1024
+# the flat probes' and t4's blocks: 128 threads, each 2 float4, so 1024
 # floats a block; t12 stages them in 4 KB of shared memory
 CHUNK_THREADS, CHUNK_FLOATS, STAGE_SMEM = 128, 1024, 4096
 # t7's blocks: 128 threads a 64 x 32 output tile; x [64][64 + 8] and w
@@ -67,7 +72,7 @@ MMA_SMEM = 2 * (MMA_ROWS * 72 + 64 * (MMA_COLS + 8))
 @pytest.fixture(scope="module")
 def lib(tmp_path_factory):
     argtypes = {f"dstt_probe_{n}": _lib._ARGTYPES[f"dstt_probe_{n}"]
-                for n in ("t3", "t4", "t5", "t7", "t11", "t12")}
+                for n in ("t1", "t3", "t4", "t5", "t6", "t7", "t11", "t12")}
     return build_host_lib(tmp_path_factory.mktemp("probe_tiles_host"), "probe_tiles.cu", argtypes)
 
 
@@ -90,7 +95,7 @@ def _t4(lib, x, shift=(0, 0)):
 
 
 def _flat(lib, name, x, shift=(0, 0)):
-    """dstt_probe_<name> (t3, t11 or t12) on x's n floats, as _t4."""
+    """dstt_probe_<name> (t1, t3, t6, t11 or t12) on x's n floats, as _t4."""
     n = x.numel()
     buf = torch.full((n + GUARD + 4,), float("nan"))
     ptrs = [t.data_ptr() + 4 * s for t, s in zip((x, buf), shift)]
@@ -98,8 +103,9 @@ def _flat(lib, name, x, shift=(0, 0)):
     return rc, buf[:n], buf[n:]
 
 
-FLAT_REFERENCES = {"t3": t3_reference, "t11": t11_reference, "t12": t12_reference}
-FLAT_SMEM = {"t3": 0, "t11": 0, "t12": STAGE_SMEM}
+FLAT_REFERENCES = {"t1": t1_reference, "t3": t3_reference, "t6": t6_reference,
+                   "t11": t11_reference, "t12": t12_reference}
+FLAT_SMEM = {"t1": 0, "t3": 0, "t6": 0, "t11": 0, "t12": STAGE_SMEM}
 
 
 def _one_wave(grid, block):
@@ -159,7 +165,7 @@ def test_flat_source_at_the_probe_shape_equals_the_plain_version(lib, name):
     rc, got, guard = _flat(lib, name, x)
     assert rc == 0 and torch.isnan(guard).all()
     torch.testing.assert_close(got.view(PROBES[name].out_shape), FLAT_REFERENCES[name](x),
-                               rtol=0, atol=0)
+                               rtol=0, atol=PROBES[name].atol)
 
 
 # floats (a block of each kernel takes 1024): one float4; under half a
@@ -177,7 +183,7 @@ def test_flat_source_on_ragged_sizes_equals_the_plain_version(lib, name, n):
     x = _normal(n, n)
     rc, got, guard = _flat(lib, name, x)
     assert rc == 0 and torch.isnan(guard).all()
-    torch.testing.assert_close(got, FLAT_REFERENCES[name](x), rtol=0, atol=0)
+    torch.testing.assert_close(got, FLAT_REFERENCES[name](x), rtol=0, atol=PROBES[name].atol)
 
 
 # per-step floats: one float4, a chunk short by one float4, a chunk and one
@@ -284,15 +290,17 @@ def test_step_plan_covers_each_float_once_in_one_wave(lib, steps, per_step):
     assert _one_wave(grid, block)
 
 
-@pytest.mark.parametrize("name,n", [("t3", 8 * 29 * 29 * 64), ("t11", 2 * 29 * 29 * 14 * 18),
+@pytest.mark.parametrize("name,n", [("t1", 256 * 256), ("t3", 8 * 29 * 29 * 64),
+                                    ("t6", 256 * 256), ("t11", 2 * 29 * 29 * 14 * 18),
                                     ("t12", 256 * 256)] + FLAT_SIZES)
 def test_flat_grids_cover_each_float_once_in_one_wave(lib, name, n):
     # in place, one block after another: a float that two blocks cover comes
-    # out x + 2 (t3), 4x (t11) or 2(2x + 1) + 1 (t12), one that none covers x
+    # out 4x (t1, t11), x + 2 (t3), tanh(tanh(x)) (t6) or 2(2x + 1) + 1
+    # (t12), one that none covers x
     x = _normal(n + 1, n)
     want = FLAT_REFERENCES[name](x)
     assert getattr(lib, f"dstt_probe_{name}")(x.data_ptr(), x.data_ptr(), n, None) == 0
-    torch.testing.assert_close(x, want, rtol=0, atol=0)
+    torch.testing.assert_close(x, want, rtol=0, atol=PROBES[name].atol)
     _, grid, block, smem = last_launch(lib)
     assert grid == (cdiv(n, CHUNK_FLOATS), 1, 1)
     assert block == (CHUNK_THREADS, 1, 1) and smem == FLAT_SMEM[name]
@@ -300,10 +308,11 @@ def test_flat_grids_cover_each_float_once_in_one_wave(lib, name, n):
 
 
 def test_flat_grids_at_the_probe_shapes(lib):
-    # as the C entries launch them: t3 421 and t11 414 blocks of 128
-    # threads; t12 64 blocks of 128 with 4 KB of shared memory, at most one
-    # an SM
-    for name, blocks, smem in (("t3", 421, 0), ("t11", 414, 0), ("t12", 64, STAGE_SMEM)):
+    # as the C entries launch them: t3 421, t11 414, t1 and t6 64 blocks of
+    # 128 threads; t12 64 blocks of 128 with 4 KB of shared memory, at most
+    # one an SM
+    for name, blocks, smem in (("t1", 64, 0), ("t3", 421, 0), ("t6", 64, 0), ("t11", 414, 0),
+                               ("t12", 64, STAGE_SMEM)):
         (x,) = probe_inputs(name, seed=4)
         assert _flat(lib, name, x)[0] == 0
         assert last_launch(lib)[1:] == ((blocks, 1, 1), (CHUNK_THREADS, 1, 1), smem)
