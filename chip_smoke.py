@@ -23,7 +23,7 @@ Phases, each printing its own lines:
      cuda, with the kernel's, the plain version's, the library call's and
      the bound's times (CUDA events over 200 calls, and the kernel's and
      the library call's device time from the profiler); for t1, t3, t4,
-     t5, t6, t7, t11 and t12 (``csrc/probe_tiles.cu``) also the device time with
+     t5, t6, t7, t8, t11, t12 and t13 (``csrc/probe_tiles.cu``) also the device time with
      L2 cold, the kernel's name and launch shape (grid, block, shared
      bytes, registers) as the profiler recorded them in that window, every
      block resident at once, the kernel's device time over the library
@@ -92,7 +92,8 @@ PATH_KERNELS = {"attn_equi": ("mix_attention", "equi_update"), "block": ("block_
 PROBE_TILE_KERNELS = {"t1": "grid_step_kernel", "t3": "grid_step_kernel",
                       "t4": "grid_step_kernel", "t5": "tile_product_kernel",
                       "t6": "grid_step_kernel", "t7": "mma_tile_kernel",
-                      "t11": "grid_step_kernel", "t12": "stage_kernel"}
+                      "t8": "row_softmax_kernel", "t11": "grid_step_kernel",
+                      "t12": "stage_kernel", "t13": "dot_rows_kernel"}
 # the operation each probe's instance of the templated kernel must name
 PROBE_TILE_OPS = {"t1": "Times2", "t3": "PlusOne", "t4": "PlusOne", "t6": "Tanh", "t11": "Times2"}
 
@@ -534,7 +535,7 @@ def phase_probes(dev):
 
 def probe_tile_extras(name, p, call, row, dev):
     """A probe kernel of ``csrc/probe_tiles.cu`` (t1, t3, t4, t5, t6, t7,
-    t11, t12): its device time with L2 cold (FLUSH_BYTES written before each
+    t8, t11, t12, t13): its device time with L2 cold (FLUSH_BYTES written before each
     call; profiler) and its name and launch shape in that window, from the
     profiler's trace (t5's must be its launch plan; the templated
     kernel's must name the probe's operation; every block of each must fit

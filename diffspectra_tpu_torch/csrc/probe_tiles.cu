@@ -1,6 +1,6 @@
-// The Mosaic probes t1, t3, t4, t5, t6, t7, t11 and t12 of
+// The Mosaic probes t1, t3, t4, t5, t6, t7, t8, t11, t12 and t13 of
 // tools/diag_mosaic_bisect.py, redesigned for Hopper (sm_90a), f32 unless
-// marked. The other six probes are in probes.cu.
+// marked. The other four probes are in probes.cu.
 //
 // t3 (tools/diag_mosaic_bisect.py:63) and t4 (:71): x + 1 on [8, 29, 29,
 // 64]; t4 over a grid of 8 steps, each step finding its slice x[b] from its
@@ -99,6 +99,38 @@
 //   check them (mma.cuh's instructions do). K must be at most 64, N and K
 //   multiples of 8 and the three pointers 16-byte aligned.
 //
+// t8 (tools/diag_mosaic_bisect.py:111): softmax over the last axis of [29,
+// 29], max-subtracted as jax.nn.softmax.
+//   What bounds it: 3.4 KB in and 3.4 KB out, 2 ns at 3.35 TB/s; the
+//   launch sets the time.
+//   What the design does: a warp a row, four rows a block of 128 threads
+//   (8 blocks at the probe's 29 rows, one wave). Lane c holds columns c, c
+//   + 32, c + 64 and c + 96 in registers, all four loads in flight before
+//   the max (lanes past the row hold -inf), so the row is read once and
+//   exponentiated once: the warp's max, expf(v - max) kept in registers,
+//   the warp's sum, a division, a store. The slots a lane holds are a
+//   compile-time count, so that they stay in registers: loops over the
+//   columns of unknown trip count read the row again for each pass. The
+//   precise expf and the division, never __expf or ex2.approx: the
+//   probe's tolerance is 1e-6. 29-float rows are not 16-byte aligned, so
+//   the loads stay 4 bytes wide. At most 128 columns.
+//
+// t13 (tools/diag_mosaic_bisect.py:158): out[i, j] = q_i . k_j, q and k
+// [29, 252], out [29, 29].
+//   What bounds it: 58 KB in and 3.4 KB out, 18 ns at 3.35 TB/s; 0.42
+//   MFLOP, 6 ns at 67 TFLOP/s f32. The launch sets the time.
+//   What the design does: a warp an output, four a block of 128 threads
+//   (211 blocks at the probe's 841 outputs; at 16 blocks an SM all are
+//   resident at once). Lane l takes float4 l and l + 32 of the depth from
+//   both rows, all four 16-byte loads in flight before the first FMA, sums
+//   its products in order, then a shuffle sum over the warp, and lane 0
+//   stores: one round of loads and no barrier, where 16 x 16 shared tiles
+//   on 4 blocks walk the depth in 16 dependent trips to L2. Each row is
+//   read from L2 by n or m warps, 1.7 MB in all at the probe's shape. f32
+//   FMAs on the CUDA cores: TF32 mma cannot hold the probe's 1e-4 (t5's
+//   note). The depth must be a multiple of 4 and at most 256 (t14's 64
+//   fits too), q and k 16-byte aligned.
+//
 // Each kernel launches through cudaLaunchKernel with one Args struct and
 // uses dynamic shared memory only, so that the host test's stand-in
 // (tests/test_torch_probes_host.py) runs this source on the CPU.
@@ -114,6 +146,8 @@ using dstt::cp_async16;
 using dstt::cp_async_commit;
 using dstt::cp_async_wait;
 using dstt::rows::cdiv;
+using dstt::rows::warp_max;
+using dstt::rows::warp_sum;
 using bf16 = __nv_bfloat16;
 
 // t1, t3, t4, t6, t11 and t12: one chunk of a flat array a block, 128 threads x 2 float4
@@ -146,14 +180,21 @@ static_assert(kMmaRows / 16 * kMmaWarpsC * 32 == kMmaThreads, "four warps of 16 
 constexpr int kLda = kMaxDepth + 8, kLdb = kMmaCols + 8, kLdo = kMmaCols + 8;
 constexpr int kMmaSmem = 2 * (kMmaRows * kLda + kMaxDepth * kLdb);
 static_assert(4 * kMmaRows * kLdo <= kMmaSmem, "the output tile fits the operands' memory");
+// t8 and t13: a warp a row or an output, four warps a block
+constexpr int kRowThreads = 128;
+constexpr int kRowWarps = kRowThreads / 32;
+constexpr int kSoftmaxSlots = 4;                              // t8: columns a lane
+constexpr int kMaxSoftmaxCols = 32 * kSoftmaxSlots;
+constexpr int kDotVectors = 2;                                // t13: float4 of the depth a lane
+constexpr int kMaxDotDepth = 4 * 32 * kDotVectors;
 
 // Every kernel's arguments.
 struct Args {
-  const float* x;  // the flat probes: [steps, per_step]; t5: [m, k]
-  const float* w;  // t5: [k, n]
+  const float* x;  // the flat probes: [steps, per_step]; t5: [m, k]; t8: [m, n]; t13: q [m, k]
+  const float* w;  // t5: [k, n]; t13: k [n, k]
   float* out;
   int per_step;                   // the flat probes (all but t4: one step, the whole array)
-  int m, n, k, col_tiles;         // t5; t7: m, n, k
+  int m, n, k, col_tiles;         // t5; t7, t13: m, n, k (the depth); t8: rows m, columns n
   const bf16* xb;                 // t7: [m, k]
   const bf16* wb;                 // t7: [k, n]
 };
@@ -389,6 +430,62 @@ __global__ void __launch_bounds__(kMmaThreads) mma_tile_kernel(Args a) {
   }
 }
 
+// t8: warp w of block b takes row 4 b + w.
+__global__ void __launch_bounds__(kRowThreads) row_softmax_kernel(Args a) {
+  const int row = blockIdx.x * kRowWarps + threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (row >= a.m) return;  // the whole warp leaves together
+  const float* x = a.x + (size_t)row * a.n;
+  float v[kSoftmaxSlots];
+#pragma unroll
+  for (int e = 0; e < kSoftmaxSlots; ++e) {  // every load in flight before the max
+    const int c = lane + 32 * e;
+    v[e] = c < a.n ? x[c] : -INFINITY;
+  }
+  float mx = v[0];
+#pragma unroll
+  for (int e = 1; e < kSoftmaxSlots; ++e) mx = fmaxf(mx, v[e]);
+  mx = warp_max(mx);
+  float s = 0.0f;
+#pragma unroll
+  for (int e = 0; e < kSoftmaxSlots; ++e) {
+    v[e] = lane + 32 * e < a.n ? expf(v[e] - mx) : 0.0f;
+    s += v[e];
+  }
+  s = warp_sum(s);
+  float* out = a.out + (size_t)row * a.n;
+#pragma unroll
+  for (int e = 0; e < kSoftmaxSlots; ++e) {
+    const int c = lane + 32 * e;
+    if (c < a.n) out[c] = v[e] / s;
+  }
+}
+
+// t13: warp w of block b takes output p = 4 b + w, (i, j) = (p / n, p % n).
+__global__ void __launch_bounds__(kRowThreads) dot_rows_kernel(Args a) {
+  const int p = blockIdx.x * kRowWarps + threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (p >= a.m * a.n) return;  // the whole warp leaves together
+  const int i = p / a.n, j = p - i * a.n, depth4 = a.k / 4;
+  const float4* q = reinterpret_cast<const float4*>(a.x + (size_t)i * a.k);
+  const float4* k = reinterpret_cast<const float4*>(a.w + (size_t)j * a.k);
+  float4 qv[kDotVectors], kv[kDotVectors];
+#pragma unroll
+  for (int e = 0; e < kDotVectors; ++e) {  // every load in flight before the first FMA
+    const int c = lane + 32 * e;
+    qv[e] = kv[e] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (c < depth4) qv[e] = q[c], kv[e] = k[c];
+  }
+  float s = 0.0f;
+#pragma unroll
+  for (int e = 0; e < kDotVectors; ++e) {
+    s = fmaf(qv[e].x, kv[e].x, s);
+    s = fmaf(qv[e].y, kv[e].y, s);
+    s = fmaf(qv[e].z, kv[e].z, s);
+    s = fmaf(qv[e].w, kv[e].w, s);
+  }
+  s = warp_sum(s);
+  if (lane == 0) a.out[p] = s;
+}
+
 bool misaligned(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 != 0; }
 
 bool plan_matches(const int* mine, int n_mine, const int* plan, int n_plan) {
@@ -432,10 +529,12 @@ int launch_steps(const float* x, float* out, int steps, int per_step, void* stre
 // Each launches on `stream` and returns the first CUDA error, so that a
 // refused launch is seen at once: cudaErrorInvalidValue for a size that is
 // not positive, an array, a step or a row that is not a multiple of 4
-// floats (t7: N or K not a multiple of 8), a t5 or t7 depth over 64, or a
-// t5 plan (`plan`, `n_plan` ints) other than this source's own;
-// cudaErrorMisalignedAddress for a pointer not 16-byte aligned. Nothing is
-// launched then. The caller checked shapes, types and contiguity.
+// floats (t7: N or K not a multiple of 8), a t5 or t7 depth over 64, a t13
+// depth over 256, t8 rows over 128 columns, or a t5 plan (`plan`, `n_plan`
+// ints) other than this source's own; cudaErrorMisalignedAddress for a
+// pointer read or written 16 bytes at a time that is not 16-byte aligned.
+// Nothing is launched then. The caller checked shapes, types and
+// contiguity.
 extern "C" {
 
 int dstt_probe_t1(const float* x, float* out, int n, void* stream) {
@@ -488,6 +587,24 @@ int dstt_probe_t7(const bf16* x, const bf16* w, float* out, int m, int n, int k,
   Args a{nullptr, nullptr, out, 0, m, n, k, 0, x, w};
   const dim3 grid(cdiv(n, kMmaCols), cdiv(m, kMmaRows));
   return (int)launch((const void*)mma_tile_kernel, grid, kMmaThreads, kMmaSmem, a, stream);
+}
+
+int dstt_probe_t8(const float* x, float* out, int rows, int cols, void* stream) {
+  if (rows <= 0 || cols <= 0 || cols > kMaxSoftmaxCols) return (int)cudaErrorInvalidValue;
+  Args a{x, nullptr, out, 0, rows, cols, 0, 0};
+  return (int)launch((const void*)row_softmax_kernel, dim3(cdiv(rows, kRowWarps)), kRowThreads, 0,
+                     a, stream);
+}
+
+int dstt_probe_t13(const float* q, const float* k, float* out, int m, int n, int depth,
+                   void* stream) {
+  if (m <= 0 || n <= 0 || depth <= 0 || depth % 4 != 0 || depth > kMaxDotDepth) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (misaligned(q) || misaligned(k)) return (int)cudaErrorMisalignedAddress;  // out: 4-byte stores
+  Args a{q, k, out, 0, m, n, depth, 0};
+  return (int)launch((const void*)dot_rows_kernel, dim3(cdiv(m * n, kRowWarps)), kRowThreads, 0,
+                     a, stream);
 }
 
 }  // extern "C"

@@ -1,6 +1,6 @@
 """The Mosaic probes of ``tools/diag_mosaic_bisect.py`` as hand-written CUDA
-kernels (``csrc/probes.cu``; t1, t3, t4, t5, t6, t7, t11 and t12 in
-``csrc/probe_tiles.cu``), each with its plain PyTorch version.
+kernels (``csrc/probe_tiles.cu``; t2, t9, t10 and t14 in
+``csrc/probes.cu``), each with its plain PyTorch version.
 
 The JAX tool bisects which Pallas/Mosaic feature a TPU compile refuses: one
 small ``pallas_call`` a feature. Wrapper ``tN`` replaces that tool's probe
@@ -19,14 +19,16 @@ gives the line):
 - ``t7`` (:102) ``x @ w``, bf16 [841, 64] @ [64, 256], float32 result, on
   the tensor cores (``mma.sync``), one thread block a 64 x 32 output tile,
   its operands by ``cp.async`` and ``ldmatrix``, which its C entry sizes;
-- ``t8`` (:111) softmax over the last axis of [29, 29];
+- ``t8`` (:111) softmax over the last axis of [29, 29], a warp a row
+  held in registers;
 - ``t9`` (:119) ``where(m > 0, x, -1e10)`` on [29, 29];
 - ``t10`` (:128) [841, 252] reshaped to [29, 29, 14, 18], summed over the
   last axis;
 - ``t12`` (:144) ``scratch = 2x; out = scratch + 1`` on [256, 256], staged
   through shared memory as the TPU probe staged it through VMEM, 2 float4
   a thread;
-- ``t13`` (:158) ``q @ k.T``, [29, 252] x 2 -> [29, 29];
+- ``t13`` (:158) ``q @ k.T``, [29, 252] x 2 -> [29, 29], a warp an
+  output, its depth split over the lanes in float4;
 - ``t14`` (:168) ``(q[:, None, :] * k[None, :, :]).sum(-1)``, [29, 64] x 2
   -> [29, 29].
 

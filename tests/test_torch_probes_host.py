@@ -1,29 +1,35 @@
-"""``csrc/probe_tiles.cu`` (the probe kernels t1, t3, t4, t5, t6, t7, t11
-and t12) itself, run on the CPU, and t5's launch plan of ``ops/probes.py`` that its
-C entry re-checks.
+"""``csrc/probe_tiles.cu`` (the probe kernels t1, t3, t4, t5, t6, t7, t8,
+t11, t12 and t13) itself, run on the CPU, and t5's launch plan of
+``ops/probes.py`` that its C entry re-checks.
 
 The source is compiled with the host C++ compiler against the stand-in for
 the CUDA runtime of ``tests/test_torch_block_host.py`` (a block's threads
 as ``std::thread``s, ``__syncthreads`` a barrier, NaN-filled shared memory
 that must not be written past the launch's size, ``cp.async`` copies
 landing only at their wait, ``ldmatrix`` and the bf16 ``mma`` as warp
-collectives by the PTX ISA's fragment layout). Its C entries
-``dstt_probe_t1``, ``_t3``, ``_t4``, ``_t5``, ``_t6``, ``_t7``, ``_t11`` and
-``_t12`` are called through ``ctypes`` on CPU tensors as the wrapper calls
-them (t5 with its launch plan) and held against the plain versions: t1, t3,
-t4, t11 and t12 exactly, t6 within 1e-6 (the probe's tolerance: the host's
-tanhf and ``torch.tanh`` may differ by an ulp), t5 and t7 within 1e-4 (the
-probes' tolerance; their sums run along K in another order than the CPU's),
-at the probe shapes and at ragged ones (t4: 1 or 8 steps whose last chunk
-ends mid-block; t1, t3, t6, t11 and t12: 4, 508,
-516, 1020, 1028 and 2052 floats, whose last block ends mid-tile, and t3 at
-430,592; t5: M in {1, 9, 841}, N in {4, 60, 252}, K in {4, 52, 64}; t7: M in
-{1, 9, 33, 841}, N in {8, 56, 256}, K in {8, 40, 64}). Since the stand-in's
+collectives by the PTX ISA's fragment layout, warp shuffles through
+memory). Its C entries ``dstt_probe_t1``, ``_t3``, ``_t4``, ``_t5``,
+``_t6``, ``_t7``, ``_t8``, ``_t11``, ``_t12`` and ``_t13`` are called
+through ``ctypes`` on CPU tensors as the wrapper calls them (t5 with its
+launch plan) and held against the plain versions: t1, t3, t4, t11 and t12
+exactly, t6 and t8 within 1e-6 (the probes' tolerance: the host's tanhf
+and expf and ``torch.tanh`` and ``torch.softmax`` may differ by an ulp, and
+the softmax sums in another order), t5, t7 and t13 within 1e-4 (the
+probes' tolerance; their sums run along K in another order than the
+CPU's), at the probe shapes and at ragged ones (t4: 1 or 8 steps whose
+last chunk ends mid-block; t1, t3, t6, t11 and t12: 4, 508, 516, 1020, 1028
+and 2052 floats, whose last block ends mid-tile, and t3 at 430,592; t5: M
+in {1, 9, 841}, N in {4, 60, 252}, K in {4, 52, 64}; t7: M in {1, 9, 33,
+841}, N in {8, 56, 256}, K in {8, 40, 64}; t8: rows in {1, 29, 33}, columns
+in {1, 29, 32, 33, 128}; t13: M and N in {1, 29, 33}, depth in {4, 64,
+252, 256}). t7's, t8's and t13's inputs are followed by NaN, so that a
+read past their end shows in the result. Since the stand-in's
 shared memory starts as NaN, a mirrored read of a t12 slot that no thread
 wrote, or a t7 operand read where no copy landed, fails the comparison. Each
 output is followed by NaN floats that must stay untouched. A wrong plan, a
 size that is not positive or not a multiple of 4 floats (t7: 8), a depth
-over 64 and a misaligned pointer are each refused with their error code,
+over 64 (t13: 256), a t8 row over 128 columns and a misaligned pointer are
+each refused with their error code,
 nothing launched and nothing written. t1, t3, t4, t6, t11 and t12 run in
 place show their grids covering each float once, in one wave (a float
 covered twice comes out 4x, x + 2, tanh(tanh(x)) or 2(2x + 1) + 1). The
@@ -31,7 +37,9 @@ stand-in records the grid, block and shared bytes each C entry launches
 with, and these are held to the design's: 1024 floats a block of 128
 threads for t1, t3, t4, t6, t11 and t12 (64 blocks for t1 and t6 at their
 probe's 65,536 floats; t12 with 4 KB of shared memory), t5's plan, t7's 64 x 32 tiles (and the
-32 x 64 of ``tools/t7_tiles.py``'s variant). The
+32 x 64 of ``tools/t7_tiles.py``'s variant), a warp a row of t8 and an
+output of t13 in blocks of 128 threads (8 and 211 blocks at the probes'
+shapes, one wave). The
 emulated ``mma`` itself is held to true 16 x 16 x 16 products of basis
 matrices, its fragments loaded by ``ldmatrix`` and, apart from it, by the
 PTX ISA's layout written out element by element.
@@ -52,7 +60,8 @@ from diffspectra_tpu_torch.ops._row_tile import cdiv
 from diffspectra_tpu_torch.ops.probes import (PRODUCT_CHUNK, PRODUCT_CHUNKS, PROBES, product_plan,
                                               t1_reference, t3_reference, t4_reference,
                                               t5_reference, t6_reference, t7_reference,
-                                              t11_reference, t12_reference)
+                                              t8_reference, t11_reference, t12_reference,
+                                              t13_reference)
 from diffspectra_tpu_torch.tools.diag_probes import probe_inputs
 from diffspectra_tpu_torch.tools.t7_tiles import SOURCE_TILE, TILES, tile_line
 from test_torch_block_host import CSRC, build_host_lib, last_launch
@@ -67,12 +76,14 @@ CHUNK_THREADS, CHUNK_FLOATS, STAGE_SMEM = 128, 1024, 4096
 # [64][32 + 8] bf16 in shared memory
 MMA_ROWS, MMA_COLS, MMA_THREADS = 64, 32, 128
 MMA_SMEM = 2 * (MMA_ROWS * 72 + 64 * (MMA_COLS + 8))
+# t8's and t13's blocks: 128 threads, a warp a row (t8) or an output (t13)
+ROW_THREADS, ROW_WARPS = 128, 4
 
 
 @pytest.fixture(scope="module")
 def lib(tmp_path_factory):
     argtypes = {f"dstt_probe_{n}": _lib._ARGTYPES[f"dstt_probe_{n}"]
-                for n in ("t1", "t3", "t4", "t5", "t6", "t7", "t11", "t12")}
+                for n in ("t1", "t3", "t4", "t5", "t6", "t7", "t8", "t11", "t12", "t13")}
     return build_host_lib(tmp_path_factory.mktemp("probe_tiles_host"), "probe_tiles.cu", argtypes)
 
 
@@ -126,13 +137,17 @@ def _t5(lib, x, w, bump=None, shift=(0, 0, 0)):
     return rc, buf[:m * n].view(m, n), buf[m * n:]
 
 
+def _guarded(t):
+    """t's elements, flat, followed by GUARD NaN, so that a read past its
+    end makes the result NaN."""
+    return torch.cat([t.flatten(), torch.full((GUARD,), float("nan"), dtype=t.dtype)])
+
+
 def _t7(lib, x, w, shift=(0, 0, 0)):
-    """dstt_probe_t7 on bf16 x [m, k] and w [k, n], each copied in front of
-    GUARD NaN (so that a read past its end makes the product NaN), as _t4
+    """dstt_probe_t7 on bf16 x [m, k] and w [k, n], each _guarded, as _t4
     (shifts in elements)."""
     (m, k), n = x.shape, w.shape[1]
-    x, w = (torch.cat([t.flatten(), torch.full((GUARD,), float("nan"), dtype=t.dtype)])
-            for t in (x, w))
+    x, w = _guarded(x), _guarded(w)
     buf = torch.full((m * n + GUARD + 4,), float("nan"))
     ptrs = [t.data_ptr() + t.element_size() * s for t, s in zip((x, w, buf), shift)]
     rc = lib.dstt_probe_t7(*ptrs, m, n, k, None)
@@ -519,3 +534,94 @@ def test_t7_tool_variant_with_32_x_64_tiles_matches_the_plain_version(wide_lib, 
     # 32 x 64 tiles, a 2 x 2 of warps: x [32][72] and w [64][64 + 8] bf16
     assert last_launch(wide_lib)[1:] == ((cdiv(n, 64), cdiv(m, 32), 1), (MMA_THREADS, 1, 1),
                                          2 * (32 * 72 + 64 * 72))
+
+
+def _t8(lib, x):
+    """dstt_probe_t8 on x [rows, cols], _guarded, as _t4."""
+    rows, cols = x.shape
+    x = _guarded(x)
+    buf = torch.full((rows * cols + GUARD,), float("nan"))
+    rc = lib.dstt_probe_t8(x.data_ptr(), buf.data_ptr(), rows, cols, None)
+    return rc, buf[:rows * cols].view(rows, cols), buf[rows * cols:]
+
+
+def _t13(lib, q, k, shift=(0, 0)):
+    """dstt_probe_t13 on q [m, depth] and k [n, depth], each _guarded (and
+    shifted by ``shift`` floats), as _t4."""
+    (m, depth), n = q.shape, k.shape[0]
+    q, k = _guarded(q), _guarded(k)
+    buf = torch.full((m * n + GUARD,), float("nan"))
+    ptrs = [t.data_ptr() + 4 * s for t, s in zip((q, k), shift)]
+    rc = lib.dstt_probe_t13(*ptrs, buf.data_ptr(), m, n, depth, None)
+    return rc, buf[:m * n].view(m, n), buf[m * n:]
+
+
+ROW_PROBES = {"t8": (_t8, t8_reference), "t13": (_t13, t13_reference)}
+
+
+@pytest.mark.parametrize("name,blocks", [("t8", 8), ("t13", 211)])
+def test_row_probe_source_at_the_probe_shape_matches_the_plain_version(lib, name, blocks):
+    # t8: 29 rows, four a block; t13: 841 outputs, four a block; one wave
+    run, reference = ROW_PROBES[name]
+    inputs = probe_inputs(name, seed=3)
+    rc, got, guard = run(lib, *inputs)
+    assert rc == 0 and torch.isnan(guard).all() and torch.isfinite(got).all()
+    np.testing.assert_allclose(got.numpy(), reference(*inputs).numpy(), rtol=0,
+                               atol=PROBES[name].atol)
+    assert last_launch(lib)[1:] == ((blocks, 1, 1), (ROW_THREADS, 1, 1), 0)
+    assert _one_wave(*last_launch(lib)[1:3])
+
+
+# rows: one warp, the probe's 29 (a block's last warp idle), 33 (a block
+# and one row); columns: one lane, the probe's 29, a whole first slot of
+# 32, one into the second slot, all four slots of a lane
+@pytest.mark.parametrize("cols", [1, 29, 32, 33, 128])
+@pytest.mark.parametrize("rows", [1, 29, 33])
+def test_t8_source_on_ragged_shapes_matches_the_plain_version(lib, rows, cols):
+    x = 4.0 * _normal(rows * cols, rows, cols)  # logits past exp's range of 1
+    rc, got, guard = _t8(lib, x)
+    assert rc == 0 and torch.isnan(guard).all() and torch.isfinite(got).all()
+    np.testing.assert_allclose(got.numpy(), t8_reference(x).numpy(), rtol=0,
+                               atol=PROBES["t8"].atol)
+    assert last_launch(lib)[1:] == ((cdiv(rows, ROW_WARPS), 1, 1), (ROW_THREADS, 1, 1), 0)
+
+
+# depth: one float4 (one lane), t14's 64, the probe's 252 (63 float4: the
+# second round one lane short), 256 (both rounds whole)
+@pytest.mark.parametrize("depth", [4, 64, 252, 256])
+@pytest.mark.parametrize("n", [1, 29, 33])
+@pytest.mark.parametrize("m", [1, 29, 33])
+def test_t13_source_on_ragged_shapes_matches_the_plain_version(lib, m, n, depth):
+    q, k = _normal(m + n + depth, m, depth), _normal(m * n * depth, n, depth)
+    rc, got, guard = _t13(lib, q, k)
+    assert rc == 0 and torch.isnan(guard).all() and torch.isfinite(got).all()
+    np.testing.assert_allclose(got.numpy(), t13_reference(q, k).numpy(), rtol=0,
+                               atol=PROBES["t13"].atol)
+    assert last_launch(lib)[1:] == ((cdiv(m * n, ROW_WARPS), 1, 1), (ROW_THREADS, 1, 1), 0)
+
+
+ROW_REFUSALS = {  # name: (probe, sizes, pointer shifts, code)
+    "t8_no_rows": ("t8", (0, 29), (), INVALID_VALUE),
+    "t8_no_columns": ("t8", (29, 0), (), INVALID_VALUE),
+    "t8_columns_over_128": ("t8", (29, 129), (), INVALID_VALUE),
+    "t13_no_rows": ("t13", (0, 29, 252), (0, 0), INVALID_VALUE),
+    "t13_no_columns": ("t13", (29, 0, 252), (0, 0), INVALID_VALUE),
+    "t13_no_depth": ("t13", (29, 29, 0), (0, 0), INVALID_VALUE),
+    "t13_depth_not_a_multiple_of_4": ("t13", (29, 29, 250), (0, 0), INVALID_VALUE),
+    "t13_depth_over_256": ("t13", (29, 29, 260), (0, 0), INVALID_VALUE),
+    "t13_q_misaligned": ("t13", (29, 29, 252), (1, 0), MISALIGNED),
+    "t13_k_misaligned": ("t13", (29, 29, 252), (0, 1), MISALIGNED),
+}
+
+
+@pytest.mark.parametrize("case", sorted(ROW_REFUSALS))
+def test_row_probe_source_refuses_with_nothing_written(lib, case):
+    name, sizes, shift, code = ROW_REFUSALS[case]
+    launches = last_launch(lib)[0]
+    if name == "t8":
+        rc, got, guard = _t8(lib, _normal(1, *sizes))
+    else:
+        m, n, depth = sizes
+        rc, got, guard = _t13(lib, _normal(1, m, depth), _normal(2, n, depth), shift)
+    assert rc == code and last_launch(lib)[0] == launches
+    assert torch.isnan(got).all() and torch.isnan(guard).all()
