@@ -22,13 +22,12 @@ Phases, each printing its own lines:
      version on cuda; then each probe kernel against its plain version on
      cuda, with the kernel's, the plain version's, the library call's and
      the bound's times (CUDA events over 200 calls, and the kernel's and
-     the library call's device time from the profiler); for t1, t3, t4,
-     t5, t6, t7, t8, t11, t12 and t13 (``csrc/probe_tiles.cu``) also the device time with
-     L2 cold, the kernel's name and launch shape (grid, block, shared
-     bytes, registers) as the profiler recorded them in that window, every
-     block resident at once, the kernel's device time over the library
-     call's, the bound's share of it and the rate it reaches (TB/s where
-     bytes bound it, TFLOP/s where operations do);
+     the library call's device time from the profiler); for every probe
+     also the device time with L2 cold, the kernel's name and launch shape
+     (grid, block, shared bytes, registers) as the profiler recorded them
+     in that window, every block resident at once, the kernel's device
+     time over the library call's, the bound's share of it and the rate it
+     reaches (TB/s where bytes bound it, TFLOP/s where operations do);
   4. full-width DMT forwards from ``artifacts/warm_qm9s_as.npz`` on cuda
      (kernels) against the same models on the CPU (plain versions), for
      ``pallas_ops=('attn','equi')`` and ``('block',)``, and the two cuda
@@ -86,16 +85,26 @@ PROBE_ATOL = {"t1": 0.0, "t2": 0.0, "t3": 0.0, "t4": 0.0, "t9": 0.0, "t11": 0.0,
 FORWARD_RTOL = 1e-3  # of the largest |value|: 8 blocks sum in another order
 PATHS = {"attn_equi": ("attn", "equi"), "block": ("block",)}
 PATH_KERNELS = {"attn_equi": ("mix_attention", "equi_update"), "block": ("block_fused",)}
-# the probes of csrc/probe_tiles.cu, by the profiler's kernel names (t3, t4:
-# grid_step_kernel<PlusOne>, t1, t11: grid_step_kernel<Times2>, t6:
-# grid_step_kernel<Tanh>)
-PROBE_TILE_KERNELS = {"t1": "grid_step_kernel", "t3": "grid_step_kernel",
-                      "t4": "grid_step_kernel", "t5": "tile_product_kernel",
-                      "t6": "grid_step_kernel", "t7": "mma_tile_kernel",
-                      "t8": "row_softmax_kernel", "t11": "grid_step_kernel",
-                      "t12": "stage_kernel", "t13": "dot_rows_kernel"}
-# the operation each probe's instance of the templated kernel must name
-PROBE_TILE_OPS = {"t1": "Times2", "t3": "PlusOne", "t4": "PlusOne", "t6": "Tanh", "t11": "Times2"}
+# each probe's source under diffspectra_tpu_torch/csrc/ and kernel, by the
+# profiler's kernel name (t3, t4: grid_step_kernel<PlusOne>, t1, t11:
+# grid_step_kernel<Times2>, t6: grid_step_kernel<Tanh>, t2:
+# map_kernel<Times2>)
+PROBE_KERNELS = {"t1": ("probe_tiles.cu", "grid_step_kernel"), "t2": ("probes.cu", "map_kernel"),
+                 "t3": ("probe_tiles.cu", "grid_step_kernel"),
+                 "t4": ("probe_tiles.cu", "grid_step_kernel"),
+                 "t5": ("probe_tiles.cu", "tile_product_kernel"),
+                 "t6": ("probe_tiles.cu", "grid_step_kernel"),
+                 "t7": ("probe_tiles.cu", "mma_tile_kernel"),
+                 "t8": ("probe_tiles.cu", "row_softmax_kernel"), "t9": ("probes.cu", "mask_kernel"),
+                 "t10": ("probe_tiles.cu", "segment_stage_kernel"),
+                 "t11": ("probe_tiles.cu", "grid_step_kernel"),
+                 "t12": ("probe_tiles.cu", "stage_kernel"),
+                 "t13": ("probe_tiles.cu", "dot_rows_kernel"),
+                 "t14": ("probe_tiles.cu", "dot_rows_kernel")}
+# the template argument each probe's instance of a templated kernel must
+# name: its operation, or its lanes an output
+PROBE_OPS = {"t1": "Times2", "t2": "Times2", "t3": "PlusOne", "t4": "PlusOne", "t6": "Tanh",
+             "t11": "Times2", "t13": "<32>", "t14": "<16>"}
 
 
 def say(*parts):
@@ -463,6 +472,7 @@ def phase_probes(dev):
     from diffspectra_tpu_torch.tools.diag_probes import probe_inputs, run_probes
 
     assert PROBE_ATOL == {name: p.atol for name, p in probes.PROBES.items()}
+    assert PROBE_KERNELS.keys() == probes.PROBES.keys()
     plain_on_cuda, originals = [], {}
 
     def spy(name, plain):
@@ -520,30 +530,27 @@ def phase_probes(dev):
             f"{plain_ms:.4f} ms plain version; {lib_note}; "
             f"bound {bound_ms:.6f} ms by {bound_by} ({p.flops / 1e6:.3f} MFLOP "
             f"{'bf16 tensor cores' if tensor_cores else 'f32'}, {nbytes / 1e6:.4f} MB)")
-        source = "probe_tiles.cu" if name in PROBE_TILE_KERNELS else "probes.cu"
         row = dict(name=f"probe_{name}", route="cuda",
-                   source=f"diffspectra_tpu_torch/csrc/{source}", replaces=p.replaces,
+                   source=f"diffspectra_tpu_torch/csrc/{PROBE_KERNELS[name][0]}", replaces=p.replaces,
                    launches=launches[f"probe_{name}"], max_abs_err=err, max_err=err,
                    ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                    library_ms=library_ms, device_ms=kernel_device_ms,
                    library_device_ms=library_device_ms)
-        if name in PROBE_TILE_KERNELS:
-            row.update(probe_tile_extras(name, p, lambda: p.wrapper(*args), row, dev))
+        row.update(probe_extras(name, p, lambda: p.wrapper(*args), row, dev))
         rows.append(row)
     return rows
 
 
-def probe_tile_extras(name, p, call, row, dev):
-    """A probe kernel of ``csrc/probe_tiles.cu`` (t1, t3, t4, t5, t6, t7,
-    t8, t11, t12, t13): its device time with L2 cold (FLUSH_BYTES written before each
-    call; profiler) and its name and launch shape in that window, from the
-    profiler's trace (t5's must be its launch plan; the templated
-    kernel's must name the probe's operation; every block of each must fit
-    on the card's SMs at once, as far as threads go), its warm
+def probe_extras(name, p, call, row, dev):
+    """A probe kernel: its device time with L2 cold (FLUSH_BYTES written
+    before each call; profiler) and its name and launch shape in that
+    window, from the profiler's trace (t5's must be its launch plan; a
+    templated kernel's must name the probe's operation; every block of each
+    must fit on the card's SMs at once, as far as threads go), its warm
     device time over the library call's, the bound's share of it, and the
     rate it reaches warm in what bounds it (``row["bound_by"]``): bytes, or
     operations."""
-    kernel = PROBE_TILE_KERNELS[name]
+    kernel = PROBE_KERNELS[name][1]
     flush = torch.empty(FLUSH_BYTES // 4, device=dev)
     cold, prof = profile_stages(call, (kernel,), flush)
     cold_ms = None if cold is None else sum(cold.values())
@@ -559,7 +566,7 @@ def probe_tile_extras(name, p, call, row, dev):
         props = torch.cuda.get_device_properties(dev)
         assert blocks <= props.multi_processor_count * (
             props.max_threads_per_multi_processor // threads), (name, shape)
-        assert PROBE_TILE_OPS.get(name, "") in kernel_name, (name, kernel_name)
+        assert PROBE_OPS.get(name, "") in kernel_name, (name, kernel_name)
     if p.plan is not None:  # t5
         plan = p.plan(*p.sizes(p.out_shape, *p.inputs.values()))
         launch += f" (plan: {plan.grid} tiles of {plan.rows} x {plan.cols})"

@@ -1,6 +1,6 @@
-// The Mosaic probes t1, t3, t4, t5, t6, t7, t8, t11, t12 and t13 of
-// tools/diag_mosaic_bisect.py, redesigned for Hopper (sm_90a), f32 unless
-// marked. The other four probes are in probes.cu.
+// The Mosaic probes t1, t3, t4, t5, t6, t7, t8, t10, t11, t12, t13 and t14
+// of tools/diag_mosaic_bisect.py, redesigned for Hopper (sm_90a), f32
+// unless marked. The other two probes, t2 and t9, are in probes.cu.
 //
 // t3 (tools/diag_mosaic_bisect.py:63) and t4 (:71): x + 1 on [8, 29, 29,
 // 64]; t4 over a grid of 8 steps, each step finding its slice x[b] from its
@@ -116,20 +116,45 @@
 //   the loads stay 4 bytes wide. At most 128 columns.
 //
 // t13 (tools/diag_mosaic_bisect.py:158): out[i, j] = q_i . k_j, q and k
-// [29, 252], out [29, 29].
-//   What bounds it: 58 KB in and 3.4 KB out, 18 ns at 3.35 TB/s; 0.42
-//   MFLOP, 6 ns at 67 TFLOP/s f32. The launch sets the time.
-//   What the design does: a warp an output, four a block of 128 threads
-//   (211 blocks at the probe's 841 outputs; at 16 blocks an SM all are
-//   resident at once). Lane l takes float4 l and l + 32 of the depth from
-//   both rows, all four 16-byte loads in flight before the first FMA, sums
-//   its products in order, then a shuffle sum over the warp, and lane 0
-//   stores: one round of loads and no barrier, where 16 x 16 shared tiles
+// [29, 252], out [29, 29]. t14 (:168): the same function written as
+// (q[:, None, :] * k[None, :, :]).sum(-1), q and k [29, 64].
+//   What bounds them: t13 moves 58 KB in and 3.4 KB out, 18 ns at 3.35
+//   TB/s, and does 0.42 MFLOP, 6 ns at 67 TFLOP/s f32; t14 moves 15 KB in
+//   and 3.4 KB out, 5 ns. The launch sets their time.
+//   What the design does: one kernel for both, its lanes an output a
+//   template parameter. t13 gives an output a warp, four a block of 128
+//   threads (211 blocks at the probe's 841 outputs; at 16 blocks an SM all
+//   are resident at once): lane l takes float4 l and l + 32 of the depth
+//   from both rows, all four 16-byte loads in flight before the first FMA,
+//   sums its products in order, then a shuffle sum over the warp, and lane
+//   0 stores: one round of loads and no barrier, where 16 x 16 shared tiles
 //   on 4 blocks walk the depth in 16 dependent trips to L2. Each row is
-//   read from L2 by n or m warps, 1.7 MB in all at the probe's shape. f32
-//   FMAs on the CUDA cores: TF32 mma cannot hold the probe's 1e-4 (t5's
-//   note). The depth must be a multiple of 4 and at most 256 (t14's 64
-//   fits too), q and k 16-byte aligned.
+//   read from L2 by n or m warps, 1.7 MB in all at t13's shape. t14's
+//   depth of 64 is 16 float4, so a warp an output left lanes 16-31 with
+//   nothing to load; it gives an output half a warp, two a warp, each
+//   summed over a 16-lane shuffle, eight a block (106 blocks), which beat
+//   a warp an output on the card (tools/probe_variants.py, PERF.md). f32
+//   FMAs on the CUDA cores: TF32 mma cannot hold the probes' 1e-4 and 1e-5
+//   (t5's note). The depth must be a multiple of 4, at most 256 for t13
+//   and 128 for t14, q and k 16-byte aligned.
+//
+// t10 (tools/diag_mosaic_bisect.py:128): x [841, 252] reshaped to [29, 29,
+// 14, 18] and summed over the last axis, out [29, 29, 14].
+//   What bounds it: 848 KB in and 47 KB out, 0.27 us at 3.35 TB/s; the
+//   launch of about 1.1 us on the card sets nearly all of its time.
+//   What the design does: the reshape keeps memory order, so output o sums
+//   the contiguous floats x[seg o ... seg o + seg - 1], and a block's 56
+//   outputs (four of the probe's 252-float rows) are one contiguous run of
+//   56 seg floats from a 16-byte boundary. A block of 128 threads stages
+//   that run in shared memory (7 KB at the most, seg = 32), float4 i of it
+//   by thread i % 128, neighbouring threads on neighbouring addresses, all
+//   of a thread's loads in flight before its first shared store (2 at the
+//   probe's seg of 18; a run of 4 k + 2 floats ends on a float2). After
+//   the barrier thread t < 56 sums output t in order from shared memory and
+//   the block stores its 56 outputs contiguously: 211 blocks at the probe's
+//   11,774 outputs, one wave. Two sums a thread straight from registers
+//   (9 float4 a thread 144 bytes apart, 92 blocks of 64) was slower on the
+//   card (PERF.md). seg must be even and x 16-byte aligned.
 //
 // Each kernel launches through cudaLaunchKernel with one Args struct and
 // uses dynamic shared memory only, so that the host test's stand-in
@@ -167,7 +192,7 @@ constexpr int kKc = 32, kChunks = 2, kMaxDepth = kKc * kChunks;
 constexpr int kLdx = kKc + 4;
 // t5: shared bytes a block, x [kChunks][kTileRows][kLdx] and w [kMaxDepth][kTileCols]
 constexpr int kProductSmem = 4 * kChunks * (kTileRows * kLdx + kKc * kTileCols);
-// t7: a block's outputs, four warps of 16 x 32 each (tools/t7_tiles.py
+// t7: a block's outputs, four warps of 16 x 32 each (tools/probe_variants.py
 // times 32 x 64 against it); the depth in t5's two chunks of 32
 constexpr int kMmaRows = 64, kMmaCols = 32;
 constexpr int kMmaThreads = 128;
@@ -180,13 +205,23 @@ static_assert(kMmaRows / 16 * kMmaWarpsC * 32 == kMmaThreads, "four warps of 16 
 constexpr int kLda = kMaxDepth + 8, kLdb = kMmaCols + 8, kLdo = kMmaCols + 8;
 constexpr int kMmaSmem = 2 * (kMmaRows * kLda + kMaxDepth * kLdb);
 static_assert(4 * kMmaRows * kLdo <= kMmaSmem, "the output tile fits the operands' memory");
-// t8 and t13: a warp a row or an output, four warps a block
+// t8, t13 and t14: four warps a block, a warp a row (t8) or an output
+// (t13), half a warp an output (t14)
 constexpr int kRowThreads = 128;
 constexpr int kRowWarps = kRowThreads / 32;
 constexpr int kSoftmaxSlots = 4;                              // t8: columns a lane
 constexpr int kMaxSoftmaxCols = 32 * kSoftmaxSlots;
-constexpr int kDotVectors = 2;                                // t13: float4 of the depth a lane
-constexpr int kMaxDotDepth = 4 * 32 * kDotVectors;
+constexpr int kDotVectors = 2;                                // t13, t14: float4 of the depth a lane
+constexpr int kT13Lanes = 32;                                 // t13: lanes an output, depth <= 256
+// t14: lanes an output, depth <= 128; 16 beat 32 on the card (PERF.md)
+constexpr int kT14Lanes = 16;
+// t10: sums of at most kMaxSeg floats, kStageSums a block staged through
+// shared memory
+constexpr int kMaxSeg = 32;
+constexpr int kStageThreads = 128;
+constexpr int kStageSums = 56;                                // four of the probe's [252] rows
+constexpr int kStageSlots = (kStageSums * kMaxSeg / 4 + kStageThreads - 1) / kStageThreads;
+constexpr int kSegStageSmem = 4 * kStageSums * kMaxSeg;
 
 // Every kernel's arguments.
 struct Args {
@@ -194,7 +229,8 @@ struct Args {
   const float* w;  // t5: [k, n]; t13: k [n, k]
   float* out;
   int per_step;                   // the flat probes (all but t4: one step, the whole array)
-  int m, n, k, col_tiles;         // t5; t7, t13: m, n, k (the depth); t8: rows m, columns n
+  int m, n, k, col_tiles;         // t5; t7, t13, t14: m, n, k (the depth); t8: rows m,
+                                  // columns n; t10: m sums of n floats each
   const bf16* xb;                 // t7: [m, k]
   const bf16* wb;                 // t7: [k, n]
 };
@@ -460,17 +496,20 @@ __global__ void __launch_bounds__(kRowThreads) row_softmax_kernel(Args a) {
   }
 }
 
-// t13: warp w of block b takes output p = 4 b + w, (i, j) = (p / n, p % n).
+// t13, t14: lanes Lanes g ... Lanes g + Lanes - 1 of block b take output p
+// = (kRowThreads / Lanes) b + g, (i, j) = (p / n, p % n). Lanes past the
+// outputs load nothing and store nothing but stay for the shuffles.
+template <int Lanes>
 __global__ void __launch_bounds__(kRowThreads) dot_rows_kernel(Args a) {
-  const int p = blockIdx.x * kRowWarps + threadIdx.x / 32, lane = threadIdx.x % 32;
-  if (p >= a.m * a.n) return;  // the whole warp leaves together
-  const int i = p / a.n, j = p - i * a.n, depth4 = a.k / 4;
+  const int p = blockIdx.x * (kRowThreads / Lanes) + threadIdx.x / Lanes, lane = threadIdx.x % Lanes;
+  const bool live = p < a.m * a.n;
+  const int i = live ? p / a.n : 0, j = live ? p - i * a.n : 0, depth4 = live ? a.k / 4 : 0;
   const float4* q = reinterpret_cast<const float4*>(a.x + (size_t)i * a.k);
   const float4* k = reinterpret_cast<const float4*>(a.w + (size_t)j * a.k);
   float4 qv[kDotVectors], kv[kDotVectors];
 #pragma unroll
   for (int e = 0; e < kDotVectors; ++e) {  // every load in flight before the first FMA
-    const int c = lane + 32 * e;
+    const int c = lane + Lanes * e;
     qv[e] = kv[e] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
     if (c < depth4) qv[e] = q[c], kv[e] = k[c];
   }
@@ -482,8 +521,49 @@ __global__ void __launch_bounds__(kRowThreads) dot_rows_kernel(Args a) {
     s = fmaf(qv[e].z, kv[e].z, s);
     s = fmaf(qv[e].w, kv[e].w, s);
   }
-  s = warp_sum(s);
-  if (lane == 0) a.out[p] = s;
+#pragma unroll
+  for (int off = Lanes / 2; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
+  if (live && lane == 0) a.out[p] = s;
+}
+
+// t10: block b sums outputs kStageSums b ... kStageSums b + kStageSums - 1
+// (its last block fewer). Its floats go into shared memory by coalesced
+// float4 loads, kStageSlots a thread, all in flight before the first shared
+// store; after the barrier thread t < kStageSums sums output t from there.
+__global__ void __launch_bounds__(kStageThreads) segment_stage_kernel(Args a) {
+  extern __shared__ __align__(16) float smem[];  // [kStageSums][seg]
+  const int first = blockIdx.x * kStageSums, seg = a.n;
+  const int sums = min(kStageSums, a.m - first), live = sums * seg;  // floats, even
+  const float* x = a.x + (size_t)first * seg;  // 16-byte aligned: kStageSums seg is a multiple of 4
+  float4 v[kStageSlots];
+#pragma unroll
+  for (int e = 0; e < kStageSlots; ++e) {  // every load in flight before the first store
+    const int i = threadIdx.x + kStageThreads * e;
+    if (4 * i + 4 <= live) {
+      v[e] = reinterpret_cast<const float4*>(x)[i];
+    } else if (4 * i + 2 == live) {
+      const float2 h = reinterpret_cast<const float2*>(x)[2 * i];
+      v[e] = make_float4(h.x, h.y, 0.0f, 0.0f);
+    }
+  }
+#pragma unroll
+  for (int e = 0; e < kStageSlots; ++e) {
+    const int i = threadIdx.x + kStageThreads * e;
+    if (4 * i + 4 <= live) {
+      reinterpret_cast<float4*>(smem)[i] = v[e];
+    } else if (4 * i + 2 == live) {
+      reinterpret_cast<float2*>(smem)[2 * i] = make_float2(v[e].x, v[e].y);
+    }
+  }
+  __syncthreads();
+  if (threadIdx.x >= sums) return;
+  const float* row = smem + threadIdx.x * seg;
+  float s = 0.0f;
+#pragma unroll
+  for (int c = 0; c < kMaxSeg; ++c) {  // in order along the segment
+    if (c < seg) s += row[c];
+  }
+  a.out[first + threadIdx.x] = s;
 }
 
 bool misaligned(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 != 0; }
@@ -524,15 +604,29 @@ int launch_steps(const float* x, float* out, int steps, int per_step, void* stre
   return (int)launch((const void*)grid_step_kernel<Op>, grid, kChunkThreads, 0, a, stream);
 }
 
+// dot_rows_kernel<Lanes> over q [m, depth] and k [n, depth] (t13, t14).
+template <int Lanes>
+int launch_dot_rows(const float* q, const float* k, float* out, int m, int n, int depth,
+                    void* stream) {
+  if (m <= 0 || n <= 0 || depth <= 0 || depth % 4 != 0 || depth > 4 * Lanes * kDotVectors) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (misaligned(q) || misaligned(k)) return (int)cudaErrorMisalignedAddress;  // out: 4-byte stores
+  Args a{q, k, out, 0, m, n, depth, 0};
+  return (int)launch((const void*)dot_rows_kernel<Lanes>, dim3(cdiv(m * n, kRowThreads / Lanes)),
+                     kRowThreads, 0, a, stream);
+}
+
 }  // namespace
 
 // Each launches on `stream` and returns the first CUDA error, so that a
 // refused launch is seen at once: cudaErrorInvalidValue for a size that is
 // not positive, an array, a step or a row that is not a multiple of 4
 // floats (t7: N or K not a multiple of 8), a t5 or t7 depth over 64, a t13
-// depth over 256, t8 rows over 128 columns, or a t5 plan (`plan`, `n_plan`
-// ints) other than this source's own; cudaErrorMisalignedAddress for a
-// pointer read or written 16 bytes at a time that is not 16-byte aligned.
+// depth over 256 or a t14 depth over 128, t8 rows over 128 columns, a t10
+// segment that is odd or over 32 floats, or a t5 plan (`plan`, `n_plan` ints) other than
+// this source's own; cudaErrorMisalignedAddress for a pointer read or
+// written 16 bytes at a time that is not 16-byte aligned.
 // Nothing is launched then. The caller checked shapes, types and
 // contiguity.
 extern "C" {
@@ -598,13 +692,20 @@ int dstt_probe_t8(const float* x, float* out, int rows, int cols, void* stream) 
 
 int dstt_probe_t13(const float* q, const float* k, float* out, int m, int n, int depth,
                    void* stream) {
-  if (m <= 0 || n <= 0 || depth <= 0 || depth % 4 != 0 || depth > kMaxDotDepth) {
-    return (int)cudaErrorInvalidValue;
-  }
-  if (misaligned(q) || misaligned(k)) return (int)cudaErrorMisalignedAddress;  // out: 4-byte stores
-  Args a{q, k, out, 0, m, n, depth, 0};
-  return (int)launch((const void*)dot_rows_kernel, dim3(cdiv(m * n, kRowWarps)), kRowThreads, 0,
-                     a, stream);
+  return launch_dot_rows<kT13Lanes>(q, k, out, m, n, depth, stream);
+}
+
+int dstt_probe_t14(const float* q, const float* k, float* out, int m, int n, int depth,
+                   void* stream) {
+  return launch_dot_rows<kT14Lanes>(q, k, out, m, n, depth, stream);
+}
+
+int dstt_probe_t10(const float* x, float* out, int n_out, int seg, void* stream) {
+  if (n_out <= 0 || seg <= 0 || seg % 2 != 0 || seg > kMaxSeg) return (int)cudaErrorInvalidValue;
+  if (misaligned(x)) return (int)cudaErrorMisalignedAddress;  // out: 4-byte stores
+  Args a{x, nullptr, out, 0, n_out, seg, 0, 0};
+  return (int)launch((const void*)segment_stage_kernel, dim3(cdiv(n_out, kStageSums)),
+                     kStageThreads, kSegStageSmem, a, stream);
 }
 
 }  // extern "C"

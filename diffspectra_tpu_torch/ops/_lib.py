@@ -39,9 +39,8 @@ _ARGTYPES = {
     "dstt_mix_attention_occupancy": [_I] * 6 + [_P],
     "dstt_equi_update_occupancy": [_I] * 5 + [_P],
     "dstt_block_fused": [_P, _I, _P, _I, _P, _I, _F, _P],
-    # the Mosaic probes (csrc/probe_tiles.cu; t2, t9, t10 and t14 in
-    # csrc/probes.cu): pointers, then sizes, (t5: the launch plan,)
-    # then the stream
+    # the Mosaic probes (csrc/probe_tiles.cu; t2 and t9 in csrc/probes.cu):
+    # pointers, then sizes, (t5: the launch plan,) then the stream
     **{f"dstt_probe_t{i}": [_P] * 2 + [_I] + [_P] for i in (1, 2, 3, 6, 11, 12)},
     **{f"dstt_probe_t{i}": [_P] * 2 + [_I] * 2 + [_P] for i in (4, 8, 10)},
     "dstt_probe_t9": [_P] * 3 + [_I] + [_P],

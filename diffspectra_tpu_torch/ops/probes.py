@@ -1,6 +1,6 @@
 """The Mosaic probes of ``tools/diag_mosaic_bisect.py`` as hand-written CUDA
-kernels (``csrc/probe_tiles.cu``; t2, t9, t10 and t14 in
-``csrc/probes.cu``), each with its plain PyTorch version.
+kernels (``csrc/probe_tiles.cu``; t2 and t9 in ``csrc/probes.cu``), each
+with its plain PyTorch version.
 
 The JAX tool bisects which Pallas/Mosaic feature a TPU compile refuses: one
 small ``pallas_call`` a feature. Wrapper ``tN`` replaces that tool's probe
@@ -23,14 +23,14 @@ gives the line):
   held in registers;
 - ``t9`` (:119) ``where(m > 0, x, -1e10)`` on [29, 29];
 - ``t10`` (:128) [841, 252] reshaped to [29, 29, 14, 18], summed over the
-  last axis;
+  last axis, 56 sums a thread block staged through shared memory;
 - ``t12`` (:144) ``scratch = 2x; out = scratch + 1`` on [256, 256], staged
   through shared memory as the TPU probe staged it through VMEM, 2 float4
   a thread;
 - ``t13`` (:158) ``q @ k.T``, [29, 252] x 2 -> [29, 29], a warp an
   output, its depth split over the lanes in float4;
 - ``t14`` (:168) ``(q[:, None, :] * k[None, :, :]).sum(-1)``, [29, 64] x 2
-  -> [29, 29].
+  -> [29, 29], on t13's kernel with half a warp an output.
 
 Each wrapper takes CPU tensors to its plain version ``tN_reference`` and
 CUDA tensors to its kernel; it raises on any other device, and on a shape,

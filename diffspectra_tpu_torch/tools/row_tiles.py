@@ -32,18 +32,20 @@ VARIANTS = {"plan": (64, 32), "only64": (64,), "only32": (32,)}
 PLAN_LOOP = "for (int tr : {64, 32})"
 
 
-def build_variant(name: str, file: str, old: str, new: str, sources: tuple,
+def build_variant(name: str, file: str, edits: tuple, sources: tuple,
                   entries: tuple) -> ctypes.CDLL:
-    """``csrc/`` copied into ``_build/<name>`` with ``old`` replaced by
-    ``new`` in ``file``, ``sources`` of it built with nvcc into one library
-    and loaded, its C entries whose names start with one of ``entries``
-    typed."""
+    """``csrc/`` copied into ``_build/<name>`` with each ``(old, new)`` of
+    ``edits`` applied to ``file``, ``sources`` of it built with nvcc into
+    one library and loaded, its C entries whose names start with one of
+    ``entries`` typed."""
     out = _lib.BUILD_DIR / name
     shutil.rmtree(out, ignore_errors=True)
     shutil.copytree(_lib._PKG / "csrc", out)
     text = (out / file).read_text()
-    assert old in text, f"{file} no longer holds {old!r}: update this tool"
-    (out / file).write_text(text.replace(old, new))
+    for old, new in edits:
+        assert old in text, f"{file} no longer holds {old!r}: update this tool"
+        text = text.replace(old, new)
+    (out / file).write_text(text)
     cmd = [_lib._nvcc(), *_lib.NVCC_FLAGS, "-o", str(out / "lib.so"), *(str(out / s) for s in sources)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
@@ -99,8 +101,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
     print(torch.cuda.get_device_name(0), flush=True)
-    libs = {name: build_variant(f"row_tiles/{name}", "row_tile.cuh", PLAN_LOOP,
-                                "for (int tr : {%s})" % ", ".join(map(str, heights)),
+    libs = {name: build_variant(f"row_tiles/{name}", "row_tile.cuh",
+                                ((PLAN_LOOP, "for (int tr : {%s})" % ", ".join(map(str, heights))),),
                                 ("equi_update.cu", "mix_attention.cu"),
                                 ("dstt_equi_update", "dstt_mix_attention"))
             for name, heights in VARIANTS.items()}

@@ -1,5 +1,5 @@
 """``csrc/probe_tiles.cu`` (the probe kernels t1, t3, t4, t5, t6, t7, t8,
-t11, t12 and t13) itself, run on the CPU, and t5's launch plan of
+t10, t11, t12, t13 and t14) itself, run on the CPU, and t5's launch plan of
 ``ops/probes.py`` that its C entry re-checks.
 
 The source is compiled with the host C++ compiler against the stand-in for
@@ -9,27 +9,31 @@ that must not be written past the launch's size, ``cp.async`` copies
 landing only at their wait, ``ldmatrix`` and the bf16 ``mma`` as warp
 collectives by the PTX ISA's fragment layout, warp shuffles through
 memory). Its C entries ``dstt_probe_t1``, ``_t3``, ``_t4``, ``_t5``,
-``_t6``, ``_t7``, ``_t8``, ``_t11``, ``_t12`` and ``_t13`` are called
-through ``ctypes`` on CPU tensors as the wrapper calls them (t5 with its
-launch plan) and held against the plain versions: t1, t3, t4, t11 and t12
-exactly, t6 and t8 within 1e-6 (the probes' tolerance: the host's tanhf
-and expf and ``torch.tanh`` and ``torch.softmax`` may differ by an ulp, and
-the softmax sums in another order), t5, t7 and t13 within 1e-4 (the
-probes' tolerance; their sums run along K in another order than the
-CPU's), at the probe shapes and at ragged ones (t4: 1 or 8 steps whose
+``_t6``, ``_t7``, ``_t8``, ``_t10``, ``_t11``, ``_t12``, ``_t13`` and
+``_t14`` are called through ``ctypes`` on CPU tensors as the wrapper calls
+them (t5 with its launch plan) and held against the plain versions: t1,
+t3, t4, t11 and t12 exactly, t6 and t8 within 1e-6 (the probes' tolerance:
+the host's tanhf and expf and ``torch.tanh`` and ``torch.softmax`` may
+differ by an ulp, and the softmax sums in another order), t10 and t14
+within 1e-5 and t5, t7 and t13 within 1e-4 (the probes' tolerances; their
+sums run in another order than the CPU's), at the probe shapes and at
+ragged ones (t4: 1 or 8 steps whose
 last chunk ends mid-block; t1, t3, t6, t11 and t12: 4, 508, 516, 1020, 1028
 and 2052 floats, whose last block ends mid-tile, and t3 at 430,592; t5: M
 in {1, 9, 841}, N in {4, 60, 252}, K in {4, 52, 64}; t7: M in {1, 9, 33,
 841}, N in {8, 56, 256}, K in {8, 40, 64}; t8: rows in {1, 29, 33}, columns
 in {1, 29, 32, 33, 128}; t13: M and N in {1, 29, 33}, depth in {4, 64,
-252, 256}). t7's, t8's and t13's inputs are followed by NaN, so that a
-read past their end shows in the result. Since the stand-in's
+252, 256}; t14: M and N in {1, 29, 33}, depth in {4, 64}; t10: 1, 2, 29
+and 11,774 sums of 2, 18 or 32 floats). The inputs of t7, t8, t10, t13
+and t14 are followed by NaN, so that a read past their end shows in the
+result. Since the stand-in's
 shared memory starts as NaN, a mirrored read of a t12 slot that no thread
 wrote, or a t7 operand read where no copy landed, fails the comparison. Each
 output is followed by NaN floats that must stay untouched. A wrong plan, a
 size that is not positive or not a multiple of 4 floats (t7: 8), a depth
-over 64 (t13: 256), a t8 row over 128 columns and a misaligned pointer are
-each refused with their error code,
+over 64 (t13: 256, t14: 128), a t8 row over 128 columns, a t10 segment odd or
+over 32 floats and a misaligned pointer are each refused with their error
+code,
 nothing launched and nothing written. t1, t3, t4, t6, t11 and t12 run in
 place show their grids covering each float once, in one wave (a float
 covered twice comes out 4x, x + 2, tanh(tanh(x)) or 2(2x + 1) + 1). The
@@ -37,9 +41,11 @@ stand-in records the grid, block and shared bytes each C entry launches
 with, and these are held to the design's: 1024 floats a block of 128
 threads for t1, t3, t4, t6, t11 and t12 (64 blocks for t1 and t6 at their
 probe's 65,536 floats; t12 with 4 KB of shared memory), t5's plan, t7's 64 x 32 tiles (and the
-32 x 64 of ``tools/t7_tiles.py``'s variant), a warp a row of t8 and an
-output of t13 in blocks of 128 threads (8 and 211 blocks at the probes'
-shapes, one wave). The
+32 x 64 of ``tools/probe_variants.py``'s variant), a warp a row of t8 and an
+output of t13 and half a warp an output of t14 in blocks of 128 threads
+(8, 211 and 106 blocks at the probes' shapes, one wave), and 56 sums of
+t10 a block of 128 threads staged through 7 KB of shared memory (211
+blocks at the probe's shape). The
 emulated ``mma`` itself is held to true 16 x 16 x 16 products of basis
 matrices, its fragments loaded by ``ldmatrix`` and, apart from it, by the
 PTX ISA's layout written out element by element.
@@ -60,10 +66,10 @@ from diffspectra_tpu_torch.ops._row_tile import cdiv
 from diffspectra_tpu_torch.ops.probes import (PRODUCT_CHUNK, PRODUCT_CHUNKS, PROBES, product_plan,
                                               t1_reference, t3_reference, t4_reference,
                                               t5_reference, t6_reference, t7_reference,
-                                              t8_reference, t11_reference, t12_reference,
-                                              t13_reference)
+                                              t8_reference, t10_reference, t11_reference,
+                                              t12_reference, t13_reference, t14_reference)
 from diffspectra_tpu_torch.tools.diag_probes import probe_inputs
-from diffspectra_tpu_torch.tools.t7_tiles import SOURCE_TILE, TILES, tile_line
+from diffspectra_tpu_torch.tools.probe_variants import SOURCE_TILE, TILES, tile_line
 from test_torch_block_host import CSRC, build_host_lib, last_launch
 
 INVALID_VALUE, MISALIGNED = 1, 716  # cudaErrorInvalidValue, cudaErrorMisalignedAddress
@@ -76,14 +82,19 @@ CHUNK_THREADS, CHUNK_FLOATS, STAGE_SMEM = 128, 1024, 4096
 # [64][32 + 8] bf16 in shared memory
 MMA_ROWS, MMA_COLS, MMA_THREADS = 64, 32, 128
 MMA_SMEM = 2 * (MMA_ROWS * 72 + 64 * (MMA_COLS + 8))
-# t8's and t13's blocks: 128 threads, a warp a row (t8) or an output (t13)
+# t8's, t13's and t14's blocks: 128 threads, a warp a row (t8) or an
+# output (t13), half a warp an output (t14)
 ROW_THREADS, ROW_WARPS = 128, 4
+# t10's blocks: 56 sums of at most 32 floats a block of 128 threads, staged
+# in 56 x 32 floats
+STAGE_SUMS, STAGE_THREADS, SEG_STAGE_SMEM, MAX_SEG = 56, 128, 4 * 56 * 32, 32
 
 
 @pytest.fixture(scope="module")
 def lib(tmp_path_factory):
     argtypes = {f"dstt_probe_{n}": _lib._ARGTYPES[f"dstt_probe_{n}"]
-                for n in ("t1", "t3", "t4", "t5", "t6", "t7", "t8", "t11", "t12", "t13")}
+                for n in ("t1", "t3", "t4", "t5", "t6", "t7", "t8", "t10", "t11", "t12", "t13",
+                          "t14")}
     return build_host_lib(tmp_path_factory.mktemp("probe_tiles_host"), "probe_tiles.cu", argtypes)
 
 
@@ -514,7 +525,7 @@ def test_emulated_mma_gives_the_true_product_of_basis_matrices(mma_lib, which, b
 
 @pytest.fixture(scope="module")
 def wide_lib(tmp_path_factory):
-    """probe_tiles.cu with t7's 32 x 64 tile, as ``tools/t7_tiles.py``
+    """probe_tiles.cu with t7's 32 x 64 tile, as ``tools/probe_variants.py``
     builds it for the card."""
     text = (CSRC / "probe_tiles.cu").read_text()
     assert tile_line(*SOURCE_TILE) in text and SOURCE_TILE == (MMA_ROWS, MMA_COLS)
@@ -545,23 +556,29 @@ def _t8(lib, x):
     return rc, buf[:rows * cols].view(rows, cols), buf[rows * cols:]
 
 
-def _t13(lib, q, k, shift=(0, 0)):
-    """dstt_probe_t13 on q [m, depth] and k [n, depth], each _guarded (and
-    shifted by ``shift`` floats), as _t4."""
+def _t13(lib, q, k, shift=(0, 0), name="t13"):
+    """dstt_probe_t13 (or ``name``: t14) on q [m, depth] and k [n, depth],
+    each _guarded (and shifted by ``shift`` floats), as _t4."""
     (m, depth), n = q.shape, k.shape[0]
     q, k = _guarded(q), _guarded(k)
     buf = torch.full((m * n + GUARD,), float("nan"))
     ptrs = [t.data_ptr() + 4 * s for t, s in zip((q, k), shift)]
-    rc = lib.dstt_probe_t13(*ptrs, buf.data_ptr(), m, n, depth, None)
+    rc = getattr(lib, f"dstt_probe_{name}")(*ptrs, buf.data_ptr(), m, n, depth, None)
     return rc, buf[:m * n].view(m, n), buf[m * n:]
 
 
-ROW_PROBES = {"t8": (_t8, t8_reference), "t13": (_t13, t13_reference)}
+def _t14(lib, q, k, shift=(0, 0)):
+    return _t13(lib, q, k, shift, name="t14")
 
 
-@pytest.mark.parametrize("name,blocks", [("t8", 8), ("t13", 211)])
+ROW_PROBES = {"t8": (_t8, t8_reference), "t13": (_t13, t13_reference),
+              "t14": (_t14, t14_reference)}
+
+
+@pytest.mark.parametrize("name,blocks", [("t8", 8), ("t13", 211), ("t14", 106)])
 def test_row_probe_source_at_the_probe_shape_matches_the_plain_version(lib, name, blocks):
-    # t8: 29 rows, four a block; t13: 841 outputs, four a block; one wave
+    # t8: 29 rows, four a block; t13: 841 outputs, four a block; t14: 841
+    # outputs, eight a block; one wave
     run, reference = ROW_PROBES[name]
     inputs = probe_inputs(name, seed=3)
     rc, got, guard = run(lib, *inputs)
@@ -611,6 +628,13 @@ ROW_REFUSALS = {  # name: (probe, sizes, pointer shifts, code)
     "t13_depth_over_256": ("t13", (29, 29, 260), (0, 0), INVALID_VALUE),
     "t13_q_misaligned": ("t13", (29, 29, 252), (1, 0), MISALIGNED),
     "t13_k_misaligned": ("t13", (29, 29, 252), (0, 1), MISALIGNED),
+    "t14_no_rows": ("t14", (0, 29, 64), (0, 0), INVALID_VALUE),
+    "t14_no_columns": ("t14", (29, 0, 64), (0, 0), INVALID_VALUE),
+    "t14_no_depth": ("t14", (29, 29, 0), (0, 0), INVALID_VALUE),
+    "t14_depth_not_a_multiple_of_4": ("t14", (29, 29, 62), (0, 0), INVALID_VALUE),
+    "t14_depth_over_128": ("t14", (29, 29, 132), (0, 0), INVALID_VALUE),
+    "t14_q_misaligned": ("t14", (29, 29, 64), (1, 0), MISALIGNED),
+    "t14_k_misaligned": ("t14", (29, 29, 64), (0, 1), MISALIGNED),
 }
 
 
@@ -622,6 +646,81 @@ def test_row_probe_source_refuses_with_nothing_written(lib, case):
         rc, got, guard = _t8(lib, _normal(1, *sizes))
     else:
         m, n, depth = sizes
-        rc, got, guard = _t13(lib, _normal(1, m, depth), _normal(2, n, depth), shift)
+        rc, got, guard = ROW_PROBES[name][0](lib, _normal(1, m, depth), _normal(2, n, depth), shift)
+    assert rc == code and last_launch(lib)[0] == launches
+    assert torch.isnan(got).all() and torch.isnan(guard).all()
+
+
+# m, n: one output (a warp's second half past the outputs), the probe's
+# 29 (841 outputs, odd), 33; depth: one float4 (one lane), the probe's 64
+# (all 16 lanes)
+@pytest.mark.parametrize("depth", [4, 64])
+@pytest.mark.parametrize("n", [1, 29, 33])
+@pytest.mark.parametrize("m", [1, 29, 33])
+def test_t14_source_on_ragged_shapes_matches_the_plain_version(lib, m, n, depth):
+    q, k = _normal(m + n + depth, m, depth), _normal(m * n * depth, n, depth)
+    rc, got, guard = _t14(lib, q, k)
+    assert rc == 0 and torch.isnan(guard).all() and torch.isfinite(got).all()
+    np.testing.assert_allclose(got.numpy(), t14_reference(q, k).numpy(), rtol=0,
+                               atol=PROBES["t14"].atol)
+    # two outputs a warp, eight a block
+    assert last_launch(lib)[1:] == ((cdiv(m * n, 2 * ROW_WARPS), 1, 1), (ROW_THREADS, 1, 1), 0)
+
+
+def _t10(lib, x, n_out, seg, shift=0):
+    """dstt_probe_t10 on x's first n_out seg floats, _guarded (and shifted
+    by ``shift`` floats), as _t4."""
+    x = _guarded(x)
+    buf = torch.full((n_out + GUARD,), float("nan"))
+    rc = lib.dstt_probe_t10(x.data_ptr() + 4 * shift, buf.data_ptr(), n_out, seg, None)
+    return rc, buf[:n_out], buf[n_out:]
+
+
+def _segment_sums(x, n_out, seg):
+    return x.flatten()[:n_out * seg].view(n_out, seg).sum(-1)
+
+
+def test_t10_source_at_the_probe_shape_matches_the_plain_version(lib):
+    # 11,774 sums of 18: 211 blocks of 56 (the last 14), one wave
+    (x,) = probe_inputs("t10", seed=3)
+    rc, got, guard = _t10(lib, x, 29 * 29 * 14, 18)
+    assert rc == 0 and torch.isnan(guard).all() and torch.isfinite(got).all()
+    np.testing.assert_allclose(got.view(PROBES["t10"].out_shape).numpy(),
+                               t10_reference(x).numpy(), rtol=0, atol=PROBES["t10"].atol)
+    assert last_launch(lib)[1:] == ((211, 1, 1), (STAGE_THREADS, 1, 1), SEG_STAGE_SMEM)
+    assert _one_wave(*last_launch(lib)[1:3])
+
+
+# sums: one, two, an odd 29, a block short by one (its thread 55 idle), a
+# block and one, the probe's 29 x 29 x 14 (the last block 14 sums); floats
+# a sum: 2, the probe's 18 (a block's run ends on a float2 where its sums
+# are odd), the most, 32 (3.5 float4 a thread). Shared memory starts NaN:
+# a term read where no load landed shows.
+@pytest.mark.parametrize("seg", [2, 18, MAX_SEG])
+@pytest.mark.parametrize("n_out", [1, 2, 29, STAGE_SUMS - 1, STAGE_SUMS + 1, 29 * 29 * 14])
+def test_t10_source_on_ragged_shapes_matches_the_plain_version(lib, n_out, seg):
+    x = _normal(n_out + seg, n_out * seg)
+    rc, got, guard = _t10(lib, x, n_out, seg)
+    assert rc == 0 and torch.isnan(guard).all() and torch.isfinite(got).all()
+    np.testing.assert_allclose(got.numpy(), _segment_sums(x, n_out, seg).numpy(), rtol=0,
+                               atol=PROBES["t10"].atol)
+    assert last_launch(lib)[1:] == ((cdiv(n_out, STAGE_SUMS), 1, 1), (STAGE_THREADS, 1, 1),
+                                    SEG_STAGE_SMEM)
+
+
+T10_REFUSALS = {  # name: (sums, floats a sum, x's shift in floats, code)
+    "no_sums": (0, 18, 0, INVALID_VALUE),
+    "empty_sums": (29, 0, 0, INVALID_VALUE),
+    "odd_segment": (29, 17, 0, INVALID_VALUE),
+    "segment_over_32": (29, MAX_SEG + 2, 0, INVALID_VALUE),
+    "x_misaligned": (29, 18, 1, MISALIGNED),
+}
+
+
+@pytest.mark.parametrize("case", sorted(T10_REFUSALS))
+def test_t10_source_refuses_with_nothing_written(lib, case):
+    n_out, seg, shift, code = T10_REFUSALS[case]
+    launches = last_launch(lib)[0]
+    rc, got, guard = _t10(lib, _normal(1, n_out * seg + 4), n_out, seg, shift)
     assert rc == code and last_launch(lib)[0] == launches
     assert torch.isnan(got).all() and torch.isnan(guard).all()
