@@ -86,16 +86,18 @@ FORWARD_RTOL = 1e-3  # of the largest |value|: 8 blocks sum in another order
 PATHS = {"attn_equi": ("attn", "equi"), "block": ("block",)}
 PATH_KERNELS = {"attn_equi": ("mix_attention", "equi_update"), "block": ("block_fused",)}
 # each probe's source under diffspectra_tpu_torch/csrc/ and kernel, by the
-# profiler's kernel name (t3, t4: grid_step_kernel<PlusOne>, t1, t11:
-# grid_step_kernel<Times2>, t6: grid_step_kernel<Tanh>, t2:
-# map_kernel<Times2>)
-PROBE_KERNELS = {"t1": ("probe_tiles.cu", "grid_step_kernel"), "t2": ("probes.cu", "map_kernel"),
+# profiler's kernel name (t3, t4: grid_step_kernel<PlusOne>, t1, t2, t11:
+# grid_step_kernel<Times2>, t6: grid_step_kernel<Tanh>, t9:
+# grid_step_kernel<Where>)
+PROBE_KERNELS = {"t1": ("probe_tiles.cu", "grid_step_kernel"),
+                 "t2": ("probe_tiles.cu", "grid_step_kernel"),
                  "t3": ("probe_tiles.cu", "grid_step_kernel"),
                  "t4": ("probe_tiles.cu", "grid_step_kernel"),
                  "t5": ("probe_tiles.cu", "tile_product_kernel"),
                  "t6": ("probe_tiles.cu", "grid_step_kernel"),
                  "t7": ("probe_tiles.cu", "mma_tile_kernel"),
-                 "t8": ("probe_tiles.cu", "row_softmax_kernel"), "t9": ("probes.cu", "mask_kernel"),
+                 "t8": ("probe_tiles.cu", "row_softmax_kernel"),
+                 "t9": ("probe_tiles.cu", "grid_step_kernel"),
                  "t10": ("probe_tiles.cu", "segment_stage_kernel"),
                  "t11": ("probe_tiles.cu", "grid_step_kernel"),
                  "t12": ("probe_tiles.cu", "stage_kernel"),
@@ -104,7 +106,7 @@ PROBE_KERNELS = {"t1": ("probe_tiles.cu", "grid_step_kernel"), "t2": ("probes.cu
 # the template argument each probe's instance of a templated kernel must
 # name: its operation, or its lanes an output
 PROBE_OPS = {"t1": "Times2", "t2": "Times2", "t3": "PlusOne", "t4": "PlusOne", "t6": "Tanh",
-             "t11": "Times2", "t13": "<32>", "t14": "<16>"}
+             "t9": "Where", "t11": "Times2", "t13": "<32>", "t14": "<16>"}
 
 
 def say(*parts):

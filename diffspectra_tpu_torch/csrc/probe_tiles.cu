@@ -1,13 +1,14 @@
-// The Mosaic probes t1, t3, t4, t5, t6, t7, t8, t10, t11, t12, t13 and t14
-// of tools/diag_mosaic_bisect.py, redesigned for Hopper (sm_90a), f32
-// unless marked. The other two probes, t2 and t9, are in probes.cu.
+// The fourteen Mosaic probes t1 ... t14 of tools/diag_mosaic_bisect.py,
+// redesigned for Hopper (sm_90a), f32 unless marked. Each replaces one TPU
+// kernel of that tool (one pl.pallas_call each), at the probe's shapes.
 //
 // t3 (tools/diag_mosaic_bisect.py:63) and t4 (:71): x + 1 on [8, 29, 29,
 // 64]; t4 over a grid of 8 steps, each step finding its slice x[b] from its
 // grid index, as the BlockSpec (1, 29, 29, 64) cut it on the TPU, t3 on the
 // whole array at once. t11 (:136): x * 2 on [2, 29, 29, 14, 18], 423,864
 // floats, the whole array at once. t1 (:47): x * 2, and t6 (:94): tanh(x),
-// each on [256, 256], 65,536 floats, the whole array at once.
+// each on [256, 256], 65,536 floats, the whole array at once. t2 and t9 on
+// the same kernel: see below.
 //   What bounds them: t3 and t4 move 1.72 MB in and 1.72 MB out, 1.03 us
 //   at 3.35 TB/s, t11 1.70 MB each way; at this size the ramp and tail of
 //   one wave of blocks weigh as much, and a launch of about 1.1 us on the
@@ -21,13 +22,35 @@
 //   421 at t3's 430,592; 414 at t11's; 64 at t1's and t6's 65,536), so
 //   that the whole grid is one wave over the 132 SMs with every SM's loads
 //   in flight at once, 16 bytes a load; each step's last chunk is masked.
+//   The operation says how many arrays it reads (Op::kInputs): one, or
+//   two for t9, whose mask comes in Args.w.
 //   A block reads its step and chunk from blockIdx without a division (on
 //   the card a flat grid that divided blockIdx.x was slower, PERF.md). The
 //   launcher sizes the grid itself from the steps and the floats a step. A
-//   step's floats must be a multiple of 4 and both pointers 16-byte
-//   aligned (no scalar path). Tanh is the precise tanhf (a few ulp), never
+//   step's floats must be a multiple of 4, except where the array is one
+//   step and the C entry asks for a ragged tail (t2, t9: the kernel's
+//   Ragged instance; the others' have no tail code), and every pointer
+//   16-byte aligned. Tanh is the precise tanhf (a few ulp), never
 //   __tanhf or tanh.approx.f32, whose relative error of about 2^-11 would
 //   break t6's 1e-6; the build passes no fast-math flag.
+//
+// t2 (tools/diag_mosaic_bisect.py:55): x * 2, and t9 (:119): m > 0 ? x :
+// -1e10, on [29, 29]: 841 floats, no multiple of the warp or of 4, the
+// probes' feature being that unaligned shape (and t9's a masked large
+// negative).
+//   What bounds them: t2 moves 6.7 KB, t9 10.1 KB, 2 to 3 ns at 3.35 TB/s.
+//   Their time is the launch and one round trip of dependent loads.
+//   What the design does: the chunk kernel above as one step, so one block
+//   of 128 threads at 841 floats: 210 whole float4 by 16-byte loads, t9's
+//   mask beside them, every load in flight before the first store, and a
+//   ragged tail of 841 % 4 = 1 float read and written as scalars by the
+//   thread whose float4 slot straddles the end. The tail is allowed only
+//   where the array is one step, since each step's start must stay 16-byte
+//   aligned. Where is m > 0.0f ? x : -1e10f, so a NaN or -0 mask gives
+//   -1e10, as jnp.where and torch.where do; the build passes no flag that
+//   flushes denormals, so a denormal mask above 0 keeps x. wgmma, TMA and
+//   shared-memory staging have nothing to act on: there is no product, and
+//   a few KB do not pay for a TMA descriptor's setup.
 //
 // t12 (tools/diag_mosaic_bisect.py:144): scratch = 2x in a VMEM scratch
 // buffer, out = scratch + 1, on [256, 256].
@@ -175,7 +198,7 @@ using dstt::rows::warp_max;
 using dstt::rows::warp_sum;
 using bf16 = __nv_bfloat16;
 
-// t1, t3, t4, t6, t11 and t12: one chunk of a flat array a block, 128 threads x 2 float4
+// t1-t4, t6, t9, t11, t12: one chunk of a flat array a block, 128 threads x 2 float4
 constexpr int kChunkThreads = 128;
 constexpr int kChunkVectors = 2;
 constexpr int kChunkSlots = kChunkThreads * kChunkVectors;      // float4 a chunk
@@ -226,7 +249,7 @@ constexpr int kSegStageSmem = 4 * kStageSums * kMaxSeg;
 // Every kernel's arguments.
 struct Args {
   const float* x;  // the flat probes: [steps, per_step]; t5: [m, k]; t8: [m, n]; t13: q [m, k]
-  const float* w;  // t5: [k, n]; t13: k [n, k]
+  const float* w;  // t5: [k, n]; t13: k [n, k]; t9: the mask, as x
   float* out;
   int per_step;                   // the flat probes (all but t4: one step, the whole array)
   int m, n, k, col_tiles;         // t5; t7, t13, t14: m, n, k (the depth); t8: rows m,
@@ -235,34 +258,76 @@ struct Args {
   const bf16* wb;                 // t7: [k, n]
 };
 
+// The chunk kernel's operations, each with the count of arrays it reads.
 struct PlusOne {  // t3, t4
+  static constexpr int kInputs = 1;
   __device__ float operator()(float v) const { return v + 1.0f; }
 };
-struct Times2 {  // t1, t11
+struct Times2 {  // t1, t2, t11
+  static constexpr int kInputs = 1;
   __device__ float operator()(float v) const { return v * 2.0f; }
 };
 struct Tanh {  // t6: the precise tanhf
+  static constexpr int kInputs = 1;
   __device__ float operator()(float v) const { return tanhf(v); }
 };
+struct Where {  // t9: x where the mask is above 0, else -1e10 (NaN and -0 too)
+  static constexpr int kInputs = 2;
+  __device__ float operator()(float v, float m) const { return m > 0.0f ? v : -1e10f; }
+};
 
-// t1, t3, t4, t6, t11: block (chunk, step) = blockIdx (x, y).
+// Float4 slot i of a run of n4 whole float4 and `tail` (0 to 3) floats
+// more: slot n4 holds the tail's floats (zeros after them), slots past it
+// nothing.
+__device__ __forceinline__ float4 load_slot(const float* p, int i, int n4, int tail) {
+  if (i < n4) return reinterpret_cast<const float4*>(p)[i];
+  float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  if (i == n4) {
+    if (tail > 0) v.x = p[4 * i];
+    if (tail > 1) v.y = p[4 * i + 1];
+    if (tail > 2) v.z = p[4 * i + 2];
+  }
+  return v;
+}
+
+__device__ __forceinline__ void store_slot(float* p, int i, int n4, int tail, float4 v) {
+  if (i < n4) {
+    reinterpret_cast<float4*>(p)[i] = v;
+  } else if (i == n4) {
+    if (tail > 0) p[4 * i] = v.x;
+    if (tail > 1) p[4 * i + 1] = v.y;
+    if (tail > 2) p[4 * i + 2] = v.z;
+  }
+}
+
 template <class Op>
+__device__ __forceinline__ float4 apply_op(const Op& op, float4 v, float4 m) {
+  if constexpr (Op::kInputs == 1) {
+    return make_float4(op(v.x), op(v.y), op(v.z), op(v.w));
+  } else {
+    return make_float4(op(v.x, m.x), op(v.y, m.y), op(v.z, m.z), op(v.w, m.w));
+  }
+}
+
+// t1, t2, t3, t4, t6, t9, t11: block (chunk, step) = blockIdx (x, y) over
+// x (and t9's mask in w); where Ragged, a step's last float4 slot may hold
+// a ragged tail.
+template <class Op, bool Ragged>
 __global__ void __launch_bounds__(kChunkThreads) grid_step_kernel(Args a) {
-  const float4* x = reinterpret_cast<const float4*>(a.x + (size_t)blockIdx.y * a.per_step);
-  float4* out = reinterpret_cast<float4*>(a.out + (size_t)blockIdx.y * a.per_step);
-  const int n4 = a.per_step / 4;
+  const size_t base = (size_t)blockIdx.y * a.per_step;
+  const int n4 = a.per_step / 4, tail = Ragged ? a.per_step % 4 : 0;
   const int first = blockIdx.x * kChunkSlots + threadIdx.x;
-  float4 v[kChunkVectors];
+  float4 v[kChunkVectors], m[kChunkVectors] = {};
 #pragma unroll
   for (int e = 0; e < kChunkVectors; ++e) {  // every load in flight before the first store
     const int i = first + e * kChunkThreads;
-    if (i < n4) v[e] = x[i];
+    v[e] = load_slot(a.x + base, i, n4, tail);
+    if constexpr (Op::kInputs == 2) m[e] = load_slot(a.w + base, i, n4, tail);
   }
   const Op op{};
 #pragma unroll
   for (int e = 0; e < kChunkVectors; ++e) {
-    const int i = first + e * kChunkThreads;
-    if (i < n4) out[i] = make_float4(op(v[e].x), op(v[e].y), op(v[e].z), op(v[e].w));
+    store_slot(a.out + base, first + e * kChunkThreads, n4, tail, apply_op(op, v[e], m[e]));
   }
 }
 
@@ -594,14 +659,18 @@ cudaError_t launch(const void* kernel, dim3 grid, int threads, int smem, Args& a
   return cudaGetLastError();
 }
 
-// grid_step_kernel<Op> over `steps` steps of `per_step` floats.
-template <class Op>
-int launch_steps(const float* x, float* out, int steps, int per_step, void* stream) {
-  if (steps <= 0 || per_step <= 0 || per_step % 4 != 0) return (int)cudaErrorInvalidValue;
-  if (misaligned(x) || misaligned(out)) return (int)cudaErrorMisalignedAddress;
-  Args a{x, nullptr, out, per_step, 0, 0, 0, 0};
+// grid_step_kernel<Op, Ragged> over `steps` steps of `per_step` floats of x
+// (and of w, t9's mask). per_step must be a multiple of 4, unless Ragged and
+// the array is one step: each step's start stays 16-byte aligned.
+template <class Op, bool Ragged = false>
+int launch_steps(const float* x, const float* w, float* out, int steps, int per_step,
+                 void* stream) {
+  if (steps <= 0 || per_step <= 0) return (int)cudaErrorInvalidValue;
+  if (per_step % 4 != 0 && !(Ragged && steps == 1)) return (int)cudaErrorInvalidValue;
+  if (misaligned(x) || misaligned(w) || misaligned(out)) return (int)cudaErrorMisalignedAddress;
+  Args a{x, w, out, per_step, 0, 0, 0, 0};
   const dim3 grid(cdiv(per_step, 4 * kChunkSlots), steps);
-  return (int)launch((const void*)grid_step_kernel<Op>, grid, kChunkThreads, 0, a, stream);
+  return (int)launch((const void*)grid_step_kernel<Op, Ragged>, grid, kChunkThreads, 0, a, stream);
 }
 
 // dot_rows_kernel<Lanes> over q [m, depth] and k [n, depth] (t13, t14).
@@ -621,8 +690,8 @@ int launch_dot_rows(const float* q, const float* k, float* out, int m, int n, in
 
 // Each launches on `stream` and returns the first CUDA error, so that a
 // refused launch is seen at once: cudaErrorInvalidValue for a size that is
-// not positive, an array, a step or a row that is not a multiple of 4
-// floats (t7: N or K not a multiple of 8), a t5 or t7 depth over 64, a t13
+// not positive, an array (but t2's and t9's), a step or a row that is not a
+// multiple of 4 floats (t7: N or K not a multiple of 8), a t5 or t7 depth over 64, a t13
 // depth over 256 or a t14 depth over 128, t8 rows over 128 columns, a t10
 // segment that is odd or over 32 floats, or a t5 plan (`plan`, `n_plan` ints) other than
 // this source's own; cudaErrorMisalignedAddress for a pointer read or
@@ -631,24 +700,34 @@ int launch_dot_rows(const float* q, const float* k, float* out, int m, int n, in
 // contiguity.
 extern "C" {
 
+// The chunk probes: the whole array as one step (t4: `steps` steps); t2 and
+// t9 with a ragged tail.
 int dstt_probe_t1(const float* x, float* out, int n, void* stream) {
-  return launch_steps<Times2>(x, out, 1, n, stream);  // the whole array as one step
+  return launch_steps<Times2>(x, nullptr, out, 1, n, stream);
+}
+
+int dstt_probe_t2(const float* x, float* out, int n, void* stream) {
+  return launch_steps<Times2, true>(x, nullptr, out, 1, n, stream);
 }
 
 int dstt_probe_t4(const float* x, float* out, int steps, int per_step, void* stream) {
-  return launch_steps<PlusOne>(x, out, steps, per_step, stream);
+  return launch_steps<PlusOne>(x, nullptr, out, steps, per_step, stream);
 }
 
 int dstt_probe_t3(const float* x, float* out, int n, void* stream) {
-  return launch_steps<PlusOne>(x, out, 1, n, stream);  // the whole array as one step
+  return launch_steps<PlusOne>(x, nullptr, out, 1, n, stream);
 }
 
 int dstt_probe_t6(const float* x, float* out, int n, void* stream) {
-  return launch_steps<Tanh>(x, out, 1, n, stream);  // the whole array as one step
+  return launch_steps<Tanh>(x, nullptr, out, 1, n, stream);
+}
+
+int dstt_probe_t9(const float* x, const float* mask, float* out, int n, void* stream) {
+  return launch_steps<Where, true>(x, mask, out, 1, n, stream);
 }
 
 int dstt_probe_t11(const float* x, float* out, int n, void* stream) {
-  return launch_steps<Times2>(x, out, 1, n, stream);  // the whole array as one step
+  return launch_steps<Times2>(x, nullptr, out, 1, n, stream);
 }
 
 int dstt_probe_t5(const float* x, const float* w, float* out, int m, int n, int k,

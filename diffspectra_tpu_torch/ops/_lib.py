@@ -20,7 +20,7 @@ import torch
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCES = tuple(_PKG / "csrc" / f for f in ("mix_attention.cu", "equi_update.cu", "block_fused.cu",
-                                            "probes.cu", "probe_tiles.cu"))
+                                            "probe_tiles.cu"))
 BUILD_DIR = _PKG / "_build"
 LIB_NAME = "libdstt_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -39,7 +39,7 @@ _ARGTYPES = {
     "dstt_mix_attention_occupancy": [_I] * 6 + [_P],
     "dstt_equi_update_occupancy": [_I] * 5 + [_P],
     "dstt_block_fused": [_P, _I, _P, _I, _P, _I, _F, _P],
-    # the Mosaic probes (csrc/probe_tiles.cu; t2 and t9 in csrc/probes.cu):
+    # the Mosaic probes (csrc/probe_tiles.cu):
     # pointers, then sizes, (t5: the launch plan,) then the stream
     **{f"dstt_probe_t{i}": [_P] * 2 + [_I] + [_P] for i in (1, 2, 3, 6, 11, 12)},
     **{f"dstt_probe_t{i}": [_P] * 2 + [_I] * 2 + [_P] for i in (4, 8, 10)},

@@ -2,10 +2,10 @@
 
 The counterpart of ``tools/diag_mosaic_bisect.py``, which bisects which
 Pallas/Mosaic feature a TPU compile refuses. Here each probe of
-``ops/probes.py`` (a hand-written kernel in ``csrc/probes.cu`` or
-``csrc/probe_tiles.cu``) runs on the device on seeded inputs at the tool's
-shapes, and its plain version runs on the CPU on the same inputs. It prints ``PASS tN``, or ``FAIL tN: <max
-error> > <tolerance>`` with the element where the error is largest (its
+``ops/probes.py`` (a hand-written kernel in ``csrc/probe_tiles.cu``) runs
+on the device on seeded inputs at the tool's shapes, and its plain version
+runs on the CPU on the same inputs. It prints ``PASS tN``, or ``FAIL tN:
+<max error> > <tolerance>`` with the element where the error is largest (its
 index, each input of the output's shape there, the kernel's and the plain
 version's values) and goes on to the next probe. A build or launch error
 raises.

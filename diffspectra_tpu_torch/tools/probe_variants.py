@@ -1,10 +1,17 @@
 """Time the probe kernels of ``csrc/probe_tiles.cu`` with each variant of
-their layout, on the card.
+their layout, and the launch floor, on the card.
 
 A variant is that source with a few lines replaced, built alone with nvcc
 into ``_build/probe_variants/<probe>/<variant>/`` (``tools/row_tiles.py``'s
 ``build_variant``):
 
+- t2 (``x * 2``) and t9 (``where(m > 0, x, -1e10)``), each on [29, 29]:
+  the source's chunk kernel as one step (``grid_step_kernel<Times2>`` and
+  ``<Where>``: one block of 128 threads, 16-byte loads, a ragged tail of
+  one float) against the first port's design, which the source no longer
+  holds and which is written out here (``PARENT_KERNELS``): a scalar
+  grid-stride loop, ``map_kernel<Times2>`` and ``mask_kernel``, in 4
+  blocks of 256 threads;
 - t7 (bf16 ``x @ w`` on the tensor cores, ``mma_tile_kernel``): the
   source's 64 x 32 output tile (8 x 14 = 112 blocks at the probe's [841,
   64] @ [64, 256]) against 32 x 64 (4 x 27 = 108 blocks);
@@ -27,12 +34,18 @@ and for each it prints the device time a call (profiler, 50 calls, warm L2;
 "not measured" where the profiler dropped kernel events three windows
 running), the blocks and the largest error against the plain version.
 
-    python -m diffspectra_tpu_torch.tools.probe_variants {t7,t10,t14}
+``floor`` times, the same way, an empty kernel (``EMPTY_KERNEL``, added to
+the tool's copy of the source with its own C entry) launched as
+``<<<1, 32>>>``, ``<<<1, 128>>>`` and ``<<<132, 128>>>``: the least device
+time a launch takes on the card.
+
+    python -m diffspectra_tpu_torch.tools.probe_variants {t2,t7,t9,t10,t14,floor}
 """
 
 from __future__ import annotations
 
 import argparse
+import ctypes
 import math
 
 import torch
@@ -94,6 +107,83 @@ __global__ void __launch_bounds__(kSegThreads) segment_pair_kernel(Args a) {
 """
 
 
+# t2 and t9 as the first port ran them: one float a thread a trip of a
+# grid-stride loop, blocks of 256 threads (4 at 841 floats), the pointers
+# restrict-qualified as its kernel parameters were
+PARENT_THREADS, PARENT_MAX_BLOCKS = 256, 4096
+PARENT_KERNELS = """constexpr int kMapThreads = %d;
+constexpr int kMaxBlocks = %d;
+int map_blocks(int n) { return max(1, min(kMaxBlocks, (n + kMapThreads - 1) / kMapThreads)); }
+template <class Op>
+__global__ void map_kernel(Args a) {
+  const float* __restrict__ x = a.x;
+  float* __restrict__ out = a.out;
+  const Op op{};
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < a.per_step; i += gridDim.x * blockDim.x) {
+    out[i] = op(x[i]);
+  }
+}
+__global__ void mask_kernel(Args a) {
+  const float* __restrict__ x = a.x;
+  const float* __restrict__ m = a.w;
+  float* __restrict__ out = a.out;
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < a.per_step; i += gridDim.x * blockDim.x) {
+    out[i] = m[i] > 0.0f ? x[i] : -1e10f;
+  }
+}
+
+""" % (PARENT_THREADS, PARENT_MAX_BLOCKS)
+# t2's and t9's C entries in the source, and as they launch the parent's kernels
+CHUNK_ENTRIES = {"t2": "  return launch_steps<Times2, true>(x, nullptr, out, 1, n, stream);",
+                 "t9": "  return launch_steps<Where, true>(x, mask, out, 1, n, stream);"}
+PARENT_ENTRIES = {
+    "t2": ("  if (n <= 0) return (int)cudaErrorInvalidValue;\n"
+           "  Args a{x, nullptr, out, n, 0, 0, 0, 0};\n"
+           "  return (int)launch((const void*)map_kernel<Times2>, dim3(map_blocks(n)), kMapThreads, "
+           "0, a, stream);"),
+    "t9": ("  if (n <= 0) return (int)cudaErrorInvalidValue;\n"
+           "  Args a{x, mask, out, n, 0, 0, 0, 0};\n"
+           "  return (int)launch((const void*)mask_kernel, dim3(map_blocks(n)), kMapThreads, 0, a, "
+           "stream);"),
+}
+# t2, t9: the chunk kernel's block, threads x float4 a thread, in the source
+SOURCE_CHUNK = (128, 2)
+CHUNKS = {"chunk": SOURCE_CHUNK, "chunk_256x1": (256, 1), "chunk_128x1": (128, 1),
+          "chunk_32x2": (32, 2)}
+# floor: an empty kernel and its C entry, after the source's last line
+SOURCE_END = '}  // extern "C"\n'
+EMPTY_KERNEL = """
+namespace {
+__global__ void empty_kernel(Args) {}
+}  // namespace
+
+extern "C" int dstt_launch_floor(int blocks, int threads, void* stream) {
+  Args a{};
+  return (int)launch((const void*)empty_kernel, dim3(blocks), threads, 0, a, stream);
+}
+"""
+FLOOR_LAUNCHES = {"<<<1, 32>>>": (1, 32), "<<<1, 128>>>": (1, 128), "<<<132, 128>>>": (132, 128)}
+
+
+def parent_edits(*probes: str) -> tuple:
+    """The edits of ``csrc/probe_tiles.cu`` that add ``PARENT_KERNELS`` and
+    have the C entry of each of ``probes`` (t2, t9) launch its kernel
+    there."""
+    return ((KERNELS_END, PARENT_KERNELS + KERNELS_END),
+            *((CHUNK_ENTRIES[probe], PARENT_ENTRIES[probe]) for probe in probes))
+
+
+def floor_edits() -> tuple:
+    """The edit of ``csrc/probe_tiles.cu`` that adds ``EMPTY_KERNEL``."""
+    return ((SOURCE_END, SOURCE_END + EMPTY_KERNEL),)
+
+
+def chunk_lines(threads: int, vectors: int) -> str:
+    """The lines of ``csrc/probe_tiles.cu`` that give the chunk kernel's
+    blocks ``threads`` threads of ``vectors`` float4 each."""
+    return f"constexpr int kChunkThreads = {threads};\nconstexpr int kChunkVectors = {vectors};"
+
+
 def tile_line(rows: int, cols: int) -> str:
     """The line of ``csrc/probe_tiles.cu`` that sets t7's tile to rows x cols."""
     return f"constexpr int kMmaRows = {rows}, kMmaCols = {cols};"
@@ -117,6 +207,12 @@ def variants(probe: str) -> dict:
     """Each variant of ``probe``: its name, its edits of the source, and its
     blocks at the probe's shape (the source itself first)."""
     out = probes.PROBES[probe].out_shape
+    if probe in CHUNK_ENTRIES:  # t2, t9
+        n = math.prod(out)
+        table = {name: (((chunk_lines(*SOURCE_CHUNK), chunk_lines(th, v)),) if (th, v) != SOURCE_CHUNK
+                        else (), cdiv(n, 4 * th * v)) for name, (th, v) in CHUNKS.items()}
+        table["parent"] = (parent_edits(probe), min(PARENT_MAX_BLOCKS, cdiv(n, PARENT_THREADS)))
+        return table
     if probe == "t7":
         m, n = out
         return {name: (((tile_line(*SOURCE_TILE), tile_line(r, c)),), cdiv(m, r) * cdiv(n, c))
@@ -156,15 +252,38 @@ def time_variants(probe: str, dev: torch.device) -> None:
         _lib._lib = saved
 
 
+def time_floor(dev: torch.device) -> None:
+    """Build ``EMPTY_KERNEL`` and print its device time a call at each of
+    ``FLOOR_LAUNCHES``, over four rounds."""
+    lib = build_variant("probe_variants/floor", "probe_tiles.cu", floor_edits(),
+                        ("probe_tiles.cu",), ())
+    lib.dstt_launch_floor.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    lib.dstt_launch_floor.restype = ctypes.c_int
+    stream = _lib.stream_handle(dev)
+
+    def launch(blocks, threads):
+        _lib.check_rc("empty", lib.dstt_launch_floor(blocks, threads, stream))
+
+    for round_ in range(4):
+        order = list(FLOOR_LAUNCHES) if round_ % 2 == 0 else list(FLOOR_LAUNCHES)[::-1]
+        for name in order:
+            ms = device_ms(lambda: launch(*FLOOR_LAUNCHES[name]))
+            print(f"floor round {round_} empty {name}: "
+                  f"{'not measured' if ms is None else f'{ms:.5f} ms'} on the device", flush=True)
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("probe", choices=("t7", "t10", "t14"))
+    parser.add_argument("probe", choices=("t2", "t7", "t9", "t10", "t14", "floor"))
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("probe_variants: CUDA is not available; this tool runs on the GPU only")
     dev = torch.device("cuda")
     print(torch.cuda.get_device_name(0), flush=True)
-    time_variants(args.probe, dev)
+    if args.probe == "floor":
+        time_floor(dev)
+    else:
+        time_variants(args.probe, dev)
     return 0
 
 

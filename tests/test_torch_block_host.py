@@ -3,7 +3,7 @@
 This machine has no nvcc and no GPU, so the CUDA source is compiled with the
 host C++ compiler against a small stand-in for the CUDA runtime: each thread
 block runs as 256 ``std::thread``s, one block after the other (grid.x, then
-grid.y), with
+grid.y; ``blockDim`` and ``gridDim`` as launched), with
 ``__syncthreads`` a barrier, warp shuffles an exchange through memory,
 shared memory a NaN-filled array (bytes past the launch's dynamic size must
 stay untouched), ``cp.async`` a copy made at the latest moment its
@@ -56,7 +56,7 @@ RUNTIME_H = r"""
 #define __align__(n) __attribute__((aligned(n)))
 struct dim3 { unsigned x, y, z; dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {} };
 struct uint3 { unsigned x, y, z; };
-extern thread_local uint3 threadIdx, blockIdx;
+extern thread_local uint3 threadIdx, blockIdx, blockDim, gridDim;
 struct alignas(16) float4 { float x, y, z, w; };
 inline float4 make_float4(float x, float y, float z, float w) { return {x, y, z, w}; }
 struct alignas(8) float2 { float x, y; };
@@ -183,7 +183,7 @@ HARNESS_CPP = r"""
 #include <cstdlib>
 #include <mutex>
 #include <thread>
-thread_local uint3 threadIdx, blockIdx;
+thread_local uint3 threadIdx, blockIdx, blockDim, gridDim;
 namespace dstt {
 thread_local std::vector<std::vector<Copy>> committed;
 thread_local std::vector<Copy> open_group;
@@ -242,6 +242,8 @@ cudaError_t cudaLaunchKernel(const void* f, dim3 grid, dim3 block, void** args, 
       threads.emplace_back([=] {
         threadIdx = {t, 0, 0};
         blockIdx = {bx, by, 0};
+        blockDim = {block.x, block.y, block.z};
+        gridDim = {grid.x, grid.y, grid.z};
         dstt::committed.clear();
         dstt::open_group.clear();
         kernel(a);
