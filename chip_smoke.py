@@ -86,18 +86,18 @@ FORWARD_RTOL = 1e-3  # of the largest |value|: 8 blocks sum in another order
 PATHS = {"attn_equi": ("attn", "equi"), "block": ("block",)}
 PATH_KERNELS = {"attn_equi": ("mix_attention", "equi_update"), "block": ("block_fused",)}
 # each probe's source under diffspectra_tpu_torch/csrc/ and kernel, by the
-# profiler's kernel name (t3, t4: grid_step_kernel<PlusOne>, t1, t2, t11:
-# grid_step_kernel<Times2>, t6: grid_step_kernel<Tanh>, t9:
-# grid_step_kernel<Where>)
+# profiler's kernel name (t3, t4: grid_step_kernel<PlusOne>, t1, t11:
+# grid_step_kernel<Times2>, t6: grid_step_kernel<Tanh>, t2:
+# map_kernel<Times2>, t9: map_kernel<Where>)
 PROBE_KERNELS = {"t1": ("probe_tiles.cu", "grid_step_kernel"),
-                 "t2": ("probe_tiles.cu", "grid_step_kernel"),
+                 "t2": ("probe_tiles.cu", "map_kernel"),
                  "t3": ("probe_tiles.cu", "grid_step_kernel"),
                  "t4": ("probe_tiles.cu", "grid_step_kernel"),
                  "t5": ("probe_tiles.cu", "tile_product_kernel"),
                  "t6": ("probe_tiles.cu", "grid_step_kernel"),
                  "t7": ("probe_tiles.cu", "mma_tile_kernel"),
                  "t8": ("probe_tiles.cu", "row_softmax_kernel"),
-                 "t9": ("probe_tiles.cu", "grid_step_kernel"),
+                 "t9": ("probe_tiles.cu", "map_kernel"),
                  "t10": ("probe_tiles.cu", "segment_stage_kernel"),
                  "t11": ("probe_tiles.cu", "grid_step_kernel"),
                  "t12": ("probe_tiles.cu", "stage_kernel"),

@@ -1,14 +1,13 @@
 // The fourteen Mosaic probes t1 ... t14 of tools/diag_mosaic_bisect.py,
-// redesigned for Hopper (sm_90a), f32 unless marked. Each replaces one TPU
-// kernel of that tool (one pl.pallas_call each), at the probe's shapes.
+// for Hopper (sm_90a), f32 unless marked. Each replaces one TPU kernel of
+// that tool (one pl.pallas_call each), at the probe's shapes.
 //
 // t3 (tools/diag_mosaic_bisect.py:63) and t4 (:71): x + 1 on [8, 29, 29,
 // 64]; t4 over a grid of 8 steps, each step finding its slice x[b] from its
 // grid index, as the BlockSpec (1, 29, 29, 64) cut it on the TPU, t3 on the
 // whole array at once. t11 (:136): x * 2 on [2, 29, 29, 14, 18], 423,864
 // floats, the whole array at once. t1 (:47): x * 2, and t6 (:94): tanh(x),
-// each on [256, 256], 65,536 floats, the whole array at once. t2 and t9 on
-// the same kernel: see below.
+// each on [256, 256], 65,536 floats, the whole array at once.
 //   What bounds them: t3 and t4 move 1.72 MB in and 1.72 MB out, 1.03 us
 //   at 3.35 TB/s, t11 1.70 MB each way; at this size the ramp and tail of
 //   one wave of blocks weigh as much, and a launch of about 1.1 us on the
@@ -22,35 +21,38 @@
 //   421 at t3's 430,592; 414 at t11's; 64 at t1's and t6's 65,536), so
 //   that the whole grid is one wave over the 132 SMs with every SM's loads
 //   in flight at once, 16 bytes a load; each step's last chunk is masked.
-//   The operation says how many arrays it reads (Op::kInputs): one, or
-//   two for t9, whose mask comes in Args.w.
 //   A block reads its step and chunk from blockIdx without a division (on
 //   the card a flat grid that divided blockIdx.x was slower, PERF.md). The
 //   launcher sizes the grid itself from the steps and the floats a step. A
-//   step's floats must be a multiple of 4, except where the array is one
-//   step and the C entry asks for a ragged tail (t2, t9: the kernel's
-//   Ragged instance; the others' have no tail code), and every pointer
-//   16-byte aligned. Tanh is the precise tanhf (a few ulp), never
+//   step's floats must be a multiple of 4 and both pointers 16-byte
+//   aligned (no scalar path). Tanh is the precise tanhf (a few ulp), never
 //   __tanhf or tanh.approx.f32, whose relative error of about 2^-11 would
 //   break t6's 1e-6; the build passes no fast-math flag.
 //
-// t2 (tools/diag_mosaic_bisect.py:55): x * 2, and t9 (:119): m > 0 ? x :
-// -1e10, on [29, 29]: 841 floats, no multiple of the warp or of 4, the
+// t2 (tools/diag_mosaic_bisect.py:55): x * 2, and t9 (:119): where(m > 0,
+// x, -1e10), on [29, 29]: 841 floats, no multiple of the warp or of 4, the
 // probes' feature being that unaligned shape (and t9's a masked large
 // negative).
 //   What bounds them: t2 moves 6.7 KB, t9 10.1 KB, 2 to 3 ns at 3.35 TB/s.
-//   Their time is the launch and one round trip of dependent loads.
-//   What the design does: the chunk kernel above as one step, so one block
-//   of 128 threads at 841 floats: 210 whole float4 by 16-byte loads, t9's
-//   mask beside them, every load in flight before the first store, and a
-//   ragged tail of 841 % 4 = 1 float read and written as scalars by the
-//   thread whose float4 slot straddles the end. The tail is allowed only
-//   where the array is one step, since each step's start must stay 16-byte
-//   aligned. Where is m > 0.0f ? x : -1e10f, so a NaN or -0 mask gives
-//   -1e10, as jnp.where and torch.where do; the build passes no flag that
-//   flushes denormals, so a denormal mask above 0 keeps x. wgmma, TMA and
-//   shared-memory staging have nothing to act on: there is no product, and
-//   a few KB do not pay for a TMA descriptor's setup.
+//   Their time is the launch and one round trip of dependent loads: an
+//   empty kernel takes about 0.85 us of device time on the card, t2 about
+//   0.2 us more (PERF.md, tools/probe_variants.py floor).
+//   What the design does: map_kernel<Op>, one float a thread in blocks of
+//   256 threads (4 at 841 floats), a grid-stride loop past 4096 blocks, the
+//   operation a template parameter that says how many arrays it reads
+//   (Times2 one; Where two, t9's mask in Args.w). So every thread issues its
+//   one or two loads, then its one store, and no thread straddles a ragged
+//   end: a float past the array is a thread that does nothing. The chunk
+//   kernel above as one step (a block of 128 threads, 16-byte loads, the
+//   last float4 slot a ragged tail of scalars) was slower on the card for
+//   both probes in every round, and so was each of its narrower blocks: at
+//   this size a thread's instructions, not its bytes, set the time
+//   (tools/probe_variants.py t2, t9; PERF.md). Where is m > 0.0f ? x :
+//   -1e10f, so a NaN or -0 mask gives -1e10, as jnp.where and torch.where
+//   do; the build passes no flag that flushes denormals, so a denormal mask
+//   above 0 keeps x. wgmma, TMA and shared-memory staging have nothing to
+//   act on: there is no product, and a few KB do not pay for a TMA
+//   descriptor's setup. Any size above 0, pointers 4-byte aligned.
 //
 // t12 (tools/diag_mosaic_bisect.py:144): scratch = 2x in a VMEM scratch
 // buffer, out = scratch + 1, on [256, 256].
@@ -198,7 +200,7 @@ using dstt::rows::warp_max;
 using dstt::rows::warp_sum;
 using bf16 = __nv_bfloat16;
 
-// t1-t4, t6, t9, t11, t12: one chunk of a flat array a block, 128 threads x 2 float4
+// t1, t3, t4, t6, t11 and t12: one chunk of a flat array a block, 128 threads x 2 float4
 constexpr int kChunkThreads = 128;
 constexpr int kChunkVectors = 2;
 constexpr int kChunkSlots = kChunkThreads * kChunkVectors;      // float4 a chunk
@@ -245,20 +247,26 @@ constexpr int kStageThreads = 128;
 constexpr int kStageSums = 56;                                // four of the probe's [252] rows
 constexpr int kStageSlots = (kStageSums * kMaxSeg / 4 + kStageThreads - 1) / kStageThreads;
 constexpr int kSegStageSmem = 4 * kStageSums * kMaxSeg;
+// t2, t9: a float a thread, blocks of kMapThreads, a grid-stride loop past
+// kMaxMapBlocks blocks
+constexpr int kMapThreads = 256;
+constexpr int kMaxMapBlocks = 4096;
 
 // Every kernel's arguments.
 struct Args {
   const float* x;  // the flat probes: [steps, per_step]; t5: [m, k]; t8: [m, n]; t13: q [m, k]
   const float* w;  // t5: [k, n]; t13: k [n, k]; t9: the mask, as x
   float* out;
-  int per_step;                   // the flat probes (all but t4: one step, the whole array)
+  int per_step;                   // the flat probes (all but t4: one step, the whole array);
+                                  // t2, t9: the floats
   int m, n, k, col_tiles;         // t5; t7, t13, t14: m, n, k (the depth); t8: rows m,
                                   // columns n; t10: m sums of n floats each
   const bf16* xb;                 // t7: [m, k]
   const bf16* wb;                 // t7: [k, n]
 };
 
-// The chunk kernel's operations, each with the count of arrays it reads.
+// The elementwise operations, each with the count of arrays it reads
+// (map_kernel reads kInputs; grid_step_kernel takes one-array operations).
 struct PlusOne {  // t3, t4
   static constexpr int kInputs = 1;
   __device__ float operator()(float v) const { return v + 1.0f; }
@@ -276,58 +284,41 @@ struct Where {  // t9: x where the mask is above 0, else -1e10 (NaN and -0 too)
   __device__ float operator()(float v, float m) const { return m > 0.0f ? v : -1e10f; }
 };
 
-// Float4 slot i of a run of n4 whole float4 and `tail` (0 to 3) floats
-// more: slot n4 holds the tail's floats (zeros after them), slots past it
-// nothing.
-__device__ __forceinline__ float4 load_slot(const float* p, int i, int n4, int tail) {
-  if (i < n4) return reinterpret_cast<const float4*>(p)[i];
-  float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-  if (i == n4) {
-    if (tail > 0) v.x = p[4 * i];
-    if (tail > 1) v.y = p[4 * i + 1];
-    if (tail > 2) v.z = p[4 * i + 2];
-  }
-  return v;
-}
-
-__device__ __forceinline__ void store_slot(float* p, int i, int n4, int tail, float4 v) {
-  if (i < n4) {
-    reinterpret_cast<float4*>(p)[i] = v;
-  } else if (i == n4) {
-    if (tail > 0) p[4 * i] = v.x;
-    if (tail > 1) p[4 * i + 1] = v.y;
-    if (tail > 2) p[4 * i + 2] = v.z;
-  }
-}
-
+// t1, t3, t4, t6, t11: block (chunk, step) = blockIdx (x, y).
 template <class Op>
-__device__ __forceinline__ float4 apply_op(const Op& op, float4 v, float4 m) {
-  if constexpr (Op::kInputs == 1) {
-    return make_float4(op(v.x), op(v.y), op(v.z), op(v.w));
-  } else {
-    return make_float4(op(v.x, m.x), op(v.y, m.y), op(v.z, m.z), op(v.w, m.w));
-  }
-}
-
-// t1, t2, t3, t4, t6, t9, t11: block (chunk, step) = blockIdx (x, y) over
-// x (and t9's mask in w); where Ragged, a step's last float4 slot may hold
-// a ragged tail.
-template <class Op, bool Ragged>
 __global__ void __launch_bounds__(kChunkThreads) grid_step_kernel(Args a) {
-  const size_t base = (size_t)blockIdx.y * a.per_step;
-  const int n4 = a.per_step / 4, tail = Ragged ? a.per_step % 4 : 0;
+  const float4* x = reinterpret_cast<const float4*>(a.x + (size_t)blockIdx.y * a.per_step);
+  float4* out = reinterpret_cast<float4*>(a.out + (size_t)blockIdx.y * a.per_step);
+  const int n4 = a.per_step / 4;
   const int first = blockIdx.x * kChunkSlots + threadIdx.x;
-  float4 v[kChunkVectors], m[kChunkVectors] = {};
+  float4 v[kChunkVectors];
 #pragma unroll
   for (int e = 0; e < kChunkVectors; ++e) {  // every load in flight before the first store
     const int i = first + e * kChunkThreads;
-    v[e] = load_slot(a.x + base, i, n4, tail);
-    if constexpr (Op::kInputs == 2) m[e] = load_slot(a.w + base, i, n4, tail);
+    if (i < n4) v[e] = x[i];
   }
   const Op op{};
 #pragma unroll
   for (int e = 0; e < kChunkVectors; ++e) {
-    store_slot(a.out + base, first + e * kChunkThreads, n4, tail, apply_op(op, v[e], m[e]));
+    const int i = first + e * kChunkThreads;
+    if (i < n4) out[i] = make_float4(op(v[e].x), op(v[e].y), op(v[e].z), op(v[e].w));
+  }
+}
+
+// t2, t9: thread i of the grid takes floats i, i + the grid's threads, ...
+// of x (and of t9's mask in w).
+template <class Op>
+__global__ void __launch_bounds__(kMapThreads) map_kernel(Args a) {
+  const float* __restrict__ x = a.x;
+  const float* __restrict__ w = a.w;
+  float* __restrict__ out = a.out;
+  const Op op{};
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < a.per_step; i += gridDim.x * blockDim.x) {
+    if constexpr (Op::kInputs == 1) {
+      out[i] = op(x[i]);
+    } else {
+      out[i] = op(x[i], w[i]);
+    }
   }
 }
 
@@ -659,18 +650,23 @@ cudaError_t launch(const void* kernel, dim3 grid, int threads, int smem, Args& a
   return cudaGetLastError();
 }
 
-// grid_step_kernel<Op, Ragged> over `steps` steps of `per_step` floats of x
-// (and of w, t9's mask). per_step must be a multiple of 4, unless Ragged and
-// the array is one step: each step's start stays 16-byte aligned.
-template <class Op, bool Ragged = false>
-int launch_steps(const float* x, const float* w, float* out, int steps, int per_step,
-                 void* stream) {
-  if (steps <= 0 || per_step <= 0) return (int)cudaErrorInvalidValue;
-  if (per_step % 4 != 0 && !(Ragged && steps == 1)) return (int)cudaErrorInvalidValue;
-  if (misaligned(x) || misaligned(w) || misaligned(out)) return (int)cudaErrorMisalignedAddress;
-  Args a{x, w, out, per_step, 0, 0, 0, 0};
+// grid_step_kernel<Op> over `steps` steps of `per_step` floats.
+template <class Op>
+int launch_steps(const float* x, float* out, int steps, int per_step, void* stream) {
+  if (steps <= 0 || per_step <= 0 || per_step % 4 != 0) return (int)cudaErrorInvalidValue;
+  if (misaligned(x) || misaligned(out)) return (int)cudaErrorMisalignedAddress;
+  Args a{x, nullptr, out, per_step, 0, 0, 0, 0};
   const dim3 grid(cdiv(per_step, 4 * kChunkSlots), steps);
-  return (int)launch((const void*)grid_step_kernel<Op, Ragged>, grid, kChunkThreads, 0, a, stream);
+  return (int)launch((const void*)grid_step_kernel<Op>, grid, kChunkThreads, 0, a, stream);
+}
+
+// map_kernel<Op> over n floats of x (and of w, t9's mask).
+template <class Op>
+int launch_map(const float* x, const float* w, float* out, int n, void* stream) {
+  if (n <= 0) return (int)cudaErrorInvalidValue;
+  Args a{x, w, out, n, 0, 0, 0, 0};
+  const int blocks = min(kMaxMapBlocks, cdiv(n, kMapThreads));
+  return (int)launch((const void*)map_kernel<Op>, dim3(blocks), kMapThreads, 0, a, stream);
 }
 
 // dot_rows_kernel<Lanes> over q [m, depth] and k [n, depth] (t13, t14).
@@ -700,34 +696,32 @@ int launch_dot_rows(const float* q, const float* k, float* out, int m, int n, in
 // contiguity.
 extern "C" {
 
-// The chunk probes: the whole array as one step (t4: `steps` steps); t2 and
-// t9 with a ragged tail.
 int dstt_probe_t1(const float* x, float* out, int n, void* stream) {
-  return launch_steps<Times2>(x, nullptr, out, 1, n, stream);
+  return launch_steps<Times2>(x, out, 1, n, stream);  // the whole array as one step
 }
 
 int dstt_probe_t2(const float* x, float* out, int n, void* stream) {
-  return launch_steps<Times2, true>(x, nullptr, out, 1, n, stream);
-}
-
-int dstt_probe_t4(const float* x, float* out, int steps, int per_step, void* stream) {
-  return launch_steps<PlusOne>(x, nullptr, out, steps, per_step, stream);
-}
-
-int dstt_probe_t3(const float* x, float* out, int n, void* stream) {
-  return launch_steps<PlusOne>(x, nullptr, out, 1, n, stream);
-}
-
-int dstt_probe_t6(const float* x, float* out, int n, void* stream) {
-  return launch_steps<Tanh>(x, nullptr, out, 1, n, stream);
+  return launch_map<Times2>(x, nullptr, out, n, stream);
 }
 
 int dstt_probe_t9(const float* x, const float* mask, float* out, int n, void* stream) {
-  return launch_steps<Where, true>(x, mask, out, 1, n, stream);
+  return launch_map<Where>(x, mask, out, n, stream);
+}
+
+int dstt_probe_t4(const float* x, float* out, int steps, int per_step, void* stream) {
+  return launch_steps<PlusOne>(x, out, steps, per_step, stream);
+}
+
+int dstt_probe_t3(const float* x, float* out, int n, void* stream) {
+  return launch_steps<PlusOne>(x, out, 1, n, stream);  // the whole array as one step
+}
+
+int dstt_probe_t6(const float* x, float* out, int n, void* stream) {
+  return launch_steps<Tanh>(x, out, 1, n, stream);  // the whole array as one step
 }
 
 int dstt_probe_t11(const float* x, float* out, int n, void* stream) {
-  return launch_steps<Times2>(x, nullptr, out, 1, n, stream);
+  return launch_steps<Times2>(x, out, 1, n, stream);  // the whole array as one step
 }
 
 int dstt_probe_t5(const float* x, const float* w, float* out, int m, int n, int k,

@@ -6,12 +6,12 @@ into ``_build/probe_variants/<probe>/<variant>/`` (``tools/row_tiles.py``'s
 ``build_variant``):
 
 - t2 (``x * 2``) and t9 (``where(m > 0, x, -1e10)``), each on [29, 29]:
-  the source's chunk kernel as one step (``grid_step_kernel<Times2>`` and
-  ``<Where>``: one block of 128 threads, 16-byte loads, a ragged tail of
-  one float) against the first port's design, which the source no longer
-  holds and which is written out here (``PARENT_KERNELS``): a scalar
-  grid-stride loop, ``map_kernel<Times2>`` and ``mask_kernel``, in 4
-  blocks of 256 threads;
+  the source's ``map_kernel<Times2>`` and ``<Where>`` (a float a thread,
+  4 blocks of 256 threads) against the chunk kernel as one step, a design
+  the source does not hold, written out here (``CHUNK_KERNEL``): 16-byte
+  loads, all in flight before the first store, the float4 slot that
+  straddles the end a ragged tail of scalars, in one block of 128 threads
+  of 2 float4 each and in two blocks of 128 threads of 1 float4;
 - t7 (bf16 ``x @ w`` on the tensor cores, ``mma_tile_kernel``): the
   source's 64 x 32 output tile (8 x 14 = 112 blocks at the probe's [841,
   64] @ [64, 256]) against 32 x 64 (4 x 27 = 108 blocks);
@@ -107,49 +107,72 @@ __global__ void __launch_bounds__(kSegThreads) segment_pair_kernel(Args a) {
 """
 
 
-# t2 and t9 as the first port ran them: one float a thread a trip of a
-# grid-stride loop, blocks of 256 threads (4 at 841 floats), the pointers
-# restrict-qualified as its kernel parameters were
-PARENT_THREADS, PARENT_MAX_BLOCKS = 256, 4096
-PARENT_KERNELS = """constexpr int kMapThreads = %d;
-constexpr int kMaxBlocks = %d;
-int map_blocks(int n) { return max(1, min(kMaxBlocks, (n + kMapThreads - 1) / kMapThreads)); }
-template <class Op>
-__global__ void map_kernel(Args a) {
-  const float* __restrict__ x = a.x;
-  float* __restrict__ out = a.out;
-  const Op op{};
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < a.per_step; i += gridDim.x * blockDim.x) {
-    out[i] = op(x[i]);
+# t2, t9 as one step of the chunk kernel, the float4 slot that straddles
+# the end a ragged tail of scalars (not in the source: map_kernel beat it)
+CHUNK_KERNEL = """__device__ __forceinline__ float4 load_slot(const float* p, int i, int n4, int tail) {
+  if (i < n4) return reinterpret_cast<const float4*>(p)[i];
+  float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  if (i == n4) {
+    if (tail > 0) v.x = p[4 * i];
+    if (tail > 1) v.y = p[4 * i + 1];
+    if (tail > 2) v.z = p[4 * i + 2];
+  }
+  return v;
+}
+__device__ __forceinline__ void store_slot(float* p, int i, int n4, int tail, float4 v) {
+  if (i < n4) {
+    reinterpret_cast<float4*>(p)[i] = v;
+  } else if (i == n4) {
+    if (tail > 0) p[4 * i] = v.x;
+    if (tail > 1) p[4 * i + 1] = v.y;
+    if (tail > 2) p[4 * i + 2] = v.z;
   }
 }
-__global__ void mask_kernel(Args a) {
-  const float* __restrict__ x = a.x;
-  const float* __restrict__ m = a.w;
-  float* __restrict__ out = a.out;
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < a.per_step; i += gridDim.x * blockDim.x) {
-    out[i] = m[i] > 0.0f ? x[i] : -1e10f;
+template <class Op>
+__global__ void __launch_bounds__(kChunkThreads) ragged_chunk_kernel(Args a) {
+  const int n4 = a.per_step / 4, tail = a.per_step % 4;
+  const int first = blockIdx.x * kChunkSlots + threadIdx.x;
+  float4 v[kChunkVectors], m[kChunkVectors] = {};
+#pragma unroll
+  for (int e = 0; e < kChunkVectors; ++e) {  // every load in flight before the first store
+    const int i = first + e * kChunkThreads;
+    v[e] = load_slot(a.x, i, n4, tail);
+    if constexpr (Op::kInputs == 2) m[e] = load_slot(a.w, i, n4, tail);
+  }
+  const Op op{};
+#pragma unroll
+  for (int e = 0; e < kChunkVectors; ++e) {
+    float4 r;
+    if constexpr (Op::kInputs == 1) {
+      r = make_float4(op(v[e].x), op(v[e].y), op(v[e].z), op(v[e].w));
+    } else {
+      r = make_float4(op(v[e].x, m[e].x), op(v[e].y, m[e].y), op(v[e].z, m[e].z),
+                      op(v[e].w, m[e].w));
+    }
+    store_slot(a.out, first + e * kChunkThreads, n4, tail, r);
   }
 }
 
-""" % (PARENT_THREADS, PARENT_MAX_BLOCKS)
-# t2's and t9's C entries in the source, and as they launch the parent's kernels
-CHUNK_ENTRIES = {"t2": "  return launch_steps<Times2, true>(x, nullptr, out, 1, n, stream);",
-                 "t9": "  return launch_steps<Where, true>(x, mask, out, 1, n, stream);"}
-PARENT_ENTRIES = {
+"""
+# t2's and t9's C entries in the source, and as they launch CHUNK_KERNEL
+MAP_ENTRIES = {"t2": "  return launch_map<Times2>(x, nullptr, out, n, stream);",
+               "t9": "  return launch_map<Where>(x, mask, out, n, stream);"}
+CHUNK_ENTRIES = {
     "t2": ("  if (n <= 0) return (int)cudaErrorInvalidValue;\n"
+           "  if (misaligned(x) || misaligned(out)) return (int)cudaErrorMisalignedAddress;\n"
            "  Args a{x, nullptr, out, n, 0, 0, 0, 0};\n"
-           "  return (int)launch((const void*)map_kernel<Times2>, dim3(map_blocks(n)), kMapThreads, "
-           "0, a, stream);"),
+           "  return (int)launch((const void*)ragged_chunk_kernel<Times2>, "
+           "dim3(cdiv(n, 4 * kChunkSlots)), kChunkThreads, 0, a, stream);"),
     "t9": ("  if (n <= 0) return (int)cudaErrorInvalidValue;\n"
+           "  if (misaligned(x) || misaligned(mask) || misaligned(out)) "
+           "return (int)cudaErrorMisalignedAddress;\n"
            "  Args a{x, mask, out, n, 0, 0, 0, 0};\n"
-           "  return (int)launch((const void*)mask_kernel, dim3(map_blocks(n)), kMapThreads, 0, a, "
-           "stream);"),
+           "  return (int)launch((const void*)ragged_chunk_kernel<Where>, "
+           "dim3(cdiv(n, 4 * kChunkSlots)), kChunkThreads, 0, a, stream);"),
 }
-# t2, t9: the chunk kernel's block, threads x float4 a thread, in the source
-SOURCE_CHUNK = (128, 2)
-CHUNKS = {"chunk": SOURCE_CHUNK, "chunk_256x1": (256, 1), "chunk_128x1": (128, 1),
-          "chunk_32x2": (32, 2)}
+MAP_THREADS = 256  # map_kernel's block in the source
+# the chunk kernel's blocks, threads x float4 a thread (the source's own first)
+CHUNKS = {"chunk_128x2": (128, 2), "chunk_128x1": (128, 1)}
 # floor: an empty kernel and its C entry, after the source's last line
 SOURCE_END = '}  // extern "C"\n'
 EMPTY_KERNEL = """
@@ -165,12 +188,14 @@ extern "C" int dstt_launch_floor(int blocks, int threads, void* stream) {
 FLOOR_LAUNCHES = {"<<<1, 32>>>": (1, 32), "<<<1, 128>>>": (1, 128), "<<<132, 128>>>": (132, 128)}
 
 
-def parent_edits(*probes: str) -> tuple:
-    """The edits of ``csrc/probe_tiles.cu`` that add ``PARENT_KERNELS`` and
-    have the C entry of each of ``probes`` (t2, t9) launch its kernel
-    there."""
-    return ((KERNELS_END, PARENT_KERNELS + KERNELS_END),
-            *((CHUNK_ENTRIES[probe], PARENT_ENTRIES[probe]) for probe in probes))
+def chunk_edits(*probes: str, threads: int = 128, vectors: int = 2) -> tuple:
+    """The edits of ``csrc/probe_tiles.cu`` that add ``CHUNK_KERNEL`` in
+    blocks of ``threads`` threads of ``vectors`` float4 and have the C
+    entry of each of ``probes`` (t2, t9) launch it."""
+    edits = [(KERNELS_END, CHUNK_KERNEL + KERNELS_END)]
+    if (threads, vectors) != CHUNKS["chunk_128x2"]:
+        edits.append((chunk_lines(*CHUNKS["chunk_128x2"]), chunk_lines(threads, vectors)))
+    return (*edits, *((MAP_ENTRIES[probe], CHUNK_ENTRIES[probe]) for probe in probes))
 
 
 def floor_edits() -> tuple:
@@ -207,11 +232,11 @@ def variants(probe: str) -> dict:
     """Each variant of ``probe``: its name, its edits of the source, and its
     blocks at the probe's shape (the source itself first)."""
     out = probes.PROBES[probe].out_shape
-    if probe in CHUNK_ENTRIES:  # t2, t9
+    if probe in MAP_ENTRIES:  # t2, t9
         n = math.prod(out)
-        table = {name: (((chunk_lines(*SOURCE_CHUNK), chunk_lines(th, v)),) if (th, v) != SOURCE_CHUNK
-                        else (), cdiv(n, 4 * th * v)) for name, (th, v) in CHUNKS.items()}
-        table["parent"] = (parent_edits(probe), min(PARENT_MAX_BLOCKS, cdiv(n, PARENT_THREADS)))
+        table = {"map": ((), cdiv(n, MAP_THREADS))}
+        table.update({name: (chunk_edits(probe, threads=th, vectors=v), cdiv(n, 4 * th * v))
+                      for name, (th, v) in CHUNKS.items()})
         return table
     if probe == "t7":
         m, n = out

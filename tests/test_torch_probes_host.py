@@ -70,9 +70,8 @@ from diffspectra_tpu_torch.ops.probes import (PRODUCT_CHUNK, PRODUCT_CHUNKS, PRO
                                               t10_reference, t11_reference, t12_reference,
                                               t13_reference, t14_reference)
 from diffspectra_tpu_torch.tools.diag_probes import probe_inputs
-from diffspectra_tpu_torch.tools.probe_variants import (FLOOR_LAUNCHES, PARENT_THREADS, SOURCE_TILE,
-                                                        TILES, floor_edits, parent_edits,
-                                                        tile_line)
+from diffspectra_tpu_torch.tools.probe_variants import (FLOOR_LAUNCHES, SOURCE_TILE, TILES,
+                                                        chunk_edits, floor_edits, tile_line)
 from test_torch_block_host import CSRC, build_host_lib, last_launch
 
 INVALID_VALUE, MISALIGNED = 1, 716  # cudaErrorInvalidValue, cudaErrorMisalignedAddress
@@ -729,7 +728,7 @@ def test_t10_source_refuses_with_nothing_written(lib, case):
     assert torch.isnan(got).all() and torch.isnan(guard).all()
 
 
-def _ragged(lib, name, inputs, shift=None, n=None):
+def _map(lib, name, inputs, shift=None, n=None):
     """dstt_probe_<name> (t2: x; t9: x and its mask) on the inputs' floats
     (or ``n``), each _guarded, into a NaN buffer with a guard (and room for
     an output pointer a float on); ``shift`` gives each pointer's shift in
@@ -742,56 +741,62 @@ def _ragged(lib, name, inputs, shift=None, n=None):
     shift = shift or (0,) * (len(ins) + 1)
     ptrs = [t.data_ptr() + 4 * s for t, s in zip(ins + [buf], shift)]
     rc = getattr(lib, f"dstt_probe_{name}")(*ptrs, n, None)
-    return rc, buf[:size], buf[size:]
+    return rc, buf[shift[-1]:shift[-1] + size], torch.cat([buf[:shift[-1]], buf[shift[-1] + size:]])
 
 
-# t2 and t9: the chunk kernel as one step, any size, the last float4 slot a
-# ragged tail of n % 4 floats
-RAGGED_REFERENCES = {"t2": t2_reference, "t9": t9_reference}
-# floats: tails of 1, 2 and 3 floats and no whole float4; one float4 and
-# one float; the probes' 841; a block (1024 floats) short by one; a block
-# and one float; two blocks and one float
-RAGGED_SIZES = [(name, n) for name in sorted(RAGGED_REFERENCES)
-                for n in (1, 2, 3, 5, 841, 1023, 1025, 2049)]
+# t2 and t9: map_kernel, a float a thread in blocks of 256 threads, any size
+MAP_REFERENCES = {"t2": t2_reference, "t9": t9_reference}
+MAP_THREADS = 256
+# floats: 1, 2, 3 and 5 (no whole float4, or one and a float); the probes'
+# 841; 1023, 1025 and 2049 (a block short by one, four blocks and one
+# float, eight and one)
+MAP_SIZES = [(name, n) for name in sorted(MAP_REFERENCES)
+             for n in (1, 2, 3, 5, 841, 1023, 1025, 2049)]
 
 
-@pytest.mark.parametrize("name", sorted(RAGGED_REFERENCES))
-def test_ragged_source_at_the_probe_shape_equals_the_plain_version(lib, name):
+def _map_inputs(name, n, seed):
+    return [_normal(seed + i, n) for i in range(len(PROBES[name].inputs))]
+
+
+@pytest.mark.parametrize("name", sorted(MAP_REFERENCES))
+def test_map_source_at_the_probe_shape_equals_the_plain_version(lib, name):
+    # as the C entries launch them: 4 blocks of 256 threads for 841 floats
     inputs = probe_inputs(name, seed=3)
-    rc, got, guard = _ragged(lib, name, inputs)
+    rc, got, guard = _map(lib, name, inputs)
     assert rc == 0 and torch.isnan(guard).all()
-    torch.testing.assert_close(got.view(PROBES[name].out_shape), RAGGED_REFERENCES[name](*inputs),
+    torch.testing.assert_close(got.view(PROBES[name].out_shape), MAP_REFERENCES[name](*inputs),
                                rtol=0, atol=0)
+    assert last_launch(lib)[1:] == ((4, 1, 1), (MAP_THREADS, 1, 1), 0)
+    assert _one_wave(*last_launch(lib)[1:3])
 
 
-@pytest.mark.parametrize("name,n", RAGGED_SIZES)
-def test_ragged_source_on_ragged_sizes_equals_the_plain_version(lib, name, n):
-    inputs = [_normal(n + i, n) for i in range(len(PROBES[name].inputs))]
-    rc, got, guard = _ragged(lib, name, inputs)
+@pytest.mark.parametrize("name,n", MAP_SIZES)
+def test_map_source_on_ragged_sizes_equals_the_plain_version(lib, name, n):
+    inputs = _map_inputs(name, n, n)
+    rc, got, guard = _map(lib, name, inputs)
     assert rc == 0 and torch.isnan(guard).all() and torch.isfinite(got).all()
-    torch.testing.assert_close(got, RAGGED_REFERENCES[name](*inputs), rtol=0, atol=0)
-    assert last_launch(lib)[1:] == ((cdiv(n, CHUNK_FLOATS), 1, 1), (CHUNK_THREADS, 1, 1), 0)
+    torch.testing.assert_close(got, MAP_REFERENCES[name](*inputs), rtol=0, atol=0)
+    assert last_launch(lib)[1:] == ((cdiv(n, MAP_THREADS), 1, 1), (MAP_THREADS, 1, 1), 0)
 
 
 # t9's mask values that a comparison may take another way: zeros of both
 # signs and NaN give -1e10, a denormal above 0 keeps x (nothing flushes it),
 # one below gives -1e10, and the infinities; each at the first float, one
-# in the middle and the last (the ragged tail)
+# in the middle and the last
 @pytest.mark.parametrize("value", [0.0, -0.0, float("nan"), 1e-40, -1e-40, float("inf"),
                                    float("-inf")])
 def test_t9_source_takes_special_mask_values_as_where_does(lib, value):
     x, m = probe_inputs("t9", seed=5)
-    m.view(-1)[[0, 420, 840]] = value
-    rc, got, guard = _ragged(lib, "t9", [x, m])
+    at = [0, 420, 840]
+    m.view(-1)[at] = value
+    rc, got, guard = _map(lib, "t9", [x, m])
     assert rc == 0 and torch.isnan(guard).all()
-    want = t9_reference(x, m).view(-1)
-    torch.testing.assert_close(got, want, rtol=0, atol=0)
-    keeps = value > 0  # False for NaN
-    assert torch.equal(got[[0, 420, 840]], x.view(-1)[[0, 420, 840]] if keeps
-                       else torch.full((3,), -1e10))
+    torch.testing.assert_close(got, t9_reference(x, m).view(-1), rtol=0, atol=0)
+    kept = x.view(-1)[at] if value > 0 else torch.full((3,), -1e10)  # NaN > 0 is False
+    assert torch.equal(got[at], kept)
 
 
-@pytest.mark.parametrize("n", sorted({n for _, n in RAGGED_SIZES}))
+@pytest.mark.parametrize("n", sorted({n for _, n in MAP_SIZES}))
 def test_t2_grid_covers_each_float_once_in_one_wave(lib, n):
     # in place, one block after another: a float that two threads cover
     # comes out 4x, one that none covers x
@@ -801,66 +806,63 @@ def test_t2_grid_covers_each_float_once_in_one_wave(lib, n):
     torch.testing.assert_close(x[:n], want, rtol=0, atol=0)
     assert torch.isnan(x[n:]).all()
     _, grid, block, smem = last_launch(lib)
-    assert grid == (cdiv(n, CHUNK_FLOATS), 1, 1)
-    assert block == (CHUNK_THREADS, 1, 1) and smem == 0
+    assert grid == (cdiv(n, MAP_THREADS), 1, 1)
+    assert block == (MAP_THREADS, 1, 1) and smem == 0
     assert _one_wave(grid, block)
 
 
-@pytest.mark.parametrize("name", sorted(RAGGED_REFERENCES))
-def test_ragged_grids_at_the_probe_shape(lib, name):
-    # as the C entries launch them: one block of 128 threads for 841 floats
-    assert _ragged(lib, name, probe_inputs(name, seed=4))[0] == 0
-    assert last_launch(lib)[1:] == ((1, 1, 1), (CHUNK_THREADS, 1, 1), 0)
-    assert _one_wave(*last_launch(lib)[1:3])
+# a float a thread: any 4-byte aligned pointer is taken
+MAP_SHIFTS = {("t2", "x"): (1, 0), ("t2", "out"): (0, 1), ("t9", "x"): (1, 0, 0),
+              ("t9", "mask"): (0, 1, 0), ("t9", "out"): (0, 0, 1)}
 
 
-RAGGED_REFUSALS = {  # (name, case): (n, pointer shifts: inputs, then output; code)
-    **{(name, case): (n, shift + (0,) * (name == "t9"), code)
-       for name in ("t2", "t9") for case, (n, shift, code) in {
-           "empty": (0, (0, 0), INVALID_VALUE),
-           "negative": (-1, (0, 0), INVALID_VALUE),
-           "x_misaligned": (841, (1, 0), MISALIGNED),
-       }.items()},
-    ("t2", "out_misaligned"): (841, (0, 1), MISALIGNED),
-    ("t9", "out_misaligned"): (841, (0, 0, 1), MISALIGNED),
-    ("t9", "mask_misaligned"): (841, (0, 1, 0), MISALIGNED),
-}
+@pytest.mark.parametrize("name,pointer", sorted(MAP_SHIFTS))
+def test_map_source_takes_pointers_a_float_off_16_bytes(lib, name, pointer):
+    inputs = _map_inputs(name, 841, 7)
+    rc, got, guard = _map(lib, name, inputs, MAP_SHIFTS[name, pointer])
+    assert rc == 0 and torch.isnan(guard).all()
+    shifted = [x[1:] if s else x for x, s in zip(inputs, MAP_SHIFTS[name, pointer])]
+    shifted = [torch.cat([x, torch.full((1,), float("nan"))]) if len(x) < 841 else x
+               for x in shifted]  # the read past a shifted input's end is its guard's NaN
+    want = MAP_REFERENCES[name](*shifted)
+    torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
 
 
-@pytest.mark.parametrize("name,case", sorted(RAGGED_REFUSALS))
-def test_ragged_source_refuses_with_nothing_written(lib, name, case):
-    n, shift, code = RAGGED_REFUSALS[name, case]
-    inputs = [_normal(i, 841) for i in range(len(PROBES[name].inputs))]
+@pytest.mark.parametrize("n", [0, -1])
+@pytest.mark.parametrize("name", sorted(MAP_REFERENCES))
+def test_map_source_refuses_a_size_not_positive_with_nothing_written(lib, name, n):
     launches = last_launch(lib)[0]
-    rc, got, guard = _ragged(lib, name, inputs, shift, n)
-    assert rc == code and last_launch(lib)[0] == launches
+    rc, got, guard = _map(lib, name, _map_inputs(name, 841, 1), n=n)
+    assert rc == INVALID_VALUE and last_launch(lib)[0] == launches
     assert torch.isnan(got).all() and torch.isnan(guard).all()
 
 
 @pytest.fixture(scope="module")
 def tool_lib(tmp_path_factory):
-    """probe_tiles.cu with t2's and t9's C entries on the first port's
-    kernels and with the empty kernel of the launch floor, as
-    ``tools/probe_variants.py`` builds each for the card."""
+    """probe_tiles.cu with t2's and t9's C entries on the chunk kernel of
+    ``tools/probe_variants.py`` (a block of 128 threads of 2 float4, the
+    last slot a ragged tail) and with its empty kernel of the launch floor,
+    as that tool builds each for the card."""
     text = (CSRC / "probe_tiles.cu").read_text()
-    for old, new in parent_edits("t2", "t9") + floor_edits():
+    for old, new in chunk_edits("t2", "t9") + floor_edits():
         assert text.count(old) == 1, old
         text = text.replace(old, new)
-    argtypes = {f"dstt_probe_{n}": _lib._ARGTYPES[f"dstt_probe_{n}"] for n in RAGGED_REFERENCES}
+    argtypes = {f"dstt_probe_{n}": _lib._ARGTYPES[f"dstt_probe_{n}"] for n in MAP_REFERENCES}
     argtypes["dstt_launch_floor"] = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     return build_host_lib(tmp_path_factory.mktemp("probe_tool_host"), "probe_tiles.cu", argtypes,
                           text=text)
 
 
-@pytest.mark.parametrize("n", [841, 2049])
-@pytest.mark.parametrize("name", sorted(RAGGED_REFERENCES))
-def test_tool_variant_of_the_first_port_equals_the_plain_version(tool_lib, name, n):
-    # a float a thread, blocks of 256 threads: 4 at the probes' 841 floats
-    inputs = [_normal(n + i, n) for i in range(len(PROBES[name].inputs))]
-    rc, got, guard = _ragged(tool_lib, name, inputs)
-    assert rc == 0 and torch.isnan(guard).all()
-    torch.testing.assert_close(got, RAGGED_REFERENCES[name](*inputs), rtol=0, atol=0)
-    assert last_launch(tool_lib)[1:] == ((cdiv(n, PARENT_THREADS), 1, 1), (PARENT_THREADS, 1, 1), 0)
+# floats: tails of 1 and 3 floats with no whole float4, the probes' 841
+# (210 float4 and a float), a block (1024 floats) and one, two and one
+@pytest.mark.parametrize("n", [1, 3, 841, 1025, 2049])
+@pytest.mark.parametrize("name", sorted(MAP_REFERENCES))
+def test_tool_chunk_variant_with_a_ragged_tail_equals_the_plain_version(tool_lib, name, n):
+    inputs = _map_inputs(name, n, n)
+    rc, got, guard = _map(tool_lib, name, inputs)
+    assert rc == 0 and torch.isnan(guard).all() and torch.isfinite(got).all()
+    torch.testing.assert_close(got, MAP_REFERENCES[name](*inputs), rtol=0, atol=0)
+    assert last_launch(tool_lib)[1:] == ((cdiv(n, CHUNK_FLOATS), 1, 1), (CHUNK_THREADS, 1, 1), 0)
 
 
 @pytest.mark.parametrize("launch", sorted(FLOOR_LAUNCHES))
