@@ -35,14 +35,17 @@
 // negative).
 //   What bounds them: t2 moves 6.7 KB, t9 10.1 KB, 2 to 3 ns at 3.35 TB/s.
 //   Their time is the launch and one round trip of dependent loads: an
-//   empty kernel takes about 0.85 us of device time on the card, t2 about
-//   0.2 us more (PERF.md, tools/probe_variants.py floor).
+//   empty kernel takes 0.83 to 0.89 us of device time on the card, t2
+//   0.26 us more (PERF.md, tools/probe_variants.py floor).
 //   What the design does: map_kernel<Op>, one float a thread in blocks of
 //   256 threads (4 at 841 floats), a grid-stride loop past 4096 blocks, the
 //   operation a template parameter that says how many arrays it reads
-//   (Times2 one; Where two, t9's mask in Args.w). So every thread issues its
+//   (Times2 one; Where two, t9's mask in Args.w). So every thread starts its
 //   one or two loads, then its one store, and no thread straddles a ragged
-//   end: a float past the array is a thread that does nothing. The chunk
+//   end: a float past the array is a thread that does nothing. Where takes
+//   both values as arguments, so x's load goes out beside the mask's; the
+//   first port's m[i] > 0 ? x[i] : -1e10f read x only where the mask was
+//   above 0, after the mask's load, and took 0.13 us longer. The chunk
 //   kernel above as one step (a block of 128 threads, 16-byte loads, the
 //   last float4 slot a ragged tail of scalars) was slower on the card for
 //   both probes in every round, and so was each of its narrower blocks: at
@@ -265,10 +268,9 @@ struct Args {
   const bf16* wb;                 // t7: [k, n]
 };
 
-// The elementwise operations, each with the count of arrays it reads
-// (map_kernel reads kInputs; grid_step_kernel takes one-array operations).
+// The elementwise operations; map_kernel's (t2, t9) say how many arrays
+// they read.
 struct PlusOne {  // t3, t4
-  static constexpr int kInputs = 1;
   __device__ float operator()(float v) const { return v + 1.0f; }
 };
 struct Times2 {  // t1, t2, t11
@@ -276,7 +278,6 @@ struct Times2 {  // t1, t2, t11
   __device__ float operator()(float v) const { return v * 2.0f; }
 };
 struct Tanh {  // t6: the precise tanhf
-  static constexpr int kInputs = 1;
   __device__ float operator()(float v) const { return tanhf(v); }
 };
 struct Where {  // t9: x where the mask is above 0, else -1e10 (NaN and -0 too)

@@ -9,10 +9,10 @@ gives the line):
 - ``t1`` (:47) ``x * 2`` on [256, 256]; ``t2`` (:55) on [29, 29];
 - ``t3`` (:63) ``x + 1`` on [8, 29, 29, 64]; ``t4`` (:71) the same over a
   grid of 8 steps; ``t11`` (:136) ``x * 2`` on [2, 29, 29, 14, 18]; t1,
-  t2, t3, t4, t6, t9 and t11 share one kernel, its operation a template
+  t3, t4, t6 and t11 share one kernel, its operation a template
   parameter, that cuts each step (all but t4: the whole array) into
-  chunks of one thread block of 16-byte loads, which their C entries
-  size; t2's and t9's 841 floats end in a ragged tail of one float;
+  chunks of one thread block, which their C entries size; t2 and t9 share
+  another, a float a thread, any size;
 - ``t5`` (:85) ``x @ w``, [841, 64] @ [64, 252], one thread block a
   32 x 64 output tile (``product_plan``);
 - ``t6`` (:94) ``tanh(x)`` on [256, 256];
@@ -21,8 +21,8 @@ gives the line):
   its operands by ``cp.async`` and ``ldmatrix``, which its C entry sizes;
 - ``t8`` (:111) softmax over the last axis of [29, 29], a warp a row
   held in registers;
-- ``t9`` (:119) ``where(m > 0, x, -1e10)`` on [29, 29], the mask read
-  beside x;
+- ``t9`` (:119) ``where(m > 0, x, -1e10)`` on [29, 29], x and the mask
+  both loaded before the select;
 - ``t10`` (:128) [841, 252] reshaped to [29, 29, 14, 18], summed over the
   last axis, 56 sums a thread block staged through shared memory;
 - ``t12`` (:144) ``scratch = 2x; out = scratch + 1`` on [256, 256], staged

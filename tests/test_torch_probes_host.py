@@ -1,6 +1,6 @@
-"""``csrc/probe_tiles.cu`` (the probe kernels t1, t3, t4, t5, t6, t7, t8,
-t10, t11, t12, t13 and t14) itself, run on the CPU, and t5's launch plan of
-``ops/probes.py`` that its C entry re-checks.
+"""``csrc/probe_tiles.cu`` (the fourteen probe kernels t1 ... t14) itself,
+run on the CPU, and t5's launch plan of ``ops/probes.py`` that its C entry
+re-checks.
 
 The source is compiled with the host C++ compiler against the stand-in for
 the CUDA runtime of ``tests/test_torch_block_host.py`` (a block's threads
@@ -8,11 +8,10 @@ as ``std::thread``s, ``__syncthreads`` a barrier, NaN-filled shared memory
 that must not be written past the launch's size, ``cp.async`` copies
 landing only at their wait, ``ldmatrix`` and the bf16 ``mma`` as warp
 collectives by the PTX ISA's fragment layout, warp shuffles through
-memory). Its C entries ``dstt_probe_t1``, ``_t3``, ``_t4``, ``_t5``,
-``_t6``, ``_t7``, ``_t8``, ``_t10``, ``_t11``, ``_t12``, ``_t13`` and
-``_t14`` are called through ``ctypes`` on CPU tensors as the wrapper calls
-them (t5 with its launch plan) and held against the plain versions: t1,
-t3, t4, t11 and t12 exactly, t6 and t8 within 1e-6 (the probes' tolerance:
+memory). Its C entries ``dstt_probe_t1`` ... ``_t14`` are called through
+``ctypes`` on CPU tensors as the wrapper calls them (t5 with its launch
+plan) and held against the plain versions: t1, t2, t3, t4, t9, t11 and
+t12 exactly, t6 and t8 within 1e-6 (the probes' tolerance:
 the host's tanhf and expf and ``torch.tanh`` and ``torch.softmax`` may
 differ by an ulp, and the softmax sums in another order), t10 and t14
 within 1e-5 and t5, t7 and t13 within 1e-4 (the probes' tolerances; their
@@ -24,9 +23,11 @@ in {1, 9, 841}, N in {4, 60, 252}, K in {4, 52, 64}; t7: M in {1, 9, 33,
 841}, N in {8, 56, 256}, K in {8, 40, 64}; t8: rows in {1, 29, 33}, columns
 in {1, 29, 32, 33, 128}; t13: M and N in {1, 29, 33}, depth in {4, 64,
 252, 256}; t14: M and N in {1, 29, 33}, depth in {4, 64}; t10: 1, 2, 29
-and 11,774 sums of 2, 18 or 32 floats). The inputs of t7, t8, t10, t13
-and t14 are followed by NaN, so that a read past their end shows in the
-result. Since the stand-in's
+and 11,774 sums of 2, 18 or 32 floats; t2 and t9: 1, 2, 3, 5, 841, 1023,
+1025 and 2049 floats, a float a thread, and with each pointer a float off
+16 bytes; t9's mask also at 0, -0, NaN, a denormal of either sign and
+±inf). The inputs of t2, t7, t8, t9, t10, t13 and t14 are followed by
+NaN, so that a read past their end shows in the result. Since the stand-in's
 shared memory starts as NaN, a mirrored read of a t12 slot that no thread
 wrote, or a t7 operand read where no copy landed, fails the comparison. Each
 output is followed by NaN floats that must stay untouched. A wrong plan, a
@@ -36,7 +37,7 @@ over 32 floats and a misaligned pointer are each refused with their error
 code,
 nothing launched and nothing written. t1, t3, t4, t6, t11 and t12 run in
 place show their grids covering each float once, in one wave (a float
-covered twice comes out 4x, x + 2, tanh(tanh(x)) or 2(2x + 1) + 1). The
+covered twice comes out 4x, x + 2, tanh(tanh(x)) or 2(2x + 1) + 1), and t2 likewise at each of its sizes. The
 stand-in records the grid, block and shared bytes each C entry launches
 with, and these are held to the design's: 1024 floats a block of 128
 threads for t1, t3, t4, t6, t11 and t12 (64 blocks for t1 and t6 at their
@@ -45,7 +46,11 @@ probe's 65,536 floats; t12 with 4 KB of shared memory), t5's plan, t7's 64 x 32 
 output of t13 and half a warp an output of t14 in blocks of 128 threads
 (8, 211 and 106 blocks at the probes' shapes, one wave), and 56 sums of
 t10 a block of 128 threads staged through 7 KB of shared memory (211
-blocks at the probe's shape). The
+blocks at the probe's shape), and t2's and t9's 4 blocks of 256 threads at
+841 floats. ``tools/probe_variants.py``'s chunk kernel for t2 and t9 (a
+block of 128 threads of 2 float4, the float4 slot that straddles the end a
+ragged tail of scalars) is held to the plain versions at ragged sizes, and
+its empty kernel to the launch shapes it names. The
 emulated ``mma`` itself is held to true 16 x 16 x 16 products of basis
 matrices, its fragments loaded by ``ldmatrix`` and, apart from it, by the
 PTX ISA's layout written out element by element.
