@@ -33,28 +33,12 @@ from .evaluation.molgraph import MolGraph, consensus_rank, from_decoded
 from .models import atom_count
 from .models.dmt import DMT
 from .models.specformer import SPECTRUM_LENGTHS, used_spectra_indices
-from .sampling.ancestral import AncestralSampler, make_time_steps
-from .sampling.dpm_solver import DPMSolverPP
-from .sampling.decode import mol_process, post_process
-from .utils import masks as M
-from .utils.scalers import get_data_inverse_scaler, get_self_cond_fn
+from .sampling.decode import mol_process
+from .sampling.harness import make_sampler, sample_round
+from .utils.scalers import get_data_inverse_scaler
 from .warm_state import load_model_state, load_warm_state
 
 SpectraInput = Union[np.ndarray, Sequence[np.ndarray], dict]
-
-
-def make_sampler(config, noise_scheduler):
-    """The sampler of ``config.sampling.method``, as the JAX round builds it."""
-    method = config.sampling.method
-    kwargs = dict(self_cond=config.model.self_cond, cond_process_fn=get_self_cond_fn(config),
-                  sampling_temperature=1.0)
-    time_steps = make_time_steps(noise_scheduler, config.sampling.steps, 1e-3)
-    if method == "ancestral":
-        return AncestralSampler(noise_scheduler, time_steps, config.model.pred_data, **kwargs)
-    if method in ("dpm_solver", "dpm_solver_sde"):
-        return DPMSolverPP(noise_scheduler, time_steps, config.model.pred_data,
-                           stochastic=method == "dpm_solver_sde", **kwargs)
-    raise ValueError(f"unknown sampling.method {method!r}")
 
 
 def load_dmt(npz_path: str, config, device=None) -> DMT:
@@ -156,24 +140,13 @@ class Elucidator:
         """One batched reverse diffusion: draw ``d`` conditioned on the
         spectra ``contexts[d]`` (a tuple of ``[L]`` arrays) at ``n_atoms[d]``
         atoms, padded to ``n_pad``; returns the decoded molecules."""
-        dev, cfg = self.device, self.config
-        batch = len(n_atoms)
+        dev = self.device
         specs = [torch.from_numpy(np.stack([c[s] for c in contexts])).to(dev)
                  for s in range(len(contexts[0]))]
         n_nodes = torch.tensor(list(n_atoms), device=dev)
-        node_mask, edge_mask = M.build_masks(n_nodes, n_pad)
-        node_nf = cfg.data.atom_types + 1  # atom types, formal charge
-        z = M.sample_combined_position_feature_noise(generator, batch, n_pad, node_nf, node_mask)
-        edge_z = M.sample_symmetric_edge_feature_noise(
-            generator, batch, n_pad, cfg.model.edge_ch, edge_mask
-        )
-        ctx = self.model.encode_context(specs)
-        x, edge_x = self.sampler.sampling(
-            self.model, generator, z, node_mask, edge_mask, edge_z, ctx
-        )
-        pos, one_hot, fc, edge_types = post_process(
-            x, cfg.data.atom_types, node_mask, self._inverse_scaler, edge_x, edge_mask
-        )
+        pos, one_hot, fc, edge_types = sample_round(
+            self.model, self.sampler, self.config, self._inverse_scaler, specs, n_nodes, n_pad,
+            generator)
         return mol_process(one_hot, pos, fc, list(n_atoms), edge_types)
 
     def _generator(self, seed: int) -> torch.Generator:

@@ -1,8 +1,9 @@
-"""Plain-Python configuration of the serving path.
+"""Plain-Python configuration of the serving path and the evaluation sweep.
 
 Replaces ``diffspectra_tpu/configs/diffspectra_qm9s.py`` and
 ``configs/smoke.py`` (both ``ml_collections``) with nested
-``SimpleNamespace`` trees holding only the values that serving reads.
+``SimpleNamespace`` trees holding only the values that serving and the
+sweep read, at the JAX package's defaults.
 ``apply_overrides`` takes the same dotted ``{"model.nf": 64}`` overrides as
 the JAX ``Elucidator``.
 """
@@ -20,6 +21,7 @@ def get_config() -> NS:
     compress_edge=True, include_fc_charge=True, cond_time=True, dist_gbf=True
     and gbf_name='CondGaussianLayer', so those are no keys here."""
     return NS(
+        seed=42,
         data=NS(
             info_name="qm9_second_half",
             centered=True,
@@ -27,6 +29,10 @@ def get_config() -> NS:
             fc_scale=(-1.0, 1.0),
             max_node=29,
             spectra_version="allspectra",
+            # the sweep's synthetic dataset: generate(seed, synthetic_size,
+            # max_node, fidelity=synthetic_fidelity), split by seed
+            synthetic_size=4096,
+            synthetic_fidelity=1,
         ),
         sde=NS(schedule="cosine"),
         model=NS(
@@ -54,13 +60,23 @@ def get_config() -> NS:
         ),
         # 'ancestral', 'dpm_solver' (DPM-Solver++(2M)) or 'dpm_solver_sde'
         sampling=NS(steps=1000, method="ancestral"),
-        eval=NS(bucket_sizes=(17, 21, 25, 29)),
+        eval=NS(
+            bucket_sizes=(17, 21, 25, 29),
+            # the sweep: num_samples test targets in rounds of batch_size
+            # (the JAX default 0 resolves to 128 on one device), each drawn
+            # num_candidates times
+            num_samples=10000,
+            batch_size=128,
+            num_candidates=1,
+            sampling_temperature=1.0,
+        ),
     )
 
 
 def get_smoke_config() -> NS:
     """The small test model of ``configs/smoke.py``: IR only, N <= 16,
-    nf=64, 4 blocks, 8 heads, 50 steps, no buckets."""
+    nf=64, 4 blocks, 8 heads, 50 steps, no buckets; a sweep of 8 targets in
+    rounds of 8 over 256 synthetic molecules."""
     config = get_config()
     config.data.spectra_version = "ir"
     config.data.max_node = 16
@@ -68,7 +84,10 @@ def get_smoke_config() -> NS:
     config.model.n_layers = 4
     config.model.n_heads = 8
     config.sampling.steps = 50
+    config.data.synthetic_size = 256
     config.eval.bucket_sizes = ()
+    config.eval.num_samples = 8
+    config.eval.batch_size = 8
     return config
 
 

@@ -1,7 +1,8 @@
-"""Decoded molecules as graphs, their Weisfeiler-Lehman hash, and consensus
-ranking by that hash: the RDKit-free branch of
-``diffspectra_tpu/evaluation/molgraph.py`` and of
-``compute_metrics.canonical_id``/``consensus_rank``."""
+"""Decoded molecules as graphs: connectivity, the formal-charge-aware
+valence check, the Weisfeiler-Lehman hash, and consensus ranking by that
+hash. The RDKit-free branch of ``diffspectra_tpu/evaluation/molgraph.py``
+and of ``compute_metrics.canonical_id``/``consensus_rank`` (the port's only
+copy of the last two; ``evaluation/compute_metrics.py`` imports them)."""
 
 from __future__ import annotations
 
@@ -10,6 +11,10 @@ from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
+
+from .bond_analyze import allowed_fc_bonds
+
+BOND_ORDER_VALUE = {1: 1.0, 2: 2.0, 3: 3.0, 4: 1.5}  # 4 = aromatic
 
 
 @dataclass
@@ -26,6 +31,70 @@ class MolGraph:
     @property
     def n_atoms(self) -> int:
         return len(self.atom_syms)
+
+    def _components(self) -> List[List[int]]:
+        """Connected components over nonzero bonds, each in visit order."""
+        n = self.n_atoms
+        adj = self.bond_orders > 0
+        seen = np.zeros(n, dtype=bool)
+        comps = []
+        for s in range(n):
+            if seen[s]:
+                continue
+            comp = [s]
+            seen[s] = True
+            stack = [s]
+            while stack:
+                u = stack.pop()
+                for v in np.nonzero(adj[u])[0]:
+                    if not seen[v]:
+                        seen[v] = True
+                        comp.append(int(v))
+                        stack.append(int(v))
+            comps.append(comp)
+        return comps
+
+    def n_fragments(self) -> int:
+        """Connected components over nonzero bonds."""
+        return len(self._components())
+
+    def largest_fragment(self) -> "MolGraph":
+        """The first largest connected component, atoms in index order."""
+        best: List[int] = []
+        for comp in self._components():
+            if len(comp) > len(best):
+                best = comp
+        idx = np.asarray(sorted(best))
+        return MolGraph(
+            [self.atom_syms[i] for i in idx],
+            self.formal_charges[idx],
+            self.bond_orders[np.ix_(idx, idx)],
+            None if self.positions is None else self.positions[idx],
+        )
+
+    def valence_ok(self) -> bool:
+        """Formal-charge-aware valence check: each atom's summed bond orders
+        (aromatic 1.5) must be one that ``allowed_fc_bonds`` allows for its
+        element and charge."""
+        orders = np.vectorize(lambda o: BOND_ORDER_VALUE.get(int(o), 0.0))(
+            self.bond_orders
+        ) if self.n_atoms else self.bond_orders
+        val = orders.sum(axis=1) if self.n_atoms else np.zeros(0)
+        for sym, fc, v in zip(self.atom_syms, self.formal_charges, val):
+            allowed = allowed_fc_bonds.get(sym)
+            if allowed is None:
+                return False
+            if isinstance(allowed, dict):
+                exp = allowed.get(int(fc), allowed.get(0))
+            else:
+                exp = allowed
+            if isinstance(exp, int):
+                if v != exp:
+                    return False
+            else:
+                if v not in exp:
+                    return False
+        return True
 
     def wl_hash(self, iters: int = 4) -> str:
         """Weisfeiler-Lehman hash over (symbol, charge, bond orders); equal to
@@ -56,16 +125,20 @@ def from_decoded(mol_tuple, atom_decoder: Sequence[str]) -> MolGraph:
     return MolGraph(syms, fc_arr, np.asarray(edge_type, dtype=np.int64), p)
 
 
-def canonical_id(mol: MolGraph) -> str:
-    return "wl:" + mol.wl_hash()
+def canonical_id(mol: Optional[MolGraph]) -> Optional[str]:
+    """The structure identity consensus groups by: ``"wl:"`` and the WL
+    hash; None for no molecule."""
+    return None if mol is None else "wl:" + mol.wl_hash()
 
 
-def consensus_rank(candidates: Sequence[MolGraph]):
+def consensus_rank(candidates: Sequence[Optional[MolGraph]]):
     """``[(canonical_id, count, first_index), ...]`` by descending count,
-    ties broken by first appearance."""
+    ties broken by first appearance; missing molecules are skipped."""
     counts: dict = {}
     for i, m in enumerate(candidates):
         cid = canonical_id(m)
+        if cid is None:
+            continue
         if cid in counts:
             counts[cid][0] += 1
         else:

@@ -7,7 +7,8 @@
 2. The full-width flagship forward from the EMA weights of
    ``artifacts/warm_qm9s_as.npz`` at B=2, N=12, against the JAX XLA path in
    float32 at ``highest`` matmul precision. Tolerance: 1e-3 of the largest
-   |value| of each output, since 8 blocks sum in another order.
+   |value| of each output, since 8 blocks sum in another order. The same
+   for the IR-only state ``artifacts/warm_qm9s_ir.npz``.
 """
 
 import os
@@ -108,10 +109,11 @@ def test_small_dmt_matches_jax_pallas_path(monkeypatch, has_cond):
     np.testing.assert_allclose(got_edge, want_edge, rtol=2e-4, atol=2e-4)
 
 
-def test_flagship_forward_from_warm_weights_matches_jax():
-    state = load_warm_state(WARM)
+def _warm_forward_matches_jax(path, spectra_version, spec_keys):
+    state = load_warm_state(path)
     flat = state["variables"]
     cfg = diffspectra_qm9s.get_config()
+    cfg.data.spectra_version = spectra_version
     cfg.training.matmul_precision = "float32"  # f32 DMT, as the port
     model = JaxDMT.from_config(cfg)
     variables = traverse_util.unflatten_dict(
@@ -119,7 +121,8 @@ def test_flagship_forward_from_warm_weights_matches_jax():
     )
 
     rng = np.random.default_rng(1)
-    inp = _inputs(rng, [12, 9], 12, 9, [701, 3501, 3501], True)
+    lens = {"uv": 701, "ir": 3501, "raman": 3501}
+    inp = _inputs(rng, [12, 9], 12, 9, [lens[k] for k in spec_keys], True)
     # the warm model's operating range: conditioning inside its clamp range,
     # spectra of synthetic molecules, noise levels across the schedule
     nm, em = inp["node_mask"], inp["edge_mask"]
@@ -129,12 +132,13 @@ def test_flagship_forward_from_warm_weights_matches_jax():
     c = rng.uniform(-1, 1, size=(2, 12, 12, 2)).astype(np.float32)
     inp["cond_edge_x"] = 0.5 * (c + c.transpose(0, 2, 1, 3)) * em[..., None]
     data = generate(seed=3, size=2, max_n=12, fidelity=4)
-    inp["specs"] = [np.log10(data[k] + 1.0).astype(np.float32) for k in ("uv", "ir", "raman")]
+    inp["specs"] = [np.log10(data[k] + 1.0).astype(np.float32) for k in spec_keys]
     inp["noise_level"] = np.asarray([-6.0, 4.0], np.float32)
     with jax.default_matmul_precision("highest"):
         want_pred, want_edge = _jax_forward(model, variables, inp, True)
 
-    port = DMT.from_config(configs.get_config())
+    port = DMT.from_config(configs.apply_overrides(
+        configs.get_config(), {"data.spectra_version": spectra_version}))
     load_model_state(port, flat)
     got_pred, got_edge = _torch_forward(port, inp, True)
 
@@ -143,3 +147,13 @@ def test_flagship_forward_from_warm_weights_matches_jax():
         scale = np.abs(want).max()
         assert 0.1 < scale < 10  # in range, so that the tolerance means something
         np.testing.assert_allclose(got, want, rtol=0, atol=1e-3 * scale)
+
+
+def test_flagship_forward_from_warm_weights_matches_jax():
+    _warm_forward_matches_jax(WARM, "allspectra", ("uv", "ir", "raman"))
+
+
+def test_ir_forward_from_warm_weights_matches_jax():
+    """The IR-only warm state (``data.spectra_version='ir'``), the same way."""
+    _warm_forward_matches_jax(os.path.join(ROOT, "artifacts", "warm_qm9s_ir.npz"), "ir",
+                              ("ir",))

@@ -1,10 +1,12 @@
 """The port on a bare install: in a subprocess whose import system refuses
-jax, flax, optax, orbax, ml_collections, ml_dtypes, absl, rdkit, triton and
-the JAX package ``diffspectra_tpu``, every module of ``diffspectra_tpu_torch``
-imports and a small-config ``Elucidator`` serves on the CPU: one request at
-a known atom count, one through the whole-block path, and one without the
-atom count through a count head. Also the entry points' refusals: no CUDA
-without asking for the CPU, and the modes that are not ported."""
+jax, flax, optax, orbax, ml_collections, ml_dtypes, absl, rdkit, pandas,
+triton and the JAX package ``diffspectra_tpu``, every module of
+``diffspectra_tpu_torch`` imports, a small-config ``Elucidator`` serves on
+the CPU (one request at a known atom count, one through the whole-block
+path, and one without the atom count through a count head), and the
+evaluation sweep scores a tiny run and writes its files. Also the entry
+points' refusals: no CUDA without asking for the CPU, and the modes that
+are not ported."""
 
 import os
 import subprocess
@@ -32,7 +34,7 @@ BARE_INSTALL = textwrap.dedent(
     import importlib, importlib.abc, pkgutil, sys
 
     BLOCKED = {"jax", "jaxlib", "flax", "optax", "orbax", "ml_collections",
-               "ml_dtypes", "absl", "rdkit", "triton", "diffspectra_tpu"}
+               "ml_dtypes", "absl", "rdkit", "pandas", "triton", "diffspectra_tpu"}
 
     class Refuse(importlib.abc.MetaPathFinder):
         def find_spec(self, name, path, target=None):
@@ -98,6 +100,24 @@ BARE_INSTALL = textwrap.dedent(
     assert result.n_atoms is None and result.num_draws >= 2
     counts, _ = el._predict_counts(el._prepare_context(data["ir"][0], False))
     assert {c.molgraph.n_atoms for c in result.candidates} <= set(counts)
+
+    # the evaluation sweep, its similarity tables written without pandas
+    from diffspectra_tpu_torch import run_lib
+    configs.apply_overrides(config, {"data.synthetic_size": 64, "eval.num_samples": 6,
+                                     "eval.num_candidates": 2})
+    with tempfile.TemporaryDirectory() as tmp:
+        figures = run_lib.diffspectra_evaluate(config, block.eval(), tmp, "cpu")
+        assert [s["decoded"] for s in figures["sweeps"]] == [6, 6]
+        from diffspectra_tpu_torch.evaluation import compute_metrics as cm
+        from diffspectra_tpu_torch.evaluation.molgraph import from_decoded
+        n = n_atoms
+        target = from_decoded((data["pos"][0, :n], data["atom_type"][0, :n],
+                               data["edge_type"][0, :n, :n], data["fc"][0, :n]),
+                              ["H", "C", "N", "O", "F"])
+        table = cm.evaluate_jsonl_predictions(([target], [[target]]), os.path.join(tmp, "s.csv"))
+        assert table["Top-1 Accuracy"] == "1.0000" and table["MCES"] == "0.0000"
+        assert sorted(os.listdir(tmp))[-3:] == [
+            "s.csv", "s_detailed_scores.csv", "s_detailed_scores.json"]
     loaded = sorted(n for n in sys.modules if n.split(".")[0] in BLOCKED)
     assert not loaded, loaded
     print("served", len(names), "modules", len(result.candidates), "candidates")
