@@ -74,7 +74,11 @@ def t5_reference(x, w):
 
 
 def t6_reference(x):
-    return torch.tanh(x)
+    """tanh in float64, rounded to the input's dtype: a card host's float32
+    ``torch.tanh`` once read 5.15e-05 off at one element (x = 3.357214212,
+    where float64 and the kernel agree to 3e-08), so the float32 CPU path
+    is not a reference for a 1e-6 tolerance."""
+    return torch.tanh(x.double()).to(x.dtype)
 
 
 def t7_reference(x, w):

@@ -73,7 +73,7 @@ def main(argv=None) -> int:
     args = parse_args(argv)
     os.makedirs(args.workdir, exist_ok=True)
     logging.basicConfig(
-        level=logging.INFO, force=True,
+        level=logging.INFO, force=True, format="%(asctime)s %(levelname)s %(message)s",
         handlers=[logging.StreamHandler(sys.stdout),
                   logging.FileHandler(os.path.join(args.workdir, "eval_sweep.log"), mode="w")],
     )
