@@ -936,7 +936,7 @@ def phase_sweep(dev):
     K, steps, targets = SWEEP["eval.num_candidates"], SWEEP["sampling.steps"], fig["targets"]
     rounds = fig["rounds"]
     draws = SWEEP["eval.batch_size"] * len(rounds)
-    say(f"[sweep] rounds (targets, n_pad): {rounds}; phase wall {wall:.1f} s")
+    say(f"[sweep] rounds (draws, n_pad): {rounds}; phase wall {wall:.1f} s")
     for k, sw in enumerate(fig["sweeps"]):
         say(f"[sweep] sweep {k + 1}/{K}: wall {sw['seconds']:.3f} s, {sw['decoded']} of {targets} "
             f"targets decoded, {draws / sw['seconds']:.3f} sampled mols/s")

@@ -17,7 +17,7 @@ from .bond_analyze import allowed_bonds, allowed_fc_bonds, get_bond_order
 from .molgraph import MolGraph
 
 
-def check_stability(positions, atom_type, dataset_info, debug: bool = False):
+def check_stability(positions, atom_type, dataset_info):
     """3D stability: bond orders from the pairwise distances (pairs i < j in
     order), each atom stable when its summed orders are allowed."""
     positions = np.asarray(positions)
@@ -42,8 +42,6 @@ def check_stability(positions, atom_type, dataset_info, debug: bool = False):
     for sym, nb in zip(syms, nr_bonds):
         possible = allowed_bonds[sym]
         ok = possible == nb if isinstance(possible, int) else nb in possible
-        if not ok and debug:
-            print(f"Invalid bonds for molecule {sym} with {nb} bonds")
         nr_stable += int(ok)
 
     mol = MolGraph(syms, np.zeros(n, np.int64), orders, positions)

@@ -60,7 +60,8 @@ def _sync(device):
 def diffspectra_evaluate(config, model, eval_dir: str, device, ckpt: str = "warm") -> dict:
     """The sweep with ``model`` (a DMT in eval mode on ``device``); files go
     to ``eval_dir`` under the name ``ckpt``. Returns the figures: each log
-    line's values, the sweeps' wall times and rounds, and the phase times."""
+    line's values, the rounds (draws, ``n_pad``), each sweep's wall time
+    and decoded targets, and the phase times."""
     device = resolve_device(device)
     os.makedirs(eval_dir, exist_ok=True)
     _, train_ds, _, test_ds, dataset_info = get_dataset(config)
@@ -70,7 +71,7 @@ def diffspectra_evaluate(config, model, eval_dir: str, device, ckpt: str = "warm
         get_data_inverse_scaler(config), test_ds, device,
         sampling_temperature=config.eval.sampling_temperature,
     )
-    rounds = [(len(set(sel.tolist())), n_pad) for sel, n_pad in
+    rounds = [(len(sel), n_pad) for sel, n_pad in
               plan_rounds(test_ds, n_samples, batch_size, bucket_sizes_of(config))[1]]
     generator = torch.Generator(device=device)
     generator.manual_seed(int(config.seed))

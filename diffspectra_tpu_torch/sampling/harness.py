@@ -7,9 +7,12 @@ device).
 The draw order is the JAX package's: a permutation of the split from seed
 42, wrapped around to whole rounds, sorted (stably) by atom count and cut
 into ``ceil(n_samples / batch_size)`` rounds, each padded to the smallest
-bucket that holds its largest molecule. A round is ``sample_round``, which
-``api.Elucidator`` serves with too. Rounds run and decode one after the
-other; the JAX harness decodes a round while the next one runs.
+bucket that holds its largest molecule. The draws fill every round, so
+the JAX harness's padding of a short last round and its skipping of the
+padding's duplicates never run, and are left out. A round is
+``sample_round``, which ``api.Elucidator`` serves with too. Rounds run and
+decode one after the other; the JAX harness decodes a round while the
+next one runs.
 """
 
 from __future__ import annotations
@@ -80,8 +83,8 @@ def bucket_sizes_of(config) -> Tuple[int, ...]:
 
 def plan_rounds(ds, n_samples: int, batch_size: int, bucket_sizes) -> Tuple[np.ndarray, List]:
     """``(drawn, [(sel, n_pad), ...])``: ``drawn[p]`` is the split row of
-    draw position ``p``; each round holds the positions ``sel`` (a full
-    batch, the last padded by repeating its last position) at ``n_pad``."""
+    draw position ``p``; each round holds ``batch_size`` positions ``sel``
+    at ``n_pad``."""
     n = len(ds)
     perm = np.random.default_rng(EVAL_PERMUTATION_SEED).permutation(n)
     total = int(math.ceil(n_samples / batch_size)) * batch_size
@@ -91,8 +94,6 @@ def plan_rounds(ds, n_samples: int, batch_size: int, bucket_sizes) -> Tuple[np.n
     rounds = []
     for start in range(0, total, batch_size):
         sel = order[start : start + batch_size]
-        if len(sel) < batch_size:
-            sel = np.concatenate([sel, np.repeat(sel[-1], batch_size - len(sel))])[:batch_size]
         n_pad = bucket_sizes[int(np.searchsorted(bucket_sizes, drawn_sizes[sel].max()))]
         rounds.append((sel, int(n_pad)))
     return drawn, rounds
@@ -126,12 +127,10 @@ def make_cond_sampling_fn(config, model, noise_scheduler, batch_size: int, n_sam
             pos, one_hot, fc, edge_types = sample_round(
                 model, sampler, config, inverse_scaler, specs, n_nodes, n_pad, generator)
             mols = mol_process(one_hot, pos, fc, data["num_atom"], edge_types)
-            n_generated += len(set(sel.tolist()))
+            n_generated += len(sel)
             logging.info("Generate %d, Total %d.", n_generated, n_samples)
             for i, dst in enumerate(sel):
                 dst = int(dst)
-                if processed[dst] is not None:
-                    continue  # the padding of the last round
                 processed[dst] = mols[i]
                 na = int(data["num_atom"][i])
                 gt_pos[dst] = np.asarray(data["positions"][i][:na])
