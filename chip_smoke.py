@@ -67,8 +67,10 @@ import copy
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -926,8 +928,8 @@ def phase_sweep(dev):
     logging.basicConfig(level=logging.INFO, stream=sys.stdout, format="[sweep log] %(message)s",
                         force=True)
     config = configs.apply_overrides(configs.get_config(), dict(SWEEP))
-    eval_dir = os.path.join(ROOT, "chiprun_out", "eval_sweep")
-    say(f"[sweep] settings {json.dumps(SWEEP)}; tables under {eval_dir}")
+    say(f"[sweep] settings {json.dumps(SWEEP)}")
+    eval_dir = tempfile.mkdtemp(prefix="eval_sweep_")  # the similarity tables
     reset_launches()  # counts from here on are the sweep's
     t0 = time.perf_counter()
     fig = run_lib.evaluate(config, WARM, eval_dir, dev)
@@ -959,6 +961,7 @@ def phase_sweep(dev):
         name = f"similarity_metrics_{dim}_ckpt_warm_qm9s_as_detailed_scores.json"
         with open(os.path.join(eval_dir, name)) as f:
             counts[f"valid_{dim}"] = len(json.load(f)["Top-1 Accuracy"])
+    shutil.rmtree(eval_dir)
     say(f"[sweep] figures, the port (f32) on {targets} targets (valid pairs: 2D "
         f"{counts['valid_2d']}, 3D {counts['valid_3d']}) against round 5 (the JAX package, bf16, "
         "10k targets); SE = binomial standard error of round 5's proportion at this run's count:")

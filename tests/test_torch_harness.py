@@ -9,7 +9,7 @@
   ``n_pad`` sequence, the predictions and the ground truth must be equal,
   with no tolerance: ``num_samples`` not a multiple of the batch, over the
   split's size, no buckets, and buckets (8, 12, 16).
-- The driver: the port's ``run_lib`` and JAX's ``run_lib.evaluate`` on the
+- The eval loop: the port's ``run_lib`` and JAX's ``run_lib.evaluate`` on the
   same scripted sweeps (JAX's checkpoint restore and model set-up patched
   out) log the same ``Metric-3D``, ``Metric-2D``, ``Top-K``,
   ``Consensus``, ``Generalization`` and similarity lines, text and figures
@@ -175,7 +175,7 @@ def test_round_plan_matches_jax(monkeypatch, n_samples, batch, max_node, buckets
                 np.testing.assert_array_equal(g, w)
 
 
-# ---------------------------------------------------------------- the driver
+# ---------------------------------------------------------------- the eval loop
 
 K = 3
 
