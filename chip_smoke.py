@@ -9,9 +9,9 @@ Phases, each printing its own lines:
   3. each kernel (mix_attention, equi_update, block_fused) against its plain
      PyTorch version at the serving shape (B=10 draws, N=29, flagship
      widths) on a seeded ragged batch, with the kernel's, the plain
-     version's and the bound's times; each also at B=10, N=17, 21, 25, 29
-     and B=80, N=21, 29 (ragged, every output and padding held to its
-     tolerance), timed with L2 cold (64 MB written before each call) as
+     version's and the bound's times; each also at B=10, N=17, 21, 25, 29,
+     B=80, N=21, 29 and the sweep's B=128, N=17, 21, 25, 29 (ragged, every
+     output and padding held to its tolerance), timed with L2 cold (64 MB written before each call) as
      well as warm, with each launch's device time from the profiler (five
      for block_fused); for mix_attention and equi_update also the blocks an
      SM the card gives them against their launch plan, and the cuBLAS time
@@ -49,8 +49,9 @@ Phases, each printing its own lines:
      ``artifacts/warm_qm9s_as.npz`` on the block path: 128 test targets of
      ``generate(seed=42, size=1280, fidelity=4)``'s split in rounds of 128
      (buckets 17, 21, 25, 29), K=10 sweeps of 1000 ancestral steps at
-     temperature 1.0; its rounds, each sweep's wall time and mols/s, the
-     host scoring's phase times, and every figure beside round 5's (the JAX
+     temperature 1.0; its rounds, each sweep's wall time and mols/s, its
+     rounds' seconds of sampling and of host decoding, the host scoring's
+     phase times, and every figure beside round 5's (the JAX
      package in bf16 on 10k targets; the port runs f32) with the binomial
      standard error at this run's count. Gates: block_fused launched
      8 x steps x rounds x K times and no other kernel, every target decoded
@@ -174,9 +175,11 @@ def cuda_time_ms(fn, iters: int, warmup: int = 5) -> float:
 
 
 N_NODES = (29, 21, 17, 29, 5, 25, 12, 29, 1, 19)  # a ragged batch of B graphs
-# each kernel's shapes: the request buckets at B=10 and elucidate_batch's
-# rounds of 80 draws, where rows a tile straddle odd N and tiles are partial
-BLOCK_SHAPES = ((10, 17), (10, 21), (10, 25), (10, 29), (80, 21), (80, 29))
+# each kernel's shapes: the request buckets at B=10, elucidate_batch's
+# rounds of 80 draws, where rows a tile straddle odd N and tiles are partial,
+# and the eval sweep's rounds of 128 draws at each bucket (phase 7)
+BLOCK_SHAPES = ((10, 17), (10, 21), (10, 25), (10, 29), (80, 21), (80, 29),
+                (128, 17), (128, 21), (128, 25), (128, 29))
 FLUSH_BYTES = 64 * 2**20  # written between calls to time a kernel with L2 cold
 # the CUDA kernels each wrapper launches, by the profiler's names
 KERNEL_STAGES = {
@@ -328,7 +331,7 @@ def kernel_extras(name, kernel, plain, case, dev, gen, call):
     output, padding included), then ``call`` (the serving shape) with L2
     cold (FLUSH_BYTES written before each call): CUDA events a call, and
     each launch's device time from the profiler, warm and cold."""
-    err = 0.0
+    err, shape_errs = 0.0, {}
     for batch, n in BLOCK_SHAPES:
         n_nodes = [n] + torch.randint(1, n + 1, (batch - 1,), generator=gen).tolist()
         args, kw, _, _ = case(gen, dev, n_nodes, n)
@@ -344,6 +347,7 @@ def kernel_extras(name, kernel, plain, case, dev, gen, call):
                 f"{w.abs().max().item():.3e})")
             assert torch.isfinite(g).all() and e <= KERNEL_ATOL[name], (name, batch, n, out)
             err = max(err, e)
+            shape_errs[f"B={batch} N={n}"] = max(shape_errs.get(f"B={batch} N={n}", 0.0), e)
         del args, got, want
 
     flush = torch.empty(FLUSH_BYTES // 4, device=dev)
@@ -364,7 +368,7 @@ def kernel_extras(name, kernel, plain, case, dev, gen, call):
     say(f"[kernels] {name} B={B} N={N}: {cold_ms:.4f} ms a call with L2 cold (CUDA events, "
         f"{FLUSH_BYTES >> 20} MB written before each call); device ms a call, L2 warm: "
         f"{ms_or_none(total(warm))} ({fmt(warm)}); L2 cold: {ms_or_none(total(cold))} ({fmt(cold)})")
-    return dict(shapes_max_err=err, cold_ms=cold_ms, device_ms=total(warm),
+    return dict(shapes_max_err=err, shape_errs=shape_errs, cold_ms=cold_ms, device_ms=total(warm),
                 cold_device_ms=total(cold), stage_ms=warm, cold_stage_ms=cold)
 
 
@@ -940,8 +944,11 @@ def phase_sweep(dev):
     draws = SWEEP["eval.batch_size"] * len(rounds)
     say(f"[sweep] rounds (draws, n_pad): {rounds}; phase wall {wall:.1f} s")
     for k, sw in enumerate(fig["sweeps"]):
+        sampling_s, decode_s = (sum(r) for r in zip(*sw["round_seconds"]))
         say(f"[sweep] sweep {k + 1}/{K}: wall {sw['seconds']:.3f} s, {sw['decoded']} of {targets} "
-            f"targets decoded, {draws / sw['seconds']:.3f} sampled mols/s")
+            f"targets decoded, {draws / sw['seconds']:.3f} sampled mols/s; sampling "
+            f"{sampling_s:.3f} s and host decode {decode_s:.4f} s over {len(rounds)} rounds "
+            f"({decode_s / len(rounds):.4f} s a round)")
     sweep_s = sum(sw["seconds"] for sw in fig["sweeps"])
     ph = fig["phase_seconds"]
     say(f"[sweep] sampling {sweep_s:.1f} s over {K} sweeps ({K * draws / sweep_s:.3f} sampled "
@@ -983,6 +990,7 @@ def phase_sweep(dev):
         f"figures in range, Top-10 2D {figures['Top-10 2D']:.4f} >= {TOP10_2D_FLOOR}")
     print(json.dumps({"sweep": {"figures": figures, "rounds": rounds, "wall_s": wall,
                                 "sweep_s": [sw["seconds"] for sw in fig["sweeps"]],
+                                "round_s": [sw["round_seconds"] for sw in fig["sweeps"]],
                                 "phase_s": ph}}), flush=True)
     return launches
 

@@ -34,7 +34,7 @@ from .models import atom_count
 from .models.dmt import DMT
 from .models.specformer import SPECTRUM_LENGTHS, used_spectra_indices
 from .sampling.decode import mol_process
-from .sampling.harness import make_sampler, sample_round
+from .sampling.harness import bucket_for, bucket_sizes_of, make_sampler, sample_round
 from .utils.scalers import get_data_inverse_scaler
 from .warm_state import load_model_state, load_warm_state
 
@@ -123,10 +123,9 @@ class Elucidator:
         return tuple(out)
 
     def _bucket(self, n_atoms: int) -> int:
-        """The smallest configured bucket that holds ``n_atoms``."""
-        max_n = int(self.config.data.max_node)
-        buckets = tuple(sorted(self.config.eval.bucket_sizes)) or (max_n,)
-        return next((b for b in buckets if b >= n_atoms), max_n)
+        """The smallest configured bucket that holds ``n_atoms``, else
+        ``data.max_node``."""
+        return bucket_for(bucket_sizes_of(self.config, pad_to_max=True), n_atoms)
 
     def _sample_n_atoms(self, rng: np.random.Generator) -> int:
         """One atom count from the train histogram (numpy, as in JAX)."""

@@ -35,7 +35,7 @@ from .diffusion.schedule import NoiseScheduleVP
 from .evaluation import compute_metrics as cm
 from .evaluation.molgraph import from_decoded
 from .evaluation.stability import get_2D_edm_metric, get_edm_metric
-from .sampling.harness import bucket_sizes_of, make_cond_sampling_fn, plan_rounds
+from .sampling.harness import make_cond_sampling_fn
 from .utils.scalers import get_data_inverse_scaler
 
 
@@ -71,8 +71,6 @@ def diffspectra_evaluate(config, model, eval_dir: str, device, ckpt: str = "warm
         get_data_inverse_scaler(config), test_ds, device,
         sampling_temperature=config.eval.sampling_temperature,
     )
-    rounds = [(len(sel), n_pad) for sel, n_pad in
-              plan_rounds(test_ds, n_samples, batch_size, bucket_sizes_of(config))[1]]
     generator = torch.Generator(device=device)
     generator.manual_seed(int(config.seed))
 
@@ -84,7 +82,8 @@ def diffspectra_evaluate(config, model, eval_dir: str, device, ckpt: str = "warm
     edm_metric_2d = get_2D_edm_metric(dataset_info, train_graphs)
     train_hashes = {g.wl_hash() for g in train_graphs}
 
-    figures = {"targets": n_samples, "rounds": rounds, "sweeps": [], "phase_seconds": {}}
+    figures = {"targets": n_samples, "rounds": sampling_fn.rounds, "sweeps": [],
+               "phase_seconds": {}}
     phase_t = [time.monotonic()]
 
     def tick(name):
@@ -98,8 +97,14 @@ def diffspectra_evaluate(config, model, eval_dir: str, device, ckpt: str = "warm
         t0 = time.monotonic()
         processed, gt_pos, gt_mols = sampling_fn(generator)
         _sync(device)
-        figures["sweeps"].append({"seconds": time.monotonic() - t0,
-                                  "decoded": sum(m is not None for m in processed)})
+        seconds = time.monotonic() - t0
+        sampling_s, decode_s = (sum(r) for r in zip(*sampling_fn.round_seconds))
+        logging.info("phase-time || sweep %d: %.1fs, of which sampling %.1fs and decode %.2fs "
+                     "over %d rounds", len(figures["sweeps"]) + 1, seconds, sampling_s, decode_s,
+                     len(sampling_fn.round_seconds))
+        figures["sweeps"].append({"seconds": seconds,
+                                  "decoded": sum(m is not None for m in processed),
+                                  "round_seconds": sampling_fn.round_seconds})
         return processed, gt_mols
 
     logging.info("load checkpoint: %s", ckpt)

@@ -10,15 +10,18 @@ into ``ceil(n_samples / batch_size)`` rounds, each padded to the smallest
 bucket that holds its largest molecule. The draws fill every round, so
 the JAX harness's padding of a short last round and its skipping of the
 padding's duplicates never run, and are left out. A round is
-``sample_round``, which ``api.Elucidator`` serves with too. Rounds run and
-decode one after the other; the JAX harness decodes a round while the
-next one runs.
+``sample_round``, which ``api.Elucidator`` serves with too, and the
+bucket policy (``bucket_sizes_of``, ``bucket_for``) is the one serving
+uses. Rounds run and decode one after the other; the JAX harness decodes a
+round while the next one runs. Each call records its rounds' seconds of
+sampling and of decoding, so the cost of the serial decode can be read.
 """
 
 from __future__ import annotations
 
 import logging
 import math
+import time
 from typing import List, Tuple
 
 import numpy as np
@@ -70,15 +73,24 @@ def sample_round(model, sampler, config, inverse_scaler, specs, n_nodes: torch.T
     return post_process(x, config.data.atom_types, node_mask, inverse_scaler, edge_x, edge_mask)
 
 
-def bucket_sizes_of(config) -> Tuple[int, ...]:
-    """``eval.bucket_sizes`` sorted, or ``(data.max_node,)`` without buckets;
-    the largest must cover ``data.max_node``."""
+def bucket_sizes_of(config, pad_to_max: bool = False) -> Tuple[int, ...]:
+    """``eval.bucket_sizes`` sorted, or ``(data.max_node,)`` without buckets.
+    The largest must cover ``data.max_node`` (the sweep, as the JAX
+    harness); with ``pad_to_max`` (serving, as the JAX ``Elucidator``)
+    ``data.max_node`` is the fallback pad of counts past the largest."""
     max_n = int(config.data.max_node)
     buckets = tuple(sorted(int(b) for b in config.eval.bucket_sizes)) or (max_n,)
     if buckets[-1] < max_n:
+        if pad_to_max:
+            return buckets + (max_n,)
         raise ValueError(f"eval.bucket_sizes {buckets} must cover data.max_node {max_n} "
                          "(largest bucket is the fallback pad)")
     return buckets
+
+
+def bucket_for(bucket_sizes, n_atoms: int) -> int:
+    """The smallest of the sorted ``bucket_sizes`` that holds ``n_atoms``."""
+    return int(bucket_sizes[int(np.searchsorted(bucket_sizes, n_atoms))])
 
 
 def plan_rounds(ds, n_samples: int, batch_size: int, bucket_sizes) -> Tuple[np.ndarray, List]:
@@ -94,8 +106,7 @@ def plan_rounds(ds, n_samples: int, batch_size: int, bucket_sizes) -> Tuple[np.n
     rounds = []
     for start in range(0, total, batch_size):
         sel = order[start : start + batch_size]
-        n_pad = bucket_sizes[int(np.searchsorted(bucket_sizes, drawn_sizes[sel].max()))]
-        rounds.append((sel, int(n_pad)))
+        rounds.append((sel, bucket_for(bucket_sizes, drawn_sizes[sel].max())))
     return drawn, rounds
 
 
@@ -103,14 +114,18 @@ def make_cond_sampling_fn(config, model, noise_scheduler, batch_size: int, n_sam
                           inverse_scaler, ds, device, sampling_temperature: float = 1.0):
     """Returns ``sampling_fn(generator) -> (pred_mols, gt_pos, gt_mols)``,
     each in draw order: decoded ``(pos, atom_type, edge_type, fc)`` tuples,
-    the targets' positions and their ground-truth tuples."""
+    the targets' positions and their ground-truth tuples. The round plan
+    (the same every call) is ``sampling_fn.rounds``, ``[(draws, n_pad),
+    ...]``; the last call's seconds a round, ``[(sampling, decode), ...]``,
+    are ``sampling_fn.round_seconds``."""
     sampler = make_sampler(config, noise_scheduler, sampling_temperature)
-    bucket_sizes = bucket_sizes_of(config)
     spectra_keys = SPECTRA_KEYS[config.data.spectra_version]
+    drawn, rounds = plan_rounds(ds, n_samples, batch_size, bucket_sizes_of(config))
+    cuda = torch.device(device).type == "cuda"
 
     def sampling_fn(generator):
-        drawn, rounds = plan_rounds(ds, n_samples, batch_size, bucket_sizes)
         total = len(drawn)
+        sampling_fn.round_seconds = []
         processed: List = [None] * total
         gt_pos: List = [None] * total
         gt_mols: List = [None] * total
@@ -124,9 +139,14 @@ def make_cond_sampling_fn(config, model, noise_scheduler, batch_size: int, n_sam
             }
             specs = [torch.from_numpy(data[k]).to(device) for k in spectra_keys]
             n_nodes = torch.from_numpy(data["num_atom"]).to(device)
+            t0 = time.perf_counter()
             pos, one_hot, fc, edge_types = sample_round(
                 model, sampler, config, inverse_scaler, specs, n_nodes, n_pad, generator)
+            if cuda:
+                torch.cuda.synchronize(device)
+            t1 = time.perf_counter()
             mols = mol_process(one_hot, pos, fc, data["num_atom"], edge_types)
+            sampling_fn.round_seconds.append((t1 - t0, time.perf_counter() - t1))
             n_generated += len(sel)
             logging.info("Generate %d, Total %d.", n_generated, n_samples)
             for i, dst in enumerate(sel):
@@ -142,4 +162,6 @@ def make_cond_sampling_fn(config, model, noise_scheduler, batch_size: int, n_sam
                 )
         return processed[:n_samples], gt_pos[:n_samples], gt_mols[:n_samples]
 
+    sampling_fn.rounds = [(len(sel), n_pad) for sel, n_pad in rounds]
+    sampling_fn.round_seconds = []
     return sampling_fn

@@ -5,7 +5,7 @@ variables).
     python -m diffspectra_tpu_torch.tools.eval_sweep \\
         --warm-state artifacts/warm_qm9s_as.npz --workdir exp/eval_sweep \\
         --num-samples 128 --num-candidates 10 --synthetic-size 1280 --fidelity 4 \\
-        --set model.pallas_ops="('block',)"
+        --pallas-ops block
 
 On the CPU at the smoke size, with random weights (the figures then mean
 nothing, the run checks the path):
@@ -21,7 +21,6 @@ the last line of stdout is the figures as JSON.
 from __future__ import annotations
 
 import argparse
-import ast
 import json
 import logging
 import os
@@ -47,9 +46,8 @@ def parse_args(argv=None):
     p.add_argument("--synthetic-size", type=int, help="data.synthetic_size")
     p.add_argument("--fidelity", type=int, help="data.synthetic_fidelity")
     p.add_argument("--seed", type=int, help="config.seed (data, split and noise)")
-    p.add_argument("--set", action="append", default=[], metavar="KEY=VALUE",
-                   help="any other config value, VALUE a Python literal "
-                        "(e.g. data.spectra_version=\"'ir'\")")
+    p.add_argument("--pallas-ops", type=lambda v: tuple(op for op in v.split(",") if op),
+                   help="model.pallas_ops, comma-separated: block, or attn,equi (the default)")
     return p.parse_args(argv)
 
 
@@ -61,12 +59,9 @@ def build_config(args):
              "eval.num_candidates": args.num_candidates, "sampling.steps": args.steps,
              "sampling.method": args.method, "eval.sampling_temperature": args.temperature,
              "data.synthetic_size": args.synthetic_size,
-             "data.synthetic_fidelity": args.fidelity, "seed": args.seed}
-    overrides = {k: v for k, v in flags.items() if v is not None}
-    for item in args.set:
-        key, _, value = item.partition("=")
-        overrides[key] = ast.literal_eval(value)
-    return configs.apply_overrides(config, overrides)
+             "data.synthetic_fidelity": args.fidelity, "seed": args.seed,
+             "model.pallas_ops": args.pallas_ops}
+    return configs.apply_overrides(config, {k: v for k, v in flags.items() if v is not None})
 
 
 def main(argv=None) -> int:

@@ -225,6 +225,9 @@ def test_eval_log_lines_match_jax(monkeypatch, tmp_path, caplog):
         calls["port"] += 1
         return sweeps[calls["port"] - 1]
 
+    # the harness's round plan and timings, which the compared lines do not read
+    port_fn.rounds, port_fn.round_seconds = [(6, 16)], [(0.0, 0.0)]
+
     workdir = str(tmp_path / "jax")
     os.makedirs(os.path.join(workdir, "checkpoints", "checkpoint_1"))
     monkeypatch.setattr(jax_run_lib, "make_cond_sampling_fn", lambda *a, **k: jax_fn)
@@ -277,20 +280,58 @@ def test_eval_log_lines_match_jax(monkeypatch, tmp_path, caplog):
 def test_sweep_tool_end_to_end_on_the_cpu(tmp_path, capsys):
     argv = ["--smoke", "--random-weights", "--device", "cpu", "--steps", "3",
             "--num-samples", "6", "--num-candidates", "2", "--synthetic-size", str(SIZE),
-            "--workdir", str(tmp_path), "--set", "model.nf=32", "--set", "model.n_layers=2",
-            "--set", "model.n_heads=4"]
+            "--workdir", str(tmp_path)]
     assert eval_sweep.main(argv) == 0
     import json
 
     figures = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert figures["targets"] == 6 and figures["rounds"] == [[8, 16]]  # one round of the smoke batch, 8
     assert [s["decoded"] for s in figures["sweeps"]] == [6, 6]
+    assert [len(s["round_seconds"]) for s in figures["sweeps"]] == [1, 1]
     for key in ("top1_2d", "top1_3d", "topk_2d", "topk_3d", "consensus_2d", "consensus_3d"):
         assert 0.0 <= figures[key] <= 1.0
     assert set(figures["phase_seconds"]) == {"sampling+decode", "metrics-3d", "metrics-2d",
                                              "topk-extra-sweeps(x1)", "similarity"}
     with open(tmp_path / "eval_sweep.log") as f:
         assert "Top-2 accuracy || 2D" in f.read()
+
+
+def test_sweep_tool_flags_set_the_config():
+    config = eval_sweep.build_config(eval_sweep.parse_args([
+        "--pallas-ops", "block", "--num-samples", "64",
+        "--batch-size", "32", "--steps", "7", "--seed", "3"]))
+    assert config.model.pallas_ops == ("block",)
+    assert (config.eval.num_samples, config.eval.batch_size) == (64, 32)
+    assert (config.sampling.steps, config.seed) == (7, 3)
+    default = eval_sweep.build_config(eval_sweep.parse_args([]))
+    assert default.model.pallas_ops == ("attn", "equi")
+    assert eval_sweep.build_config(eval_sweep.parse_args(
+        ["--pallas-ops", "attn,equi"])).model.pallas_ops == ("attn", "equi")
+
+
+@pytest.mark.parametrize("buckets,max_node", [((), 16), ((8, 12, 16), 16), ((16, 12, 8), 16),
+                                              ((17, 21, 25, 29), 29)])
+def test_bucket_policy_of_the_sweep_and_of_serving(buckets, max_node):
+    """One policy, two callers: the sweep's round and a served request pad to
+    the smallest bucket that holds them; where the buckets stop short of
+    data.max_node the sweep refuses (the JAX harness) and serving pads to
+    data.max_node (the JAX Elucidator)."""
+    from diffspectra_tpu_torch.api import Elucidator
+
+    cfg = configs.apply_overrides(configs.get_smoke_config(), {
+        "data.max_node": max_node, "eval.bucket_sizes": buckets})
+    el = object.__new__(Elucidator)
+    el.config = cfg
+    jax_buckets = tuple(sorted(buckets)) or (max_node,)
+    for n in range(1, max_node + 1):
+        want = next((b for b in jax_buckets if b >= n), max_node)  # JAX api.py's pad
+        assert el._bucket(n) == want
+        assert harness.bucket_for(harness.bucket_sizes_of(cfg), n) == want
+    short = configs.apply_overrides(cfg, {"eval.bucket_sizes": (8, 12), "data.max_node": 16})
+    with pytest.raises(ValueError, match="must cover data.max_node"):
+        harness.bucket_sizes_of(short)
+    el.config = short
+    assert [el._bucket(n) for n in (8, 9, 12, 13, 16)] == [8, 12, 12, 16, 16]
 
 
 def test_sweep_refuses_cuda_without_cuda(monkeypatch, tmp_path):
