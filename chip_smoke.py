@@ -2,14 +2,22 @@
 
     python3 chip_smoke.py
 
+The port serves in the JAX package's production dtype, bf16
+(``training.matmul_precision``, the default), or in f32 on the override;
+the phases drive both.
+
 Phases, each printing its own lines:
-  1. the card (name, power limit); TF32 off for matmuls and convolutions;
+  1. the card (name, power limit); TF32 off for matmuls and convolutions,
+     and bf16 matmuls' reduced-precision sums off;
   2. build the CUDA kernels from ``diffspectra_tpu_torch/csrc`` with nvcc
      (registers and spills of each kernel from ``-Xptxas=-v``);
-  3. each kernel (mix_attention, equi_update, block_fused) against its plain
-     PyTorch version at the serving shape (B=10 draws, N=29, flagship
-     widths) on a seeded ragged batch, with the kernel's, the plain
-     version's and the bound's times; each also at B=10, N=17, 21, 25, 29,
+  3. each kernel (mix_attention, equi_update, block_fused), on f32 operands
+     and (its ``_bf16`` row) on the bf16 operands the JAX DMT in bf16 passes
+     it, against its plain PyTorch version at the serving shape (B=10
+     draws, N=29, flagship widths) on a seeded ragged batch, with the
+     kernel's, the plain version's and the bound's times (the bf16 gate
+     products at the tensor cores' 989 TFLOP/s, the rest at 67), and each
+     instance's registers from ``ptxas``; each also at B=10, N=17, 21, 25, 29,
      B=80, N=21, 29 and the sweep's B=128, N=17, 21, 25, 29 (ragged, every
      output and padding held to its tolerance), timed with L2 cold (64 MB written before each call) as
      well as warm, with each launch's device time from the profiler (five
@@ -30,33 +38,41 @@ Phases, each printing its own lines:
      reaches (TB/s where bytes bound it, TFLOP/s where operations do);
   4. full-width DMT forwards from ``artifacts/warm_qm9s_as.npz`` on cuda
      (kernels) against the same models on the CPU (plain versions), for
-     ``pallas_ops=('attn','equi')`` and ``('block',)``, and the two cuda
-     paths against each other;
+     ``pallas_ops=('attn','equi')`` and ``('block',)``: in f32 within 1e-3
+     of the largest value, and the two cuda paths against each other; in
+     bf16 within BF16_FORWARD_RATIO of the CPU's own bf16-against-f32
+     difference (the ratio printed), while the same cuda forward with
+     each kernel's gate product short of its last k step of 16 (the
+     ``drop_k`` control of ``tools/bf16_noise.py``) must read above it;
   5. serve: ``Elucidator.from_warm_state(...).elucidate(...)`` for 3 synthetic
      requests (fidelity-4 spectra) at their true atom counts, 10 candidates,
-     1000 ancestral steps, once per path; each path's launch counters must
-     rise by 8 blocks x steps x requests, the other path's by 0. Then on the
-     block path (100 steps, cut from 1000 to keep the run short): one
+     1000 ancestral steps, once per path in f32 (the override) and in bf16
+     (the default); each path's kernels in that dtype must be launched
+     8 blocks x steps x requests times, every other kernel 0. Then on the
+     bf16 block path (100 steps, cut from 1000 to keep the run short): one
      request without its atom count through the count head
      (``artifacts/atom_count_head.npz``), one without it and without the
      head (every plausible count of the train histogram, 2 draws each at 20
      steps, each count's launches counted), ``elucidate_batch`` over 8 queries
      (2 without their count), and one request each with DPM-Solver++ (ODE
      and SDE, 50 steps);
-  6. a profile of DMT forwards of both paths at the serving shape (kernel
-     time by name and the device's busy share);
+  6. a profile of DMT forwards of both paths in both dtypes at the serving
+     shape (kernel time by name and the device's busy share);
   7. the evaluation sweep (``run_lib.evaluate``, graph mode) from
-     ``artifacts/warm_qm9s_as.npz`` on the block path: 128 test targets of
+     ``artifacts/warm_qm9s_as.npz`` on the block path, in bf16 and then in
+     f32, each: 128 test targets of
      ``generate(seed=42, size=1280, fidelity=4)``'s split in rounds of 128
-     (buckets 17, 21, 25, 29), K=10 sweeps of 1000 ancestral steps at
-     temperature 1.0; its rounds, each sweep's wall time and mols/s, its
+     (buckets 17, 21, 25, 29), K sweeps of 1000 ancestral steps at
+     temperature 1.0 (K=10 in bf16, K=2 in f32: SWEEP_K); its rounds, each sweep's wall time and mols/s, its
      rounds' seconds of sampling and of host decoding, the host scoring's
-     phase times, and every figure beside round 5's (the JAX
-     package in bf16 on 10k targets; the port runs f32) with the binomial
-     standard error at this run's count. Gates: block_fused launched
-     8 x steps x rounds x K times and no other kernel, every target decoded
-     in every sweep, every figure finite and in [0, 1] (MCES >= 0), and
-     Top-10 2D >= 0.85 (about 7 standard errors under round 5's 0.9664).
+     phase times, and every figure beside round 5's (the JAX package in
+     bf16 on 10k targets) with the binomial standard error at this run's
+     count; then both sweeps' figures side by side with round 5's. Gates,
+     each sweep: block_fused in its dtype launched 8 x steps x rounds x K
+     times and no other kernel, every target decoded in every sweep, every
+     figure finite and in [0, 1] (MCES >= 0), and Top-10 2D >= 0.85 (about
+     7 standard errors under round 5's 0.9664; at K=2, Top-1 2D >= 0.60,
+     about 4 under round 5's 0.7490).
 Then one ``{"kernels": [...]}`` line, the card's ``nvidia-smi`` line, and as
 the last line ``{"ok": true, "device": {...}}``. Any failed check raises and
 the script exits non-zero without that last line; without CUDA it exits 2.
@@ -65,9 +81,12 @@ the script exits non-zero without that last line; without CUDA it exits 2.
 from __future__ import annotations
 
 import copy
+import functools
+import itertools
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -91,6 +110,13 @@ SWEEP = {"seed": 42, "data.synthetic_size": 1280, "data.synthetic_fidelity": 4,
          "eval.bucket_sizes": (17, 21, 25, 29), "eval.sampling_temperature": 1.0,
          "sampling.steps": 1000, "sampling.method": "ancestral", "model.pallas_ops": ("block",)}
 TOP10_2D_FLOOR = 0.85  # round 5 read 0.9664: about 7 standard errors lower at 128 targets
+# a sweep of fewer candidates has no Top-10: its Top-1 2D is held instead
+# (round 5 read 0.7490: about 4 standard errors lower at 128 targets)
+TOP1_2D_FLOOR = 0.60
+# candidates a sweep by dtype: bf16 (the default, as round 5) at K=10; f32
+# at K=2, to keep the script inside its time limit (with both at K=10 it ran
+# 997 s on an H100, PERF.md §6)
+SWEEP_K = {"bf16": 10, "f32": 2}
 # round 5: the JAX package (bf16) on warm_qm9s_as.npz, 10k targets of
 # generate(seed=42, size=131072, fidelity=4), K=10, 1000 steps, graph mode
 # (tools/pipeline_logs/r5/as_topk_10k.log:106-109, 833-860); figure name ->
@@ -131,8 +157,36 @@ PROBE_ATOL = {"t1": 0.0, "t2": 0.0, "t3": 0.0, "t4": 0.0, "t9": 0.0, "t11": 0.0,
               "t6": 1e-6, "t8": 1e-6, "t10": 1e-5, "t14": 1e-5,
               "t5": 1e-4, "t13": 1e-4, "t7": 1e-4}
 FORWARD_RTOL = 1e-3  # of the largest |value|: 8 blocks sum in another order
+# bf16 forwards, cuda against the CPU: the largest |difference| over the
+# CPU's own largest |bf16 - f32|, by path. Each bound lies between what
+# correct kernels read and what the drop_k control reads: on an H100
+# (python -m diffspectra_tpu_torch.tools.bf16_noise, 8 seeds), the kernels'
+# outputs changed by 2^-22 relative noise read up to 0.21 on the block
+# path and 1.56 on the per-op path, drop_k at least 31.3 and 25.9. The
+# block path rounds to bf16 only q, k and v, so the kernels' f32 sums in
+# another order move it little. The per-op path rounds the pair grid to
+# bf16 in every block (the edge embedding, its LayerNorm and modulation,
+# the FFN inputs), so a one-ulp difference in a kernel's sum flips
+# roundings downstream and the forward is fixed only up to its own bf16
+# rounding noise, about the gap itself. The bound catches a wrong kernel,
+# not that noise, nor a kernel that rounds its outputs to bf16 (it reads
+# 0.51-2.76, within the noise); phase 3 holds each kernel to 1e-5.
+BF16_FORWARD_RATIO = {"block": 0.5, "attn_equi": 2.0}
 PATHS = {"attn_equi": ("attn", "equi"), "block": ("block",)}
 PATH_KERNELS = {"attn_equi": ("mix_attention", "equi_update"), "block": ("block_fused",)}
+# training.matmul_precision of each dtype the port serves in; bf16 is the
+# default, as in the JAX package
+DTYPES = {"f32": "float32", "bf16": "bfloat16"}
+
+
+def kernels_of(path, dt):
+    """The LAUNCHES keys of a path's kernels in a dtype (a serving kernel's
+    launches on bfloat16 operands count under its name + "_bf16")."""
+    return tuple(k + ("_bf16" if dt == "bf16" else "") for k in PATH_KERNELS[path])
+
+
+def base_name(kernel):
+    return kernel.removesuffix("_bf16")
 # each probe's source under diffspectra_tpu_torch/csrc/ and kernel, by the
 # profiler's kernel name (t3, t4: grid_step_kernel<PlusOne>, t1, t11:
 # grid_step_kernel<Times2>, t6: grid_step_kernel<Tanh>, t2:
@@ -196,46 +250,76 @@ def ragged_masks(device, n_nodes=N_NODES, n=N):
     return edge.to(device)
 
 
-def attention_case(gen, dev, n_nodes=N_NODES, N=N):
+def nbytes_of(args, *outs):
+    """Bytes a call must move: each input read once, each output written once."""
+    return sum(a.numel() * a.element_size() for a in (*args, *outs))
+
+
+def bound_of(work):
+    """The least time the card could take for ``work`` (tensor-core FLOP,
+    f32 FLOP, bytes), ms, and what bounds it: the products on the tensor
+    cores at 989 TFLOP/s plus the rest at 67, against the bytes at
+    3.35 TB/s."""
+    tc, f32, nbytes = work
+    t_ops = (tc / BF16_PEAK + f32 / F32_PEAK) * 1e3
+    t_bytes = nbytes / HBM_RATE * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def attention_case(gen, dev, n_nodes=N_NODES, N=N, bf16=False):
     """mix_attention inputs for graphs of ``n_nodes`` atoms padded to N (the
-    serving shape by default), and the work they need."""
+    serving shape by default), q, k, v, edge_attr, w0 and w1 in bfloat16
+    when ``bf16`` (as the JAX DMT in bfloat16 passes them), and the work they
+    need: (tensor-core FLOP, f32 FLOP, bytes)."""
     B = len(n_nodes)
     de, n_sub, sub_c, heads, out_ch, n_extra = 64, 14, 18, 16, 16, 2
     r = lambda *s, scale=1.0: (torch.randn(*s, generator=gen) * scale).to(dev)
     extra = (torch.rand(B, N, N, n_extra, generator=gen) > 0.5).float().to(dev)
-    args = (r(B, N, n_sub, sub_c), r(B, N, n_sub, sub_c), r(B, N, heads, out_ch),
+    args = [r(B, N, n_sub, sub_c), r(B, N, n_sub, sub_c), r(B, N, heads, out_ch),
             r(B, N, N, de), r(de, n_sub * sub_c, scale=de**-0.5),
-            r(de, heads * out_ch, scale=de**-0.5), extra, ragged_masks(dev, n_nodes, N))
+            r(de, heads * out_ch, scale=de**-0.5), extra, ragged_masks(dev, n_nodes, N)]
+    if bf16:
+        args[:6] = [a.to(torch.bfloat16) for a in args[:6]]
     ec, hc = n_sub * sub_c, heads * out_ch
-    # per pair: two gate projections, their tanh, q*k*e0 and the head sums,
-    # the softmax, alpha*v*e1 and the j sum (dense over all N x N pairs)
-    flops = B * N * N * (2 * de * (ec + hc) + (ec + hc) + 3 * ec + 3 * heads + 3 * hc)
-    nbytes = 4 * (sum(a.numel() for a in args) + B * N * hc)
-    return args, {"set_inf": True}, flops, nbytes
+    # per pair: two gate projections (on the tensor cores in bf16), their
+    # tanh, q*k*e0 and the head sums, the softmax, alpha*v*e1 and the j sum
+    # (dense over all N x N pairs)
+    products = B * N * N * 2 * de * (ec + hc)
+    rest = B * N * N * ((ec + hc) + 3 * ec + 3 * heads + 3 * hc)
+    work = (products, rest) if bf16 else (0, products + rest)
+    return args, {"set_inf": True}, (*work, nbytes_of(args) + 4 * B * N * hc)
 
 
-def equi_case(gen, dev, n_nodes=N_NODES, N=N):
+def equi_case(gen, dev, n_nodes=N_NODES, N=N, bf16=False):
     """equi_update inputs for graphs of ``n_nodes`` atoms padded to N (the
-    serving shape by default), and the work they need."""
+    serving shape by default), node_i, node_j, edge_attr, dist, w_e, w_d and
+    the bias in bfloat16 when ``bf16``, and the work they need (tensor-core
+    FLOP, f32 FLOP, bytes)."""
     B = len(n_nodes)
     de, dd, dh, n_adj = 64, 64, 256, 2
     r = lambda *s, scale=1.0: (torch.randn(*s, generator=gen) * scale).to(dev)
     adj = (torch.rand(B, N, N, n_adj, generator=gen) > 0.5).float().to(dev)
-    args = (r(B, N, dh), r(B, N, dh), r(B, N, N, de), r(B, N, N, dd), r(B, N, N, 3),
+    args = [r(B, N, dh), r(B, N, dh), r(B, N, N, de), r(B, N, N, dd), r(B, N, N, 3),
             adj, ragged_masks(dev, n_nodes, N), r(de, dh, scale=de**-0.5), r(dd, dh, scale=dd**-0.5),
             r(dh, scale=0.1), r(B, dh, scale=0.1), r(B, dh, scale=0.1),
-            r(dh, dh, scale=dh**-0.5), r(dh, scale=0.1), r(dh, 1 + n_adj, scale=dh**-0.5))
-    # per pair: the two gate projections, the W0 product, the W1 product, and
-    # about 12 operations per channel for sums, LayerNorm, modulation, silu
-    flops = B * N * N * (2 * (de + dd) * dh + 2 * dh * dh + 2 * dh * (1 + n_adj) + 12 * dh)
-    nbytes = 4 * (sum(a.numel() for a in args) + B * N * 3)
-    return args, {}, flops, nbytes
+            r(dh, dh, scale=dh**-0.5), r(dh, scale=0.1), r(dh, 1 + n_adj, scale=dh**-0.5)]
+    if bf16:
+        for i in (0, 1, 2, 3, 7, 8, 9):
+            args[i] = args[i].to(torch.bfloat16)
+    # per pair: the two gate projections (on the tensor cores in bf16), the
+    # W0 product, the W1 product, and about 12 operations per channel for
+    # sums, LayerNorm, modulation, silu
+    products = B * N * N * 2 * (de + dd) * dh
+    rest = B * N * N * (2 * dh * dh + 2 * dh * (1 + n_adj) + 12 * dh)
+    work = (products, rest) if bf16 else (0, products + rest)
+    return args, {}, (*work, nbytes_of(args) + 4 * B * N * 3)
 
 
-def block_case(gen, dev, n_nodes=N_NODES, N=N):
+def block_case(gen, dev, n_nodes=N_NODES, N=N, bf16=False):
     """block_fused inputs at flagship widths for graphs of ``n_nodes``
-    atoms padded to N (the serving shape by default), and the work they
-    need."""
+    atoms padded to N (the serving shape by default), q, k and v in
+    bfloat16 when ``bf16``, and the work they need (tensor-core FLOP, f32
+    FLOP, bytes: its products stay f32)."""
     from diffspectra_tpu_torch.ops.block_fused import _DATA, _WEIGHTS
 
     B = len(n_nodes)
@@ -263,6 +347,9 @@ def block_case(gen, dev, n_nodes=N_NODES, N=N):
     weights = {k: r(*s, scale=s[0] ** -0.5 if len(s) == 2 else 0.1) for k, s in shapes.items()}
     weights["gbf_means"] = (torch.rand(de - 1, generator=gen) * 3).to(dev)
     weights["gbf_stds"] = (0.5 + torch.rand(de - 1, generator=gen) * 2.5).to(dev)
+    if bf16:
+        for key in ("q", "k", "v"):
+            data[key] = data[key].to(torch.bfloat16)
     args = [data[k] for k in _DATA] + [weights[k] for k in _WEIGHTS]
     # per pair: the GBF (about 8 operations a basis function), edge_emb, its
     # LayerNorm and modulation, the two gate products and their tanh, the
@@ -276,8 +363,8 @@ def block_case(gen, dev, n_nodes=N_NODES, N=N):
     # W_hi and W_hj
     node = 2 * dh * de + 12 * dh + 4 * dh * rn + rn + 4 * dh * dh
     flops = B * N * N * pair + B * N * node
-    nbytes = 4 * (sum(a.numel() for a in args) + B * N * dh + B * N * N * de + B * N * 3)
-    return args, dict(n_heads=heads, n_extra=n_extra, out_ch=out_ch), flops, nbytes
+    nbytes = nbytes_of(args) + 4 * (B * N * dh + B * N * N * de + B * N * 3)
+    return args, dict(n_heads=heads, n_extra=n_extra, out_ch=out_ch), (0, flops, nbytes)
 
 
 def phase_kernels(dev):
@@ -286,16 +373,22 @@ def phase_kernels(dev):
     from diffspectra_tpu_torch.ops.mix_attention import mix_attention, mix_attention_reference
 
     gen = torch.Generator().manual_seed(0)
+    registers = ptxas_registers()
     rows = []
-    for name, kernel, plain, case, source, replaces in (
+    specs = (
         ("mix_attention", mix_attention, mix_attention_reference, attention_case,
          "diffspectra_tpu_torch/csrc/mix_attention.cu", "diffspectra_tpu/ops/pallas_attention.py:147"),
         ("equi_update", equi_update, equi_update_reference, equi_case,
          "diffspectra_tpu_torch/csrc/equi_update.cu", "diffspectra_tpu/ops/pallas_equi_update.py:139"),
         ("block_fused", block_fused, block_fused_reference, block_case,
          "diffspectra_tpu_torch/csrc/block_fused.cu", "diffspectra_tpu/ops/pallas_block.py:230"),
-    ):
-        args, kw, flops, nbytes = case(gen, dev)
+    )
+    # each kernel on f32 operands, then on the bf16 operands of the JAX DMT in bf16
+    for (base, kernel, plain, base_case, source, replaces), bf16 in itertools.product(
+            specs, (False, True)):
+        name = base + ("_bf16" if bf16 else "")
+        case = functools.partial(base_case, bf16=bf16)
+        args, kw, work = case(gen, dev)
         got = kernel(*args, **kw)
         want = plain(*args, **kw)
         torch.cuda.synchronize()
@@ -305,24 +398,57 @@ def phase_kernels(dev):
         for g, w in zip(got, want):  # every output, padded rows and pairs included
             e = (g - w).abs().max().item()
             say(f"[kernels] {name}: {tuple(g.shape)} max |kernel - plain| = {e:.3e} "
-                f"(tolerance {KERNEL_ATOL[name]:.0e}, max |plain| = {w.abs().max().item():.3e})")
-            assert torch.isfinite(g).all() and e <= KERNEL_ATOL[name], name
+                f"(tolerance {KERNEL_ATOL[base]:.0e}, max |plain| = {w.abs().max().item():.3e})")
+            assert torch.isfinite(g).all() and e <= KERNEL_ATOL[base], name
             err = max(err, e)
         ms = cuda_time_ms(lambda: kernel(*args, **kw), iters=200)
         plain_ms = cuda_time_ms(lambda: plain(*args, **kw), iters=50)
-        t_ops, t_bytes = flops / F32_PEAK * 1e3, nbytes / HBM_RATE * 1e3
-        bound_ms, bound_by = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+        bound_ms, bound_by = bound_of(work)
+        tc, f32, nbytes = work
+        regs = kernel_registers(base, bf16, registers)
         say(f"[kernels] {name}: {ms:.4f} ms kernel, {plain_ms:.4f} ms plain version, "
-            f"bound {bound_ms:.4f} ms by {bound_by} ({flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.3f} MB)")
+            f"bound {bound_ms:.4f} ms by {bound_by} ({tc / 1e9:.3f} GFLOP on the bf16 tensor "
+            f"cores, {f32 / 1e9:.3f} GFLOP f32, {nbytes / 1e6:.3f} MB); ptxas registers a thread "
+            f"{regs}")
         row = dict(name=name, route="cuda", source=source, replaces=replaces,
                    max_abs_err=err, max_err=err, ms=ms, plain_ms=plain_ms,
-                   bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+                   bound_ms=bound_ms, bound_by=bound_by, library_ms=None, registers=regs,
+                   tensor_core_gflop=tc / 1e9, f32_gflop=f32 / 1e9, mbytes=nbytes / 1e6)
         row.update(kernel_extras(name, kernel, plain, case, dev, gen, lambda: kernel(*args, **kw)))
         row["max_abs_err"] = row["max_err"] = max(err, row["shapes_max_err"])
-        if name != "block_fused":
+        if base != "block_fused":
             row.update(row_tile_extras(name, args, dev))
         rows.append(row)
+        del args, got, want
     return rows
+
+
+def ptxas_registers():
+    """Registers a thread of each kernel of the build, by mangled name, from
+    nvcc's -Xptxas=-v output."""
+    from diffspectra_tpu_torch.ops import _lib
+
+    registers, kernel = {}, None
+    for line in _lib.build_log.splitlines():
+        if "Compiling entry function" in line:
+            kernel = line.split("'")[1]
+        elif kernel is not None and "Used" in line and "registers" in line:
+            registers[kernel] = int(re.search(r"Used (\d+) registers", line).group(1))
+    return registers
+
+
+def kernel_registers(base, bf16, registers):
+    """A serving kernel's instances in one dtype and their registers: the
+    row-tile kernels' <tile rows, bf16> instances (Lb1 / Lb0 in the mangled
+    name), block_fused's stages, attn_stage<unsigned short> (ItE) or
+    <float> (IfE)."""
+    if base == "block_fused":
+        stages = KERNEL_STAGES[base]
+        keep = lambda k: any(s in k for s in stages) and (
+            "attn_stage" not in k or ("ItE" if bf16 else "IfE") in k)
+    else:
+        keep = lambda k: f"{base}_kernel" in k and ("Lb1E" if bf16 else "Lb0E") in k
+    return {k: v for k, v in registers.items() if keep(k)}
 
 
 def kernel_extras(name, kernel, plain, case, dev, gen, call):
@@ -334,18 +460,19 @@ def kernel_extras(name, kernel, plain, case, dev, gen, call):
     err, shape_errs = 0.0, {}
     for batch, n in BLOCK_SHAPES:
         n_nodes = [n] + torch.randint(1, n + 1, (batch - 1,), generator=gen).tolist()
-        args, kw, _, _ = case(gen, dev, n_nodes, n)
+        args, kw, _ = case(gen, dev, n_nodes, n)
         got, want = kernel(*args, **kw), plain(*args, **kw)
         torch.cuda.synchronize()
         if isinstance(got, torch.Tensor):
             got, want = (got,), (want,)
-        outs = ("h_out", "edge_out", "agg") if name == "block_fused" else ("out",)
+        outs = ("h_out", "edge_out", "agg") if base_name(name) == "block_fused" else ("out",)
         for out, g, w in zip(outs, got, want):
             e = (g - w).abs().max().item()
+            atol = KERNEL_ATOL[base_name(name)]
             say(f"[kernels] {name} B={batch} N={n}: {out} {tuple(g.shape)} max |kernel - "
-                f"plain| = {e:.3e} (tolerance {KERNEL_ATOL[name]:.0e}, max |plain| = "
+                f"plain| = {e:.3e} (tolerance {atol:.0e}, max |plain| = "
                 f"{w.abs().max().item():.3e})")
-            assert torch.isfinite(g).all() and e <= KERNEL_ATOL[name], (name, batch, n, out)
+            assert torch.isfinite(g).all() and e <= atol, (name, batch, n, out)
             err = max(err, e)
             shape_errs[f"B={batch} N={n}"] = max(shape_errs.get(f"B={batch} N={n}", 0.0), e)
         del args, got, want
@@ -361,7 +488,7 @@ def kernel_extras(name, kernel, plain, case, dev, gen, call):
         end.record()
     torch.cuda.synchronize()
     cold_ms = sum(s.elapsed_time(e) for s, e in pairs) / len(pairs)
-    stages = KERNEL_STAGES[name]
+    stages = KERNEL_STAGES[base_name(name)]
     warm, cold = stage_ms(call, stages), stage_ms(call, stages, flush)
     fmt = lambda d: "not measured" if d is None else ", ".join(f"{k} {v:.4f}" for k, v in d.items())
     total = lambda d: None if d is None else sum(d.values())
@@ -385,22 +512,24 @@ def row_tile_extras(name, args, dev):
     from diffspectra_tpu_torch.ops.mix_attention import launch_plan as attn_plan
 
     gen = torch.Generator(device=dev).manual_seed(1)
-    r = lambda *s: torch.randn(*s, generator=gen, device=dev)
-    if name == "equi_update":
+    bf16 = name.endswith("_bf16")  # the yardstick's products in bf16 too
+    dt = torch.bfloat16 if bf16 else torch.float32
+    r = lambda *s: torch.randn(*s, generator=gen, device=dev).to(dt)
+    if base_name(name) == "equi_update":
         dh, de, dd = args[0].shape[-1], args[2].shape[-1], args[3].shape[-1]
-        plan, sizes = equi_plan(B, N, de, dd, dh), (B, N, de, dd, dh)
+        plan, sizes = equi_plan(B, N, de, dd, dh, bf16), (B, N, de, dd, dh, int(bf16))
         x1, w1, x2, w2 = r(B * N * N, de + dd), r(de + dd, dh), r(B * N * N, dh), r(dh, dh)
         products = lambda: (x1 @ w1, x2 @ w2)
         shapes = f"[{B * N * N}, {de + dd}] @ [{de + dd}, {dh}] + [{B * N * N}, {dh}] @ [{dh}, {dh}]"
     else:
         q, v, edge = args[0], args[2], args[3]
         ec, hc, heads, de = q.shape[2] * q.shape[3], v.shape[2] * v.shape[3], v.shape[2], edge.shape[-1]
-        plan, sizes = attn_plan(B, N, de, ec, hc, heads), (B, N, de, ec, hc, heads)
+        plan, sizes = attn_plan(B, N, de, ec, hc, heads, bf16), (B, N, de, ec, hc, heads, int(bf16))
         x, w = r(B * N * N, de), r(de, ec + hc)
         products = lambda: x @ w
         shapes = f"[{B * N * N}, {de}] @ [{de}, {ec + hc}]"
     blocks = ctypes.c_int(0)
-    _lib.check_rc(f"{name} occupancy", getattr(_lib.build(), f"dstt_{name}_occupancy")(
+    _lib.check_rc(f"{name} occupancy", getattr(_lib.build(), f"dstt_{base_name(name)}_occupancy")(
         *sizes, ctypes.byref(blocks)))
     cublas_ms = cuda_time_ms(products, iters=200)
     cublas_device_ms = device_ms(products)
@@ -408,7 +537,8 @@ def row_tile_extras(name, args, dev):
         f"tiles of {plan.tile_rows} pair rows holding {plan.rows_per_tile} rows of a molecule, "
         f"{plan.smem} bytes of shared memory, "
         f"{plan.blocks_per_sm} blocks an SM planned, {blocks.value} on the card; cuBLAS "
-        f"yardstick {shapes}: {cublas_ms:.4f} ms, {ms_or_none(cublas_device_ms)} on the device")
+        f"yardstick {shapes} ({dt}): {cublas_ms:.4f} ms, {ms_or_none(cublas_device_ms)} on the "
+        "device")
     assert blocks.value == plan.blocks_per_sm, (name, blocks.value, plan)
     return dict(blocks=plan.grid, tile_rows=plan.tile_rows, smem=plan.smem, blocks_per_sm=blocks.value,
                 cublas_ms=cublas_ms, cublas_device_ms=cublas_device_ms)
@@ -640,34 +770,6 @@ def probe_extras(name, p, call, row, dev):
                 rate_unit=unit)
 
 
-def forward_inputs(dev, has_cond: bool):
-    """One reverse step's inputs in the warm model's operating range: noisy
-    positions and features, conditioning inside its clamp range, spectra of
-    synthetic molecules, noise levels across the schedule."""
-    from diffspectra_tpu_torch.data.synthetic import generate
-    from diffspectra_tpu_torch.utils import masks as M
-
-    rng = np.random.default_rng(1)
-    T = lambda a: torch.from_numpy(np.asarray(a, np.float32))
-    node_mask, edge_mask = M.build_masks(torch.tensor(N_NODES), N)
-    xh = T(rng.normal(size=(B, N, 9))) * node_mask
-    e = T(rng.normal(size=(B, N, N, 2)))
-    edge_x = (e + e.transpose(1, 2)) * edge_mask[..., None]
-    cond_x = cond_e = None
-    if has_cond:
-        cond_x = torch.cat([T(rng.normal(size=(B, N, 3)) * 1.5),
-                            T(rng.uniform(-0.25, 0.25, size=(B, N, 6)))], -1) * node_mask
-        c = T(rng.uniform(-1, 1, size=(B, N, N, 2)))
-        cond_e = 0.5 * (c + c.transpose(1, 2)) * edge_mask[..., None]
-    data = generate(seed=3, size=B, max_n=N, fidelity=4)
-    specs = [T(np.log10(data[k] + 1.0)) for k in ("uv", "ir", "raman")]
-    t = torch.full((B,), 0.5)
-    nl = torch.linspace(-9, 9, B)
-    move = lambda x: None if x is None else x.to(dev)
-    return [move(x) for x in (t, xh, node_mask, edge_mask, edge_x, nl, cond_x, cond_e)], \
-        [s.to(dev) for s in specs]
-
-
 def compare(tag, got, want):
     """Assert each output within FORWARD_RTOL x max|want|."""
     for name, g, w in zip(("pred", "edge_pred"), got, want):
@@ -678,28 +780,45 @@ def compare(tag, got, want):
 
 
 def phase_forward(dev):
-    """Both paths' full-width forwards on cuda against the CPU, and the two
-    cuda paths against each other. Returns the cuda models by path."""
+    """Both paths' full-width forwards on cuda against the CPU: in f32
+    within FORWARD_RTOL, and the two cuda paths against each other; in bf16
+    within BF16_FORWARD_RATIO of the CPU's own bf16-against-f32 difference
+    on the same inputs, and the drop_k control above it. Returns the cuda
+    models by (path, dtype)."""
     from diffspectra_tpu_torch import configs
     from diffspectra_tpu_torch.api import load_dmt
+    from diffspectra_tpu_torch.tools.bf16_noise import forward, max_ratio, perturbed
 
-    gpu_models, cuda_outs = {}, {}
-    for path, ops in PATHS.items():
-        config = configs.apply_overrides(configs.get_config(), {"model.pallas_ops": ops})
+    gpu_models, cuda_outs, cpu_f32 = {}, {}, {}
+    for (path, ops), dt in itertools.product(PATHS.items(), DTYPES):
+        config = configs.apply_overrides(configs.get_config(), {
+            "model.pallas_ops": ops, "training.matmul_precision": DTYPES[dt]})
         cpu_model = load_dmt(WARM, config, "cpu")
-        gpu_models[path] = gpu_model = copy.deepcopy(cpu_model).to(dev)
+        gpu_models[path, dt] = gpu_model = copy.deepcopy(cpu_model).to(dev)
         assert all(b.e_block.block_kernel == (path == "block") for b in gpu_model.blocks)
+        assert gpu_model.dtype == (torch.bfloat16 if dt == "bf16" else torch.float32)
         for has_cond in (True, False):
-            outs = []
-            for model, device in ((gpu_model, dev), (cpu_model, torch.device("cpu"))):
-                args, specs = forward_inputs(device, has_cond)
-                with torch.no_grad():
-                    ctx = model.encode_context(specs)
-                    outs.append([o.cpu() for o in model(*args, has_cond, ctx)])
-            compare(f"{path} has_cond={has_cond} cuda vs cpu", *outs)
-            cuda_outs[path, has_cond] = outs[0]
+            got, want = forward(gpu_model, dev, has_cond), forward(cpu_model, "cpu", has_cond)
+            if dt == "f32":
+                compare(f"{path} f32 has_cond={has_cond} cuda vs cpu", got, want)
+                cuda_outs[path, has_cond], cpu_f32[path, has_cond] = got, want
+                continue
+            with perturbed("drop_k"):
+                faulty = forward(gpu_model, dev, has_cond)
+            bound = BF16_FORWARD_RATIO[path]
+            for name, g, w, w32, f in zip(("pred", "edge_pred"), got, want,
+                                          cpu_f32[path, has_cond], faulty):
+                err, gap = (g - w).abs().max().item(), (w - w32).abs().max().item()
+                mean_ratio = ((g - w).abs().mean() / (w - w32).abs().mean()).item()
+                control = max_ratio(f, w, w32)
+                say(f"[forward] {path} bf16 has_cond={has_cond} {name}: max |cuda bf16 - cpu "
+                    f"bf16| = {err:.3e}, max |cpu bf16 - cpu f32| = {gap:.3e}, ratio "
+                    f"{err / gap:.4f} (bound {bound}; drop_k control {control:.4f}); mean "
+                    f"|cuda bf16 - cpu bf16| over mean |cpu bf16 - cpu f32| {mean_ratio:.4f}")
+                assert torch.isfinite(g).all() and gap > 0, (path, name)
+                assert err <= bound * gap < control * gap, (path, name, err / gap, control)
     for has_cond in (True, False):
-        compare(f"has_cond={has_cond} cuda block vs cuda attn_equi",
+        compare(f"f32 has_cond={has_cond} cuda block vs cuda attn_equi",
                 cuda_outs["block", has_cond], cuda_outs["attn_equi", has_cond])
     return gpu_models
 
@@ -714,19 +833,25 @@ def launched_only(path_kernels, launches, expected):
     assert launches == want, (launches, want)
 
 
-def serve_path(path, dev, data):
-    """Serve the REQUESTS through one path; the counts are this path's."""
+def serve_path(path, dt, dev, data):
+    """Serve the REQUESTS through one path in one dtype; the counts are this
+    path's."""
     from diffspectra_tpu_torch.api import Elucidator
     from diffspectra_tpu_torch.data.info import get_dataset_info
     from diffspectra_tpu_torch.evaluation.molgraph import MolGraph
     from diffspectra_tpu_torch.ops import LAUNCHES, reset_launches
 
     t0 = time.perf_counter()
-    el = Elucidator.from_warm_state(
-        WARM, overrides={"sampling.steps": STEPS, "model.pallas_ops": PATHS[path]}, device=dev)
-    say(f"[serve {path}] loaded {WARM} in {time.perf_counter() - t0:.2f} s; "
-        f"pallas_ops={el.config.model.pallas_ops}, steps={el.config.sampling.steps}, "
-        f"candidates={CANDIDATES}, requests={REQUESTS}")
+    overrides = {"sampling.steps": STEPS, "model.pallas_ops": PATHS[path]}
+    if dt == "f32":  # bf16 is the default
+        overrides["training.matmul_precision"] = DTYPES[dt]
+    el = Elucidator.from_warm_state(WARM, overrides=overrides, device=dev)
+    tag = f"serve {path} {dt}"
+    say(f"[{tag}] loaded {WARM} in {time.perf_counter() - t0:.2f} s; "
+        f"pallas_ops={el.config.model.pallas_ops}, matmul_precision="
+        f"{el.config.training.matmul_precision} (DMT {el.model.dtype}), "
+        f"steps={el.config.sampling.steps}, candidates={CANDIDATES}, requests={REQUESTS}")
+    assert el.config.training.matmul_precision == DTYPES[dt]
     decoder = get_dataset_info("qm9_second_half")["atom_decoder"]
     reset_launches()  # counts from here on are this path's
     per_request = []
@@ -744,7 +869,7 @@ def serve_path(path, dev, data):
         finite = all(np.isfinite(c.positions).all() for c in result.candidates)
         launched = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
         hit = result.best.molgraph.wl_hash() == target.wl_hash()
-        say(f"[serve {path}] request {m}: n_atoms={n} wall={wall:.3f} s "
+        say(f"[{tag}] request {m}: n_atoms={n} wall={wall:.3f} s "
             f"({CANDIDATES / wall:.3f} sampled mols/s), {len(result.candidates)} distinct "
             f"candidates, best frequency {result.best.frequency:.2f}, finite={finite}, "
             f"top-1 WL hash equals target={hit}, launches={nonzero(launched)}")
@@ -754,19 +879,20 @@ def serve_path(path, dev, data):
                                 distinct=len(result.candidates), top1_hit=hit))
     launches = dict(LAUNCHES)
     expected = el.config.model.n_layers * STEPS * REQUESTS
-    say(f"[serve {path}] launches {nonzero(launches)}, expected {expected} for {PATH_KERNELS[path]}, "
-        "0 for the others")
-    launched_only(PATH_KERNELS[path], launches, expected)
+    say(f"[{tag}] launches {nonzero(launches)}, expected {expected} for "
+        f"{kernels_of(path, dt)}, 0 for the others")
+    launched_only(kernels_of(path, dt), launches, expected)
     total = sum(r["wall_s"] for r in per_request)
-    say(f"[serve {path}] " + json.dumps({"requests": per_request,
-                                         "mols_per_s": REQUESTS * CANDIDATES / total}))
+    say(f"[{tag}] " + json.dumps({"requests": per_request,
+                                  "mols_per_s": REQUESTS * CANDIDATES / total}))
     return el, launches
 
 
 def serve_more(el, dev, data, queries):
-    """The rest of serving on the block path, at SHORT_STEPS (DPM_STEPS for
-    DPM-Solver) steps: the count head and DPM-Solver on the requests of
-    ``data``, elucidate_batch on the 8 ``queries``."""
+    """The rest of serving on the block path in the default dtype (bf16), at
+    SHORT_STEPS (DPM_STEPS for DPM-Solver) steps: the count head and
+    DPM-Solver on the requests of ``data``, elucidate_batch on the 8
+    ``queries``."""
     from diffspectra_tpu_torch import configs
     from diffspectra_tpu_torch.api import Elucidator
     from diffspectra_tpu_torch.ops import LAUNCHES, reset_launches
@@ -776,6 +902,8 @@ def serve_more(el, dev, data, queries):
         return Elucidator(config, el.model, dev)
 
     n_layers = el.config.model.n_layers
+    (kernel,) = kernels_of("block", "bf16")
+    assert el.config.training.matmul_precision == configs.get_config().training.matmul_precision
     as_spectra = lambda d: [{k: d[k][m] for k in ("uv", "ir", "raman")} for m in range(len(d["ir"]))]
     spectra = as_spectra(data)
 
@@ -800,7 +928,7 @@ def serve_more(el, dev, data, queries):
     assert sum(c.count for c in result.candidates) == K * len(counts)
     assert all(c.molgraph.n_atoms in counts for c in result.candidates)
     assert all(np.isfinite(c.positions).all() for c in result.candidates)
-    launched_only(("block_fused",), dict(LAUNCHES), n_layers * SHORT_STEPS * len(counts))
+    launched_only((kernel,), dict(LAUNCHES), n_layers * SHORT_STEPS * len(counts))
 
     # the marginal without a head: every plausible count of the train
     # histogram, MARGINAL_DRAWS draws each, each count's round counted alone
@@ -808,9 +936,9 @@ def serve_more(el, dev, data, queries):
     plain_round, per_count = marginal._round, {}
 
     def counted_round(contexts, n_atoms, n_pad, generator):
-        before = LAUNCHES["block_fused"]
+        before = LAUNCHES[kernel]
         mols = plain_round(contexts, n_atoms, n_pad, generator)
-        per_count[n_atoms[0]] = LAUNCHES["block_fused"] - before
+        per_count[n_atoms[0]] = LAUNCHES[kernel] - before
         return mols
 
     marginal._round = counted_round
@@ -832,7 +960,7 @@ def serve_more(el, dev, data, queries):
     assert sum(c.count for c in result.candidates) == MARGINAL_DRAWS * len(ns)
     assert all(c.molgraph.n_atoms in ns and np.isfinite(c.positions).all()
                for c in result.candidates)
-    launched_only(("block_fused",), dict(LAUNCHES), n_layers * MARGINAL_STEPS * len(ns))
+    launched_only((kernel,), dict(LAUNCHES), n_layers * MARGINAL_STEPS * len(ns))
 
     # elucidate_batch: 8 queries, 2 without their atom count
     given = [int(n) for n in queries["num_atom"]]
@@ -855,7 +983,7 @@ def serve_more(el, dev, data, queries):
         assert r.num_draws == CANDIDATES and sum(c.count for c in r.candidates) == CANDIDATES
         assert all(c.molgraph.n_atoms == r.n_atoms and np.isfinite(c.positions).all()
                    for c in r.candidates)
-    launched_only(("block_fused",), dict(LAUNCHES), n_layers * SHORT_STEPS * len(pads))
+    launched_only((kernel,), dict(LAUNCHES), n_layers * SHORT_STEPS * len(pads))
 
     # DPM-Solver++, ODE and SDE
     for method in ("dpm_solver", "dpm_solver_sde"):
@@ -873,13 +1001,15 @@ def serve_more(el, dev, data, queries):
         assert sum(c.count for c in result.candidates) == CANDIDATES
         assert all(np.isfinite(c.positions).all() and c.molgraph.n_atoms == n
                    for c in result.candidates)
-        launched_only(("block_fused",), dict(LAUNCHES), n_layers * DPM_STEPS)
+        launched_only((kernel,), dict(LAUNCHES), n_layers * DPM_STEPS)
 
 
 def phase_profile(path, model, dev):
     """Kernel time by name over 5 forwards at the serving shape, and the
     device's busy share of the window (from the profiler's kernel events)."""
     from torch.profiler import ProfilerActivity, profile
+
+    from diffspectra_tpu_torch.tools.bf16_noise import forward_inputs
 
     args, specs = forward_inputs(dev, True)
     with torch.no_grad():
@@ -904,8 +1034,9 @@ def phase_profile(path, model, dev):
             f"x{e.count // 5:<4d} {e.key[:90]}")
 
 
-def sweep_figures(fig):
-    """The sweep's figures by the names of ROUND5 and NOT_COMPARABLE."""
+def sweep_figures(fig, K=10):
+    """The sweep's figures by the names of ROUND5 and NOT_COMPARABLE (its
+    Top-K as Top-10 where K is 10, else under its own K)."""
     m3, m2 = fig["metric_3d"], fig["metric_2d"]
     out = {"Metric-3D atom stability": m3["atom_stable"], "Metric-3D mol stability": m3["mol_stable"],
            "Metric-3D validity": m3["Validity"], "Metric-3D complete": m3["Complete"],
@@ -913,7 +1044,7 @@ def sweep_figures(fig):
            "Metric-2D validity": m2["Validity"], "Metric-2D complete": m2["Complete"],
            "Metric-2D unique & valid": m2["Unique"], "Metric-2D novelty": m2["Novelty"],
            "Top-1 2D": fig["top1_2d"], "Top-1 3D": fig["top1_3d"],
-           "Top-10 2D": fig["topk_2d"], "Top-10 3D": fig["topk_3d"],
+           f"Top-{K} 2D": fig["topk_2d"], f"Top-{K} 3D": fig["topk_3d"],
            "Consensus 2D": fig["consensus_2d"], "Consensus 3D": fig["consensus_3d"],
            "memorization bound": fig["generalization"]["seen"] / fig["generalization"]["targets"]}
     for dim in ("2D", "3D"):
@@ -922,8 +1053,9 @@ def sweep_figures(fig):
     return out
 
 
-def phase_sweep(dev):
-    """Phase 7: the eval sweep on the block path; its gates raise."""
+def phase_sweep(dev, dt):
+    """Phase 7: the eval sweep on the block path in one dtype; its gates
+    raise. Returns its launches and figures."""
     import logging
 
     from diffspectra_tpu_torch import configs, run_lib
@@ -931,53 +1063,60 @@ def phase_sweep(dev):
 
     logging.basicConfig(level=logging.INFO, stream=sys.stdout, format="[sweep log] %(message)s",
                         force=True)
-    config = configs.apply_overrides(configs.get_config(), dict(SWEEP))
-    say(f"[sweep] settings {json.dumps(SWEEP)}")
+    settings = {**SWEEP, "training.matmul_precision": DTYPES[dt],
+                "eval.num_candidates": SWEEP_K[dt]}
+    config = configs.apply_overrides(configs.get_config(), settings)
+    tag = f"sweep {dt}"
+    say(f"[{tag}] settings {json.dumps(settings)}")
     eval_dir = tempfile.mkdtemp(prefix="eval_sweep_")  # the similarity tables
     reset_launches()  # counts from here on are the sweep's
     t0 = time.perf_counter()
     fig = run_lib.evaluate(config, WARM, eval_dir, dev)
     wall = time.perf_counter() - t0
     launches = dict(LAUNCHES)
-    K, steps, targets = SWEEP["eval.num_candidates"], SWEEP["sampling.steps"], fig["targets"]
+    K, steps, targets = config.eval.num_candidates, config.sampling.steps, fig["targets"]
     rounds = fig["rounds"]
     draws = SWEEP["eval.batch_size"] * len(rounds)
-    say(f"[sweep] rounds (draws, n_pad): {rounds}; phase wall {wall:.1f} s")
+    say(f"[{tag}] rounds (draws, n_pad): {rounds}; phase wall {wall:.1f} s")
     for k, sw in enumerate(fig["sweeps"]):
         sampling_s, decode_s = (sum(r) for r in zip(*sw["round_seconds"]))
-        say(f"[sweep] sweep {k + 1}/{K}: wall {sw['seconds']:.3f} s, {sw['decoded']} of {targets} "
+        say(f"[{tag}] sweep {k + 1}/{K}: wall {sw['seconds']:.3f} s, {sw['decoded']} of {targets} "
             f"targets decoded, {draws / sw['seconds']:.3f} sampled mols/s; sampling "
             f"{sampling_s:.3f} s and host decode {decode_s:.4f} s over {len(rounds)} rounds "
             f"({decode_s / len(rounds):.4f} s a round)")
     sweep_s = sum(sw["seconds"] for sw in fig["sweeps"])
     ph = fig["phase_seconds"]
-    say(f"[sweep] sampling {sweep_s:.1f} s over {K} sweeps ({K * draws / sweep_s:.3f} sampled "
+    say(f"[{tag}] sampling {sweep_s:.1f} s over {K} sweeps ({K * draws / sweep_s:.3f} sampled "
         f"mols/s); host scoring: metrics-3d {ph['metrics-3d']:.2f} s, metrics-2d "
         f"{ph['metrics-2d']:.2f} s, the extra sweeps' scoring "
         f"{ph[f'topk-extra-sweeps(x{K - 1})'] - sum(s['seconds'] for s in fig['sweeps'][1:]):.2f} s, "
         f"similarity {ph['similarity']:.2f} s; phase-time {json.dumps(ph)}")
     expected = config.model.n_layers * steps * len(rounds) * K
-    say(f"[sweep] launches {nonzero(launches)}, expected {expected} for block_fused "
-        f"(8 blocks x {steps} steps x {len(rounds)} rounds x {K} sweeps), 0 for the others")
-    launched_only(("block_fused",), launches, expected)
+    say(f"[{tag}] launches {nonzero(launches)}, expected {expected} for "
+        f"{kernels_of('block', dt)} (8 blocks x {steps} steps x {len(rounds)} rounds x {K} "
+        "sweeps), 0 for the others")
+    launched_only(kernels_of("block", dt), launches, expected)
     assert all(sw["decoded"] == targets for sw in fig["sweeps"]) and len(fig["sweeps"]) == K
 
-    figures = sweep_figures(fig)
+    figures = sweep_figures(fig, K)
     counts = {"targets": targets}
     for dim in ("2d", "3d"):  # the valid pairs: one detailed score each
         name = f"similarity_metrics_{dim}_ckpt_warm_qm9s_as_detailed_scores.json"
         with open(os.path.join(eval_dir, name)) as f:
             counts[f"valid_{dim}"] = len(json.load(f)["Top-1 Accuracy"])
     shutil.rmtree(eval_dir)
-    say(f"[sweep] figures, the port (f32) on {targets} targets (valid pairs: 2D "
+    say(f"[{tag}] figures, the port ({dt}) on {targets} targets (valid pairs: 2D "
         f"{counts['valid_2d']}, 3D {counts['valid_3d']}) against round 5 (the JAX package, bf16, "
         "10k targets); SE = binomial standard error of round 5's proportion at this run's count:")
     for name, (r5, over) in ROUND5.items():
+        if name not in figures:
+            say(f"[{tag}]   {name}: not measured at K={K} (round 5 {r5:.4f})")
+            continue
         se = "" if over is None else \
             f", SE {math.sqrt(r5 * (1 - r5) / counts[over]):.4f} at n={counts[over]}"
-        say(f"[sweep]   {name}: {figures[name]:.4f} (round 5 {r5:.4f}{se})")
+        say(f"[{tag}]   {name}: {figures[name]:.4f} (round 5 {r5:.4f}{se})")
     for name, (r5, why) in NOT_COMPARABLE.items():
-        say(f"[sweep]   {name}: {figures[name]:.4f} (round 5 {r5:.4f}; not comparable: {why})")
+        say(f"[{tag}]   {name}: {figures[name]:.4f} (round 5 {r5:.4f}; not comparable: {why})")
     for name, value in figures.items():
         if "MACCS" in name or "Fraggle" in name:
             assert math.isnan(value), (name, value)  # RDKit-only
@@ -985,14 +1124,32 @@ def phase_sweep(dev):
             assert math.isfinite(value) and value >= 0, (name, value)
         else:
             assert math.isfinite(value) and 0 <= value <= 1, (name, value)
-    assert figures["Top-10 2D"] >= TOP10_2D_FLOOR, figures["Top-10 2D"]
-    say(f"[sweep] gates held: launches, {targets} of {targets} decoded in each of {K} sweeps, "
-        f"figures in range, Top-10 2D {figures['Top-10 2D']:.4f} >= {TOP10_2D_FLOOR}")
-    print(json.dumps({"sweep": {"figures": figures, "rounds": rounds, "wall_s": wall,
+    gate, floor = ("Top-10 2D", TOP10_2D_FLOOR) if K == 10 else ("Top-1 2D", TOP1_2D_FLOOR)
+    assert figures[gate] >= floor, (gate, figures[gate])
+    say(f"[{tag}] gates held: launches, {targets} of {targets} decoded in each of {K} sweeps, "
+        f"figures in range, {gate} {figures[gate]:.4f} >= {floor}")
+    print(json.dumps({"sweep": {"dtype": dt, "figures": figures, "rounds": rounds, "wall_s": wall,
                                 "sweep_s": [sw["seconds"] for sw in fig["sweeps"]],
                                 "round_s": [sw["round_seconds"] for sw in fig["sweeps"]],
                                 "phase_s": ph}}), flush=True)
-    return launches
+    return launches, figures, counts
+
+
+def compare_sweeps(results):
+    """Each figure of the bf16 and f32 sweeps beside round 5's (bf16 too,
+    so bf16 is the like-for-like comparison), with the binomial standard
+    error of round 5's proportion at each sweep's count."""
+    say("[sweeps] figure: bf16 | f32 | round 5 (the JAX package in bf16, 10k targets); SE at "
+        "this run's count")
+    for name, (r5, over) in ROUND5.items():
+        parts = []
+        for dt, (_, figures, counts) in results.items():
+            if name not in figures:
+                parts.append(f"{dt} not measured at K={SWEEP_K[dt]}")
+                continue
+            se = "" if over is None else f" (SE {math.sqrt(r5 * (1 - r5) / counts[over]):.4f})"
+            parts.append(f"{dt} {figures[name]:.4f}{se}")
+        say(f"[sweeps]   {name}: {' | '.join(parts)} | round 5 {r5:.4f}")
 
 
 def main() -> int:
@@ -1006,6 +1163,8 @@ def main() -> int:
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # the plain versions' and yardsticks' bf16 products sum in f32 throughout
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     name = torch.cuda.get_device_name(0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1030,14 +1189,16 @@ def main() -> int:
 
     data = generate(seed=7, size=REQUESTS, max_n=29, fidelity=4)
     launches, serving = {}, {}
-    for path in PATHS:
-        el, counts = serve_path(path, dev, data)
-        launches.update({k: counts[k] for k in PATH_KERNELS[path]})
+    for dt, path in itertools.product(("f32", "bf16"), PATHS):  # bf16 block last
+        el, counts = serve_path(path, dt, dev, data)
+        launches.update({k: counts[k] for k in kernels_of(path, dt)})
         serving.update({k: serving.get(k, 0) + counts[k] for k in counts})
     serve_more(el, dev, data, generate(seed=9, size=8, max_n=29, fidelity=4))
-    for path, model in models.items():
-        phase_profile(path, model, dev)
-    sweep = phase_sweep(dev)
+    for (path, dt), model in models.items():
+        phase_profile(f"{path} {dt}", model, dev)
+    sweeps = {dt: phase_sweep(dev, dt) for dt in ("bf16", "f32")}
+    compare_sweeps(sweeps)
+    sweep = {k: sum(r[0][k] for r in sweeps.values()) for k in serving}
     for row in rows:
         row["launches"] = launches[row["name"]]
         row["sweep_launches"] = sweep[row["name"]]

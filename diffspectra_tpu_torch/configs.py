@@ -13,13 +13,16 @@ from __future__ import annotations
 from types import SimpleNamespace as NS
 from typing import Optional
 
+import torch
+
 
 def get_config() -> NS:
     """The QM9S allspectra flagship: DMT nf=256, 8 blocks, 16 heads (2 of
     them adjacency heads), N <= 29, 1000 ancestral steps. The port serves
     what the JAX config fixes as pred_edge=True, only_2D=False,
     compress_edge=True, include_fc_charge=True, cond_time=True, dist_gbf=True
-    and gbf_name='CondGaussianLayer', so those are no keys here."""
+    and gbf_name='CondGaussianLayer', so those are no keys here. The DMT
+    runs in bfloat16, as the JAX config's ``training.matmul_precision``."""
     return NS(
         seed=42,
         data=NS(
@@ -60,6 +63,9 @@ def get_config() -> NS:
         ),
         # 'ancestral', 'dpm_solver' (DPM-Solver++(2M)) or 'dpm_solver_sde'
         sampling=NS(steps=1000, method="ancestral"),
+        # the DMT's working dtype, as the JAX config's: 'bfloat16' (its
+        # production default) or 'float32' (MATMUL_PRECISIONS)
+        training=NS(matmul_precision="bfloat16"),
         eval=NS(
             bucket_sizes=(17, 21, 25, 29),
             # the sweep: num_samples test targets in rounds of batch_size
@@ -75,8 +81,8 @@ def get_config() -> NS:
 
 def get_smoke_config() -> NS:
     """The small test model of ``configs/smoke.py``: IR only, N <= 16,
-    nf=64, 4 blocks, 8 heads, 50 steps, no buckets; a sweep of 8 targets in
-    rounds of 8 over 256 synthetic molecules."""
+    nf=64, 4 blocks, 8 heads, 50 steps, float32, no buckets; a sweep of 8
+    targets in rounds of 8 over 256 synthetic molecules."""
     config = get_config()
     config.data.spectra_version = "ir"
     config.data.max_node = 16
@@ -84,11 +90,25 @@ def get_smoke_config() -> NS:
     config.model.n_layers = 4
     config.model.n_heads = 8
     config.sampling.steps = 50
+    config.training.matmul_precision = "float32"
     config.data.synthetic_size = 256
     config.eval.bucket_sizes = ()
     config.eval.num_samples = 8
     config.eval.batch_size = 8
     return config
+
+
+MATMUL_PRECISIONS = ("bfloat16", "float32")
+
+
+def model_dtype(config: NS) -> torch.dtype:
+    """The DMT's working dtype, from ``training.matmul_precision``; any other
+    value than those of MATMUL_PRECISIONS raises."""
+    precision = config.training.matmul_precision
+    if precision not in MATMUL_PRECISIONS:
+        raise ValueError(f"training.matmul_precision is {precision!r}; takes one of "
+                         f"{MATMUL_PRECISIONS}")
+    return torch.bfloat16 if precision == "bfloat16" else torch.float32
 
 
 def apply_overrides(config: NS, overrides: Optional[dict]) -> NS:

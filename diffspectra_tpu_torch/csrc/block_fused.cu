@@ -68,6 +68,11 @@
 // as on the TPU. The products are f32 on the CUDA cores: a 3xTF32 version
 // (mma.sync, three products on the TF32 halves) held the 1e-4 tolerance on
 // the H100 but was no faster (PERF.md), so it is not used.
+//
+// q, k and v are float32 or bfloat16 (the JAX DMT in bfloat16 passes them
+// so): attn_stage<T> reads them as T where it loads them, and computes in
+// float32 from their values, as the Pallas kernel does. Every other operand
+// is float32.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -95,12 +100,14 @@ constexpr float kMaskInf = -1e30f;  // padding and the diagonal
 constexpr float kNegAdj = -1e10f;   // an adjacency head's zero entry
 
 constexpr int kBufs = 48;  // pointers a call takes, in Args order
-constexpr int kDims = 12;  // ints a call takes, in dstt_block_fused order
+constexpr int kDims = 13;  // ints a call takes, in dstt_block_fused order
 constexpr int kPlan = 13;  // launch-plan ints, in Plan order
 
 struct Args {
   // per-molecule data
-  const float *h, *q, *k, *v, *edge_in, *d2, *normed, *adj, *emask, *nmask;
+  const float* h;
+  const void *q, *k, *v;  // float or bf16: attn_stage's template type
+  const float *edge_in, *d2, *normed, *adj, *emask, *nmask;
   const float *nmods, *emods, *eqss, *gbfss;
   // weights
   const float *means, *stds, *emb_kd, *emb_ke, *emb_b, *w0a, *w1a, *n2e_k, *n2e_b;
@@ -467,6 +474,11 @@ __device__ __forceinline__ void node_tile(const Args& a, int* r0, int* r1, int* 
 
 // ---- stage A: edge embedding and mixed attention ------------------------
 
+// A value of q, k or v as a float: float, or bf16 (its 16 raw bits).
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(uint16_t x) { return __uint_as_float(uint32_t(x) << 16); }
+
+template <class T>
 __global__ void __launch_bounds__(kThreads, 2) attn_stage(Args a) {
   extern __shared__ __align__(16) float smem[];
   const PairTile t = pair_tile(a);
@@ -493,14 +505,14 @@ __global__ void __launch_bounds__(kThreads, 2) attn_stage(Args a) {
   __syncthreads();
 
   // q_i k_j tanh(e_mod @ W0a), the learned heads' products
-  const float* q = a.q + (size_t)t.row0 * ec;
-  const float* kb = a.k + (size_t)t.b * n * ec;
+  const T* q = static_cast<const T*>(a.q) + (size_t)t.row0 * ec;
+  const T* kb = static_cast<const T*>(a.k) + (size_t)t.b * n * ec;
   const Product gate0{emod_s, a.w0a, nullptr, nullptr, lde, t.pairs, de, ec};
   gemm<PairWide>(
       gate0, ring,
       [&](int p, int c) {
         const int r = p / n;
-        return q[r * ec + c] * kb[(p - r * n) * ec + c];
+        return to_float(q[r * ec + c]) * to_float(kb[(p - r * n) * ec + c]);
       },
       [&](int p, int c, float v, float qk) { u_s[p * lpr + c] = qk * tanhf(v); });
   __syncthreads();
@@ -542,11 +554,13 @@ __global__ void __launch_bounds__(kThreads, 2) attn_stage(Args a) {
   __syncthreads();
 
   // messages alpha_ij v_j tanh(e_mod @ W1a), then their sum over j
-  const float* vb = a.v + (size_t)t.b * n * hc;
+  const T* vb = static_cast<const T*>(a.v) + (size_t)t.b * n * hc;
   const Product gate1{emod_s, a.w1a, nullptr, nullptr, lde, t.pairs, de, hc};
   gemm<PairWide>(
       gate1, ring,
-      [&](int p, int c) { return alpha_s[p * heads + c / a.out_ch] * vb[(p % n) * hc + c]; },
+      [&](int p, int c) {
+        return alpha_s[p * heads + c / a.out_ch] * to_float(vb[(p % n) * hc + c]);
+      },
       [&](int p, int c, float v, float av) { u_s[p * lpr + c] = av * tanhf(v); });
   __syncthreads();
   for (int idx = threadIdx.x; idx < t.rows * hc; idx += kThreads) {
@@ -779,7 +793,8 @@ cudaError_t prepare_device() {
   if (err != cudaSuccess) return err;
   if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
   std::call_once(once[dev], [dev] {
-    const void* kernels[] = {(const void*)attn_stage, (const void*)node_in_stage,
+    const void* kernels[] = {(const void*)attn_stage<float>, (const void*)attn_stage<uint16_t>,
+                             (const void*)node_in_stage,
                              (const void*)node_out_stage, (const void*)node_proj_stage,
                              (const void*)pair_stage};
     cudaError_t e = cudaSuccess;
@@ -807,7 +822,7 @@ cudaError_t launch(const void* kernel, int grid, int smem, Args& a, cudaStream_t
 
 // bufs: kBufs device pointers in Args order (inputs, outputs, scratch);
 // dims: batch, n, dh, de, n_sub, sub_c, heads, out_ch, n_extra, rn, re,
-// set_inf; plan: the wrapper's launch plan (rows a tile, tiles a molecule,
+// set_inf, and 1 where q, k and v are bf16 (0: float); plan: the wrapper's launch plan (rows a tile, tiles a molecule,
 // node tiles, then blocks and shared-memory bytes of launches A, N1, N2,
 // N3, B), which must equal this file's. Launches A, N1, N2, N3, B on
 // `stream`; the caller checked shapes, types and contiguity. Returns the
@@ -843,11 +858,12 @@ extern "C" int dstt_block_fused(void* const* bufs, int n_bufs, const int* dims, 
   a.rn = dims[9];
   a.re = dims[10];
   a.set_inf = dims[11];
+  const int qkv_bf16 = dims[12];
   a.eps = eps;
   a.sqrt_c = sqrtf((float)a.out_ch);
   if (batch < 1 || a.n < 1 || a.n > kMaxN || a.n_extra < 0 || 1 + a.n_extra > kMaxGate ||
       a.dh % 32 != 0 || a.dh < 32 || a.dh > 1024 || a.heads * a.out_ch != a.dh || a.de < 2 ||
-      n_sub < 1 || a.sub_c < 1 || a.rn < 1 || a.re < 1) {
+      n_sub < 1 || a.sub_c < 1 || a.rn < 1 || a.re < 1 || (qkv_bf16 != 0 && qkv_bf16 != 1)) {
     return (int)cudaErrorInvalidValue;
   }
   const Plan p = make_plan(batch, a.n, a.dh, a.de, a.ec, a.dh, a.heads, a.rn, a.re);
@@ -868,7 +884,8 @@ extern "C" int dstt_block_fused(void* const* bufs, int n_bufs, const int* dims, 
   const struct {
     const void* kernel;
     int grid, smem;
-  } launches[] = {{(const void*)attn_stage, p.grid_a, p.smem_a},
+  } launches[] = {{qkv_bf16 ? (const void*)attn_stage<uint16_t> : (const void*)attn_stage<float>,
+                   p.grid_a, p.smem_a},
                   {(const void*)node_in_stage, p.grid_n1, p.smem_n1},
                   {(const void*)node_out_stage, p.grid_n2, p.smem_n2},
                   {(const void*)node_proj_stage, p.grid_n3, p.smem_n3},

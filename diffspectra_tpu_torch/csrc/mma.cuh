@@ -1,6 +1,7 @@
-// Warp-wide tensor-core instructions (sm_80 and later), for probe_tiles.cu's
-// bf16 product: ldmatrix from shared memory into mma fragments, and the
-// m16n8k16 bf16 product with f32 sums. Layouts are the PTX ISA's; with
+// Warp-wide tensor-core instructions (sm_80 and later), for the bf16
+// products of probe_tiles.cu and of the row-tile kernels (row_tile.cuh):
+// ldmatrix from shared memory into mma fragments, and the m16n8k16 bf16
+// product with f32 sums. Layouts are the PTX ISA's; with
 // g = lane / 4, t = lane % 4 and each 32-bit register two bf16, the lower
 // index in the low half:
 //   A (m16 x k16, row-major): a0 (g, 2t..2t+1), a1 (g + 8, 2t..), a2 (g, 2t + 8..),

@@ -36,6 +36,7 @@
 #include <mutex>
 
 #include "async_copy.cuh"
+#include "mma.cuh"
 
 namespace dstt {
 namespace rows {
@@ -351,6 +352,116 @@ __device__ __forceinline__ void tile_product(float (&acc)[8][8], const float* at
   }
   cp_async_wait<0>();
   __syncthreads();
+}
+
+// ---- bf16 operands on the tensor cores --------------------------------
+//
+// With bf16 operands a tile product runs on the tensor cores (mma.cuh,
+// m16n8k16, f32 sums; a bf16 x bf16 product is exact in f32). The left
+// operand is the tile's [TR, K] rows in shared memory, row-major (bf16,
+// row stride lda = ld16(K)), the weight a whole [K, kCols] bf16 tile
+// (row stride kMmaLd, zero columns past M), both read by ldmatrix. The
+// warps split the [TR, kCols] output (TR / 16) x 2: warp w owns rows
+// 16 (w / 2) .. + 15 and columns 128 (w % 2) .. + 127, 16 n8 tiles, and
+// lane l (g = l / 4, t = l % 4) of n8 tile nt holds, in acc[nt], rows
+// g and g + 8 at columns 8 nt + 2 t and + 1 (mma.cuh's C layout).
+
+constexpr int kMmaLd = kCols + 8;  // bf16s a row of a weight tile: 528 bytes, 4 banks on
+
+// Row stride of a bf16 tile of `width` values: 16-byte rows plus 8 values,
+// so that the 8 rows an ldmatrix reads fall in 8 other groups of banks.
+__host__ __device__ inline int ld16(int width) { return ((width + 7) & ~7) + 8; }
+
+__device__ __forceinline__ float bf16_to_float(uint16_t x) {
+  return __uint_as_float(uint32_t(x) << 16);
+}
+// Two adjacent bf16 (4-byte aligned) as floats.
+__device__ __forceinline__ float2 bf16x2_to_float2(const uint16_t* p) {
+  const uint32_t u = *reinterpret_cast<const uint32_t*>(p);
+  return make_float2(__uint_as_float(u << 16), __uint_as_float(u & 0xffff0000u));
+}
+
+// The thread's fragment row h (0: g, 1: g + 8) and the first of its two
+// columns in n8 tile nt, in the tile.
+__device__ __forceinline__ int frag_row(int h) {
+  return 16 * (threadIdx.x >> 6) + ((threadIdx.x >> 2) & 7) + 8 * h;
+}
+__device__ __forceinline__ int frag_col(int nt) {
+  return 128 * ((threadIdx.x >> 5) & 1) + 8 * nt + 2 * (threadIdx.x & 3);
+}
+
+// rows x width bf16 from src (stride src_ld) to dst (stride ld) by
+// cp.async: 16-byte copies where both sides allow them, else 4-byte ones
+// (width, strides and pointers even); by kThreads threads; the caller
+// commits and waits.
+template <int kThreads>
+__device__ inline void copy_bf16_rows_async(uint16_t* dst, int ld, const uint16_t* src, int src_ld,
+                                            int rows, int width) {
+  const int step = width % 8 == 0 && src_ld % 8 == 0 && ld % 8 == 0 &&
+                           ((reinterpret_cast<uintptr_t>(src) | reinterpret_cast<uintptr_t>(dst)) &
+                            15) == 0
+                       ? 8
+                       : 2;
+  const int per_row = width / step;
+  for (int idx = threadIdx.x; idx < rows * per_row; idx += kThreads) {
+    const int r = idx / per_row;
+    const int c = step * (idx - r * per_row);
+    if (step == 8) {
+      cp_async16(dst + r * ld + c, src + (size_t)r * src_ld + c, 16);
+    } else {
+      cp_async4(dst + r * ld + c, src + (size_t)r * src_ld + c, 4);
+    }
+  }
+}
+
+// The weight W [K, M] (bf16, row stride M, M even and at most kCols) into
+// dst [K, kMmaLd] by cp.async, columns M .. kCols - 1 as zeros (a tile of
+// E*sc = 252 columns gets 4 zero columns: the products of the last n8 tile
+// are 0 there and never read); by kThreads threads; the caller commits.
+template <int kThreads>
+__device__ inline void load_weight_bf16(uint16_t* dst, const uint16_t* W, int K, int M) {
+  if (M % 8 == 0 && (reinterpret_cast<uintptr_t>(W) & 15) == 0) {
+    for (int idx = threadIdx.x; idx < K * (kCols / 8); idx += kThreads) {
+      const int k = idx / (kCols / 8);
+      const int c = 8 * (idx - k * (kCols / 8));
+      const bool in = c < M;
+      cp_async16(dst + k * kMmaLd + c, in ? W + (size_t)k * M + c : W, in ? 16 : 0);
+    }
+  } else {
+    for (int idx = threadIdx.x; idx < K * (kCols / 2); idx += kThreads) {
+      const int k = idx / (kCols / 2);
+      const int c = 2 * (idx - k * (kCols / 2));
+      const bool in = c < M;
+      cp_async4(dst + k * kMmaLd + c, in ? W + (size_t)k * M + c : W, in ? 4 : 0);
+    }
+  }
+}
+
+// acc[nt] += A[warp's rows, k0 : k0 + K] @ W[0 : K, warp's columns] on the
+// tensor cores: A [TR, lda] bf16 rows in shared memory (16-byte aligned,
+// lda a multiple of 8), W [K, kMmaLd] bf16 in shared memory, K a multiple
+// of 16. A warp whose rows all lie at or past `rows` skips it (the whole
+// warp together: ldmatrix and mma are warp-wide). No barrier.
+__device__ __forceinline__ void mma_product(float (&acc)[16][4], const uint16_t* A, int lda, int k0,
+                                            int K, const uint16_t* W, int rows) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int r0 = 16 * (warp >> 1), c0 = 128 * (warp & 1);
+  if (r0 >= rows) return;
+  // ldmatrix rows: A's 16 x 16 (row lane % 16, k 8 (lane / 16)); W's 16 x 16
+  // of n8 tiles 2p, 2p + 1 (k lane % 16, column 8 (lane / 16))
+  const uint16_t* pa = A + (r0 + (lane & 15)) * lda + k0 + 8 * (lane >> 4);
+  const uint16_t* pb = W + (lane & 15) * kMmaLd + c0 + 8 * (lane >> 4);
+  for (int k = 0; k < K; k += 16) {
+    uint32_t af[4];
+    ldmatrix_x4(af, pa + k);
+#pragma unroll
+    for (int p = 0; p < 8; ++p) {
+      uint32_t bf[4];
+      ldmatrix_x4_trans(bf, pb + k * kMmaLd + 16 * p);
+      mma_bf16_16816(acc[2 * p], af, bf[0], bf[1]);
+      mma_bf16_16816(acc[2 * p + 1], af, bf[2], bf[3]);
+    }
+  }
 }
 
 }  // namespace rows

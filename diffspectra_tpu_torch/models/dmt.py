@@ -7,6 +7,16 @@ attention through the ``mix_attention`` kernel and its coordinate update
 through the ``equi_update`` kernel, or, with ``pallas_ops=('block',)``, its
 whole pair-grid chain through the ``block_fused`` kernel (plain versions
 for CPU tensors). Both paths read the same parameters.
+
+``dtype`` is the JAX DMT's ``dtype`` (``training.matmul_precision``): in
+bfloat16 each module casts where the JAX module casts. A block rounds to
+bfloat16 where XLA, compiling the JAX block scan, rounds: a bfloat16 op
+whose only readers cast it to float32 stays unrounded
+(``Dense.forward_f32``, the edge embedding's bias add ahead of its
+LayerNorm, ``1 + scale`` of a float32 modulation). The input embeddings
+round each op, as flax applied op by op does. Positions, the distance
+features, SpecFormer, the skip-concat heads and the kernels' sums stay
+float32.
 """
 
 from __future__ import annotations
@@ -15,6 +25,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .. import configs
 from ..ops.block_fused import block_fused
 from ..ops.equi_update import equi_update
 from ..utils import masks as M
@@ -24,10 +35,13 @@ from .layers import (
     Dense,
     DenseTransMixLayer,
     LearnedSinusoidalPosEmb,
+    cast_param,
     empty_param,
     gelu,
+    keep_casts,
     layer_norm,
     modulate,
+    silu,
 )
 from .specformer import SpecFormer
 
@@ -36,37 +50,48 @@ class MultiCondEquiUpdate(nn.Module):
     """Equivariant coordinate update with time conditioning. The node-level
     projections, the (shift, scale) time modulation and the CoorsNorm'd
     coordinate differences run here; the pair-grid chain is the
-    ``equi_update`` kernel."""
+    ``equi_update`` kernel, whose node, edge and distance operands and gate
+    weights are in ``dtype``."""
 
     def __init__(self, hidden_dim: int, edge_dim: int, dist_dim: int, time_dim: int,
-                 extra_heads: int):
+                 extra_heads: int, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.hidden_dim, self.edge_dim = hidden_dim, edge_dim
+        self.hidden_dim, self.edge_dim, self.dtype = hidden_dim, edge_dim, dtype
         self.coord_norm = CoorsNorm()
         self.input_lin_kernel = empty_param(2 * hidden_dim + edge_dim + dist_dim, hidden_dim)
         self.input_lin_bias = empty_param(hidden_dim)
-        self.time_mlp = Dense(time_dim, 2 * hidden_dim)
+        self.time_mlp = Dense(time_dim, 2 * hidden_dim, dtype=dtype)
         self.coord_mlp_0 = Dense(hidden_dim, hidden_dim)
         self.coord_mlp_1 = Dense(hidden_dim, 1 + extra_heads, use_bias=False)
+        keep_casts(self, "input_lin_kernel", "input_lin_bias")
 
     def forward(self, h, pos, edge_attr, dist, time_emb, adj_extra, edge_mask):
-        eq = self.export_for_block(pos, time_emb)
+        eq = self.export_for_block(pos, time_emb, rounded_time=True)
+        D, De, dt = self.hidden_dim, self.edge_dim, self.dtype
+        w, h = cast_param(self, "input_lin_kernel"), h.to(dt)
         agg = equi_update(
-            h @ eq["w_hi"], h @ eq["w_hj"], edge_attr, dist, eq["normed_diff"], adj_extra,
-            edge_mask, eq["w_e"], eq["w_d"], eq["bias"], eq["shift"], eq["scale"],
-            eq["k0"], eq["b0"], eq["k1"],
+            h @ w[:D], h @ w[D : 2 * D], edge_attr.to(dt), dist.to(dt), eq["normed_diff"],
+            adj_extra, edge_mask, w[2 * D : 2 * D + De], w[2 * D + De :],
+            cast_param(self, "input_lin_bias"), eq["shift"], eq["scale"], eq["k0"], eq["b0"],
+            eq["k1"],
         )
         return pos + agg
 
-    def export_for_block(self, pos, time_emb) -> dict:
+    def export_for_block(self, pos, time_emb, rounded_time: bool = False) -> dict:
         """The node-level part of the update: the CoorsNorm'd coordinate
-        differences, the time modulation and the weights, with
+        differences, the time modulation and the raw float32 weights, with
         concat([h_i, h_j, e_ij, d_ij]) @ W split by rows (the node parts
-        become per-node products broadcast over the pair grid)."""
+        become per-node products broadcast over the pair grid). The time
+        modulation comes from a time MLP in ``dtype``, in float32: rounded
+        to ``dtype`` first with ``rounded_time`` (the per-op path, where a
+        split reads the MLP's output), else not (the whole-block path, where
+        only a cast to float32 does)."""
         D, De = self.hidden_dim, self.edge_dim
         w = self.input_lin_kernel
+        t = silu(time_emb.to(self.dtype))
+        ss = self.time_mlp(t).float() if rounded_time else self.time_mlp.forward_f32(t)
         # chunk order is (shift, scale) here
-        shift, scale = self.time_mlp(F.silu(time_emb)).chunk(2, dim=-1)
+        shift, scale = ss.chunk(2, dim=-1)
         return {
             "normed_diff": self.coord_norm(pos[:, :, None, :] - pos[:, None, :, :]),
             "w_hi": w[:D], "w_hj": w[D : 2 * D], "w_e": w[2 * D : 2 * D + De],
@@ -83,26 +108,27 @@ class EquivariantMixBlock(nn.Module):
 
     def __init__(self, node_dim: int, edge_dim: int, time_dim: int, num_extra_heads: int,
                  num_heads: int, softmax_inf: bool = True, mlp_ratio: int = 2,
-                 block_kernel: bool = False):
+                 block_kernel: bool = False, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.num_heads, self.num_extra_heads = num_heads, num_extra_heads
-        self.softmax_inf, self.block_kernel = softmax_inf, block_kernel
+        self.softmax_inf, self.block_kernel, self.dtype = softmax_inf, block_kernel, dtype
         self.dist_layer = CondGaussianLayer(edge_dim, time_dim)
-        self.edge_emb = Dense(2 * edge_dim, edge_dim)
-        self.node_time_mlp = Dense(time_dim, 6 * node_dim)
-        self.edge_time_mlp = Dense(time_dim, 6 * edge_dim)
+        self.edge_emb = Dense(2 * edge_dim, edge_dim, dtype=dtype)
+        self.node_time_mlp = Dense(time_dim, 6 * node_dim, dtype=dtype)
+        self.edge_time_mlp = Dense(time_dim, 6 * edge_dim, dtype=dtype)
         self.attn_mpnn = DenseTransMixLayer(
             node_dim, node_dim // num_heads, edge_dim, extra_heads=num_extra_heads,
-            heads=num_heads, set_inf=softmax_inf,
+            heads=num_heads, set_inf=softmax_inf, dtype=dtype,
         )
         self.node2edge_kernel = empty_param(node_dim, edge_dim)
         self.node2edge_bias = empty_param(edge_dim)
-        self.ff_linear1 = Dense(node_dim, node_dim * mlp_ratio)
-        self.ff_linear2 = Dense(node_dim * mlp_ratio, node_dim)
-        self.ff_linear3 = Dense(edge_dim, edge_dim * mlp_ratio)
-        self.ff_linear4 = Dense(edge_dim * mlp_ratio, edge_dim)
+        keep_casts(self, "node2edge_kernel")
+        self.ff_linear1 = Dense(node_dim, node_dim * mlp_ratio, dtype=dtype)
+        self.ff_linear2 = Dense(node_dim * mlp_ratio, node_dim, dtype=dtype)
+        self.ff_linear3 = Dense(edge_dim, edge_dim * mlp_ratio, dtype=dtype)
+        self.ff_linear4 = Dense(edge_dim * mlp_ratio, edge_dim, dtype=dtype)
         self.equi_update = MultiCondEquiUpdate(
-            node_dim, edge_dim, edge_dim, time_dim, num_extra_heads
+            node_dim, edge_dim, edge_dim, time_dim, num_extra_heads, dtype=dtype
         )
 
     def forward(self, pos, h, edge_attr, node_mask, edge_mask, extra_heads, time_emb):
@@ -111,33 +137,40 @@ class EquivariantMixBlock(nn.Module):
         if self.block_kernel and extra_heads.shape[-1] == self.num_extra_heads:
             return self._fused_block(pos, h, edge_attr, node_mask, edge_mask, extra_heads,
                                      time_emb)
+        dt = self.dtype
         h_in_node, h_in_edge = h, edge_attr
         distance = self.dist_layer(M.coord2dist_dense(pos), time_emb)
-        k_emb = self.edge_emb.kernel
+        k_emb = cast_param(self.edge_emb, "kernel")
         dist_dim = distance.shape[-1]
-        edge_attr = distance @ k_emb[:dist_dim] + edge_attr @ k_emb[dist_dim:] + self.edge_emb.bias
+        # the bias add is read by the LayerNorm's float32 statistics alone
+        edge_attr = ((distance.to(dt) @ k_emb[:dist_dim] + edge_attr.to(dt) @ k_emb[dist_dim:])
+                     .float() + cast_param(self.edge_emb, "bias").float())
 
-        # chunk order: (shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp, gate_mlp)
-        n_mods = [m[:, None, :] for m in self.node_time_mlp(F.silu(time_emb)).chunk(6, dim=-1)]
-        e_mods = [m[:, None, None, :] for m in self.edge_time_mlp(F.silu(time_emb)).chunk(6, dim=-1)]
+        # chunk order: (shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp, gate_mlp);
+        # in dtype, so that the LayerNorm and modulation of a bfloat16
+        # edge_attr run in bfloat16
+        t = silu(time_emb.to(dt))
+        n_mods = [m[:, None, :] for m in self.node_time_mlp(t).chunk(6, dim=-1)]
+        e_mods = [m[:, None, None, :] for m in self.edge_time_mlp(t).chunk(6, dim=-1)]
         n_shift_msa, n_scale_msa, n_gate_msa, n_shift_mlp, n_scale_mlp, n_gate_mlp = n_mods
         e_shift_msa, e_scale_msa, e_gate_msa, e_shift_mlp, e_scale_mlp, e_gate_mlp = e_mods
         h = modulate(layer_norm(h), n_shift_msa, n_scale_msa)
-        edge_attr = modulate(layer_norm(edge_attr), e_shift_msa, e_scale_msa)
+        edge_attr = modulate(layer_norm(edge_attr, dtype=dt), e_shift_msa, e_scale_msa)
 
         h_node = self.attn_mpnn(h, edge_attr, extra_heads, edge_mask)
 
         # Dense(h_i + h_j) is linear: project per node, broadcast-add
-        proj = h_node @ self.node2edge_kernel
+        proj = (h_node.to(dt) @ cast_param(self, "node2edge_kernel")).float()
         h_edge = proj[:, :, None, :] + proj[:, None, :, :] + self.node2edge_bias
 
         h_node = h_in_node + n_gate_msa * h_node
         h_node = modulate(layer_norm(h_node), n_shift_mlp, n_scale_mlp) * node_mask
-        ff_node = self.ff_linear2(F.silu(self.ff_linear1(h_node)))
+        ff_node = self.ff_linear2.forward_f32(silu(self.ff_linear1(h_node)))
         h_out = (h_node + n_gate_mlp * ff_node) * node_mask
         h_edge = h_in_edge + e_gate_msa * h_edge
         h_edge = modulate(layer_norm(h_edge), e_shift_mlp, e_scale_mlp)
-        h_edge_out = h_edge + e_gate_mlp * self.ff_linear4(F.silu(self.ff_linear3(h_edge)))
+        ff_edge = self.ff_linear4.forward_f32(silu(self.ff_linear3(h_edge)))
+        h_edge_out = h_edge + e_gate_mlp * ff_edge
 
         pos = self.equi_update(h_out, pos, h_edge_out, distance, time_emb, extra_heads, edge_mask)
         return h_out, h_edge_out, pos
@@ -145,11 +178,13 @@ class EquivariantMixBlock(nn.Module):
     def _fused_block(self, pos, h, edge_attr, node_mask, edge_mask, extra_heads, time_emb):
         """The node-level preprocessing (adaLN vectors, q/k/v, time MLPs, d2,
         CoorsNorm) here, the whole pair-grid chain in one ``block_fused``
-        call, from the same parameters as the unfused path."""
+        call, from the same parameters as the unfused path. The time MLPs
+        and q/k/v run in ``dtype``; the kernel takes q/k/v in ``dtype``,
+        everything else in float32, the weights raw."""
         means, stds, g_scale, g_shift = self.dist_layer.export_params(time_emb)
-        t = F.silu(time_emb)
-        node_mods = self.node_time_mlp(t).chunk(6, dim=-1)
-        edge_mods = self.edge_time_mlp(t).chunk(6, dim=-1)
+        t = silu(time_emb.to(self.dtype))
+        node_mods = self.node_time_mlp.forward_f32(t).chunk(6, dim=-1)
+        edge_mods = self.edge_time_mlp.forward_f32(t).chunk(6, dim=-1)
         n_shift_msa, n_scale_msa, n_gate_msa, n_shift_mlp, n_scale_mlp, n_gate_mlp = node_mods
         hm = modulate(layer_norm(h), n_shift_msa[:, None, :], n_scale_msa[:, None, :])
         q, k, v, w0a, w1a = self.attn_mpnn.export_for_block(hm)
@@ -181,11 +216,11 @@ class Block(nn.Module):
     skip-concat projections."""
 
     def __init__(self, node_dim, edge_dim, time_dim, num_extra_heads, num_heads,
-                 softmax_inf, mlp_ratio, cat_node_dim, cat_edge_dim, block_kernel):
+                 softmax_inf, mlp_ratio, cat_node_dim, cat_edge_dim, block_kernel, dtype):
         super().__init__()
         self.e_block = EquivariantMixBlock(
             node_dim, edge_dim, time_dim, num_extra_heads, num_heads, softmax_inf, mlp_ratio,
-            block_kernel,
+            block_kernel, dtype,
         )
         self.node_proj = Dense(node_dim, cat_node_dim)
         self.edge_proj = Dense(edge_dim, cat_edge_dim)
@@ -203,8 +238,10 @@ class DMT(nn.Module):
                  edge_quan_th: float = 0.0, CoM: bool = True, mlp_ratio: int = 2,
                  spatial_cut_off: float = 2.0, softmax_inf: bool = True,
                  pred_data: bool = True, spectra_version: str = "ir",
-                 patch_len=(20, 50, 50), stride=(10, 25, 25), block_kernel: bool = False):
+                 patch_len=(20, 50, 50), stride=(10, 25, 25), block_kernel: bool = False,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.edge_quan_th, self.CoM, self.pred_data = edge_quan_th, CoM, pred_data
         self.spatial_cut_off = spatial_cut_off
         De = hidden_dim // 4
@@ -216,13 +253,13 @@ class DMT(nn.Module):
         self.cond_encoder = SpecFormer(spectra_version, patch_len, stride, output_dim=hidden_dim)
         self.cond_lin = Dense(hidden_dim, time_dim)
         self.dist_layer = CondGaussianLayer(De, time_dim)
-        self.node_emb = Dense(2 * in_node_dim, hidden_dim)
-        self.edge_emb = Dense(2 * edge_ch + De, De)
+        self.node_emb = Dense(2 * in_node_dim, hidden_dim, dtype=dtype)
+        self.edge_emb = Dense(2 * edge_ch + De, De, dtype=dtype)
         cat_node_dim = hidden_dim * 2 // n_layers
         cat_edge_dim = De * 2 // n_layers
         self.blocks = nn.ModuleList(
             Block(hidden_dim, De, time_dim, n_extra_heads, n_heads, softmax_inf, mlp_ratio,
-                  cat_node_dim, cat_edge_dim, block_kernel)
+                  cat_node_dim, cat_edge_dim, block_kernel, dtype)
             for _ in range(n_layers)
         )
         width = hidden_dim + n_layers * cat_node_dim
@@ -248,7 +285,7 @@ class DMT(nn.Module):
             spatial_cut_off=m.spatial_cut_off, softmax_inf=m.softmax_inf,
             pred_data=m.pred_data, spectra_version=config.data.spectra_version,
             patch_len=tuple(m.patch_len), stride=tuple(m.stride),
-            block_kernel="block" in m.pallas_ops,
+            block_kernel="block" in m.pallas_ops, dtype=configs.model_dtype(config),
         )
 
     def encode_context(self, specs) -> torch.Tensor:
@@ -280,8 +317,8 @@ class DMT(nn.Module):
         else:
             distances = xh.new_zeros((B, N, N, self.edge_hidden_dim))
         extra_adj = torch.cat([cond_adj_2d, cond_adj_spatial], dim=-1)
-        edge_attr = self.edge_emb(torch.cat([edge_x, cond_edge_x, distances], dim=-1))
-        h = h0 = self.node_emb(h)
+        edge_attr = self.edge_emb(torch.cat([edge_x, cond_edge_x, distances], dim=-1)).float()
+        h = h0 = self.node_emb(h).float()
         edge_attr0 = edge_attr
 
         cat_h, cat_e = [], []

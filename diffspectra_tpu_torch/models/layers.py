@@ -20,28 +20,96 @@ def empty_param(*shape):
     return nn.Parameter(torch.empty(*shape))
 
 
-class Dense(nn.Module):
-    """flax ``nn.Dense``: ``x @ kernel + bias`` with ``kernel [in, out]``.
-    Parameters start empty; they are always loaded from a checkpoint."""
+def keep_casts(module: nn.Module, *names: str) -> None:
+    """Hold the named float32 parameters of ``module`` also in
+    ``module.dtype``, as non-persistent buffers that every
+    ``load_state_dict`` makes anew: the parameters change only there, so a
+    forward reads the copy (``cast_param``) instead of casting each call.
+    In float32 there is no copy."""
+    if module.dtype == torch.float32:
+        return
 
-    def __init__(self, in_features: int, features: int, use_bias: bool = True):
+    def cast(mod, _incompatible_keys=None):
+        for name in names:
+            p = getattr(mod, name)
+            setattr(mod, name + "_cast", None if p is None else p.detach().to(mod.dtype))
+
+    for name in names:
+        module.register_buffer(name + "_cast", None, persistent=False)
+    module.register_load_state_dict_post_hook(cast)
+
+
+def cast_param(module: nn.Module, name: str):
+    """``module.<name>`` in ``module.dtype``: the parameter itself in
+    float32, else the copy that ``keep_casts`` made at the last load."""
+    return getattr(module, name if module.dtype == torch.float32 else name + "_cast")
+
+
+class Dense(nn.Module):
+    """flax ``nn.Dense(dtype=dtype)``: ``x @ kernel + bias`` with ``kernel
+    [in, out]``, input and parameters cast to ``dtype``. The product and the
+    bias add are two ops, each rounded to ``dtype`` as flax rounds them
+    (``F.linear`` rounds once, and differs from flax in bfloat16).
+    ``forward_f32`` is the same layer where only a cast to float32 reads its
+    output, as XLA compiles it: the product rounded to ``dtype``, the bias
+    added in float32. These roundings, with ``layer_norm``'s ``dtype`` and
+    ``modulate``'s float32 branch, hold the DMT to JAX's: rounding every op
+    instead, the bfloat16 DMT of ``tests/test_torch_bf16.py`` moves from JAX
+    by 0.51 (narrow, per-op path, no self-conditioning) and 0.57 (full
+    width, edge_pred) of JAX's own bfloat16-against-float32 gap, over the
+    bound of 0.5 (with them: 4e-5 and 0.38); rounding ``forward_f32``'s
+    bias add alone moves the narrow block path from 0.003 to 0.42.
+    Parameters start empty; they are always loaded with
+    ``load_state_dict``, which also makes their copies in ``dtype``."""
+
+    def __init__(self, in_features: int, features: int, use_bias: bool = True,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.kernel = empty_param(in_features, features)
         self.bias = empty_param(features) if use_bias else None
+        keep_casts(self, "kernel", "bias")
 
     def forward(self, x):
-        y = x @ self.kernel
-        return y if self.bias is None else y + self.bias
+        y = x.to(self.dtype) @ cast_param(self, "kernel")
+        return y if self.bias is None else y + cast_param(self, "bias")
+
+    def forward_f32(self, x):
+        y = (x.to(self.dtype) @ cast_param(self, "kernel")).float()
+        return y if self.bias is None else y + cast_param(self, "bias").float()
 
 
-def layer_norm(x, eps: float = 1e-6):
-    """flax ``nn.LayerNorm(use_bias=False, use_scale=False)``, eps 1e-6."""
-    return F.layer_norm(x, x.shape[-1:], eps=eps)
+def layer_norm(x, eps: float = 1e-6, dtype: torch.dtype = None):
+    """flax ``nn.LayerNorm(use_bias=False, use_scale=False)``, eps 1e-6, its
+    output in ``dtype`` (default: x's). A bfloat16 output takes flax's
+    statistics, in float32 (mean and mean of squares), from x as given (a
+    float32 x is a bfloat16 value that XLA left unrounded), and is rounded
+    once."""
+    dtype = x.dtype if dtype is None else dtype
+    if dtype != torch.bfloat16:
+        return F.layer_norm(x, x.shape[-1:], eps=eps)
+    x32 = x.float()
+    mu = x32.mean(dim=-1, keepdim=True)
+    var = ((x32 * x32).mean(dim=-1, keepdim=True) - mu * mu).clamp_min(0.0)
+    return ((x32 - mu) * torch.rsqrt(var + eps)).to(torch.bfloat16)
 
 
 def modulate(x, shift, scale):
-    """adaLN modulation."""
+    """adaLN modulation. A bfloat16 x: each op rounds to bfloat16, as XLA
+    rounds it. A float32 x with bfloat16 shift and scale: ``1 + scale`` in
+    float32, as XLA leaves it unrounded where only float32 math reads it."""
+    if x.dtype == torch.float32:
+        shift, scale = shift.float(), scale.float()
     return x * (1 + scale) + shift
+
+
+def silu(x):
+    """flax ``nn.silu``, ``x * sigmoid(x)``. For a bfloat16 input, XLA's
+    expansion of the sigmoid, ``1 / (1 + exp(-x))``, with each op rounded
+    to bfloat16 as XLA rounds it."""
+    if x.dtype == torch.float32:
+        return F.silu(x)
+    return x * torch.reciprocal(1 + torch.exp(-x))
 
 
 def gelu(x):
@@ -114,20 +182,23 @@ class DenseTransMixLayer(nn.Module):
     and ``extra_heads`` raw adjacency heads; the pair-grid part is the
     ``mix_attention`` kernel. ``x [B, N, D]``, ``edge_attr [B, N, N, De]``,
     ``extra_heads [B, N, N, n]``, ``edge_mask [B, N, N]`` -> ``[B, N, H*C]``.
-    The learned logits are scaled by ``1/sqrt(out_channels)``."""
+    The learned logits are scaled by ``1/sqrt(out_channels)``. In ``dtype``:
+    the q/k/v projections, and the kernel's edge and gate operands."""
 
     def __init__(self, x_channels: int, out_channels: int, edge_dim: int,
-                 extra_heads: int = 2, heads: int = 4, set_inf: bool = False):
+                 extra_heads: int = 2, heads: int = 4, set_inf: bool = False,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.heads, self.extra_heads, self.out_channels = heads, extra_heads, out_channels
-        self.set_inf = set_inf
+        self.set_inf, self.dtype = set_inf, dtype
         n_sub = heads - extra_heads
         self.sub_c = heads * out_channels // n_sub
-        self.lin_query = Dense(x_channels, n_sub * self.sub_c)
-        self.lin_key = Dense(x_channels, n_sub * self.sub_c)
-        self.lin_value = Dense(x_channels, heads * out_channels)
+        self.lin_query = Dense(x_channels, n_sub * self.sub_c, dtype=dtype)
+        self.lin_key = Dense(x_channels, n_sub * self.sub_c, dtype=dtype)
+        self.lin_value = Dense(x_channels, heads * out_channels, dtype=dtype)
         self.lin_edge0_kernel = empty_param(edge_dim, n_sub * self.sub_c)
         self.lin_edge1_kernel = empty_param(edge_dim, heads * out_channels)
+        keep_casts(self, "lin_edge0_kernel", "lin_edge1_kernel")
 
     def forward(self, x, edge_attr, extra_heads, edge_mask):
         n_cur = extra_heads.shape[-1]
@@ -135,15 +206,17 @@ class DenseTransMixLayer(nn.Module):
             extra_heads = extra_heads.repeat_interleave(self.extra_heads // n_cur, dim=-1)
         B, N, _ = x.shape
         n_sub = self.heads - self.extra_heads
-        q, k, v, w0, w1 = self.export_for_block(x)
+        q, k, v = self.lin_query(x), self.lin_key(x), self.lin_value(x)
         return mix_attention(
             q.reshape(B, N, n_sub, self.sub_c), k.reshape(B, N, n_sub, self.sub_c),
-            v.reshape(B, N, self.heads, self.out_channels), edge_attr, w0, w1,
+            v.reshape(B, N, self.heads, self.out_channels), edge_attr.to(self.dtype),
+            cast_param(self, "lin_edge0_kernel"), cast_param(self, "lin_edge1_kernel"),
             extra_heads, edge_mask, set_inf=self.set_inf,
         )
 
     def export_for_block(self, x):
-        """The node-level ``q, k [B, N, E*sc]``, ``v [B, N, H*C]`` and the
-        raw edge-gate kernels, for the whole-block kernel."""
+        """The node-level ``q, k [B, N, E*sc]``, ``v [B, N, H*C]`` (in
+        ``dtype``) and the raw float32 edge-gate kernels, for the whole-block
+        kernel."""
         return (self.lin_query(x), self.lin_key(x), self.lin_value(x),
                 self.lin_edge0_kernel, self.lin_edge1_kernel)

@@ -26,18 +26,21 @@ LIB_NAME = "libdstt_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
-# kernel launches per wrapper, since the process started or reset_launches()
-LAUNCHES = {"mix_attention": 0, "equi_update": 0, "block_fused": 0,
+# kernel launches per wrapper, since the process started or reset_launches();
+# a serving kernel's launches on bfloat16 operands count under its name + "_bf16"
+LAUNCHES = {**{f"{k}{v}": 0 for k in ("mix_attention", "equi_update", "block_fused")
+               for v in ("", "_bf16")},
             **{f"probe_t{i}": 0 for i in range(1, 15)}}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = {
     # pointers, sizes, then the launch plan (ints and their count) and the stream
-    "dstt_mix_attention": [_P] * 9 + [_I] * 9 + [_P, _I, _P],
-    "dstt_equi_update": [_P] * 16 + [_I] * 6 + [_F, _P, _I, _P],
+    # (the last size: 1 for the bfloat16 operands, 0 for float32)
+    "dstt_mix_attention": [_P] * 9 + [_I] * 10 + [_P, _I, _P],
+    "dstt_equi_update": [_P] * 16 + [_I] * 7 + [_F, _P, _I, _P],
     # the blocks an SM the card gives a kernel at these sizes: sizes, out
-    "dstt_mix_attention_occupancy": [_I] * 6 + [_P],
-    "dstt_equi_update_occupancy": [_I] * 5 + [_P],
+    "dstt_mix_attention_occupancy": [_I] * 7 + [_P],
+    "dstt_equi_update_occupancy": [_I] * 6 + [_P],
     "dstt_block_fused": [_P, _I, _P, _I, _P, _I, _F, _P],
     # the Mosaic probes (csrc/probe_tiles.cu):
     # pointers, then sizes, (t5: the launch plan,) then the stream
@@ -101,9 +104,10 @@ def check_rc(name: str, rc: int) -> None:
 
 
 def check_inputs(name: str, tensors: dict, shapes: dict,
-                 dtype: torch.dtype = torch.float32) -> torch.device:
-    """Every tensor of ``dtype``, contiguous, on one device (CPU or CUDA),
-    with the expected shape. Returns that device."""
+                 dtypes=torch.float32) -> torch.device:
+    """Every tensor of its dtype (``dtypes``: one for all, or a dict with
+    one for each), contiguous, on one device (CPU or CUDA), with the
+    expected shape. Returns that device."""
     devices = {t.device for t in tensors.values()}
     if len(devices) != 1:
         raise ValueError(f"{name}: inputs on several devices {sorted(map(str, devices))}")
@@ -111,6 +115,7 @@ def check_inputs(name: str, tensors: dict, shapes: dict,
     if device.type not in ("cpu", "cuda"):
         raise ValueError(f"{name}: tensors on {device}; takes cpu or cuda tensors")
     for key, t in tensors.items():
+        dtype = dtypes[key] if isinstance(dtypes, dict) else dtypes
         if t.dtype != dtype:
             raise TypeError(f"{name}: {key} is {t.dtype}, expected {dtype}")
         if tuple(t.shape) != tuple(shapes[key]):

@@ -33,6 +33,15 @@ def ld(width: int) -> int:
     return (width + 3) // 4 * 4 + 4
 
 
+def ld16(width: int) -> int:
+    """Row stride of a bfloat16 tile, in bfloat16s: 16-byte rows plus 8, so
+    that the 8 rows an ldmatrix reads fall in 8 other groups of banks."""
+    return (width + 7) // 8 * 8 + 8
+
+
+MMA_LD = ld16(COLS)  # a bfloat16 weight tile's row: COLS columns, zeros past M
+
+
 @dataclass(frozen=True)
 class RowTilePlan:
     """One launch: ``grid`` blocks of ``threads``, each a tile of

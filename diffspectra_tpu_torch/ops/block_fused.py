@@ -10,7 +10,10 @@ normed_diff ``[B, N, N, 3]``, adj ``[B, N, N, A=n_extra]``, edge_mask
 shift_mlp, scale_mlp, gate_mlp), edge_mods6 ``[B, 6, De]`` (shift_msa,
 scale_msa, gate_msa, shift_mlp, scale_mlp, gate_mlp), eq_ss ``[B, 2, Dh]``
 (shift, scale), gbf_ss ``[B, 1, 2]`` (scale, shift), then the weights ->
-``(h_out [B, N, Dh], edge_out [B, N, N, De], agg [B, N, 3])``, all float32.
+``(h_out [B, N, Dh], edge_out [B, N, N, De], agg [B, N, 3])``, all float32
+but q, k and v, which are float32 or bfloat16 (the JAX DMT in bfloat16
+passes them so; it passes the weights raw, in float32). Either way the math
+is float32, as the Pallas kernel casts every operand to float32.
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ _WEIGHTS = ("gbf_means", "gbf_stds", "emb_kd", "emb_ke", "emb_b", "w0a", "w1a", 
             "w_hi", "w_hj", "w_e", "w_d", "eq_bias", "eq_k0", "eq_b0", "eq_k1")
 _DATA = ("h", "q", "k", "v", "edge_in", "d2", "normed_diff", "adj", "edge_mask", "node_mask",
          "node_mods4", "edge_mods6", "eq_ss", "gbf_ss")
+DTYPES = (torch.float32, torch.bfloat16)  # of q, k and v
 
 
 # The kernel's tiles (csrc/block_fused.cu keeps the same numbers)
@@ -155,7 +159,9 @@ def block_fused_reference(
     w_hi, w_hj, w_e, w_d, eq_bias, eq_k0, eq_b0, eq_k1,
     *, set_inf: bool = True, n_heads: int, n_extra: int, out_ch: int, eps_ln: float = 1e-6,
 ):
-    """Plain PyTorch version, the same math as the JAX kernel body."""
+    """Plain PyTorch version, the math of the JAX kernel body: float32 from
+    q, k and v of either dtype."""
+    q, k, v = q.float(), k.float(), v.float()
     B, N, _ = h.shape
     n_sub = n_heads - n_extra
     sub_c = n_heads * out_ch // n_sub
@@ -204,6 +210,10 @@ def block_fused(*args, set_inf: bool = True, n_heads: int, n_extra: int, out_ch:
         raise ValueError(f"block_fused: {n_heads} heads with {n_extra} adjacency heads")
     ec, hc = n_sub * (n_heads * out_ch // n_sub), n_heads * out_ch
     rn, re = named["fn1_k"].shape[-1], named["fe1_k"].shape[-1]
+    dt = named["q"].dtype
+    if dt not in DTYPES:
+        raise TypeError(f"block_fused: q is {dt}, takes one of {DTYPES}")
+    dtypes = {key: dt if key in ("q", "k", "v") else torch.float32 for key in named}
     device = _lib.check_inputs("block_fused", named, dict(
         h=(B, N, dh), q=(B, N, ec), k=(B, N, ec), v=(B, N, hc), edge_in=(B, N, N, de),
         d2=(B, N, N, 1), normed_diff=(B, N, N, 3), adj=(B, N, N, n_extra),
@@ -215,7 +225,7 @@ def block_fused(*args, set_inf: bool = True, n_heads: int, n_extra: int, out_ch:
         fe1_b=(re,), fe2_k=(re, de), fe2_b=(de,), w_hi=(dh, dh), w_hj=(dh, dh),
         w_e=(de, dh), w_d=(de, dh), eq_bias=(dh,), eq_k0=(dh, dh), eq_b0=(dh,),
         eq_k1=(dh, 1 + n_extra),
-    ))
+    ), dtypes)
     kw = dict(set_inf=set_inf, n_heads=n_heads, n_extra=n_extra, out_ch=out_ch, eps_ln=eps_ln)
     if device.type == "cpu":
         return block_fused_reference(*args, **kw)
@@ -234,11 +244,12 @@ def block_fused(*args, set_inf: bool = True, n_heads: int, n_extra: int, out_ch:
     scratch = (empty(B, N, hc), empty(B, N, dh), empty(B, N, rn), empty(B, N, de),
                empty(B, N, dh), empty(B, N, dh))
     bufs = (ctypes.c_void_p * (len(args) + 9))(*(t.data_ptr() for t in (*args, *outs, *scratch)))
-    dims = (ctypes.c_int * 12)(B, N, dh, de, n_sub, ec // n_sub, n_heads, out_ch, n_extra,
-                               rn, re, int(set_inf))
+    bf16 = dt == torch.bfloat16
+    dims = (ctypes.c_int * 13)(B, N, dh, de, n_sub, ec // n_sub, n_heads, out_ch, n_extra,
+                               rn, re, int(set_inf), int(bf16))
     ints = (ctypes.c_int * 13)(*plan.ints())
     rc = lib.dstt_block_fused(bufs, len(bufs), dims, len(dims), ints, len(ints), eps_ln,
                               _lib.stream_handle(device))
     _lib.check_rc("block_fused", rc)
-    _lib.LAUNCHES["block_fused"] += 1
+    _lib.LAUNCHES["block_fused_bf16" if bf16 else "block_fused"] += 1
     return outs

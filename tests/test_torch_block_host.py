@@ -15,7 +15,8 @@ barrier, and takes its result by the PTX ISA's fragment layout, with
 ``__nv_bfloat16`` 16 raw bits. Its
 ``dstt_block_fused`` is then called through ``ctypes`` on CPU tensors with
 the wrapper's launch plan and held against ``block_fused_reference`` with
-the chip's tolerance (1e-4; measured about 1e-6).
+the chip's tolerance (1e-4; measured about 1e-6), with q, k and v in float32
+and in bfloat16.
 
 This checks the kernel's tiling, indexing, barriers and copy pipeline, not
 the card's arithmetic or speed; ``chip_smoke.py`` does that on the H100.
@@ -80,6 +81,7 @@ void __syncthreads();
 void __syncwarp(unsigned mask = 0xffffffffu);
 float __shfl_xor_sync(unsigned, float, int);
 template <class T> inline T __ldg(const T* p) { return *p; }
+inline float __uint_as_float(unsigned u) { float f; std::memcpy(&f, &u, 4); return f; }
 using std::max;
 using std::min;
 namespace { alignas(16) float smem[65536]; }
@@ -310,10 +312,15 @@ def host_lib(tmp_path_factory):
                           {"dstt_block_fused": _lib._ARGTYPES["dstt_block_fused"]})
 
 
-def _run(lib, arrays, kw, set_inf, plan_ints=None):
-    """The kernel's call as the wrapper makes it, on CPU tensors; plan_ints
-    maps the plan's ints to the ones passed."""
+def _run(lib, arrays, kw, set_inf, plan_ints=None, bf16=False):
+    """The kernel's call as the wrapper makes it, on CPU tensors (q, k and v
+    in bfloat16 when ``bf16``); plan_ints maps the plan's ints to the ones
+    passed."""
     args = [torch.from_numpy(a) for a in arrays]
+    if bf16:
+        for key in ("q", "k", "v"):
+            i = _DATA.index(key)
+            args[i] = args[i].to(torch.bfloat16)
     named = dict(zip(_DATA + _WEIGHTS, args))
     B, N, dh = named["h"].shape
     de = named["edge_in"].shape[-1]
@@ -328,8 +335,8 @@ def _run(lib, arrays, kw, set_inf, plan_ints=None):
                nan(B, N, dh))
     tensors = (*args, *outs, *scratch)
     bufs = (ctypes.c_void_p * len(tensors))(*(t.data_ptr() for t in tensors))
-    dims = (ctypes.c_int * 12)(B, N, dh, de, n_sub, ec // n_sub, heads, out_ch, n_extra, rn, re,
-                               int(set_inf))
+    dims = (ctypes.c_int * 13)(B, N, dh, de, n_sub, ec // n_sub, heads, out_ch, n_extra, rn, re,
+                               int(set_inf), int(bf16))
     ints = plan.ints() if plan_ints is None else plan_ints(plan.ints())
     ints = (ctypes.c_int * len(ints))(*ints)
     rc = lib.dstt_block_fused(bufs, len(bufs), dims, len(dims), ints, len(ints), 1e-6, None)
@@ -348,6 +355,23 @@ def test_cuda_source_on_the_host_matches_the_plain_version(host_lib, n_nodes, N,
     assert rc == 0
     want = block_fused_reference(*args, set_inf=set_inf, **kw)
     for name, g, w in zip(("h_out", "edge_out", "agg"), got, want):  # padding included
+        assert torch.isfinite(g).all(), name
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=0, atol=1e-4, err_msg=name)
+
+
+@pytest.mark.parametrize("n_nodes,N,dh,heads,n_extra", [
+    ([5, 8, 3], 8, 32, 4, 2),        # ragged, R = 2 rows a tile
+    ([17, 9], 17, 64, 4, 1),         # odd N: a 1-row last tile
+])
+def test_bf16_qkv_source_on_the_host_matches_the_plain_version(host_lib, n_nodes, N, dh, heads,
+                                                               n_extra):
+    """attn_stage reads q, k and v as bfloat16 (as the JAX DMT in bfloat16
+    passes them), against the plain version on the same bfloat16 q, k, v."""
+    arrays, kw = block_case(np.random.default_rng(6), n_nodes, N, dh, heads, n_extra)
+    rc, got, args = _run(host_lib, arrays, kw, True, bf16=True)
+    assert rc == 0 and args[_DATA.index("q")].dtype == torch.bfloat16
+    want = block_fused_reference(*args, set_inf=True, **kw)
+    for name, g, w in zip(("h_out", "edge_out", "agg"), got, want):
         assert torch.isfinite(g).all(), name
         np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=0, atol=1e-4, err_msg=name)
 

@@ -6,7 +6,9 @@
    = 2e-4, as ``tests/test_pallas_dispatch.py`` holds the two JAX paths.
 2. The full-width flagship forward from the EMA weights of
    ``artifacts/warm_qm9s_as.npz`` at B=2, N=12, against the JAX XLA path in
-   float32 at ``highest`` matmul precision. Tolerance: 1e-3 of the largest
+   float32 at ``highest`` matmul precision, the port's DMT in float32 too
+   (``training.matmul_precision='float32'``; the bfloat16 default is held to
+   JAX's bfloat16 DMT in ``tests/test_torch_bf16.py``). Tolerance: 1e-3 of the largest
    |value| of each output, since 8 blocks sum in another order. The same
    for the IR-only state ``artifacts/warm_qm9s_ir.npz``.
 """
@@ -138,7 +140,8 @@ def _warm_forward_matches_jax(path, spectra_version, spec_keys):
         want_pred, want_edge = _jax_forward(model, variables, inp, True)
 
     port = DMT.from_config(configs.apply_overrides(
-        configs.get_config(), {"data.spectra_version": spectra_version}))
+        configs.get_config(), {"data.spectra_version": spectra_version,
+                               "training.matmul_precision": "float32"}))
     load_model_state(port, flat)
     got_pred, got_edge = _torch_forward(port, inp, True)
 
