@@ -1,4 +1,5 @@
-"""Smoke run of the PyTorch port on one NVIDIA GPU (H100): build, check, serve.
+"""Smoke run of the PyTorch port on one NVIDIA GPU (H100): build, check, serve,
+sweep, train.
 
     python3 chip_smoke.py
 
@@ -9,8 +10,9 @@ the phases drive both.
 Phases, each printing its own lines:
   1. the card (name, power limit); TF32 off for matmuls and convolutions,
      and bf16 matmuls' reduced-precision sums off;
-  2. build the CUDA kernels from ``diffspectra_tpu_torch/csrc`` with nvcc
-     (registers and spills of each kernel from ``-Xptxas=-v``);
+  2. build the CUDA kernels from ``diffspectra_tpu_torch/csrc`` with nvcc,
+     one process a source at once (registers and spills of each kernel
+     from ``-Xptxas=-v``);
   3. each kernel (mix_attention, equi_update, block_fused), on f32 operands
      and (its ``_bf16`` row) on the bf16 operands the JAX DMT in bf16 passes
      it, against its plain PyTorch version at the serving shape (B=10
@@ -46,9 +48,10 @@ Phases, each printing its own lines:
      ``drop_k`` control of ``tools/bf16_noise.py``) must read above it;
   5. serve: ``Elucidator.from_warm_state(...).elucidate(...)`` for 3 synthetic
      requests (fidelity-4 spectra) at their true atom counts, 10 candidates,
-     1000 ancestral steps, once per path in f32 (the override) and in bf16
-     (the default); each path's kernels in that dtype must be launched
-     8 blocks x steps x requests times, every other kernel 0. Then on the
+     1000 ancestral steps, once per path in bf16 (the default), and the
+     first of them in f32 (the override); each path's kernels in that dtype
+     must be launched 8 blocks x steps x requests times, every other
+     kernel 0. Then on the
      bf16 block path (100 steps, cut from 1000 to keep the run short): one
      request without its atom count through the count head
      (``artifacts/atom_count_head.npz``), one without it and without the
@@ -73,6 +76,21 @@ Phases, each printing its own lines:
      figure finite and in [0, 1] (MCES >= 0), and Top-10 2D >= 0.85 (about
      7 standard errors under round 5's 0.9664; at K=2, Top-1 2D >= 0.60,
      about 4 under round 5's 0.7490).
+  8. training on the card, the flagship at full width (bf16, dropout 0.1,
+     batch 128, buckets 17, 21, 25, 29) on the sweep's synthetic set,
+     warm-started from ``artifacts/warm_qm9s_as.npz``: (a) one f32 step at
+     dropout 0 on cuda and on the CPU from the same state and draws, the
+     loss within 1e-4 relative and each parameter's gradient within 1e-3
+     of its max |grad|; (b) ``run_lib.train`` for 30 steps, every loss
+     finite, params and EMA moved; (c) its snapshot, 128 draws at 1000
+     steps from the EMA weights, launching each bf16 per-op kernel 8 x
+     steps x rounds times and the steps none (and no port kernel among a
+     profiled step's kernel names), its stability figures finite in
+     [0, 1]; timed steps (the median over the last 20 of 30, graphs/s, peak
+     memory) with ``remat_policy='full'``, then 10 with ``'none'``, and the
+     busy share over two profiled steps; (d) a checkpoint written and
+     restored (every tensor equal), and a warm-state export serving one
+     request through ``Elucidator.from_warm_state`` at 100 steps.
 Then one ``{"kernels": [...]}`` line, the card's ``nvidia-smi`` line, and as
 the last line ``{"ok": true, "device": {...}}``. Any failed check raises and
 the script exits non-zero without that last line; without CUDA it exits 2.
@@ -101,6 +119,9 @@ WARM = os.path.join(ROOT, "artifacts", "warm_qm9s_as.npz")
 HEAD = os.path.join(ROOT, "artifacts", "atom_count_head.npz")
 B, N = 10, 29  # draws per request, padded atoms at the largest bucket
 REQUESTS, CANDIDATES, STEPS = 3, 10, 1000
+# requests served a path by dtype: f32, the override, serves one, to keep the
+# script with phase 8 well inside its time limit (three ran 920.7 s, PERF.md §6)
+SERVED = {"bf16": REQUESTS, "f32": 1}
 SHORT_STEPS, DPM_STEPS = 100, 50  # the count-head, batch and DPM-Solver phases
 MARGINAL_STEPS, MARGINAL_DRAWS = 20, 2  # the marginal over the histogram's counts
 # phase 7, the eval sweep: tools/tpu_eval_10k.py's batch of 128; a synthetic
@@ -144,6 +165,24 @@ ROUND5 = {
 NOT_COMPARABLE = {"Metric-2D unique & valid": (0.7428, "distinct structures of 10k, not 128"),
                   "Metric-2D novelty": (0.4210, "against each set's own train split"),
                   "memorization bound": (0.5564, "against each set's own train split")}
+# phase 8, training: the flagship at full width (bf16, dropout 0.1, batch
+# 128) on the sweep's synthetic set in buckets, warm-started from WARM
+TRAIN = {"seed": 42, "data.synthetic_size": 1280, "data.synthetic_fidelity": 4,
+         "data.bucket_sizes": (17, 21, 25, 29), "training.batch_size": 128,
+         "training.eval_batch_size": 128, "training.eval_samples": 128,
+         "training.log_freq": 1, "sampling.steps": 1000, "training.warm_start": WARM}
+TRAIN_STEPS = 30  # the run of check (b), and the timed run with remat_policy='full'
+TIMED_TAIL = 20  # the steps the median step time is taken over
+NONE_STEPS = 10  # the timed run with remat_policy='none'
+CHECK_BATCH = 4  # check (a): one f32 step on cuda and on the CPU
+CHECK_LOSS_RTOL, CHECK_GRAD_RTOL = 1e-4, 1e-3  # the latter of each parameter's max |grad|
+# SpecFormer's biases whose exact gradient is zero in training mode (a key
+# bias shifts a softmax row; the value, to_out and ff2 biases add constants
+# a train-mode BatchNorm removes): their gradient is rounding noise, held to
+# CHECK_GRAD_RTOL of the model's largest |grad| instead of their own
+NOISE_ONLY_GRADS = ("self_attn.W_K.bias", "self_attn.W_V.bias", "self_attn.to_out.bias",
+                    "ff2.bias")
+SNAPSHOT_SERVE_STEPS = 100  # check (d): one request from the exported warm state
 F32_PEAK = 67e12  # H100 SXM float32 outside the tensor cores, FLOP/s
 BF16_PEAK = 989e12  # H100 SXM bf16 on the tensor cores, dense, FLOP/s
 HBM_RATE = 3.35e12  # H100 SXM device memory, bytes/s
@@ -834,8 +873,8 @@ def launched_only(path_kernels, launches, expected):
 
 
 def serve_path(path, dt, dev, data):
-    """Serve the REQUESTS through one path in one dtype; the counts are this
-    path's."""
+    """Serve SERVED[dt] of the REQUESTS through one path in one dtype; the
+    counts are this path's."""
     from diffspectra_tpu_torch.api import Elucidator
     from diffspectra_tpu_torch.data.info import get_dataset_info
     from diffspectra_tpu_torch.evaluation.molgraph import MolGraph
@@ -850,12 +889,12 @@ def serve_path(path, dt, dev, data):
     say(f"[{tag}] loaded {WARM} in {time.perf_counter() - t0:.2f} s; "
         f"pallas_ops={el.config.model.pallas_ops}, matmul_precision="
         f"{el.config.training.matmul_precision} (DMT {el.model.dtype}), "
-        f"steps={el.config.sampling.steps}, candidates={CANDIDATES}, requests={REQUESTS}")
+        f"steps={el.config.sampling.steps}, candidates={CANDIDATES}, requests={SERVED[dt]}")
     assert el.config.training.matmul_precision == DTYPES[dt]
     decoder = get_dataset_info("qm9_second_half")["atom_decoder"]
     reset_launches()  # counts from here on are this path's
     per_request = []
-    for m in range(REQUESTS):
+    for m in range(SERVED[dt]):
         n = int(data["num_atom"][m])
         spectra = {k: data[k][m] for k in ("uv", "ir", "raman")}
         before = dict(LAUNCHES)
@@ -878,13 +917,13 @@ def serve_path(path, dt, dev, data):
         per_request.append(dict(n_atoms=n, wall_s=wall, mols_per_s=CANDIDATES / wall,
                                 distinct=len(result.candidates), top1_hit=hit))
     launches = dict(LAUNCHES)
-    expected = el.config.model.n_layers * STEPS * REQUESTS
+    expected = el.config.model.n_layers * STEPS * SERVED[dt]
     say(f"[{tag}] launches {nonzero(launches)}, expected {expected} for "
         f"{kernels_of(path, dt)}, 0 for the others")
     launched_only(kernels_of(path, dt), launches, expected)
     total = sum(r["wall_s"] for r in per_request)
     say(f"[{tag}] " + json.dumps({"requests": per_request,
-                                  "mols_per_s": REQUESTS * CANDIDATES / total}))
+                                  "mols_per_s": SERVED[dt] * CANDIDATES / total}))
     return el, launches
 
 
@@ -1152,6 +1191,288 @@ def compare_sweeps(results):
         say(f"[sweeps]   {name}: {' | '.join(parts)} | round 5 {r5:.4f}")
 
 
+def train_config(**overrides):
+    from diffspectra_tpu_torch import configs
+
+    return configs.apply_overrides(configs.get_config(), {**TRAIN, **overrides})
+
+
+def train_batches(config, train_ds, dev):
+    """The train loop's batches on ``dev``: the second train half in
+    buckets, each rotated and translated."""
+    from diffspectra_tpu_torch import run_lib
+    from diffspectra_tpu_torch.data.pipeline import (
+        augment_positions,
+        get_batch_iterator,
+        inf_iterator,
+    )
+
+    batches = inf_iterator(lambda epoch: get_batch_iterator(
+        train_ds, config.training.batch_size, config.data.spectra_version,
+        seed=config.seed + epoch, bucket_sizes=config.data.bucket_sizes))
+    gen = torch.Generator(device=dev).manual_seed(config.seed)
+    for batch in batches:
+        batch = run_lib.batch_to_device(batch, dev)
+        batch["positions"] = augment_positions(gen, batch["positions"], batch["atom_mask"],
+                                               True, True, config.data.aug_translation_scale)
+        yield batch
+
+
+def warm_train_state(config, dev):
+    from diffspectra_tpu_torch import run_lib
+    from diffspectra_tpu_torch.warm_state import warm_start
+
+    tx, state = run_lib.init_train_state(config, dev)
+    return tx, warm_start(state, WARM)
+
+
+def train_check_cpu(dev, train_ds, smi):
+    """Check (a): one f32 step's loss and gradients at dropout 0 on cuda and
+    on the CPU, from the warm state and the same draws (self-conditioned,
+    so every parameter is read)."""
+    from diffspectra_tpu_torch.diffusion.schedule import NoiseScheduleVP
+    from diffspectra_tpu_torch.training.losses import draw, get_sde_graph_loss_fn
+    from diffspectra_tpu_torch.training.train_state import params_of
+    from diffspectra_tpu_torch.utils.scalers import get_data_scaler
+
+    config = train_config(**{"training.matmul_precision": "float32", "model.dropout": 0.0,
+                             "training.batch_size": CHECK_BATCH})
+    batch = next(train_batches(config, train_ds, torch.device("cpu")))
+    draws = draw(torch.Generator().manual_seed(1), torch.Generator().manual_seed(2), batch,
+                 config.model.n_layers)
+    draws["use_sc"] = True
+    loss_fn = get_sde_graph_loss_fn(NoiseScheduleVP(config.sde.schedule),
+                                    get_data_scaler(config), config)
+    def step(device):
+        _, state = warm_train_state(config, device)
+        moved = {k: (tuple(c.to(device) for c in v) if k == "context" else v.to(device))
+                 for k, v in batch.items()}
+        moved_draws = {k: (v.to(device) if torch.is_tensor(v) else v) for k, v in draws.items()}
+        params = params_of(state.model.train())
+        t0 = time.perf_counter()
+        loss = loss_fn(state.model, moved, moved_draws)
+        grads = torch.autograd.grad(loss, list(params.values()))
+        return (loss.item(), {k: g.cpu() for k, g in zip(params, grads)},
+                time.perf_counter() - t0)
+
+    (loss_gpu, g_gpu, s_gpu), (loss_cpu, g_cpu, s_cpu) = step(dev), step(torch.device("cpu"))
+    top = max(g.abs().max().item() for g in g_cpu.values())
+    worst, worst_name = 0.0, ""
+    for name, want in g_cpu.items():
+        scale = top if name.endswith(NOISE_ONLY_GRADS) else want.abs().max().item()
+        err = (g_gpu[name] - want).abs().max().item()
+        assert err <= CHECK_GRAD_RTOL * scale, (name, err, scale)
+        if scale and err / scale > worst:
+            worst, worst_name = err / scale, name
+    rel = abs(loss_gpu - loss_cpu) / abs(loss_cpu)
+    say(f"[train] (a) one f32 step, batch {CHECK_BATCH}, n_pad {batch['atom_mask'].shape[1]}, "
+        f"dropout 0, warm state: loss cuda {loss_gpu:.6f}, cpu {loss_cpu:.6f} (relative "
+        f"{rel:.2e}, bound {CHECK_LOSS_RTOL}); {len(g_cpu)} gradients, the largest |cuda - "
+        f"cpu| over the parameter's max |grad| {worst:.2e} ({worst_name}; bound "
+        f"{CHECK_GRAD_RTOL}); seconds cuda {s_gpu:.2f}, cpu {s_cpu:.2f}; {smi}")
+    assert rel <= CHECK_LOSS_RTOL, rel
+
+
+def train_run(dev, smi):
+    """Checks (b) and (c): ``run_lib.train`` from the warm state for
+    TRAIN_STEPS steps, then its snapshot of 128 draws at 1000 steps from
+    the EMA weights. Returns the launches of the run."""
+    import logging
+
+    from diffspectra_tpu_torch import run_lib
+    from diffspectra_tpu_torch.ops import LAUNCHES, reset_launches
+    from diffspectra_tpu_torch.warm_state import flax_variables, read_warm_state
+
+    warm = read_warm_state(WARM)
+    last = warm["step"] + TRAIN_STEPS - 1  # the loop runs steps warm_step ... n_iters
+    config = train_config(**{"training.n_iters": last, "training.snapshot_freq": 10**9,
+                             "training.snapshot_freq_for_preemption": 10**9})
+    losses = []
+
+    class Losses(logging.Handler):
+        def emit(self, record):
+            msg = record.getMessage()
+            if "training_loss" in msg:
+                losses.append(float(msg.split("training_loss: ")[1].split(",")[0]))
+
+    root = logging.getLogger()
+    root.setLevel(logging.INFO)
+    handler = Losses()
+    root.addHandler(handler)
+    workdir = tempfile.mkdtemp(prefix="train_")
+    reset_launches()  # counts from here on are the train run's
+    t0 = time.perf_counter()
+    state = run_lib.train(config, workdir, dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    root.removeHandler(handler)
+    say(f"[train] (b) run_lib.train: {TRAIN_STEPS} steps from step {warm['step']} (batch "
+        f"{config.training.batch_size}, buckets {config.data.bucket_sizes}, bf16, dropout "
+        f"{config.model.dropout}, remat {config.model.remat_policy}) and a snapshot, {wall:.1f} s "
+        f"in all; losses {[round(x, 4) for x in losses]}")
+    assert len(losses) == TRAIN_STEPS and all(math.isfinite(x) for x in losses), losses
+    assert state.step == warm["step"] + TRAIN_STEPS
+    got, shadow = flax_variables(state.model), flax_variables(state.model, state.ema.shadow_params)
+    moved_p = sum(not np.array_equal(got[k], v) for k, v in warm["params"].items())
+    moved_e = sum(not np.array_equal(shadow[k], v) for k, v in warm["ema"].items())
+    say(f"[train] (b) leaves moved from the warm state: params {moved_p} of "
+        f"{len(warm['params'])}, EMA {moved_e} of {len(warm['ema'])}")
+    assert moved_p > 0 and moved_e > 0
+    with open(os.path.join(workdir, "samples", f"iter_{last}.json")) as f:
+        figures = json.load(f)
+    rounds = math.ceil(config.training.eval_samples / config.training.eval_batch_size)
+    expected = config.model.n_layers * config.sampling.steps * rounds
+    say(f"[train] (c) snapshot, {config.training.eval_samples} draws at "
+        f"{config.sampling.steps} steps from the EMA weights: {json.dumps(figures)}; launches "
+        f"{nonzero(launches)}, expected {expected} for {kernels_of('attn_equi', 'bf16')} "
+        "(8 blocks x steps x rounds; the train steps launch none), 0 for the others; " + smi)
+    launched_only(kernels_of("attn_equi", "bf16"), launches, expected)
+    for dim in ("3D", "2D"):
+        for key in ("atom_stable", "mol_stable", "Validity", "Complete", "Unique"):
+            assert math.isfinite(figures[dim][key]) and 0 <= figures[dim][key] <= 1
+    shutil.rmtree(workdir)
+    return launches
+
+
+def timed_steps(dev, train_ds, policy, steps, smi):
+    """``steps`` synchronized train steps with ``remat_policy``: the median
+    step time over the tail, graphs/s and the peak memory. Returns the
+    state, its step function and batches."""
+    from diffspectra_tpu_torch.diffusion.schedule import NoiseScheduleVP
+    from diffspectra_tpu_torch.training.losses import draw
+    from diffspectra_tpu_torch.training.step import get_step_fn
+    from diffspectra_tpu_torch.utils.scalers import get_data_scaler
+
+    config = train_config(**{"model.remat_policy": policy})
+    tx, state = warm_train_state(config, dev)
+    step_fn = get_step_fn(NoiseScheduleVP(config.sde.schedule), tx, get_data_scaler(config),
+                          config)
+    batches = train_batches(config, train_ds, dev)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    host = torch.Generator().manual_seed(4)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times, pads, losses = [], [], []
+    for _ in range(steps):
+        batch = next(batches)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, loss = step_fn(state, batch, draw(gen, host, batch, config.model.n_layers))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        pads.append(batch["atom_mask"].shape[1])
+        losses.append(loss.item())
+    tail = times[-min(TIMED_TAIL, steps - 2):]
+    median = float(np.median(tail))
+    mem = torch.cuda.max_memory_allocated()
+    say(f"[train] remat_policy={policy}: median step {median:.1f} ms over the last {len(tail)} "
+        f"of {steps} steps ({config.training.batch_size / median * 1e3:.1f} graphs/s), step ms "
+        f"{[round(t, 1) for t in times]} at n_pad {pads}; max_memory_allocated "
+        f"{mem / 2**30:.2f} GiB; {smi}")
+    assert all(math.isfinite(x) for x in losses), losses
+    return state, config, step_fn, batches, {"median_ms": median, "graphs_per_s":
+                                             config.training.batch_size / median * 1e3,
+                                             "max_memory_bytes": mem, "step_ms": times,
+                                             "n_pad": pads}
+
+
+def profile_train_step(dev, state, config, step_fn, batches, smi):
+    """The device's busy share over two train steps, and the names of their
+    kernels: none of the port's."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from diffspectra_tpu_torch.training.losses import draw
+
+    gen, host = torch.Generator(device=dev).manual_seed(5), torch.Generator().manual_seed(6)
+    work = [(b, draw(gen, host, b, config.model.n_layers)) for b in (next(batches), next(batches))]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for batch, draws in work:
+            state, _ = step_fn(state, batch, draws)
+        torch.cuda.synchronize()
+        window_us = (time.perf_counter() - t0) * 1e6
+    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"
+              and e.device_time_total > 0]
+    busy_us = sum(e.device_time_total for e in events)
+    ours = set(itertools.chain(*KERNEL_STAGES.values())) | {k for _, k in PROBE_KERNELS.values()}
+    hit = sorted({e.key for e in events if any(name in e.key for name in ours)})
+    events.sort(key=lambda e: -e.device_time_total)
+    say(f"[train] profile of 2 steps (n_pad {[b['atom_mask'].shape[1] for b, _ in work]}): "
+        f"window {window_us:.0f} us, kernel time {busy_us:.0f} us (busy share "
+        f"{busy_us / window_us:.3f}), {len(events)} kernels by name, the port's among them: "
+        f"{hit or 'none'}; {smi}")
+    for e in events[:10]:
+        say(f"[train]   {e.device_time_total / 2:10.1f} us/step  x{e.count // 2:<5d} {e.key[:90]}")
+    assert not hit, hit
+    return busy_us / window_us
+
+
+def train_round_trip(dev, state, config, smi):
+    """Check (d): a checkpoint written and restored gives every tensor back;
+    a warm-state export serves one request through
+    ``Elucidator.from_warm_state``."""
+    from diffspectra_tpu_torch import checkpoint, run_lib
+    from diffspectra_tpu_torch.api import Elucidator
+    from diffspectra_tpu_torch.data.synthetic import generate
+    from diffspectra_tpu_torch.ops import LAUNCHES, reset_launches
+    from diffspectra_tpu_torch.warm_state import export_warm_state
+
+    with tempfile.TemporaryDirectory() as tmp:
+        checkpoint.save_checkpoint(tmp, state)
+        _, fresh = run_lib.init_train_state(config, dev)
+        restored = checkpoint.restore_checkpoint(tmp, fresh)
+        pairs = list(zip(state.model.state_dict().values(), restored.model.state_dict().values()))
+        pairs += [(state.ema.shadow_params[k], restored.ema.shadow_params[k])
+                  for k in state.ema.shadow_params]
+        for key in ("mu", "nu", "nu_max"):
+            pairs += [(state.opt_state[key][k], restored.opt_state[key][k])
+                      for k in state.opt_state[key]]
+        assert all(torch.equal(a, b) for a, b in pairs) and restored.step == state.step
+        path = os.path.join(tmp, "warm.npz")
+        export_warm_state(state, path)
+        el = Elucidator.from_warm_state(path, overrides={"sampling.steps": SNAPSHOT_SERVE_STEPS},
+                                        device=dev)
+        data = generate(seed=7, size=1, max_n=29, fidelity=4)
+        n = int(data["num_atom"][0])
+        reset_launches()
+        result = el.elucidate({k: data[k][0] for k in ("uv", "ir", "raman")}, n_atoms=n,
+                              num_candidates=CANDIDATES, seed=0)
+        launches = dict(LAUNCHES)
+    expected = config.model.n_layers * SNAPSHOT_SERVE_STEPS
+    say(f"[train] (d) checkpoint round trip: {len(pairs)} tensors equal, step {restored.step}; "
+        f"the exported warm state served one request (n_atoms {n}, {CANDIDATES} candidates, "
+        f"{SNAPSHOT_SERVE_STEPS} steps): {len(result.candidates)} distinct, best frequency "
+        f"{result.best.frequency:.2f}; launches {nonzero(launches)}; {smi}")
+    assert sum(c.count for c in result.candidates) == CANDIDATES
+    assert all(np.isfinite(c.positions).all() for c in result.candidates)
+    launched_only(kernels_of("attn_equi", "bf16"), launches, expected)
+
+
+def phase_train(dev, smi):
+    """Phase 8: training on the card. Returns the snapshot's launches and
+    the timings."""
+    from diffspectra_tpu_torch.data.pipeline import get_dataset
+
+    t0 = time.perf_counter()
+    _, train_ds, _, _, _ = get_dataset(train_config())
+    say(f"[train] dataset: {len(train_ds)} train molecules, built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    train_check_cpu(dev, train_ds, smi)
+    launches = train_run(dev, smi)
+    state, config, step_fn, batches, full = timed_steps(dev, train_ds, "full", TRAIN_STEPS, smi)
+    busy = profile_train_step(dev, state, config, step_fn, batches, smi)
+    train_round_trip(dev, state, config, smi)
+    del state, step_fn, batches
+    torch.cuda.empty_cache()
+    none = timed_steps(dev, train_ds, "none", NONE_STEPS, smi)[-1]
+    print(json.dumps({"train": {"full": full, "none": none, "busy_share": busy,
+                                "phase_s": time.perf_counter() - t0}}), flush=True)
+    say(f"[train] phase 8 in {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on the GPU only",
@@ -1198,12 +1519,14 @@ def main() -> int:
         phase_profile(f"{path} {dt}", model, dev)
     sweeps = {dt: phase_sweep(dev, dt) for dt in ("bf16", "f32")}
     compare_sweeps(sweeps)
+    trained = phase_train(dev, smi)
     sweep = {k: sum(r[0][k] for r in sweeps.values()) for k in serving}
     for row in rows:
         row["launches"] = launches[row["name"]]
         row["sweep_launches"] = sweep[row["name"]]
+        row["train_snapshot_launches"] = trained[row["name"]]
     for row in probe_rows:  # launches: the probe tool's run; none on the serving paths
-        row["serving_launches"] = serving[row["name"]] + sweep[row["name"]]
+        row["serving_launches"] = serving[row["name"]] + sweep[row["name"]] + trained[row["name"]]
         assert row["serving_launches"] == 0, row
     say(f"[probes] launches in the probe tool's run "
         f"{ {r['name']: r['launches'] for r in probe_rows} }, on the serving paths 0 each")

@@ -1,9 +1,10 @@
-"""Plain-Python configuration of the serving path and the evaluation sweep.
+"""Plain-Python configuration of serving, the evaluation sweep and training.
 
 Replaces ``diffspectra_tpu/configs/diffspectra_qm9s.py`` and
 ``configs/smoke.py`` (both ``ml_collections``) with nested
-``SimpleNamespace`` trees holding only the values that serving and the
-sweep read, at the JAX package's defaults.
+``SimpleNamespace`` trees holding only the values that serving, the sweep
+and the train loop read, at the JAX package's defaults (the batch sizes
+resolved for one device).
 ``apply_overrides`` takes the same dotted ``{"model.nf": 64}`` overrides as
 the JAX ``Elucidator``.
 """
@@ -36,8 +37,14 @@ def get_config() -> NS:
             # max_node, fidelity=synthetic_fidelity), split by seed
             synthetic_size=4096,
             synthetic_fidelity=1,
+            # the dataset transform and the training batches
+            include_aromatic=False,
+            use_normalize=True,
+            aug_translation_scale=0.1,
+            # atom-count buckets of the training batches (empty: one static N)
+            bucket_sizes=(),
         ),
-        sde=NS(schedule="cosine"),
+        sde=NS(schedule="cosine", continuous_beta_0=0.1, continuous_beta_1=20.0),
         model=NS(
             pred_data=True,
             normalize_factors="1, 4, 4, 1",
@@ -60,12 +67,39 @@ def get_config() -> NS:
             # attention and equi-update kernels; ('block',): the whole-block
             # kernel in every block
             pallas_ops=("attn", "equi"),
+            # training
+            dropout=0.1,
+            ema_decay=0.999,
+            loss_weights="1., 0.25, 0.1",
+            noise_align=True,
+            # encode the spectra once a train step for both self-conditioning
+            # forwards (training/losses.py)
+            reuse_cond_emb=True,
+            # 'full': each block recomputed in the backward pass
+            # (torch.utils.checkpoint); 'none': activations kept
+            remat_policy="full",
         ),
         # 'ancestral', 'dpm_solver' (DPM-Solver++(2M)) or 'dpm_solver_sde'
         sampling=NS(steps=1000, method="ancestral"),
-        # the DMT's working dtype, as the JAX config's: 'bfloat16' (its
-        # production default) or 'float32' (MATMUL_PRECISIONS)
-        training=NS(matmul_precision="bfloat16"),
+        training=NS(
+            # the DMT's working dtype, as the JAX config's: 'bfloat16' (its
+            # production default) or 'float32' (MATMUL_PRECISIONS)
+            matmul_precision="bfloat16",
+            # the JAX defaults on one device (base_batch_size 128)
+            batch_size=128,
+            n_iters=2000000,
+            log_freq=500,
+            snapshot_freq=50000,
+            snapshot_freq_for_preemption=10000,
+            snapshot_sampling=True,
+            eval_batch_size=128,
+            eval_samples=128,
+            reduce_mean=False,
+            # a warm-state .npz to start from when the workdir has no checkpoint
+            warm_start="",
+        ),
+        optim=NS(optimizer="AdamW", lr=2e-4, beta1=0.9, eps=1e-8, warmup=100000,
+                 grad_clip=10.0, weight_decay=0.0),
         eval=NS(
             bucket_sizes=(17, 21, 25, 29),
             # the sweep: num_samples test targets in rounds of batch_size
@@ -82,7 +116,9 @@ def get_config() -> NS:
 def get_smoke_config() -> NS:
     """The small test model of ``configs/smoke.py``: IR only, N <= 16,
     nf=64, 4 blocks, 8 heads, 50 steps, float32, no buckets; a sweep of 8
-    targets in rounds of 8 over 256 synthetic molecules."""
+    targets in rounds of 8 over 256 synthetic molecules; training at batch
+    8, dropout 0, warmup 10, 20 steps (a log line every 5, a snapshot at
+    20, a preemption checkpoint every 10)."""
     config = get_config()
     config.data.spectra_version = "ir"
     config.data.max_node = 16
@@ -95,6 +131,11 @@ def get_smoke_config() -> NS:
     config.eval.bucket_sizes = ()
     config.eval.num_samples = 8
     config.eval.batch_size = 8
+    config.model.dropout = 0.0
+    t = config.training
+    t.batch_size = t.eval_batch_size = t.eval_samples = 8
+    t.n_iters, t.log_freq, t.snapshot_freq, t.snapshot_freq_for_preemption = 20, 5, 20, 10
+    config.optim.warmup = 10
     return config
 
 

@@ -1,21 +1,27 @@
-"""The evaluation sweep's dataset: the synthetic branch of
-``diffspectra_tpu/data/pipeline.py``'s ``get_dataset`` with its 4-way
-conditional split, and of ``data/transform.py`` only the arrays the
-sampling harness reads.
+"""Dataset assembly, splits, batching and augmentation (port of
+``diffspectra_tpu/data/pipeline.py``, the synthetic dataset).
 
-Left out (training, ``ROADMAP.md`` queue 1, item 7): the one-hot atom and
-edge packing, the QM9S loader, the original-QM9 split and the dataset
-cache.
+``get_dataset`` builds the synthetic set with its 4-way conditional split,
+through the dataset transform; ``get_batch_iterator`` yields collated numpy
+batches (bucketed by atom count, or padded to ``data.max_node``);
+``augment_positions`` rotates and translates a batch on its device, with
+draws from a ``torch.Generator``.
+
+Left out (``ROADMAP.md``): the QM9S loader, the original-QM9 split, the
+dataset cache, the device-resident store and the background-thread
+``prefetch``.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Iterator
 
 import numpy as np
+import torch
 
 from .info import get_dataset_info
 from .synthetic import generate as generate_synthetic
+from .transform import edge_com_spectra_transform
 
 SPECTRA_KEYS = {"uv": ("uv",), "ir": ("ir",), "raman": ("raman",),
                 "allspectra": ("uv", "ir", "raman")}
@@ -53,30 +59,12 @@ def _conditional_splits(rng: np.random.Generator, size: int):
     return first, second, val, test
 
 
-def sweep_arrays(raw: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
-    """From the generator's arrays: ``num_atom``, ``atom_type``,
-    ``edge_type``, positions and formal charges as float32 zeroed past each
-    molecule's atoms (charges ``[M, N, 1]``), and log10(x + 1) spectra."""
-    atom_type = raw["atom_type"]
-    node_mask = (np.arange(atom_type.shape[1])[None, :] < raw["num_atom"][:, None])
-    node_mask = node_mask.astype(np.float32)
-    out = dict(
-        positions=raw["pos"].astype(np.float32) * node_mask[..., None],
-        formal_charges=(raw["fc"].astype(np.float32) * node_mask)[..., None],
-        num_atom=raw["num_atom"],
-        atom_type=atom_type,
-        edge_type=raw["edge_type"],
-    )
-    for k in ("uv", "ir", "raman"):
-        out[k] = np.log10(raw[k].astype(np.float32) + 1.0)
-    return out
-
-
 def get_dataset(config):
     """``(first_train, second_train, val, test, dataset_info)`` of
     ``generate(config.seed, config.data.synthetic_size, data.max_node,
-    fidelity=data.synthetic_fidelity)``, split by a permutation drawn from
-    ``config.seed``."""
+    fidelity=data.synthetic_fidelity)`` through the dataset transform,
+    split by a permutation drawn from ``config.seed``. The train loop
+    trains on the second half, as the JAX package does."""
     dataset_info = get_dataset_info(config.data.info_name)
     raw = generate_synthetic(
         seed=config.seed, size=config.data.synthetic_size, max_n=config.data.max_node,
@@ -84,6 +72,135 @@ def get_dataset(config):
     )
     split_rng = np.random.default_rng(config.seed)
     first, second, val, test = _conditional_splits(split_rng, len(raw["num_atom"]))
-    arrays = sweep_arrays(raw)
+    arrays = edge_com_spectra_transform(
+        raw, atom_types=config.data.atom_types, include_aromatic=config.data.include_aromatic,
+        use_normalize=config.data.use_normalize,
+    )
     ds = ArrayDataset(arrays, np.arange(len(arrays["num_atom"])))
     return ds.select(first), ds.select(second), ds.select(val), ds.select(test), dataset_info
+
+
+def build_masks_np(num_atom: np.ndarray, max_n: int):
+    """``node_mask [B, N]``, ``edge_mask [B, N, N]`` (diagonal zeroed)."""
+    ar = np.arange(max_n)
+    node_mask = (ar[None, :] < num_atom[:, None]).astype(np.float32)
+    edge_mask = node_mask[:, :, None] * node_mask[:, None, :]
+    edge_mask *= 1.0 - np.eye(max_n, dtype=np.float32)[None]
+    return node_mask, edge_mask
+
+
+def collate(rows: Dict[str, np.ndarray], spectra_version: str) -> Dict:
+    """Pack rows into the model batch dict; ``context`` is a tuple of the
+    spectra the model reads, in the order uv, ir, raman."""
+    num_atom = rows["num_atom"]
+    node_mask, edge_mask = build_masks_np(num_atom, rows["atom_one_hot"].shape[1])
+    return dict(
+        atom_one_hot=rows["atom_one_hot"],
+        edge_one_hot=rows["edge_one_hot"],
+        positions=rows["positions"],
+        formal_charges=rows["formal_charges"],
+        atom_mask=node_mask,
+        edge_mask=edge_mask,
+        context=tuple(rows[k] for k in SPECTRA_KEYS[spectra_version]),
+        num_atom=num_atom,
+    )
+
+
+def random_rotation_matrices(generator: torch.Generator, bs: int,
+                             device=None) -> torch.Tensor:
+    """Uniform SO(3) rotations from normalised quaternions, ``[B, 3, 3]``."""
+    q = torch.randn((bs, 4), generator=generator, device=device)
+    q = q / q.norm(dim=-1, keepdim=True)
+    w, x, y, z = q.unbind(-1)
+    return torch.stack([
+        torch.stack([1 - 2 * (y**2 + z**2), 2 * (x * y - z * w), 2 * (x * z + y * w)], -1),
+        torch.stack([2 * (x * y + z * w), 1 - 2 * (x**2 + z**2), 2 * (y * z - x * w)], -1),
+        torch.stack([2 * (x * z - y * w), 2 * (y * z + x * w), 1 - 2 * (x**2 + y**2)], -1),
+    ], dim=1)
+
+
+def augment_positions(generator: torch.Generator, positions: torch.Tensor,
+                      node_mask: torch.Tensor, aug_rotation: bool, aug_translation: bool,
+                      aug_translation_scale: float) -> torch.Tensor:
+    """A random rotation, then a random translation of scale
+    ``aug_translation_scale``, per molecule, masked; the draws on the
+    positions' device."""
+    bs = positions.shape[0]
+    mask = node_mask[..., None] if node_mask.dim() == 2 else node_mask
+    if aug_rotation:
+        rot = random_rotation_matrices(generator, bs, positions.device)
+        positions = torch.einsum("bij,bnj->bni", rot, positions) * mask
+    if aug_translation:
+        trans = torch.randn((bs, 1, 3), generator=generator, device=positions.device)
+        positions = (positions + aug_translation_scale * trans) * mask
+    return positions
+
+
+def _truncate_batch(rows: Dict[str, np.ndarray], n_pad: int) -> Dict[str, np.ndarray]:
+    """The node and pair axes of gathered rows cut to ``n_pad`` (a bucket)."""
+    out = {}
+    for k, v in rows.items():
+        if k in ("atom_one_hot", "positions", "atom_type", "formal_charges"):
+            out[k] = v[:, :n_pad]
+        elif k in ("edge_one_hot", "edge_type"):
+            out[k] = v[:, :n_pad, :n_pad]
+        else:
+            out[k] = v
+    return out
+
+
+def validate_bucket_sizes(bucket_sizes, num_atom) -> list:
+    """Sorted bucket boundaries; a molecule above the largest raises (it
+    would fall in no bucket and never be trained on)."""
+    bucket_sizes = sorted(int(b) for b in bucket_sizes)
+    top = int(np.max(num_atom)) if len(num_atom) else 0
+    if bucket_sizes and top > bucket_sizes[-1]:
+        raise ValueError(
+            f"bucket_sizes[-1]={bucket_sizes[-1]} < max atom count {top}: rows above the "
+            f"last bucket would never be trained on; add a bucket >= {top}"
+        )
+    return bucket_sizes
+
+
+def get_batch_iterator(ds: ArrayDataset, batch_size: int, spectra_version: str,
+                       shuffle: bool = True, seed: int = 0, drop_last: bool = True,
+                       bucket_sizes=()) -> Iterator[Dict]:
+    """One epoch of collated numpy batches in a permutation from ``seed``.
+    With ``bucket_sizes`` every batch holds molecules of one bucket, padded
+    to it; a bucket's leftover rows carry up into the next larger one, and
+    the batches of all buckets run in a shuffled order."""
+    rng = np.random.default_rng(seed)
+    n = len(ds)
+    order = rng.permutation(n) if shuffle else np.arange(n)
+
+    if not bucket_sizes:
+        stop = n - (n % batch_size) if drop_last else n
+        for start in range(0, stop, batch_size):
+            yield collate(ds.take(order[start : start + batch_size]), spectra_version)
+        return
+
+    num_atom = ds.arrays["num_atom"][ds.indices[order]]
+    bucket_sizes = validate_bucket_sizes(bucket_sizes, num_atom)
+    bucket_of = np.searchsorted(bucket_sizes, num_atom)  # the first b >= n
+    batches = []
+    carry = order[:0]
+    for bi, bsize in enumerate(bucket_sizes):
+        rows = np.concatenate([carry, order[bucket_of == bi]])
+        stop = len(rows) - (len(rows) % batch_size)
+        for start in range(0, stop, batch_size):
+            batches.append((bsize, rows[start : start + batch_size]))
+        carry = rows[stop:]
+    if carry.size and not drop_last:
+        batches.append((bucket_sizes[-1], carry))
+    rng.shuffle(batches)
+    for bsize, rows in batches:
+        yield collate(_truncate_batch(ds.take(rows), bsize), spectra_version)
+
+
+def inf_iterator(make_iter):
+    """Epoch after epoch of ``make_iter(epoch)``."""
+    epoch = 0
+    while True:
+        yield from make_iter(epoch)
+        epoch += 1
+

@@ -11,7 +11,10 @@ import torch
 
 
 class NoiseScheduleVP:
-    def __init__(self, schedule: str = "cosine"):
+    def __init__(self, schedule: str = "cosine", continuous_beta_0: float = 0.1,
+                 continuous_beta_1: float = 20.0):
+        # the linear schedule's betas (config.sde), which the cosine one ignores
+        self.beta_0, self.beta_1 = continuous_beta_0, continuous_beta_1
         if schedule != "cosine":
             raise NotImplementedError(
                 f"schedule {schedule!r}: the port serves the cosine schedule "

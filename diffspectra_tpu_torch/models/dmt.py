@@ -1,12 +1,17 @@
-"""DMT, the SE(3)-equivariant diffusion molecule transformer, inference only
-(port of ``diffspectra_tpu/models/dmt.py``).
+"""DMT, the SE(3)-equivariant diffusion molecule transformer (port of
+``diffspectra_tpu/models/dmt.py``).
 
 Every molecule is padded dense: ``[B, N, .]`` nodes and ``[B, N, N, .]``
-pairs with masks. Each ``EquivariantMixBlock`` runs its pair-grid
-attention through the ``mix_attention`` kernel and its coordinate update
-through the ``equi_update`` kernel, or, with ``pallas_ops=('block',)``, its
-whole pair-grid chain through the ``block_fused`` kernel (plain versions
-for CPU tensors). Both paths read the same parameters.
+pairs with masks. In eval mode (serving, sampling) each
+``EquivariantMixBlock`` runs its pair-grid attention through the
+``mix_attention`` kernel and its coordinate update through the
+``equi_update`` kernel, or, with ``pallas_ops=('block',)``, its whole
+pair-grid chain through the ``block_fused`` kernel (plain versions for CPU
+tensors). Both paths read the same parameters. In training mode (the
+``deterministic=False`` of the JAX DMT) the blocks run the JAX package's
+XLA branches under autograd, as JAX trains without its kernels, with
+dropout drawn from a generator a block seeded by ``dropout_seeds``, and
+``remat_policy='full'`` recomputes each block in the backward pass.
 
 ``dtype`` is the JAX DMT's ``dtype`` (``training.matmul_precision``): in
 bfloat16 each module casts where the JAX module casts. A block rounds to
@@ -24,6 +29,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .. import configs
 from ..ops.block_fused import block_fused
@@ -36,6 +42,7 @@ from .layers import (
     DenseTransMixLayer,
     LearnedSinusoidalPosEmb,
     cast_param,
+    dropout,
     empty_param,
     gelu,
     keep_casts,
@@ -50,8 +57,9 @@ class MultiCondEquiUpdate(nn.Module):
     """Equivariant coordinate update with time conditioning. The node-level
     projections, the (shift, scale) time modulation and the CoorsNorm'd
     coordinate differences run here; the pair-grid chain is the
-    ``equi_update`` kernel, whose node, edge and distance operands and gate
-    weights are in ``dtype``."""
+    ``equi_update`` kernel in eval mode, whose node, edge and distance
+    operands and gate weights are in ``dtype``, and the JAX module's XLA
+    chain in training mode (``_update_train``)."""
 
     def __init__(self, hidden_dim: int, edge_dim: int, dist_dim: int, time_dim: int,
                  extra_heads: int, dtype: torch.dtype = torch.float32):
@@ -64,8 +72,11 @@ class MultiCondEquiUpdate(nn.Module):
         self.coord_mlp_0 = Dense(hidden_dim, hidden_dim)
         self.coord_mlp_1 = Dense(hidden_dim, 1 + extra_heads, use_bias=False)
         keep_casts(self, "input_lin_kernel", "input_lin_bias")
+        self.eval()  # deterministic until train(), as the JAX module's default
 
     def forward(self, h, pos, edge_attr, dist, time_emb, adj_extra, edge_mask):
+        if self.training:
+            return self._update_train(h, pos, edge_attr, dist, time_emb, adj_extra, edge_mask)
         eq = self.export_for_block(pos, time_emb, rounded_time=True)
         D, De, dt = self.hidden_dim, self.edge_dim, self.dtype
         w, h = cast_param(self, "input_lin_kernel"), h.to(dt)
@@ -76,6 +87,28 @@ class MultiCondEquiUpdate(nn.Module):
             eq["k1"],
         )
         return pos + agg
+
+    def _update_train(self, h, pos, edge_attr, dist, time_emb, adj_extra, edge_mask):
+        """The JAX module's chain without its kernel
+        (``diffspectra_tpu/models/dmt.py:167-190``), in ``dtype`` but the
+        positions: ``[h_i, h_j, e_ij, d_ij] @ W + b`` by parts, LayerNorm,
+        the time modulation, ``silu(@ W0 + b0)``, ``tanh(@ W1)``, the mean
+        over the ``[1, adjacency]`` channels, and the masked sum of the
+        normalised coordinate differences."""
+        D, De, dt = self.hidden_dim, self.edge_dim, self.dtype
+        w, b = cast_param(self, "input_lin_kernel"), cast_param(self, "input_lin_bias")
+        h = h.to(dt)
+        normed_diff = self.coord_norm(pos[:, :, None, :] - pos[:, None, :, :])
+        shift, scale = self.time_mlp(silu(time_emb.to(dt))).chunk(2, dim=-1)
+        inv = ((h @ w[:D])[:, :, None, :] + (h @ w[D : 2 * D])[:, None, :, :]
+               + edge_attr.to(dt) @ w[2 * D : 2 * D + De] + dist.to(dt) @ w[2 * D + De :] + b)
+        inv = modulate(layer_norm(inv), shift[:, None, None, :], scale[:, None, None, :])
+        k0, b0, k1 = self.coord_mlp_0.kernel, self.coord_mlp_0.bias, self.coord_mlp_1.kernel
+        inv = silu(inv @ k0.to(dt) + b0.to(dt))
+        inv = torch.tanh(inv @ k1.to(dt)).float()
+        adjs = torch.cat([torch.ones_like(adj_extra[..., :1]), adj_extra], dim=-1)
+        inv = (inv * adjs).mean(dim=-1, keepdim=True)
+        return pos + (normed_diff * inv * edge_mask[..., None]).sum(dim=2)
 
     def export_for_block(self, pos, time_emb, rounded_time: bool = False) -> dict:
         """The node-level part of the update: the CoorsNorm'd coordinate
@@ -104,12 +137,16 @@ class MultiCondEquiUpdate(nn.Module):
 
 class EquivariantMixBlock(nn.Module):
     """One equivariant transformer block with adaLN time conditioning.
-    ``block_kernel`` sends its whole pair-grid chain to ``block_fused``."""
+    ``block_kernel`` sends its whole pair-grid chain to ``block_fused`` in
+    eval mode. In training mode ``generator`` draws the dropout masks of
+    the attention weights and the two FFNs."""
 
     def __init__(self, node_dim: int, edge_dim: int, time_dim: int, num_extra_heads: int,
                  num_heads: int, softmax_inf: bool = True, mlp_ratio: int = 2,
-                 block_kernel: bool = False, dtype: torch.dtype = torch.float32):
+                 block_kernel: bool = False, dropout: float = 0.0,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dropout = dropout
         self.num_heads, self.num_extra_heads = num_heads, num_extra_heads
         self.softmax_inf, self.block_kernel, self.dtype = softmax_inf, block_kernel, dtype
         self.dist_layer = CondGaussianLayer(edge_dim, time_dim)
@@ -118,7 +155,7 @@ class EquivariantMixBlock(nn.Module):
         self.edge_time_mlp = Dense(time_dim, 6 * edge_dim, dtype=dtype)
         self.attn_mpnn = DenseTransMixLayer(
             node_dim, node_dim // num_heads, edge_dim, extra_heads=num_extra_heads,
-            heads=num_heads, set_inf=softmax_inf, dtype=dtype,
+            heads=num_heads, set_inf=softmax_inf, dropout=dropout, dtype=dtype,
         )
         self.node2edge_kernel = empty_param(node_dim, edge_dim)
         self.node2edge_bias = empty_param(edge_dim)
@@ -130,11 +167,14 @@ class EquivariantMixBlock(nn.Module):
         self.equi_update = MultiCondEquiUpdate(
             node_dim, edge_dim, edge_dim, time_dim, num_extra_heads, dtype=dtype
         )
+        self.eval()
 
-    def forward(self, pos, h, edge_attr, node_mask, edge_mask, extra_heads, time_emb):
-        # the JAX dispatch condition; the port always runs cond_time, dist_gbf
-        # and no dropout
-        if self.block_kernel and extra_heads.shape[-1] == self.num_extra_heads:
+    def forward(self, pos, h, edge_attr, node_mask, edge_mask, extra_heads, time_emb,
+                generator=None):
+        # the JAX dispatch condition; the port always runs cond_time and
+        # dist_gbf, and trains without the kernel
+        if (self.block_kernel and not self.training
+                and extra_heads.shape[-1] == self.num_extra_heads):
             return self._fused_block(pos, h, edge_attr, node_mask, edge_mask, extra_heads,
                                      time_emb)
         dt = self.dtype
@@ -157,7 +197,7 @@ class EquivariantMixBlock(nn.Module):
         h = modulate(layer_norm(h), n_shift_msa, n_scale_msa)
         edge_attr = modulate(layer_norm(edge_attr, dtype=dt), e_shift_msa, e_scale_msa)
 
-        h_node = self.attn_mpnn(h, edge_attr, extra_heads, edge_mask)
+        h_node = self.attn_mpnn(h, edge_attr, extra_heads, edge_mask, generator)
 
         # Dense(h_i + h_j) is linear: project per node, broadcast-add
         proj = (h_node.to(dt) @ cast_param(self, "node2edge_kernel")).float()
@@ -165,11 +205,15 @@ class EquivariantMixBlock(nn.Module):
 
         h_node = h_in_node + n_gate_msa * h_node
         h_node = modulate(layer_norm(h_node), n_shift_mlp, n_scale_mlp) * node_mask
-        ff_node = self.ff_linear2.forward_f32(silu(self.ff_linear1(h_node)))
-        h_out = (h_node + n_gate_mlp * ff_node) * node_mask
+        p = self.dropout
+        ff_node = self.ff_linear2.forward_f32(
+            dropout(silu(self.ff_linear1(h_node)), p, generator))
+        h_out = (h_node + n_gate_mlp * dropout(ff_node, p, generator)) * node_mask
         h_edge = h_in_edge + e_gate_msa * h_edge
         h_edge = modulate(layer_norm(h_edge), e_shift_mlp, e_scale_mlp)
-        ff_edge = self.ff_linear4.forward_f32(silu(self.ff_linear3(h_edge)))
+        ff_edge = self.ff_linear4.forward_f32(
+            dropout(silu(self.ff_linear3(h_edge)), p, generator))
+        ff_edge = dropout(ff_edge, p, generator)
         h_edge_out = h_edge + e_gate_mlp * ff_edge
 
         pos = self.equi_update(h_out, pos, h_edge_out, distance, time_emb, extra_heads, edge_mask)
@@ -216,22 +260,42 @@ class Block(nn.Module):
     skip-concat projections."""
 
     def __init__(self, node_dim, edge_dim, time_dim, num_extra_heads, num_heads,
-                 softmax_inf, mlp_ratio, cat_node_dim, cat_edge_dim, block_kernel, dtype):
+                 softmax_inf, mlp_ratio, cat_node_dim, cat_edge_dim, block_kernel, dropout,
+                 dtype):
         super().__init__()
         self.e_block = EquivariantMixBlock(
             node_dim, edge_dim, time_dim, num_extra_heads, num_heads, softmax_inf, mlp_ratio,
-            block_kernel, dtype,
+            block_kernel, dropout, dtype,
         )
         self.node_proj = Dense(node_dim, cat_node_dim)
         self.edge_proj = Dense(edge_dim, cat_edge_dim)
 
+    def forward(self, seed, CoM: bool, pos, h, edge_attr, node_mask, edge_mask, extra_adj,
+                time_emb):
+        """``(pos, h, edge_attr, cat_h, cat_e)``; the dropout masks come from
+        a generator seeded with ``seed`` (None: no dropout), so a
+        recomputation in the backward pass draws the same masks."""
+        generator = None
+        if seed is not None:
+            generator = torch.Generator(device=h.device)
+            generator.manual_seed(seed)
+        h, edge_attr, pos = self.e_block(pos, h, edge_attr, node_mask, edge_mask, extra_adj,
+                                         time_emb, generator)
+        if CoM:
+            pos = M.remove_mean_with_mask(pos, node_mask)
+        return pos, h, edge_attr, self.node_proj(h), self.edge_proj(edge_attr)
+
+
+REMAT_POLICIES = ("full", "none")
+
 
 class DMT(nn.Module):
     """``forward(t, xh, node_mask, edge_mask, edge_x, noise_level, cond_x,
-    cond_edge_x, has_cond, context_emb) -> (pred [B, N, 3+F],
-    edge_pred [B, N, N, edge_ch])``. ``has_cond=False`` is the first step of
-    self-conditioning: the conditional adjacency is all ones and the
-    distance features are zero."""
+    cond_edge_x, has_cond, context_emb, dropout_seeds=None) -> (pred [B, N,
+    3+F], edge_pred [B, N, N, edge_ch])``. ``has_cond=False`` is the first
+    step of self-conditioning: the conditional adjacency is all ones and the
+    distance features are zero. ``dropout_seeds``: one integer a block, in
+    training mode with ``dropout > 0``."""
 
     def __init__(self, in_node_dim: int = 6, hidden_dim: int = 256, edge_ch: int = 2,
                  n_heads: int = 16, n_extra_heads: int = 2, n_layers: int = 8,
@@ -239,9 +303,13 @@ class DMT(nn.Module):
                  spatial_cut_off: float = 2.0, softmax_inf: bool = True,
                  pred_data: bool = True, spectra_version: str = "ir",
                  patch_len=(20, 50, 50), stride=(10, 25, 25), block_kernel: bool = False,
+                 dropout: float = 0.0, remat_policy: str = "full",
                  dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.dtype = dtype
+        if remat_policy not in REMAT_POLICIES:
+            raise ValueError(f"remat_policy {remat_policy!r}: the port takes {REMAT_POLICIES}; "
+                             "'dots' is queued in ROADMAP.md")
+        self.dtype, self.dropout, self.remat_policy = dtype, dropout, remat_policy
         self.edge_quan_th, self.CoM, self.pred_data = edge_quan_th, CoM, pred_data
         self.spatial_cut_off = spatial_cut_off
         De = hidden_dim // 4
@@ -259,7 +327,7 @@ class DMT(nn.Module):
         cat_edge_dim = De * 2 // n_layers
         self.blocks = nn.ModuleList(
             Block(hidden_dim, De, time_dim, n_extra_heads, n_heads, softmax_inf, mlp_ratio,
-                  cat_node_dim, cat_edge_dim, block_kernel, dtype)
+                  cat_node_dim, cat_edge_dim, block_kernel, dropout, dtype)
             for _ in range(n_layers)
         )
         width = hidden_dim + n_layers * cat_node_dim
@@ -270,6 +338,7 @@ class DMT(nn.Module):
             setattr(self, f"{head}_0", Dense(De + n_layers * cat_edge_dim, De))
             setattr(self, f"{head}_1", Dense(De, De // 2))
             setattr(self, f"{head}_2", Dense(De // 2, out))
+        self.eval()  # deterministic until train(), as the JAX DMT's default
 
     @staticmethod
     def from_config(config) -> "DMT":
@@ -285,16 +354,20 @@ class DMT(nn.Module):
             spatial_cut_off=m.spatial_cut_off, softmax_inf=m.softmax_inf,
             pred_data=m.pred_data, spectra_version=config.data.spectra_version,
             patch_len=tuple(m.patch_len), stride=tuple(m.stride),
-            block_kernel="block" in m.pallas_ops, dtype=configs.model_dtype(config),
+            block_kernel="block" in m.pallas_ops, dropout=m.dropout,
+            remat_policy=m.remat_policy, dtype=configs.model_dtype(config),
         )
 
-    def encode_context(self, specs) -> torch.Tensor:
+    def encode_context(self, specs, generator=None) -> torch.Tensor:
         """The spectra conditioning ``[B, time_dim]``, computed once per
-        request and passed to every step as ``context_emb``."""
-        return self.cond_lin(self.cond_encoder(specs))
+        request (or train step) and passed to every forward as
+        ``context_emb``. In training mode SpecFormer's BatchNorms use the
+        batch's statistics and update the running ones
+        (``encode_context_train`` of the JAX package)."""
+        return self.cond_lin(self.cond_encoder(specs, generator))
 
     def forward(self, t, xh, node_mask, edge_mask, edge_x, noise_level, cond_x, cond_edge_x,
-                has_cond: bool, context_emb):
+                has_cond: bool, context_emb, dropout_seeds=None):
         B, N, _ = xh.shape
         pos, h = xh[:, :, :3], xh[:, :, 3:]
         if has_cond:
@@ -321,15 +394,20 @@ class DMT(nn.Module):
         h = h0 = self.node_emb(h).float()
         edge_attr0 = edge_attr
 
+        if self.training and self.dropout > 0 and dropout_seeds is None:
+            raise ValueError("a DMT in training mode with dropout takes dropout_seeds")
+        seeds = (list(dropout_seeds) if self.training and dropout_seeds is not None
+                 else [None] * len(self.blocks))
+        remat = self.training and self.remat_policy == "full" and torch.is_grad_enabled()
         cat_h, cat_e = [], []
-        for block in self.blocks:
-            h, edge_attr, pos = block.e_block(
-                pos, h, edge_attr, node_mask, edge_mask, extra_adj, time_emb
-            )
-            if self.CoM:
-                pos = M.remove_mean_with_mask(pos, node_mask)
-            cat_h.append(block.node_proj(h))
-            cat_e.append(block.edge_proj(edge_attr))
+        for block, seed in zip(self.blocks, seeds):
+            args = (seed, self.CoM, pos, h, edge_attr, node_mask, edge_mask, extra_adj, time_emb)
+            # the recomputation draws its dropout masks from its own seed
+            pos, h, edge_attr, ch, ce = (
+                checkpoint(block, *args, use_reentrant=False, preserve_rng_state=False)
+                if remat else block(*args))
+            cat_h.append(ch)
+            cat_e.append(ce)
 
         # the skip-concat heads read the embeddings from before the blocks
         atom_hids = torch.cat([h0, *cat_h], dim=-1)

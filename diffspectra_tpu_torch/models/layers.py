@@ -13,7 +13,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.mix_attention import mix_attention
+from ..ops.mix_attention import MASK_INF, NEG_ADJ, mix_attention
 
 
 def empty_param(*shape):
@@ -23,26 +23,48 @@ def empty_param(*shape):
 def keep_casts(module: nn.Module, *names: str) -> None:
     """Hold the named float32 parameters of ``module`` also in
     ``module.dtype``, as non-persistent buffers that every
-    ``load_state_dict`` makes anew: the parameters change only there, so a
-    forward reads the copy (``cast_param``) instead of casting each call.
-    In float32 there is no copy."""
+    ``load_state_dict`` (and ``refresh_casts``) makes anew, for the
+    forwards without gradients (``cast_param``): they read the copy instead
+    of casting each call. In float32 there is no copy."""
     if module.dtype == torch.float32:
         return
-
-    def cast(mod, _incompatible_keys=None):
-        for name in names:
-            p = getattr(mod, name)
-            setattr(mod, name + "_cast", None if p is None else p.detach().to(mod.dtype))
-
+    module._cast_names = names
     for name in names:
         module.register_buffer(name + "_cast", None, persistent=False)
-    module.register_load_state_dict_post_hook(cast)
+    module.register_load_state_dict_post_hook(lambda mod, _keys=None: refresh_casts(mod))
+
+
+def refresh_casts(model: nn.Module) -> None:
+    """Make every ``keep_casts`` copy of ``model`` anew from its parameters:
+    after they change other than through ``load_state_dict``."""
+    for mod in model.modules():
+        for name in getattr(mod, "_cast_names", ()):
+            p = getattr(mod, name)
+            setattr(mod, name + "_cast", None if p is None else p.detach().to(mod.dtype))
 
 
 def cast_param(module: nn.Module, name: str):
     """``module.<name>`` in ``module.dtype``: the parameter itself in
-    float32, else the copy that ``keep_casts`` made at the last load."""
-    return getattr(module, name if module.dtype == torch.float32 else name + "_cast")
+    float32; with gradients enabled a cast of the live parameter, as flax's
+    ``Dense(dtype=...)`` casts on every call, so the gradient reaches it;
+    without, the copy that ``keep_casts`` made at the last load or
+    ``refresh_casts`` (the train step refreshes it after each update)."""
+    p = getattr(module, name)
+    if module.dtype == torch.float32 or p is None:
+        return p
+    if torch.is_grad_enabled():
+        return p.to(module.dtype)
+    return getattr(module, name + "_cast")
+
+
+def dropout(x, p: float, generator):
+    """flax ``nn.Dropout(p)`` outside deterministic mode: each element kept
+    with probability ``1 - p`` and scaled by ``1 / (1 - p)``, the mask drawn
+    from ``generator``; ``generator=None`` or ``p == 0`` is the identity."""
+    if generator is None or p == 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
+    return torch.where(keep, x / (1.0 - p), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 class Dense(nn.Module):
@@ -179,18 +201,20 @@ class CoorsNorm(nn.Module):
 
 class DenseTransMixLayer(nn.Module):
     """Dense masked multi-head attention with edge-gated logits and values
-    and ``extra_heads`` raw adjacency heads; the pair-grid part is the
-    ``mix_attention`` kernel. ``x [B, N, D]``, ``edge_attr [B, N, N, De]``,
-    ``extra_heads [B, N, N, n]``, ``edge_mask [B, N, N]`` -> ``[B, N, H*C]``.
-    The learned logits are scaled by ``1/sqrt(out_channels)``. In ``dtype``:
-    the q/k/v projections, and the kernel's edge and gate operands."""
+    and ``extra_heads`` raw adjacency heads. ``x [B, N, D]``, ``edge_attr
+    [B, N, N, De]``, ``extra_heads [B, N, N, n]``, ``edge_mask [B, N, N]`` ->
+    ``[B, N, H*C]``. The learned logits are scaled by ``1/sqrt(out_channels)``.
+    In eval mode the pair-grid part is the ``mix_attention`` kernel; in
+    training mode it is the JAX module's XLA branch under autograd, with
+    dropout on the attention weights (``_attention_train``). In ``dtype``:
+    the q/k/v projections, and the edge and gate operands."""
 
     def __init__(self, x_channels: int, out_channels: int, edge_dim: int,
                  extra_heads: int = 2, heads: int = 4, set_inf: bool = False,
-                 dtype: torch.dtype = torch.float32):
+                 dropout: float = 0.0, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.heads, self.extra_heads, self.out_channels = heads, extra_heads, out_channels
-        self.set_inf, self.dtype = set_inf, dtype
+        self.set_inf, self.dropout, self.dtype = set_inf, dropout, dtype
         n_sub = heads - extra_heads
         self.sub_c = heads * out_channels // n_sub
         self.lin_query = Dense(x_channels, n_sub * self.sub_c, dtype=dtype)
@@ -199,20 +223,49 @@ class DenseTransMixLayer(nn.Module):
         self.lin_edge0_kernel = empty_param(edge_dim, n_sub * self.sub_c)
         self.lin_edge1_kernel = empty_param(edge_dim, heads * out_channels)
         keep_casts(self, "lin_edge0_kernel", "lin_edge1_kernel")
+        self.eval()  # deterministic until train(), as the JAX module's default
 
-    def forward(self, x, edge_attr, extra_heads, edge_mask):
+    def forward(self, x, edge_attr, extra_heads, edge_mask, generator=None):
         n_cur = extra_heads.shape[-1]
         if n_cur != self.extra_heads:
             extra_heads = extra_heads.repeat_interleave(self.extra_heads // n_cur, dim=-1)
         B, N, _ = x.shape
         n_sub = self.heads - self.extra_heads
-        q, k, v = self.lin_query(x), self.lin_key(x), self.lin_value(x)
+        q = self.lin_query(x).reshape(B, N, n_sub, self.sub_c)
+        k = self.lin_key(x).reshape(B, N, n_sub, self.sub_c)
+        v = self.lin_value(x).reshape(B, N, self.heads, self.out_channels)
+        if self.training:
+            return self._attention_train(q, k, v, edge_attr, extra_heads, edge_mask, generator)
         return mix_attention(
-            q.reshape(B, N, n_sub, self.sub_c), k.reshape(B, N, n_sub, self.sub_c),
-            v.reshape(B, N, self.heads, self.out_channels), edge_attr.to(self.dtype),
+            q, k, v, edge_attr.to(self.dtype),
             cast_param(self, "lin_edge0_kernel"), cast_param(self, "lin_edge1_kernel"),
             extra_heads, edge_mask, set_inf=self.set_inf,
         )
+
+    def _attention_train(self, q, k, v, edge_attr, extra_heads, edge_mask, generator):
+        """The JAX module's branch without its kernel
+        (``diffspectra_tpu/models/layers.py:245-270``): the two gate
+        products and their tanh in ``dtype``, the learned logits in float32
+        over ``sqrt(out_channels)``, the adjacency logits, the masked softmax
+        over j (float32, then ``dtype``), dropout on the weights, and the
+        weighted sum of ``v * e1``. Each product's sum is float32 and its
+        result rounded to ``dtype``, as XLA's dot."""
+        B, N, n_sub, sub_c = q.shape
+        H, C = self.heads, self.out_channels
+        dt = self.dtype
+        e = edge_attr.to(dt)
+        e0 = torch.tanh(e @ cast_param(self, "lin_edge0_kernel")).reshape(B, N, N, n_sub, sub_c)
+        e1 = torch.tanh(e @ cast_param(self, "lin_edge1_kernel")).reshape(B, N, N, H, C)
+        learned = (q.float()[:, :, None] * k.float()[:, None] * e0.float()).sum(-1)
+        learned = learned.to(dt).float() / math.sqrt(C)
+        extra = extra_heads.float()
+        if self.set_inf:
+            extra = torch.where(extra == 0.0, torch.full_like(extra, NEG_ADJ), extra)
+        alpha = torch.cat([extra, learned], dim=-1)
+        alpha = torch.where(edge_mask[..., None] > 0, alpha, torch.full_like(alpha, MASK_INF))
+        alpha = dropout(torch.softmax(alpha, dim=2).to(dt), self.dropout, generator)
+        out = (alpha.float()[..., None] * e1.float() * v.float()[:, None]).sum(2)
+        return out.to(dt).reshape(B, N, H * C).float()
 
     def export_for_block(self, x):
         """The node-level ``q, k [B, N, E*sc]``, ``v [B, N, H*C]`` (in

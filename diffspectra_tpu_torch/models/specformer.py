@@ -1,12 +1,15 @@
-"""SpecFormer, the spectra encoder, in eval mode (port of
+"""SpecFormer, the spectra encoder (port of
 ``diffspectra_tpu/models/specformer.py``).
 
 Each spectrum (UV-Vis 701, IR 3501, Raman 3501 points) is cut into
 overlapping patches, projected to ``d_model`` with a learned positional
 embedding, and the concatenated tokens go through post-norm transformer
-layers with residual attention scores and BatchNorm over channels (running
-statistics from ``batch_stats``). A flatten head and an affine LayerNorm
-(eps 1e-6) give the pooled ``[B, output_dim]`` embedding.
+layers with residual attention scores and BatchNorm over channels. A
+flatten head and an affine LayerNorm (eps 1e-6) give the pooled
+``[B, output_dim]`` embedding. In eval mode BatchNorm reads its running
+statistics (``batch_stats``); in training mode it normalises with the
+batch's and updates the running ones, and dropout (0 in the DMT, as in the
+JAX package) draws from the generator ``forward`` is given.
 """
 
 from __future__ import annotations
@@ -17,7 +20,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import Dense, empty_param, gelu
+from .layers import Dense, dropout, empty_param, gelu
 
 SPECTRUM_LENGTHS = (701, 3501, 3501)  # uv, ir, raman
 SPECTRA_VERSIONS = {"uv": (0,), "ir": (1,), "raman": (2,), "allspectra": (0, 1, 2)}
@@ -35,19 +38,32 @@ def patch_count(length: int, patch_len: int, stride: int) -> int:
 
 
 class BatchNorm(nn.Module):
-    """flax ``nn.BatchNorm`` in eval mode over the last axis, eps 1e-5;
-    ``mean``/``var`` are the running statistics."""
+    """flax ``nn.BatchNorm(momentum=0.9)`` over the last axis, eps 1e-5;
+    ``mean``/``var`` are the running statistics. Training mode: the batch's
+    mean and flax's biased variance (``E[x^2] - E[x]^2``, clipped at 0) over
+    every other axis normalise ``x``, and the running statistics become
+    ``0.9 * running + 0.1 * batch`` (torch's ``BatchNorm1d`` would keep an
+    unbiased running variance)."""
 
-    def __init__(self, features: int, eps: float = 1e-5):
+    def __init__(self, features: int, eps: float = 1e-5, momentum: float = 0.9):
         super().__init__()
-        self.eps = eps
+        self.eps, self.momentum = eps, momentum
         self.scale = empty_param(features)
         self.bias = empty_param(features)
         self.register_buffer("mean", torch.empty(features))
         self.register_buffer("var", torch.empty(features))
+        self.eval()  # running statistics until train(), as the JAX module's default
 
     def forward(self, x):
-        return (x - self.mean) * torch.rsqrt(self.var + self.eps) * self.scale + self.bias
+        if not self.training:
+            return (x - self.mean) * torch.rsqrt(self.var + self.eps) * self.scale + self.bias
+        axes = tuple(range(x.dim() - 1))
+        mean = x.mean(dim=axes)
+        var = ((x * x).mean(dim=axes) - mean * mean).clamp_min(0.0)
+        with torch.no_grad():
+            self.mean.mul_(self.momentum).add_((1 - self.momentum) * mean)
+            self.var.mul_(self.momentum).add_((1 - self.momentum) * var)
+        return (x - mean) * (torch.rsqrt(var + self.eps) * self.scale) + self.bias
 
 
 class LayerNorm(nn.Module):
@@ -66,15 +82,17 @@ class LayerNorm(nn.Module):
 class MultiheadAttention(nn.Module):
     """MHA whose pre-softmax scores carry to the next layer."""
 
-    def __init__(self, d_model: int, n_heads: int):
+    def __init__(self, d_model: int, n_heads: int, attn_dropout: float = 0.0,
+                 proj_dropout: float = 0.0):
         super().__init__()
         self.n_heads = n_heads
+        self.attn_dropout, self.proj_dropout = attn_dropout, proj_dropout
         self.W_Q = Dense(d_model, d_model)
         self.W_K = Dense(d_model, d_model)
         self.W_V = Dense(d_model, d_model)
         self.to_out = Dense(d_model, d_model)
 
-    def forward(self, x, prev=None):
+    def forward(self, x, prev=None, generator=None):
         B, L, D = x.shape
         H = self.n_heads
         dk = D // H
@@ -84,32 +102,38 @@ class MultiheadAttention(nn.Module):
         scores = torch.einsum("bihd,bjhd->bhij", q, k) * dk**-0.5
         if prev is not None:
             scores = scores + prev
-        attn = torch.softmax(scores, dim=-1)
+        attn = dropout(torch.softmax(scores, dim=-1), self.attn_dropout, generator)
         out = torch.einsum("bhij,bjhd->bihd", attn, v).reshape(B, L, D)
-        return self.to_out(out), scores
+        return dropout(self.to_out(out), self.proj_dropout, generator), scores
 
 
 class TSTEncoderLayer(nn.Module):
-    def __init__(self, d_model: int, n_heads: int, d_ff: int):
+    def __init__(self, d_model: int, n_heads: int, d_ff: int, dropout: float = 0.0,
+                 attn_dropout: float = 0.0):
         super().__init__()
-        self.self_attn = MultiheadAttention(d_model, n_heads)
+        self.dropout = dropout
+        self.self_attn = MultiheadAttention(d_model, n_heads, attn_dropout, dropout)
         self.norm_attn = BatchNorm(d_model)
         self.ff1 = Dense(d_model, d_ff)
         self.ff2 = Dense(d_ff, d_model)
         self.norm_ffn = BatchNorm(d_model)
 
-    def forward(self, src, prev=None):
-        src2, scores = self.self_attn(src, prev)
-        src = self.norm_attn(src + src2)
-        src = self.norm_ffn(src + self.ff2(gelu(self.ff1(src))))
+    def forward(self, src, prev=None, generator=None):
+        p = self.dropout
+        src2, scores = self.self_attn(src, prev, generator)
+        src = self.norm_attn(src + dropout(src2, p, generator))
+        ff = self.ff2(dropout(gelu(self.ff1(src)), p, generator))
+        src = self.norm_ffn(src + dropout(ff, p, generator))
         return src, scores
 
 
 class SpecFormer(nn.Module):
     def __init__(self, spectra_version: str = "ir", patch_len: Sequence[int] = (20, 50, 50),
                  stride: Sequence[int] = (10, 25, 25), output_dim: int = 256,
-                 n_layers: int = 3, d_model: int = 128, n_heads: int = 16, d_ff: int = 256):
+                 n_layers: int = 3, d_model: int = 128, n_heads: int = 16, d_ff: int = 256,
+                 dropout: float = 0.0, attn_dropout: float = 0.0):
         super().__init__()
+        self.dropout = dropout
         self.used = used_spectra_indices(spectra_version)
         self.patch_len, self.stride = tuple(patch_len), tuple(stride)
         n_patches = 0
@@ -123,23 +147,27 @@ class SpecFormer(nn.Module):
             _POS_NAMES[i] if spectra_version == "allspectra" else "W_pos" for i in self.used
         ]
         for li in range(n_layers):
-            setattr(self, f"encoder_layer_{li}", TSTEncoderLayer(d_model, n_heads, d_ff))
+            setattr(self, f"encoder_layer_{li}",
+                    TSTEncoderLayer(d_model, n_heads, d_ff, dropout, attn_dropout))
         self.n_layers = n_layers
         self.head_linear = Dense(n_patches * d_model, output_dim)
         self.out_norm = LayerNorm(output_dim)
+        self.eval()
 
-    def forward(self, specs: Sequence[torch.Tensor]) -> torch.Tensor:
+    def forward(self, specs: Sequence[torch.Tensor], generator=None) -> torch.Tensor:
         """``specs``: one ``[B, L_i]`` tensor per used spectrum, in the
-        order uv, ir, raman."""
+        order uv, ir, raman; ``generator`` draws the dropout masks in
+        training mode."""
         if len(specs) != len(self.used):
             raise ValueError(f"expected {len(self.used)} spectra, got {len(specs)}")
+        generator = generator if self.training else None
         tokens = []
         for i, pos_name, spec in zip(self.used, self.pos_names, specs):
             patches = spec.unfold(-1, self.patch_len[i], self.stride[i])
             z = getattr(self, f"W_P_{i}")(patches)
-            tokens.append(z + getattr(self, pos_name))
+            tokens.append(dropout(z + getattr(self, pos_name), self.dropout, generator))
         z = torch.cat(tokens, dim=1)
         scores = None
         for li in range(self.n_layers):
-            z, scores = getattr(self, f"encoder_layer_{li}")(z, scores)
+            z, scores = getattr(self, f"encoder_layer_{li}")(z, scores, generator)
         return self.out_norm(self.head_linear(z.reshape(z.shape[0], -1)))

@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels.
 
-The sources under ``csrc/`` (and the headers they include) are compiled with ``nvcc`` into one shared
-library with a plain C interface (no PyTorch headers, so the build takes
-seconds), loaded with ``ctypes``. The build runs once per process, at the
+The sources under ``csrc/`` (and the headers they include) are compiled with ``nvcc``, one
+process a source at once, and linked into one shared library with a plain C
+interface (no PyTorch headers, so the build takes seconds), loaded with
+``ctypes``. The build runs once per process, at the
 first kernel launch, into ``_build/`` beside the package (listed in
 ``.gitignore``). A failed build raises with nvcc's output.
 """
@@ -77,19 +78,32 @@ def build() -> ctypes.CDLL:
         BUILD_DIR.mkdir(exist_ok=True)
         target = BUILD_DIR / LIB_NAME
         tmp = BUILD_DIR / f"{LIB_NAME}.{os.getpid()}.tmp"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, SOURCES)]
+        # one nvcc a source, all at once, then one link
+        objs = [BUILD_DIR / f"{src.stem}.{os.getpid()}.o" for src in SOURCES]
+        compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+        cmds = [[_nvcc(), *compile_flags, "-c", "-o", str(obj), str(src)]
+                for src, obj in zip(SOURCES, objs)]
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                 for cmd in cmds]
+        outputs = [proc.communicate() for proc in procs]  # every one ends before a raise
+        for cmd, proc, (_, err) in zip(cmds, procs, outputs):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{err}")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, objs)]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(
                 f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stderr}"
             )
+        for obj in objs:
+            obj.unlink()
         os.replace(tmp, target)
         lib = ctypes.CDLL(str(target))
         for name, argtypes in _ARGTYPES.items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-        build_log = proc.stdout + proc.stderr
+        build_log = "".join(out + err for out, err in outputs)
         _lib = lib
         return lib
 

@@ -1,8 +1,22 @@
-"""The evaluation sweep (port of ``diffspectra_tpu/run_lib.py``'s
-``diffspectra_evaluate``, graph mode, one device).
+"""Training and the evaluation sweep (port of ``diffspectra_tpu/run_lib.py``'s
+``diffspectra_train`` and ``diffspectra_evaluate``, graph mode, one device).
 
     from diffspectra_tpu_torch import configs, run_lib
+    state = run_lib.train(configs.get_config(), "exp/train")
     figures = run_lib.evaluate(configs.get_config(), "artifacts/warm_qm9s_as.npz", "eval")
+
+``train`` trains on the second train half of the synthetic set in bucketed
+batches, augmented by a random rotation and translation, with the loss,
+optimizer and EMA of ``training/``; logs the loss and graphs/s every
+``training.log_freq`` steps and stops on a non-finite loss; writes the
+preemption and numbered checkpoints (``checkpoint.py``) and resumes from
+them, or warm-starts from ``training.warm_start``; and at each snapshot
+samples ``training.eval_samples`` validation targets from the EMA weights
+through ``sampling/harness.py`` (the serving kernels) and logs their
+stability figures (also to ``<workdir>/samples/iter_<step>.json``, where
+the JAX package draws the molecules). It exports the last state as ``<workdir>/warm_state.npz``
+(``warm_state.export_warm_state``). Left out: ``visualize.visualize_mols``
+(RDKit), the device-resident dataset, the mesh and the profile hook.
 
 Samples ``eval.num_samples`` test targets of the synthetic split with the
 seed-42 harness, scores the 3D and 2D stability and validity, repeats the
@@ -21,22 +35,31 @@ and the checkpoint loop.
 
 from __future__ import annotations
 
+import json
 import logging
+import math
 import os
 import time
 
 import numpy as np
 import torch
 
+from . import checkpoint as ckpt_lib
 from .api import load_dmt
-from .data.pipeline import get_dataset
+from .data.pipeline import augment_positions, get_batch_iterator, get_dataset, inf_iterator
 from .device import resolve_device
 from .diffusion.schedule import NoiseScheduleVP
 from .evaluation import compute_metrics as cm
 from .evaluation.molgraph import from_decoded
 from .evaluation.stability import get_2D_edm_metric, get_edm_metric
+from .models.dmt import DMT
 from .sampling.harness import make_cond_sampling_fn
-from .utils.scalers import get_data_inverse_scaler
+from .training.losses import draw
+from .training.optim import get_optimizer
+from .training.step import get_step_fn, load_ema_weights
+from .training.train_state import create_train_state
+from .utils.scalers import get_data_inverse_scaler, get_data_scaler
+from .warm_state import export_warm_state, init_variables, load_model_state, warm_start
 
 
 def _rows_to_molgraphs(rows, atom_decoder):
@@ -239,3 +262,123 @@ def evaluate(config, warm_state: str, eval_dir: str, device=None) -> dict:
     model = load_dmt(warm_state, config, device)
     ckpt = os.path.splitext(os.path.basename(warm_state))[0]
     return diffspectra_evaluate(config, model, eval_dir, device, ckpt)
+
+
+def batch_to_device(batch, device) -> dict:
+    """A collated numpy batch as tensors on ``device`` (``num_atom``
+    dropped, ``context`` a tuple)."""
+    out = {k: torch.from_numpy(v).to(device, non_blocking=True)
+           for k, v in batch.items() if k not in ("context", "num_atom")}
+    out["context"] = tuple(torch.from_numpy(c).to(device, non_blocking=True)
+                           for c in batch["context"])
+    return out
+
+
+def init_train_state(config, device):
+    """A fresh DMT (flax's initializers, from ``config.seed``) in training
+    mode on ``device``, its optimizer and train state."""
+    model = DMT.from_config(config)
+    load_model_state(model, init_variables(model, config.seed))
+    model.to(device).train()
+    tx = get_optimizer(config)
+    state = create_train_state(model, tx, config.model.ema_decay)
+    n_params = sum(p.numel() for p in model.parameters())
+    logging.info("model size: %.1fMB", n_params * 4 / 2**20)
+    return tx, state
+
+
+def train(config, workdir: str, device=None):
+    """The training loop (``diffspectra_train``) on ``cuda`` unless
+    ``device="cpu"``; returns the final train state."""
+    device = resolve_device(device)
+    sample_dir = os.path.join(workdir, "samples")
+    os.makedirs(sample_dir, exist_ok=True)
+    _, train_ds, val_ds, test_ds, dataset_info = get_dataset(config)
+    logging.info("datasets: train %d val %d test %d", len(train_ds), len(val_ds), len(test_ds))
+    t = config.training
+    spectra_version, batch_size = config.data.spectra_version, t.batch_size
+    bucket_sizes = tuple(config.data.bucket_sizes)
+    train_iter = inf_iterator(lambda epoch: get_batch_iterator(
+        train_ds, batch_size, spectra_version, shuffle=True, seed=config.seed + epoch,
+        drop_last=True, bucket_sizes=bucket_sizes))
+
+    tx, state = init_train_state(config, device)
+    noise_scheduler = NoiseScheduleVP(config.sde.schedule, config.sde.continuous_beta_0,
+                                      config.sde.continuous_beta_1)
+    state = ckpt_lib.restore_for_resume(workdir, state)
+    initial_step = state.step
+    if initial_step == 0 and t.warm_start:
+        # only when the workdir has no checkpoint of its own: a resume wins
+        state = warm_start(state, t.warm_start)
+        initial_step = state.step
+    if initial_step == 0:
+        logging.info("%s", config)
+    step_fn = get_step_fn(noise_scheduler, tx, get_data_scaler(config), config)
+    # the noise on the device; the coins, dropout seeds and sampling seeds on the host
+    generator = torch.Generator(device=device).manual_seed(config.seed)
+    host_generator = torch.Generator().manual_seed(config.seed)
+    n_layers = len(state.model.blocks)
+
+    if t.snapshot_sampling:
+        eval_model = DMT.from_config(config).to(device).eval()
+        snapshot_sampling_fn = make_cond_sampling_fn(
+            config, eval_model, noise_scheduler, t.eval_batch_size, t.eval_samples,
+            get_data_inverse_scaler(config), val_ds, device)
+        edm_metric = get_edm_metric(dataset_info)
+        edm_metric_2d = get_2D_edm_metric(dataset_info)
+
+    t_last, step_last = time.time(), initial_step
+    for step in range(initial_step, t.n_iters + 1):
+        batch = batch_to_device(next(train_iter), device)
+        batch["positions"] = augment_positions(
+            generator, batch["positions"], batch["atom_mask"], True, True,
+            config.data.aug_translation_scale)
+        state, loss = step_fn(state, batch, draw(generator, host_generator, batch, n_layers))
+
+        if step % t.log_freq == 0:
+            loss_val = float(loss)
+            dt = time.time() - t_last
+            tput = (step - step_last) * batch_size / dt if dt > 0 else 0
+            t_last, step_last = time.time(), step
+            logging.info("step: %d, training_loss: %.5e, graphs/sec: %.1f", step, loss_val, tput)
+            if not math.isfinite(loss_val):
+                logging.error("NON-FINITE training loss %r at step %d -- aborting (checkpoints "
+                              "on disk keep the last finite state)", loss_val, step)
+                raise FloatingPointError(f"non-finite training loss at step {step}")
+
+        if step != 0 and step % t.snapshot_freq_for_preemption == 0:
+            ckpt_lib.save_checkpoint_if_finite(ckpt_lib.meta_checkpoint_dir(workdir), state)
+
+        if step != 0 and (step % t.snapshot_freq == 0 or step == t.n_iters):
+            ckpt_lib.save_checkpoint_if_finite(
+                ckpt_lib.numbered_checkpoint_dir(workdir, step // t.snapshot_freq), state)
+            if t.snapshot_sampling:
+                figures = snapshot(step, state, eval_model, snapshot_sampling_fn, edm_metric,
+                                   edm_metric_2d, host_generator, device)
+                with open(os.path.join(sample_dir, f"iter_{step}.json"), "w") as f:
+                    json.dump(figures, f)
+
+    export_warm_state(state, os.path.join(workdir, "warm_state.npz"),
+                      meta={"step": state.step, "source": "diffspectra_tpu_torch.run_lib.train"})
+    return state
+
+
+def snapshot(step, state, eval_model, sampling_fn, edm_metric, edm_metric_2d, host_generator,
+             device) -> dict:
+    """Sample from the EMA weights and log the 3D and 2D stability figures
+    (``visualize_mols`` needs RDKit and is skipped)."""
+    load_ema_weights(state, eval_model)
+    generator = torch.Generator(device=device)
+    generator.manual_seed(int(torch.randint(0, 2**62, (), generator=host_generator)))
+    processed_mols, _, _ = sampling_fn(generator)
+    figures = {}
+    for dim, metric in (("3D", edm_metric), ("2D", edm_metric_2d)):
+        stability_res, rdkit_res, mols = metric(processed_mols)
+        logging.info(
+            "step: %d, n_mol: %d, %s atom stability: %.4f, mol stability: %.4f, validity: "
+            "%.4f, complete: %.4f, unique & valid: %.4f", step, len(mols), dim,
+            stability_res["atom_stable"], stability_res["mol_stable"], rdkit_res["Validity"],
+            rdkit_res["Complete"], rdkit_res["Unique"])
+        figures[dim] = {k: float(v) for k, v in {**stability_res, **rdkit_res}.items()}
+    logging.info("step: %d, molecule pictures skipped: visualize_mols needs RDKit", step)
+    return figures

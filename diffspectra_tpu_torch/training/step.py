@@ -1,0 +1,53 @@
+"""The train and eval steps (port of ``diffspectra_tpu/training/step.py``,
+on one device: the ``axis_name`` collectives wait for ``parallel/``).
+
+``train_step(state, batch, draws) -> (state, loss)``: the loss in training
+mode, its gradient with respect to every parameter (zeros where a
+parameter does not reach the loss, as ``jax.grad`` gives them), the
+clipped optimizer step, the bf16 weight copies made anew, then the EMA;
+SpecFormer's batch statistics move inside the loss. ``eval_step(state, batch, draws, eval_model)``: the loss
+with the EMA weights and the batch statistics loaded into ``eval_model``,
+deterministic.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..models import ema as ema_lib
+from ..models.layers import refresh_casts
+from .losses import get_sde_graph_loss_fn
+from .train_state import TrainState, params_of
+
+
+def load_ema_weights(state: TrainState, model: torch.nn.Module) -> torch.nn.Module:
+    """``model`` (another instance of the state's model) holding the EMA
+    parameters and the state's batch statistics, in eval mode; the load
+    makes its bf16 weight copies anew."""
+    buffers = {k: v for k, v in state.model.state_dict().items()
+               if k not in state.ema.shadow_params}
+    model.load_state_dict({**ema_lib.params(state.ema), **buffers}, strict=True)
+    return model.eval()
+
+
+def get_step_fn(noise_scheduler, tx, scaler, config, train: bool = True):
+    loss_fn = get_sde_graph_loss_fn(noise_scheduler, scaler, config)
+
+    def train_step(state: TrainState, batch, draws):
+        model = state.model.train()
+        params = params_of(model)
+        loss = loss_fn(model, batch, draws)
+        grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
+        grads = {k: torch.zeros_like(p) if g is None else g
+                 for (k, p), g in zip(params.items(), grads)}
+        state.opt_state = tx.update(grads, state.opt_state, params)
+        refresh_casts(model)  # the bf16 copies that no-grad forwards read
+        state.ema = ema_lib.update(state.ema, params)
+        state.step += 1
+        return state, loss.detach()
+
+    @torch.no_grad()
+    def eval_step(state: TrainState, batch, draws, eval_model):
+        return state, loss_fn(load_ema_weights(state, eval_model), batch, draws)
+
+    return train_step if train else eval_step

@@ -1,7 +1,7 @@
-"""Inverse data scaler and self-conditioning post-processing (port of
-``diffspectra_tpu/utils/scalers.py``). One-hots were centred to [-1, 1] and
+"""Data scaler, its inverse and self-conditioning post-processing (port of
+``diffspectra_tpu/utils/scalers.py``). One-hots are centred to [-1, 1] and
 divided by the per-channel factors '1, 4, 4, 1' (pos, atom types, formal
-charge, edges)."""
+charge, edges), all masked."""
 
 from __future__ import annotations
 
@@ -19,6 +19,26 @@ def parse_normalize_factors(normalize_factors) -> Sequence[float]:
     if len(factors) == 3:
         factors = factors + [1.0]
     return tuple(factors)
+
+
+def get_data_scaler(config):
+    """The forward normaliser the training loss applies to a batch."""
+    pos_norm, atom_type_norm, fc_norm, edge_norm = parse_normalize_factors(
+        config.model.normalize_factors
+    )
+    centered = config.data.centered
+
+    def scale_fn(pos, atom_type, fc_charge, node_mask, edge_type, edge_mask):
+        if centered:
+            atom_type = atom_type * 2.0 - 1.0
+            edge_type = edge_type * 2.0 - 1.0
+        pos = pos / pos_norm * node_mask
+        atom_type = atom_type / atom_type_norm * node_mask
+        fc_charge = fc_charge / fc_norm * node_mask
+        edge_type = edge_type / edge_norm * edge_mask[..., None]
+        return pos, atom_type, fc_charge, edge_type
+
+    return scale_fn
 
 
 def get_data_inverse_scaler(config):

@@ -128,11 +128,14 @@ def test_dense_casts_its_parameters_at_load_not_per_call():
     dense.load_state_dict({"kernel": w[0], "bias": w[1]})
     assert dense.kernel.dtype == torch.float32 and dense.kernel_cast.dtype == BF16
     x = torch.from_numpy(rng.normal(size=(3, 64)).astype(np.float32)).to(BF16)
-    with torch.profiler.profile() as prof:
+    with torch.no_grad(), torch.profiler.profile() as prof:  # serving: no gradients
         got = dense(x)
     assert "aten::_to_copy" not in {e.key for e in prof.key_averages()}
     assert torch.equal(got, x @ w[0].to(BF16) + w[1].to(BF16))
     assert "kernel_cast" not in dense.state_dict()
+    # with gradients (training) the live parameter is cast, so it gets one
+    dense(x).float().sum().backward()
+    assert dense.kernel.grad is not None and dense.bias.grad is not None
 
 
 def test_bf16_weight_copies_follow_each_load():

@@ -1,7 +1,7 @@
 """The port's evaluation sweep against the JAX package's, on the CPU.
 
-- Data: ``get_dataset``'s four splits (indices) and the arrays the harness
-  reads equal JAX's on the smoke config at size 64.
+- Data: ``get_dataset``'s four splits (indices) and every array of the
+  dataset transform equal JAX's on the smoke config at size 64.
 - The round plan: both harnesses run with their reverse diffusion replaced
   by one scripted fake (the JAX harness's ``jax.jit`` and the port's
   ``sample_round``, patched in this test only) that returns each drawn
@@ -63,9 +63,9 @@ def test_get_dataset_matches_jax():
     jcfg, cfg = _configs()
     want, got = jax_get_dataset(jcfg), get_dataset(cfg)
     assert got[4]["atom_decoder"] == want[4]["atom_decoder"]
-    keys = ("positions", "formal_charges", "num_atom", "atom_type", "edge_type", "ir", "uv",
-            "raman")
-    assert set(got[0].arrays) == set(keys)
+    keys = ("atom_one_hot", "edge_one_hot", "positions", "formal_charges", "num_atom",
+            "atom_type", "edge_type", "ir", "uv", "raman")
+    assert set(got[0].arrays) == set(want[0].arrays) == set(keys)
     for g, w in zip(got[:4], want[:4]):
         np.testing.assert_array_equal(g.indices, w.indices)
     for k in keys:

@@ -3,10 +3,12 @@ jax, flax, optax, orbax, ml_collections, ml_dtypes, absl, rdkit, pandas,
 triton and the JAX package ``diffspectra_tpu``, every module of
 ``diffspectra_tpu_torch`` imports, a small-config ``Elucidator`` serves on
 the CPU (one request at a known atom count, one through the whole-block
-path, and one without the atom count through a count head), and the
-evaluation sweep scores a tiny run and writes its files. Also the entry
-points' refusals: no CUDA without asking for the CPU, and the modes that
-are not ported."""
+path, and one without the atom count through a count head), the
+evaluation sweep scores a tiny run and writes its files, and the train
+loop takes two steps, writes a checkpoint that ``torch.load`` reads with
+``weights_only`` and an export a warm start reads. Also the entry points'
+refusals: no CUDA without asking for the CPU, and the modes that are not
+ported."""
 
 import os
 import subprocess
@@ -32,6 +34,11 @@ WARM = os.path.join(ROOT, "artifacts", "warm_qm9s_as.npz")
 BARE_INSTALL = textwrap.dedent(
     """
     import importlib, importlib.abc, pkgutil, sys
+
+    # torch's compiler front end, which torch.utils.checkpoint loads, probes
+    # optional packages with find_spec, where the blocker below would raise
+    # instead of answering "absent": load it first
+    import torch._dynamo
 
     BLOCKED = {"jax", "jaxlib", "flax", "optax", "orbax", "ml_collections",
                "ml_dtypes", "absl", "rdkit", "pandas", "triton", "diffspectra_tpu"}
@@ -118,6 +125,21 @@ BARE_INSTALL = textwrap.dedent(
         assert table["Top-1 Accuracy"] == "1.0000" and table["MCES"] == "0.0000"
         assert sorted(os.listdir(tmp))[-3:] == [
             "s.csv", "s_detailed_scores.csv", "s_detailed_scores.json"]
+    # training: two steps of a tiny run, its checkpoint read back with
+    # weights_only, and a warm start from its export
+    from diffspectra_tpu_torch import checkpoint
+    from diffspectra_tpu_torch.warm_state import warm_start
+    configs.apply_overrides(config, {"training.n_iters": 1, "training.snapshot_freq": 1,
+                                     "training.snapshot_sampling": False,
+                                     "training.batch_size": 2})
+    with tempfile.TemporaryDirectory() as tmp:
+        state = run_lib.train(config, tmp, "cpu")
+        assert state.step == 2
+        blob = torch.load(os.path.join(checkpoint.numbered_checkpoint_dir(tmp, 1),
+                                       checkpoint.STATE_FILE), weights_only=True)
+        assert blob["step"] == 2
+        _, fresh = run_lib.init_train_state(config, torch.device("cpu"))
+        assert warm_start(fresh, os.path.join(tmp, "warm_state.npz")).step == 2
     loaded = sorted(n for n in sys.modules if n.split(".")[0] in BLOCKED)
     assert not loaded, loaded
     print("served", len(names), "modules", len(result.candidates), "candidates")
