@@ -119,9 +119,6 @@ WARM = os.path.join(ROOT, "artifacts", "warm_qm9s_as.npz")
 HEAD = os.path.join(ROOT, "artifacts", "atom_count_head.npz")
 B, N = 10, 29  # draws per request, padded atoms at the largest bucket
 REQUESTS, CANDIDATES, STEPS = 3, 10, 1000
-# requests served a path by dtype: f32, the override, serves one, to keep the
-# script with phase 8 well inside its time limit (three ran 920.7 s, PERF.md §6)
-SERVED = {"bf16": REQUESTS, "f32": 1}
 SHORT_STEPS, DPM_STEPS = 100, 50  # the count-head, batch and DPM-Solver phases
 MARGINAL_STEPS, MARGINAL_DRAWS = 20, 2  # the marginal over the histogram's counts
 # phase 7, the eval sweep: tools/tpu_eval_10k.py's batch of 128; a synthetic
@@ -171,10 +168,12 @@ TRAIN = {"seed": 42, "data.synthetic_size": 1280, "data.synthetic_fidelity": 4,
          "data.bucket_sizes": (17, 21, 25, 29), "training.batch_size": 128,
          "training.eval_batch_size": 128, "training.eval_samples": 128,
          "training.log_freq": 1, "sampling.steps": 1000, "training.warm_start": WARM}
-TRAIN_STEPS = 30  # the run of check (b), and the timed run with remat_policy='full'
+TRAIN_STEPS = 30  # the run of checks (b) and (c), remat_policy='full'
 TIMED_TAIL = 20  # the steps the median step time is taken over
-NONE_STEPS = 10  # the timed run with remat_policy='none'
+PROFILED = 2  # the steps of that run under torch.profiler, out of the median
+NONE_STEPS = 10  # the run with remat_policy='none'
 CHECK_BATCH = 4  # check (a): one f32 step on cuda and on the CPU
+CHECK_SET = 64  # check (a)'s synthetic set, whose train split gives its batch
 CHECK_LOSS_RTOL, CHECK_GRAD_RTOL = 1e-4, 1e-3  # the latter of each parameter's max |grad|
 # SpecFormer's biases whose exact gradient is zero in training mode (a key
 # bias shifts a softmax row; the value, to_out and ff2 biases add constants
@@ -873,8 +872,8 @@ def launched_only(path_kernels, launches, expected):
 
 
 def serve_path(path, dt, dev, data):
-    """Serve SERVED[dt] of the REQUESTS through one path in one dtype; the
-    counts are this path's."""
+    """Serve the REQUESTS through one path in one dtype; the counts are this
+    path's."""
     from diffspectra_tpu_torch.api import Elucidator
     from diffspectra_tpu_torch.data.info import get_dataset_info
     from diffspectra_tpu_torch.evaluation.molgraph import MolGraph
@@ -889,12 +888,12 @@ def serve_path(path, dt, dev, data):
     say(f"[{tag}] loaded {WARM} in {time.perf_counter() - t0:.2f} s; "
         f"pallas_ops={el.config.model.pallas_ops}, matmul_precision="
         f"{el.config.training.matmul_precision} (DMT {el.model.dtype}), "
-        f"steps={el.config.sampling.steps}, candidates={CANDIDATES}, requests={SERVED[dt]}")
+        f"steps={el.config.sampling.steps}, candidates={CANDIDATES}, requests={REQUESTS}")
     assert el.config.training.matmul_precision == DTYPES[dt]
     decoder = get_dataset_info("qm9_second_half")["atom_decoder"]
     reset_launches()  # counts from here on are this path's
     per_request = []
-    for m in range(SERVED[dt]):
+    for m in range(REQUESTS):
         n = int(data["num_atom"][m])
         spectra = {k: data[k][m] for k in ("uv", "ir", "raman")}
         before = dict(LAUNCHES)
@@ -917,13 +916,13 @@ def serve_path(path, dt, dev, data):
         per_request.append(dict(n_atoms=n, wall_s=wall, mols_per_s=CANDIDATES / wall,
                                 distinct=len(result.candidates), top1_hit=hit))
     launches = dict(LAUNCHES)
-    expected = el.config.model.n_layers * STEPS * SERVED[dt]
+    expected = el.config.model.n_layers * STEPS * REQUESTS
     say(f"[{tag}] launches {nonzero(launches)}, expected {expected} for "
         f"{kernels_of(path, dt)}, 0 for the others")
     launched_only(kernels_of(path, dt), launches, expected)
     total = sum(r["wall_s"] for r in per_request)
     say(f"[{tag}] " + json.dumps({"requests": per_request,
-                                  "mols_per_s": SERVED[dt] * CANDIDATES / total}))
+                                  "mols_per_s": REQUESTS * CANDIDATES / total}))
     return el, launches
 
 
@@ -1197,54 +1196,34 @@ def train_config(**overrides):
     return configs.apply_overrides(configs.get_config(), {**TRAIN, **overrides})
 
 
-def train_batches(config, train_ds, dev):
-    """The train loop's batches on ``dev``: the second train half in
-    buckets, each rotated and translated."""
-    from diffspectra_tpu_torch import run_lib
-    from diffspectra_tpu_torch.data.pipeline import (
-        augment_positions,
-        get_batch_iterator,
-        inf_iterator,
-    )
-
-    batches = inf_iterator(lambda epoch: get_batch_iterator(
-        train_ds, config.training.batch_size, config.data.spectra_version,
-        seed=config.seed + epoch, bucket_sizes=config.data.bucket_sizes))
-    gen = torch.Generator(device=dev).manual_seed(config.seed)
-    for batch in batches:
-        batch = run_lib.batch_to_device(batch, dev)
-        batch["positions"] = augment_positions(gen, batch["positions"], batch["atom_mask"],
-                                               True, True, config.data.aug_translation_scale)
-        yield batch
-
-
-def warm_train_state(config, dev):
-    from diffspectra_tpu_torch import run_lib
-    from diffspectra_tpu_torch.warm_state import warm_start
-
-    tx, state = run_lib.init_train_state(config, dev)
-    return tx, warm_start(state, WARM)
-
-
-def train_check_cpu(dev, train_ds, smi):
+def train_check_cpu(dev, smi):
     """Check (a): one f32 step's loss and gradients at dropout 0 on cuda and
     on the CPU, from the warm state and the same draws (self-conditioned,
     so every parameter is read)."""
+    from diffspectra_tpu_torch import run_lib
+    from diffspectra_tpu_torch.data.pipeline import get_batch_iterator, get_dataset
     from diffspectra_tpu_torch.diffusion.schedule import NoiseScheduleVP
     from diffspectra_tpu_torch.training.losses import draw, get_sde_graph_loss_fn
     from diffspectra_tpu_torch.training.train_state import params_of
     from diffspectra_tpu_torch.utils.scalers import get_data_scaler
+    from diffspectra_tpu_torch.warm_state import warm_start
 
     config = train_config(**{"training.matmul_precision": "float32", "model.dropout": 0.0,
-                             "training.batch_size": CHECK_BATCH})
-    batch = next(train_batches(config, train_ds, torch.device("cpu")))
+                             "training.batch_size": CHECK_BATCH,
+                             "data.synthetic_size": CHECK_SET})
+    _, train_ds, _, _, _ = get_dataset(config)
+    batch = run_lib.batch_to_device(next(get_batch_iterator(
+        train_ds, CHECK_BATCH, config.data.spectra_version, seed=config.seed,
+        bucket_sizes=config.data.bucket_sizes)), torch.device("cpu"))
     draws = draw(torch.Generator().manual_seed(1), torch.Generator().manual_seed(2), batch,
                  config.model.n_layers)
     draws["use_sc"] = True
     loss_fn = get_sde_graph_loss_fn(NoiseScheduleVP(config.sde.schedule),
                                     get_data_scaler(config), config)
+
     def step(device):
-        _, state = warm_train_state(config, device)
+        _, state = run_lib.init_train_state(config, device)
+        state = warm_start(state, WARM)
         moved = {k: (tuple(c.to(device) for c in v) if k == "context" else v.to(device))
                  for k, v in batch.items()}
         moved_draws = {k: (v.to(device) if torch.is_tensor(v) else v) for k, v in draws.items()}
@@ -1273,54 +1252,125 @@ def train_check_cpu(dev, train_ds, smi):
     assert rel <= CHECK_LOSS_RTOL, rel
 
 
-def train_run(dev, smi):
-    """Checks (b) and (c): ``run_lib.train`` from the warm state for
-    TRAIN_STEPS steps, then its snapshot of 128 draws at 1000 steps from
-    the EMA weights. Returns the launches of the run."""
+def busy_share(prof, window_us, smi):
+    """The device's busy share over the profiled steps, and the names of
+    their kernels: none of the port's."""
+    # the schedule's ProfilerStep ranges carry their steps' device time again
+    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"
+              and e.device_time_total > 0 and not e.key.startswith("ProfilerStep")]
+    busy_us = sum(e.device_time_total for e in events)
+    ours = set(itertools.chain(*KERNEL_STAGES.values())) | {k for _, k in PROBE_KERNELS.values()}
+    hit = sorted({e.key for e in events if any(name in e.key for name in ours)})
+    events.sort(key=lambda e: -e.device_time_total)
+    say(f"[train] profile of {PROFILED} steps of the loop: window {window_us:.0f} us, kernel "
+        f"time {busy_us:.0f} us (busy share {busy_us / window_us:.3f}), {len(events)} kernels "
+        f"by name, the port's among them: {hit or 'none'}; {smi}")
+    for e in events[:10]:
+        say(f"[train]   {e.device_time_total / PROFILED:10.1f} us/step  "
+            f"x{e.count // PROFILED:<5d} {e.key[:90]}")
+    assert not hit, hit
+    return busy_us / window_us
+
+
+def train_run(dev, smi, policy, steps, snapshot):
+    """``run_lib.train`` from the warm state for ``steps`` steps with
+    ``remat_policy``, and with ``snapshot`` its snapshot of 128 draws at
+    1000 steps from the EMA weights. The loop logs each step after reading
+    its loss, which waits for the step: the times between those lines are
+    its step times, the median over the tail (without the profiled steps)
+    is reported, and the peak memory is read at the last step's line, ahead
+    of the snapshot. With ``snapshot`` it also profiles PROFILED steps of the
+    tail. Returns the state, its config, the timings and the launches."""
     import logging
+
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     from diffspectra_tpu_torch import run_lib
     from diffspectra_tpu_torch.ops import LAUNCHES, reset_launches
-    from diffspectra_tpu_torch.warm_state import flax_variables, read_warm_state
+    from diffspectra_tpu_torch.warm_state import read_warm_state
 
-    warm = read_warm_state(WARM)
-    last = warm["step"] + TRAIN_STEPS - 1  # the loop runs steps warm_step ... n_iters
-    config = train_config(**{"training.n_iters": last, "training.snapshot_freq": 10**9,
-                             "training.snapshot_freq_for_preemption": 10**9})
-    losses = []
+    warm_step = read_warm_state(WARM)["step"]
+    last = warm_step + steps - 1  # the loop runs steps warm_step ... n_iters
+    config = train_config(**{"model.remat_policy": policy, "training.n_iters": last,
+                             "training.snapshot_freq": 10**9,
+                             "training.snapshot_freq_for_preemption": 10**9,
+                             "training.snapshot_sampling": snapshot})
+    wait = steps - PROFILED - 3  # then a warmup step, PROFILED steps, and two more
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                   schedule=schedule(wait=wait, warmup=1, active=PROFILED, repeat=1),
+                   # the steps out of the median: the warmup step (the profiler
+                   # starts), the profiled ones, and the next (the trace is read)
+                   on_trace_ready=lambda p: found.update(
+                       busy=busy_share(p, (marks[-1] - marks[-1 - PROFILED]) * 1e6, smi),
+                       profiled=range(len(marks) - 2 - PROFILED, len(marks))))
+    losses, marks, peaks, found = [], [], [], {}
 
-    class Losses(logging.Handler):
+    class StepLines(logging.Handler):
         def emit(self, record):
             msg = record.getMessage()
             if "training_loss" in msg:
+                marks.append(time.perf_counter())
+                peaks.append(torch.cuda.max_memory_allocated())
                 losses.append(float(msg.split("training_loss: ")[1].split(",")[0]))
+                if snapshot:
+                    prof.step()
 
     root = logging.getLogger()
     root.setLevel(logging.INFO)
-    handler = Losses()
+    handler = StepLines()
     root.addHandler(handler)
     workdir = tempfile.mkdtemp(prefix="train_")
-    reset_launches()  # counts from here on are the train run's
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()  # counts from here on are this run's
     t0 = time.perf_counter()
-    state = run_lib.train(config, workdir, dev)
+    if snapshot:
+        with prof:
+            state = run_lib.train(config, workdir, dev)
+    else:
+        state = run_lib.train(config, workdir, dev)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(LAUNCHES)
     root.removeHandler(handler)
-    say(f"[train] (b) run_lib.train: {TRAIN_STEPS} steps from step {warm['step']} (batch "
-        f"{config.training.batch_size}, buckets {config.data.bucket_sizes}, bf16, dropout "
-        f"{config.model.dropout}, remat {config.model.remat_policy}) and a snapshot, {wall:.1f} s "
-        f"in all; losses {[round(x, 4) for x in losses]}")
-    assert len(losses) == TRAIN_STEPS and all(math.isfinite(x) for x in losses), losses
-    assert state.step == warm["step"] + TRAIN_STEPS
+    step_ms = [(b - a) * 1e3 for a, b in zip(marks, marks[1:])]
+    timed = [t for i, t in enumerate(step_ms) if i not in found.get("profiled", ())]
+    tail = timed[-min(TIMED_TAIL, len(timed) - 1):]
+    median = float(np.median(tail))
+    timing = {"median_ms": median, "graphs_per_s": config.training.batch_size / median * 1e3,
+              "max_memory_bytes": peaks[-1], "step_ms": step_ms}
+    say(f"[train] remat_policy={policy}: run_lib.train, {steps} steps from step {warm_step} "
+        f"(batch {config.training.batch_size}, buckets {config.data.bucket_sizes}, bf16, "
+        f"dropout {config.model.dropout}){' and a snapshot' if snapshot else ''}, {wall:.1f} s "
+        f"in all; median step {median:.1f} ms over the last {len(tail)} unprofiled steps "
+        f"({timing['graphs_per_s']:.1f} graphs/s); step ms {[round(t, 1) for t in step_ms]}; "
+        f"max_memory_allocated {peaks[-1] / 2**30:.2f} GiB; losses "
+        f"{[round(x, 4) for x in losses]}; {smi}")
+    assert len(losses) == steps and all(math.isfinite(x) for x in losses), losses
+    assert state.step == warm_step + steps
+    if snapshot:
+        assert "busy" in found, "the profiler's trace never came"
+        timing["busy_share"] = found["busy"]
+        with open(os.path.join(workdir, "samples", f"iter_{last}.json")) as f:
+            timing["figures"] = json.load(f)
+    shutil.rmtree(workdir)
+    return state, config, timing, launches
+
+
+def train_checks(state, config, timing, launches, smi):
+    """Checks (b) and (c) on the run with the snapshot: params and EMA moved
+    from the warm state; the snapshot launched each bf16 per-op kernel 8 x
+    steps x rounds times (the train steps none); its figures in [0, 1]."""
+    from diffspectra_tpu_torch.warm_state import flax_variables, read_warm_state
+
+    warm = read_warm_state(WARM)
     got, shadow = flax_variables(state.model), flax_variables(state.model, state.ema.shadow_params)
     moved_p = sum(not np.array_equal(got[k], v) for k, v in warm["params"].items())
     moved_e = sum(not np.array_equal(shadow[k], v) for k, v in warm["ema"].items())
     say(f"[train] (b) leaves moved from the warm state: params {moved_p} of "
         f"{len(warm['params'])}, EMA {moved_e} of {len(warm['ema'])}")
     assert moved_p > 0 and moved_e > 0
-    with open(os.path.join(workdir, "samples", f"iter_{last}.json")) as f:
-        figures = json.load(f)
+    figures = timing.pop("figures")
     rounds = math.ceil(config.training.eval_samples / config.training.eval_batch_size)
     expected = config.model.n_layers * config.sampling.steps * rounds
     say(f"[train] (c) snapshot, {config.training.eval_samples} draws at "
@@ -1331,82 +1381,6 @@ def train_run(dev, smi):
     for dim in ("3D", "2D"):
         for key in ("atom_stable", "mol_stable", "Validity", "Complete", "Unique"):
             assert math.isfinite(figures[dim][key]) and 0 <= figures[dim][key] <= 1
-    shutil.rmtree(workdir)
-    return launches
-
-
-def timed_steps(dev, train_ds, policy, steps, smi):
-    """``steps`` synchronized train steps with ``remat_policy``: the median
-    step time over the tail, graphs/s and the peak memory. Returns the
-    state, its step function and batches."""
-    from diffspectra_tpu_torch.diffusion.schedule import NoiseScheduleVP
-    from diffspectra_tpu_torch.training.losses import draw
-    from diffspectra_tpu_torch.training.step import get_step_fn
-    from diffspectra_tpu_torch.utils.scalers import get_data_scaler
-
-    config = train_config(**{"model.remat_policy": policy})
-    tx, state = warm_train_state(config, dev)
-    step_fn = get_step_fn(NoiseScheduleVP(config.sde.schedule), tx, get_data_scaler(config),
-                          config)
-    batches = train_batches(config, train_ds, dev)
-    gen = torch.Generator(device=dev).manual_seed(3)
-    host = torch.Generator().manual_seed(4)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    times, pads, losses = [], [], []
-    for _ in range(steps):
-        batch = next(batches)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        state, loss = step_fn(state, batch, draw(gen, host, batch, config.model.n_layers))
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-        pads.append(batch["atom_mask"].shape[1])
-        losses.append(loss.item())
-    tail = times[-min(TIMED_TAIL, steps - 2):]
-    median = float(np.median(tail))
-    mem = torch.cuda.max_memory_allocated()
-    say(f"[train] remat_policy={policy}: median step {median:.1f} ms over the last {len(tail)} "
-        f"of {steps} steps ({config.training.batch_size / median * 1e3:.1f} graphs/s), step ms "
-        f"{[round(t, 1) for t in times]} at n_pad {pads}; max_memory_allocated "
-        f"{mem / 2**30:.2f} GiB; {smi}")
-    assert all(math.isfinite(x) for x in losses), losses
-    return state, config, step_fn, batches, {"median_ms": median, "graphs_per_s":
-                                             config.training.batch_size / median * 1e3,
-                                             "max_memory_bytes": mem, "step_ms": times,
-                                             "n_pad": pads}
-
-
-def profile_train_step(dev, state, config, step_fn, batches, smi):
-    """The device's busy share over two train steps, and the names of their
-    kernels: none of the port's."""
-    from torch.profiler import ProfilerActivity, profile
-
-    from diffspectra_tpu_torch.training.losses import draw
-
-    gen, host = torch.Generator(device=dev).manual_seed(5), torch.Generator().manual_seed(6)
-    work = [(b, draw(gen, host, b, config.model.n_layers)) for b in (next(batches), next(batches))]
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for batch, draws in work:
-            state, _ = step_fn(state, batch, draws)
-        torch.cuda.synchronize()
-        window_us = (time.perf_counter() - t0) * 1e6
-    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"
-              and e.device_time_total > 0]
-    busy_us = sum(e.device_time_total for e in events)
-    ours = set(itertools.chain(*KERNEL_STAGES.values())) | {k for _, k in PROBE_KERNELS.values()}
-    hit = sorted({e.key for e in events if any(name in e.key for name in ours)})
-    events.sort(key=lambda e: -e.device_time_total)
-    say(f"[train] profile of 2 steps (n_pad {[b['atom_mask'].shape[1] for b, _ in work]}): "
-        f"window {window_us:.0f} us, kernel time {busy_us:.0f} us (busy share "
-        f"{busy_us / window_us:.3f}), {len(events)} kernels by name, the port's among them: "
-        f"{hit or 'none'}; {smi}")
-    for e in events[:10]:
-        say(f"[train]   {e.device_time_total / 2:10.1f} us/step  x{e.count // 2:<5d} {e.key[:90]}")
-    assert not hit, hit
-    return busy_us / window_us
 
 
 def train_round_trip(dev, state, config, smi):
@@ -1451,24 +1425,17 @@ def train_round_trip(dev, state, config, smi):
 
 
 def phase_train(dev, smi):
-    """Phase 8: training on the card. Returns the snapshot's launches and
-    the timings."""
-    from diffspectra_tpu_torch.data.pipeline import get_dataset
-
+    """Phase 8: training on the card. Returns the snapshot's launches."""
     t0 = time.perf_counter()
-    _, train_ds, _, _, _ = get_dataset(train_config())
-    say(f"[train] dataset: {len(train_ds)} train molecules, built in "
-        f"{time.perf_counter() - t0:.1f} s")
-    train_check_cpu(dev, train_ds, smi)
-    launches = train_run(dev, smi)
-    state, config, step_fn, batches, full = timed_steps(dev, train_ds, "full", TRAIN_STEPS, smi)
-    busy = profile_train_step(dev, state, config, step_fn, batches, smi)
+    train_check_cpu(dev, smi)
+    state, config, full, launches = train_run(dev, smi, "full", TRAIN_STEPS, snapshot=True)
+    train_checks(state, config, full, launches, smi)
     train_round_trip(dev, state, config, smi)
-    del state, step_fn, batches
+    del state
     torch.cuda.empty_cache()
-    none = timed_steps(dev, train_ds, "none", NONE_STEPS, smi)[-1]
-    print(json.dumps({"train": {"full": full, "none": none, "busy_share": busy,
-                                "phase_s": time.perf_counter() - t0}}), flush=True)
+    none = train_run(dev, smi, "none", NONE_STEPS, snapshot=False)[2]
+    print(json.dumps({"train": {"full": full, "none": none, "phase_s": time.perf_counter() - t0}}),
+          flush=True)
     say(f"[train] phase 8 in {time.perf_counter() - t0:.1f} s")
     return launches
 

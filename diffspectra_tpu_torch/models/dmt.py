@@ -48,6 +48,7 @@ from .layers import (
     keep_casts,
     layer_norm,
     modulate,
+    seeded_generator,
     silu,
 )
 from .specformer import SpecFormer
@@ -94,18 +95,22 @@ class MultiCondEquiUpdate(nn.Module):
         positions: ``[h_i, h_j, e_ij, d_ij] @ W + b`` by parts, LayerNorm,
         the time modulation, ``silu(@ W0 + b0)``, ``tanh(@ W1)``, the mean
         over the ``[1, adjacency]`` channels, and the masked sum of the
-        normalised coordinate differences."""
+        normalised coordinate differences. Each op rounds to ``dtype`` as
+        XLA rounds it, but the two whose result only float32 math reads,
+        which XLA leaves unrounded: the bias add (LayerNorm reads it in
+        float32) and the tanh (cast to float32)."""
         D, De, dt = self.hidden_dim, self.edge_dim, self.dtype
         w, b = cast_param(self, "input_lin_kernel"), cast_param(self, "input_lin_bias")
         h = h.to(dt)
         normed_diff = self.coord_norm(pos[:, :, None, :] - pos[:, None, :, :])
         shift, scale = self.time_mlp(silu(time_emb.to(dt))).chunk(2, dim=-1)
         inv = ((h @ w[:D])[:, :, None, :] + (h @ w[D : 2 * D])[:, None, :, :]
-               + edge_attr.to(dt) @ w[2 * D : 2 * D + De] + dist.to(dt) @ w[2 * D + De :] + b)
-        inv = modulate(layer_norm(inv), shift[:, None, None, :], scale[:, None, None, :])
+               + edge_attr.to(dt) @ w[2 * D : 2 * D + De] + dist.to(dt) @ w[2 * D + De :])
+        inv = layer_norm(inv.float() + b.float(), dtype=dt)
+        inv = modulate(inv, shift[:, None, None, :], scale[:, None, None, :])
         k0, b0, k1 = self.coord_mlp_0.kernel, self.coord_mlp_0.bias, self.coord_mlp_1.kernel
         inv = silu(inv @ k0.to(dt) + b0.to(dt))
-        inv = torch.tanh(inv @ k1.to(dt)).float()
+        inv = torch.tanh((inv @ k1.to(dt)).float())
         adjs = torch.cat([torch.ones_like(adj_extra[..., :1]), adj_extra], dim=-1)
         inv = (inv * adjs).mean(dim=-1, keepdim=True)
         return pos + (normed_diff * inv * edge_mask[..., None]).sum(dim=2)
@@ -275,12 +280,8 @@ class Block(nn.Module):
         """``(pos, h, edge_attr, cat_h, cat_e)``; the dropout masks come from
         a generator seeded with ``seed`` (None: no dropout), so a
         recomputation in the backward pass draws the same masks."""
-        generator = None
-        if seed is not None:
-            generator = torch.Generator(device=h.device)
-            generator.manual_seed(seed)
         h, edge_attr, pos = self.e_block(pos, h, edge_attr, node_mask, edge_mask, extra_adj,
-                                         time_emb, generator)
+                                         time_emb, seeded_generator(seed, h.device))
         if CoM:
             pos = M.remove_mean_with_mask(pos, node_mask)
         return pos, h, edge_attr, self.node_proj(h), self.edge_proj(edge_attr)
@@ -390,8 +391,14 @@ class DMT(nn.Module):
         else:
             distances = xh.new_zeros((B, N, N, self.edge_hidden_dim))
         extra_adj = torch.cat([cond_adj_2d, cond_adj_spatial], dim=-1)
-        edge_attr = self.edge_emb(torch.cat([edge_x, cond_edge_x, distances], dim=-1)).float()
-        h = h0 = self.node_emb(h).float()
+        # the embeddings' bias add: left in float32 in training mode, as XLA
+        # leaves it in JAX's jitted train step (only a cast to float32 reads
+        # it); rounded to dtype in eval mode, as JAX's eager ``model.apply``
+        # rounds it, the reference of the serving tests
+        embed = (lambda dense, x: dense.forward_f32(x)) if self.training else (
+            lambda dense, x: dense(x).float())
+        edge_attr = embed(self.edge_emb, torch.cat([edge_x, cond_edge_x, distances], dim=-1))
+        h = h0 = embed(self.node_emb, h)
         edge_attr0 = edge_attr
 
         if self.training and self.dropout > 0 and dropout_seeds is None:

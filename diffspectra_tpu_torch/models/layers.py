@@ -57,6 +57,16 @@ def cast_param(module: nn.Module, name: str):
     return getattr(module, name + "_cast")
 
 
+def seeded_generator(seed, device):
+    """A ``torch.Generator`` on ``device`` seeded with ``seed``; None for a
+    seed of None (no dropout)."""
+    if seed is None:
+        return None
+    generator = torch.Generator(device=device)
+    generator.manual_seed(seed)
+    return generator
+
+
 def dropout(x, p: float, generator):
     """flax ``nn.Dropout(p)`` outside deterministic mode: each element kept
     with probability ``1 - p`` and scaled by ``1 / (1 - p)``, the mask drawn
@@ -248,23 +258,26 @@ class DenseTransMixLayer(nn.Module):
         products and their tanh in ``dtype``, the learned logits in float32
         over ``sqrt(out_channels)``, the adjacency logits, the masked softmax
         over j (float32, then ``dtype``), dropout on the weights, and the
-        weighted sum of ``v * e1``. Each product's sum is float32 and its
-        result rounded to ``dtype``, as XLA's dot."""
+        weighted sum of ``v * e1``. The two three-way einsums go pairwise
+        as ``jnp.einsum`` orders them at every shape: ``q_i * k_j`` (then
+        ``e0``) and ``e1 * alpha`` (then ``v``), each pairwise product in
+        ``dtype``; each sum is float32 and its result rounded to ``dtype``,
+        as XLA's dot."""
         B, N, n_sub, sub_c = q.shape
         H, C = self.heads, self.out_channels
         dt = self.dtype
         e = edge_attr.to(dt)
         e0 = torch.tanh(e @ cast_param(self, "lin_edge0_kernel")).reshape(B, N, N, n_sub, sub_c)
         e1 = torch.tanh(e @ cast_param(self, "lin_edge1_kernel")).reshape(B, N, N, H, C)
-        learned = (q.float()[:, :, None] * k.float()[:, None] * e0.float()).sum(-1)
-        learned = learned.to(dt).float() / math.sqrt(C)
+        qk = q[:, :, None] * k[:, None]
+        learned = (qk.float() * e0.float()).sum(-1).to(dt).float() / math.sqrt(C)
         extra = extra_heads.float()
         if self.set_inf:
             extra = torch.where(extra == 0.0, torch.full_like(extra, NEG_ADJ), extra)
         alpha = torch.cat([extra, learned], dim=-1)
         alpha = torch.where(edge_mask[..., None] > 0, alpha, torch.full_like(alpha, MASK_INF))
         alpha = dropout(torch.softmax(alpha, dim=2).to(dt), self.dropout, generator)
-        out = (alpha.float()[..., None] * e1.float() * v.float()[:, None]).sum(2)
+        out = ((e1 * alpha[..., None]).float() * v.float()[:, None]).sum(2)
         return out.to(dt).reshape(B, N, H * C).float()
 
     def export_for_block(self, x):

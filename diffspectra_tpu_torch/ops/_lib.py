@@ -83,20 +83,22 @@ def build() -> ctypes.CDLL:
         compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
         cmds = [[_nvcc(), *compile_flags, "-c", "-o", str(obj), str(src)]
                 for src, obj in zip(SOURCES, objs)]
-        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-                 for cmd in cmds]
-        outputs = [proc.communicate() for proc in procs]  # every one ends before a raise
-        for cmd, proc, (_, err) in zip(cmds, procs, outputs):
+        try:
+            procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                      text=True) for cmd in cmds]
+            outputs = [proc.communicate() for proc in procs]  # every one ends before a raise
+            for cmd, proc, (_, err) in zip(cmds, procs, outputs):
+                if proc.returncode != 0:
+                    raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{err}")
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, objs)]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
             if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{err}")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, objs)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stderr}"
-            )
-        for obj in objs:
-            obj.unlink()
+                raise RuntimeError(
+                    f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stderr}"
+                )
+        finally:
+            for obj in objs:
+                obj.unlink(missing_ok=True)
         os.replace(tmp, target)
         lib = ctypes.CDLL(str(target))
         for name, argtypes in _ARGTYPES.items():

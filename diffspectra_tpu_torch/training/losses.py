@@ -12,10 +12,9 @@ loss and the node loss are not ported (``ROADMAP.md``).
 
 from __future__ import annotations
 
-from typing import Optional
-
 import torch
 
+from ..models.layers import seeded_generator
 from ..ops.kabsch import get_align_noise, get_align_position
 from ..utils import masks as M
 from ..utils.scalers import get_self_cond_fn
@@ -67,14 +66,6 @@ def draw(generator: torch.Generator, host_generator: torch.Generator, batch,
     return dict(t=t, noise=noise, edge_noise=edge_noise, use_sc=use_sc, seeds=seeds.tolist())
 
 
-def _generator(seed: Optional[int], device) -> Optional[torch.Generator]:
-    if seed is None:
-        return None
-    generator = torch.Generator(device=device)
-    generator.manual_seed(seed)
-    return generator
-
-
 def get_sde_graph_loss_fn(noise_scheduler, scaler, config):
     """``loss_fn(model, batch, draws) -> loss``, a 0-d tensor. In training
     mode the model draws its dropout masks from ``draws["seeds"]`` and its
@@ -111,7 +102,7 @@ def get_sde_graph_loss_fn(noise_scheduler, scaler, config):
         seeds = draws.get("seeds") if model.training else None
         n_layers = len(model.blocks)
         seeds_of = lambda i: None if seeds is None else seeds[1 + i * n_layers: 1 + (i + 1) * n_layers]
-        encoder_gen = _generator(None if seeds is None else seeds[0], xh.device)
+        encoder_gen = seeded_generator(None if seeds is None else seeds[0], xh.device)
         # in eval mode every encoding of the spectra is the same
         ctx = (model.encode_context(context, encoder_gen)
                if reuse_cond_emb or not model.training else None)

@@ -24,6 +24,22 @@ Tolerances (float32, sums in another order):
 - SpecFormer in training mode (batch statistics, running update) within
   1e-5; the full-width loss from ``artifacts/warm_qm9s_as.npz`` within 1e-4
   relative.
+
+bfloat16 (``training.matmul_precision``, the production dtype), against JAX's
+jitted XLA path in bfloat16 on the same weights and inputs:
+- the DMT's train-mode forward at dropout 0 (both train branches, the
+  embeddings): each output within 0.05 of JAX's bfloat16-against-float32 gap
+  (measured 2e-5 and 4e-5; rounded otherwise, as below, 0.33 and 0.61);
+- the graph loss from the state and draws above: the loss within half of
+  JAX's gap (measured 0.004 self-conditioned, 0.0004 not), every gradient
+  within the largest such gap over the model's gradients (measured 0.15 and
+  0.44). The gradients are not bit for bit: a torch backward rounds each
+  op's gradient to bfloat16 where XLA's fusions keep float32, so single
+  gradients differ by a bfloat16 step or two.
+"Rounded otherwise": ``q * k`` and ``e1 * alpha`` in float32 instead of the
+einsums' pairwise bfloat16 products, and the bias adds that only float32
+math reads (the equivariant input layer's, the embeddings') and the update's
+tanh rounded to bfloat16.
 """
 
 import os
@@ -128,10 +144,12 @@ def _port_batch(batch):
 
 
 def _jax_state(jcfg, batch):
+    """JAX's train state of its own init (jitted: a few times faster than
+    flax's eager ``init`` at these widths)."""
     model = JaxDMT.from_config(jcfg)
     tx = jax_optim.get_optimizer(jcfg)
     bs, n = batch["atom_mask"].shape
-    variables = model.init(
+    variables = jax.jit(model.init)(
         jax.random.PRNGKey(0), jnp.zeros((bs,)), jnp.zeros((bs, n, 9)),
         jnp.asarray(batch["atom_mask"])[..., None], jnp.asarray(batch["edge_mask"]),
         jnp.asarray(batch["context"]), edge_x=jnp.zeros((bs, n, n, 2)),
@@ -173,30 +191,50 @@ def _to_port(flat_tree):
     return {k: v for k, v in params_from_flax({f"params/{p}": v for p, v in flat.items()}).items()}
 
 
-@pytest.fixture(scope="module")
-def jax_run():
-    """The JAX side, compiled once for the module: the small DMT, its
-    fresh train state on batch 1, the jitted loss-and-gradient of a step
-    key, and the jitted train step."""
-    prev = jax.config.jax_default_prng_impl
-    jax.config.update("jax_default_prng_impl", "threefry2x32")
-    jcfg, pcfg = _configs()
-    batch = _batch(1)
-    model, tx, jstate = _jax_state(jcfg, batch)
+def _jax_grad_fn(jcfg, batch, batch_stats):
+    """JAX's jitted loss and gradient of (params, step key) in train mode."""
+    model = JaxDMT.from_config(jcfg)
     loss_fn = make_loss_fn(JaxSchedule(jcfg.sde.schedule), jax_data_scaler(jcfg), jcfg)
 
     def wrapped(params, key):
         apply_fn = _make_apply_fn(model, params, train=True)
         apply_fn.encode = lambda r, stats, ctx: encode_context_train(model, params, stats, ctx, r)
-        return loss_fn(apply_fn, jstate.batch_stats, _jax_batch(batch), key)
+        return loss_fn(apply_fn, batch_stats, _jax_batch(batch), key)
 
-    grad_fn = jax.jit(jax.value_and_grad(wrapped, has_aux=True))
+    return jax.jit(jax.value_and_grad(wrapped, has_aux=True))
+
+
+@pytest.fixture(scope="module")
+def jax_run():
+    """The JAX side, compiled once for the module: the small DMT's fresh
+    train state on batch 1, the jitted loss-and-gradient of a step key (in
+    float32, and in bfloat16 on first use), and the jitted train step."""
+    prev = jax.config.jax_default_prng_impl
+    jax.config.update("jax_default_prng_impl", "threefry2x32")
+    jcfg, pcfg = _configs()
+    batch = _batch(1)
+    model, tx, jstate = _jax_state(jcfg, batch)
     step_fn, eval_fn = (jax.jit(get_step_fn(JaxSchedule(jcfg.sde.schedule), model, tx,
                                             jax_data_scaler(jcfg), jcfg, train=train))
                         for train in (True, False))
-    yield dict(jcfg=jcfg, pcfg=pcfg, batch=batch, jstate=jstate, grad_fn=grad_fn,
-               step_fn=step_fn, eval_fn=eval_fn)
+    bf16 = _configs(**{"training.matmul_precision": "bfloat16"})
+    yield dict(jcfg=jcfg, pcfg=pcfg, batch=batch, jstate=jstate,
+               grad_fn=_jax_grad_fn(jcfg, batch, jstate.batch_stats), step_fn=step_fn,
+               eval_fn=eval_fn, bf16=(*bf16, _jax_grad_fn(bf16[0], batch, jstate.batch_stats)))
     jax.config.update("jax_default_prng_impl", prev)
+
+
+def _port_loss_and_grads(pcfg, jstate, batch, draws):
+    """The port's train-mode loss and each parameter's gradient (zeros where
+    none reaches it), from the JAX state."""
+    _, state = _port_state(pcfg, jstate)
+    loss_fn = get_sde_graph_loss_fn(NoiseScheduleVP(pcfg.sde.schedule), get_data_scaler(pcfg), pcfg)
+    port = state.model.train()
+    params = params_of(port)
+    loss = loss_fn(port, _port_batch(batch), draws)
+    grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
+    return loss, port, {name: (np.zeros(p.shape, np.float32) if g is None else g.float().numpy())
+                        for (name, p), g in zip(params.items(), grads)}
 
 
 @pytest.mark.parametrize("use_sc", [True, False])
@@ -207,22 +245,41 @@ def test_graph_loss_and_gradients_match_jax(jax_run, use_sc):
     (want_loss, want_stats), want_grads = jax_run["grad_fn"](jstate.params, key)
     want_grads = _to_port(want_grads)
 
-    _, state = _port_state(pcfg, jstate)
-    loss_fn = get_sde_graph_loss_fn(NoiseScheduleVP(pcfg.sde.schedule), get_data_scaler(pcfg), pcfg)
-    port = state.model.train()
-    params = params_of(port)
-    loss = loss_fn(port, _port_batch(batch), jax_draws(key, batch, jcfg))
-    grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
+    loss, port, grads = _port_loss_and_grads(pcfg, jstate, batch, jax_draws(key, batch, jcfg))
     np.testing.assert_allclose(loss.item(), float(want_loss), rtol=2e-5)
-    assert set(params) == set(want_grads)
+    assert set(grads) == set(want_grads)
     scale = max(float(np.abs(np.asarray(g)).max()) for g in want_grads.values())
-    for (name, p), g in zip(params.items(), grads):
-        got = np.zeros(p.shape, np.float32) if g is None else g.numpy()
+    for name, got in grads.items():
         np.testing.assert_allclose(got, want_grads[name], rtol=0, atol=1e-4 * scale,
                                    err_msg=name)
     stats = flax_variables(port)
     for path, value in traverse_util.flatten_dict(jax.device_get(want_stats), sep="/").items():
         np.testing.assert_allclose(stats[f"batch_stats/{path}"], value, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("use_sc", [True, False])
+def test_bf16_graph_loss_and_gradients_match_jax(jax_run, use_sc):
+    """bfloat16 against JAX's bfloat16 XLA path, from one state and JAX's
+    draws: the loss within half of JAX's bfloat16-against-float32 gap, each
+    gradient within the largest such gap of the model's gradients (the
+    readings are in the module's docstring)."""
+    jcfg, batch, jstate = (jax_run[k] for k in ("jcfg", "batch", "jstate"))
+    jcfg16, pcfg16, grad_fn16 = jax_run["bf16"]
+    key = _key_with_sc(use_sc, batch, jcfg)
+    (want32, _), grads32 = jax_run["grad_fn"](jstate.params, key)
+    (want, _), want_grads = grad_fn16(jstate.params, key)
+    want_grads, grads32 = _to_port(want_grads), _to_port(grads32)
+
+    loss, port, grads = _port_loss_and_grads(pcfg16, jstate, batch, jax_draws(key, batch, jcfg16))
+    assert port.dtype == torch.bfloat16 and set(grads) == set(want_grads)
+    gap = abs(float(want) - float(want32))
+    assert gap > 0 and abs(loss.item() - float(want)) <= 0.5 * gap, (loss.item(), want, gap)
+    gap = max(float(np.abs(np.asarray(want_grads[k]) - np.asarray(grads32[k])).max())
+              for k in grads)
+    assert gap > 0
+    for name, got in grads.items():
+        assert np.isfinite(got).all(), name
+        np.testing.assert_allclose(got, want_grads[name], rtol=0, atol=gap, err_msg=name)
 
 
 class _MockDMT(torch.nn.Module):
@@ -458,6 +515,41 @@ def test_train_and_eval_modes_agree_at_dropout_0(pallas_ops, has_cond):
     got = _forward(model.train(), inp, has_cond)
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.detach().numpy(), w.numpy(), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("has_cond", [True, False])
+def test_bf16_train_forward_matches_jax_xla_path(has_cond):
+    """The bfloat16 DMT in training mode at dropout 0 (the attention's and
+    the equivariant update's train branches) against JAX's jitted XLA path
+    in bfloat16 on the same weights and inputs: each output within 0.05 of
+    JAX's bfloat16-against-float32 gap (the readings are in the module's
+    docstring)."""
+    inp = _forward_inputs()
+    if not has_cond:  # the first self-conditioning pass: zeros, as the loss passes
+        inp["cond_x"], inp["cond_e"] = inp["cond_x"] * 0, inp["cond_e"] * 0
+    j = lambda x: jnp.asarray(x.numpy())
+    want, variables = {}, None
+    for precision in ("float32", "bfloat16"):
+        jcfg, pcfg = _configs(**{"training.matmul_precision": precision})
+        if variables is None:
+            flat = random_variables(DMT.from_config(pcfg), seed=0)
+            variables = traverse_util.unflatten_dict(
+                {tuple(k.split("/")): jnp.asarray(v) for k, v in flat.items()})
+        model = JaxDMT.from_config(jcfg)
+        apply = jax.jit(lambda v, *a: model.apply(
+            v, *a[:4], edge_x=a[4], noise_level=a[5], cond_x=a[6], cond_edge_x=a[7],
+            has_cond=has_cond, context_emb=a[8], deterministic=False,
+            rngs={"dropout": jax.random.PRNGKey(0)}, mutable=["batch_stats"])[0])
+        want[precision] = apply(variables, *(j(inp[k]) for k in (
+            "t", "xh", "node_mask", "edge_mask", "edge_x", "noise_level", "cond_x", "cond_e",
+            "ctx")))
+    port = DMT.from_config(pcfg)
+    load_model_state(port, flat)
+    got = _forward(port.train(), inp, has_cond)
+    for g, w, w32 in zip(got, want["bfloat16"], want["float32"]):
+        g, w, w32 = g.detach().float().numpy(), np.asarray(w, np.float32), np.asarray(w32)
+        err, gap = np.abs(g - w).max(), np.abs(w - w32).max()
+        assert gap > 0 and err <= 0.05 * gap, (err, gap, err / gap)
 
 
 def test_dropout_masks_replay_under_remat():
