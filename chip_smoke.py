@@ -13,9 +13,10 @@ Phases, each printing its own lines:
   2. build the CUDA kernels from ``diffspectra_tpu_torch/csrc`` with nvcc,
      one process a source at once (registers and spills of each kernel
      from ``-Xptxas=-v``);
-  3. each kernel (mix_attention, equi_update, block_fused), on f32 operands
-     and (its ``_bf16`` row) on the bf16 operands the JAX DMT in bf16 passes
-     it, against its plain PyTorch version at the serving shape (B=10
+  3. each kernel (mix_attention, equi_update, block_fused, and equi_update
+     on the 1-wide dist of ``dist_gbf=False``, its ``_dd1`` rows), on f32
+     operands and (its ``_bf16`` row) on the bf16 operands the JAX DMT in
+     bf16 passes it, against its plain PyTorch version at the serving shape (B=10
      draws, N=29, flagship widths) on a seeded ragged batch, with the
      kernel's, the plain version's and the bound's times (the bf16 gate
      products at the tensor cores' 989 TFLOP/s, the rest at 67), and each
@@ -66,7 +67,7 @@ Phases, each printing its own lines:
      f32, each: 128 test targets of
      ``generate(seed=42, size=1280, fidelity=4)``'s split in rounds of 128
      (buckets 17, 21, 25, 29), K sweeps of 1000 ancestral steps at
-     temperature 1.0 (K=10 in bf16, K=2 in f32: SWEEP_K); its rounds, each sweep's wall time and mols/s, its
+     temperature 1.0 (K=10 in bf16, K=1 in f32: SWEEP_K); its rounds, each sweep's wall time and mols/s, its
      rounds' seconds of sampling and of host decoding, the host scoring's
      phase times, and every figure beside round 5's (the JAX package in
      bf16 on 10k targets) with the binomial standard error at this run's
@@ -74,23 +75,38 @@ Phases, each printing its own lines:
      each sweep: block_fused in its dtype launched 8 x steps x rounds x K
      times and no other kernel, every target decoded in every sweep, every
      figure finite and in [0, 1] (MCES >= 0), and Top-10 2D >= 0.85 (about
-     7 standard errors under round 5's 0.9664; at K=2, Top-1 2D >= 0.60,
+     7 standard errors under round 5's 0.9664; at K=1, Top-1 2D >= 0.60,
      about 4 under round 5's 0.7490).
   8. training on the card, the flagship at full width (bf16, dropout 0.1,
      batch 128, buckets 17, 21, 25, 29) on the sweep's synthetic set,
      warm-started from ``artifacts/warm_qm9s_as.npz``: (a) one f32 step at
      dropout 0 on cuda and on the CPU from the same state and draws, the
      loss within 1e-4 relative and each parameter's gradient within 1e-3
-     of its max |grad|; (b) ``run_lib.train`` for 30 steps, every loss
+     of its max |grad|; (b) ``run_lib.train`` for 20 steps, every loss
      finite, params and EMA moved; (c) its snapshot, 128 draws at 1000
      steps from the EMA weights, launching each bf16 per-op kernel 8 x
      steps x rounds times and the steps none (and no port kernel among a
      profiled step's kernel names), its stability figures finite in
-     [0, 1]; timed steps (the median over the last 20 of 30, graphs/s, peak
+     [0, 1]; timed steps (the median over the last 12 of 20, graphs/s, peak
      memory) with ``remat_policy='full'``, then 10 with ``'none'``, and the
      busy share over two profiled steps; (d) a checkpoint written and
      restored (every tensor equal), and a warm-state export serving one
      request through ``Elucidator.from_warm_state`` at 100 steps.
+  9. the DMT's other configurations at full width (nf=256, 8 blocks), random
+     weights from seed 0: (a) forwards (B=10, N=29, self-conditioned) of
+     ``dist_gbf=False`` + ``GaussianLayer`` and ``cond_time=False`` on
+     ``('attn','equi')``, ``GaussianLayer`` and ``cond_time=False`` on
+     ``('block',)``, each in f32 and bf16 on cuda against the CPU (phase 4's
+     tolerances), launching 8 of each per-op kernel (equi_update's ``_dd1``
+     for the 1-wide dist), 8 of block_fused, and none (the JAX block's XLA
+     branch without cond_time) a forward; (b) ``dist_gbf=False`` +
+     ``GaussianLayer`` under the linear schedule, bf16, dropout 0.1, batch
+     128, trained from a fresh init for 10 steps through ``run_lib.train``
+     (a checkpoint at the last), served through ``Elucidator.from_workdir``
+     (the restored tensors equal to the trained EMA and batch statistics):
+     one fidelity-4 request at K=10 with 100 ancestral steps, then with
+     DPM-Solver++, each launching the bf16 per-op kernels 8 x 100 times;
+     step times, peak memory and serve times beside the card's line.
 Then one ``{"kernels": [...]}`` line, the card's ``nvidia-smi`` line, and as
 the last line ``{"ok": true, "device": {...}}``. Any failed check raises and
 the script exits non-zero without that last line; without CUDA it exits 2.
@@ -132,9 +148,9 @@ TOP10_2D_FLOOR = 0.85  # round 5 read 0.9664: about 7 standard errors lower at 1
 # (round 5 read 0.7490: about 4 standard errors lower at 128 targets)
 TOP1_2D_FLOOR = 0.60
 # candidates a sweep by dtype: bf16 (the default, as round 5) at K=10; f32
-# at K=2, to keep the script inside its time limit (with both at K=10 it ran
-# 997 s on an H100, PERF.md §6)
-SWEEP_K = {"bf16": 10, "f32": 2}
+# at K=1, to keep the script inside its time limit (with both at K=10 it ran
+# 997 s on an H100; with f32 at K=2 and phase 9, 1166 s: PERF.md §6)
+SWEEP_K = {"bf16": 10, "f32": 1}
 # round 5: the JAX package (bf16) on warm_qm9s_as.npz, 10k targets of
 # generate(seed=42, size=131072, fidelity=4), K=10, 1000 steps, graph mode
 # (tools/pipeline_logs/r5/as_topk_10k.log:106-109, 833-860); figure name ->
@@ -168,8 +184,10 @@ TRAIN = {"seed": 42, "data.synthetic_size": 1280, "data.synthetic_fidelity": 4,
          "data.bucket_sizes": (17, 21, 25, 29), "training.batch_size": 128,
          "training.eval_batch_size": 128, "training.eval_samples": 128,
          "training.log_freq": 1, "sampling.steps": 1000, "training.warm_start": WARM}
-TRAIN_STEPS = 30  # the run of checks (b) and (c), remat_policy='full'
-TIMED_TAIL = 20  # the steps the median step time is taken over
+# the run of checks (b) and (c), remat_policy='full' (30 steps until phase 9
+# came, PERF.md §6)
+TRAIN_STEPS = 20
+TIMED_TAIL = 12  # the steps the median step time is taken over
 PROFILED = 2  # the steps of that run under torch.profiler, out of the median
 NONE_STEPS = 10  # the run with remat_policy='none'
 CHECK_BATCH = 4  # check (a): one f32 step on cuda and on the CPU
@@ -182,6 +200,31 @@ CHECK_LOSS_RTOL, CHECK_GRAD_RTOL = 1e-4, 1e-3  # the latter of each parameter's 
 NOISE_ONLY_GRADS = ("self_attn.W_K.bias", "self_attn.W_V.bias", "self_attn.to_out.bias",
                     "ff2.bias")
 SNAPSHOT_SERVE_STEPS = 100  # check (d): one request from the exported warm state
+# phase 9, the DMT's other configurations at full width, random weights from
+# seed 0: (a) forwards of four variants on cuda against the CPU, each with
+# the kernels a forward of it must launch (the JAX block's dispatch: no
+# block_fused without cond_time and dist_gbf, and then no kernel at all)
+VARIANTS = {
+    "dist_gbf_off_gaussian_attn_equi": ({"model.dist_gbf": False,
+                                         "model.gbf_name": "GaussianLayer"},
+                                        ("attn", "equi"), ("mix_attention", "equi_update_dd1")),
+    "cond_time_off_attn_equi": ({"model.cond_time": False}, ("attn", "equi"),
+                                ("mix_attention", "equi_update")),
+    "gaussian_block": ({"model.gbf_name": "GaussianLayer"}, ("block",), ("block_fused",)),
+    "cond_time_off_block": ({"model.cond_time": False}, ("block",), ()),
+}
+# (b) one variant trained from a fresh init through run_lib.train and served
+# from its workdir: dist_gbf off, GaussianLayer, the linear schedule, bf16,
+# dropout 0.1, batch 128 (one bucket, n_pad 29, on a 320-molecule set whose
+# train split, 136 molecules, holds one batch); a checkpoint at the last of
+# 10 steps
+VARIANT_TRAIN = {"seed": 42, "model.dist_gbf": False, "model.gbf_name": "GaussianLayer",
+                 "sde.schedule": "linear", "data.synthetic_size": 320,
+                 "data.synthetic_fidelity": 4, "data.bucket_sizes": (),
+                 "training.batch_size": 128, "training.n_iters": 9, "training.log_freq": 1,
+                 "training.snapshot_freq": 9, "training.snapshot_freq_for_preemption": 10**9,
+                 "training.snapshot_sampling": False, "sampling.steps": 100}
+VARIANT_TRAIN_STEPS = 10
 F32_PEAK = 67e12  # H100 SXM float32 outside the tensor cores, FLOP/s
 BF16_PEAK = 989e12  # H100 SXM bf16 on the tensor cores, dense, FLOP/s
 HBM_RATE = 3.35e12  # H100 SXM device memory, bytes/s
@@ -224,7 +267,9 @@ def kernels_of(path, dt):
 
 
 def base_name(kernel):
-    return kernel.removesuffix("_bf16")
+    """The CUDA kernel of a row: its name without ``_bf16`` (the dtype of its
+    operands) and ``_dd1`` (equi_update on a 1-wide dist, ``dist_gbf=False``)."""
+    return kernel.removesuffix("_bf16").removesuffix("_dd1")
 # each probe's source under diffspectra_tpu_torch/csrc/ and kernel, by the
 # profiler's kernel name (t3, t4: grid_step_kernel<PlusOne>, t1, t11:
 # grid_step_kernel<Times2>, t6: grid_step_kernel<Tanh>, t2:
@@ -328,13 +373,14 @@ def attention_case(gen, dev, n_nodes=N_NODES, N=N, bf16=False):
     return args, {"set_inf": True}, (*work, nbytes_of(args) + 4 * B * N * hc)
 
 
-def equi_case(gen, dev, n_nodes=N_NODES, N=N, bf16=False):
+def equi_case(gen, dev, n_nodes=N_NODES, N=N, bf16=False, dd=64):
     """equi_update inputs for graphs of ``n_nodes`` atoms padded to N (the
     serving shape by default), node_i, node_j, edge_attr, dist, w_e, w_d and
-    the bias in bfloat16 when ``bf16``, and the work they need (tensor-core
-    FLOP, f32 FLOP, bytes)."""
+    the bias in bfloat16 when ``bf16``, dist ``dd`` wide (64, or 1 for
+    ``dist_gbf=False``), and the work they need (tensor-core FLOP, f32 FLOP,
+    bytes)."""
     B = len(n_nodes)
-    de, dd, dh, n_adj = 64, 64, 256, 2
+    de, dh, n_adj = 64, 256, 2
     r = lambda *s, scale=1.0: (torch.randn(*s, generator=gen) * scale).to(dev)
     adj = (torch.rand(B, N, N, n_adj, generator=gen) > 0.5).float().to(dev)
     args = [r(B, N, dh), r(B, N, dh), r(B, N, N, de), r(B, N, N, dd), r(B, N, N, 3),
@@ -344,11 +390,13 @@ def equi_case(gen, dev, n_nodes=N_NODES, N=N, bf16=False):
     if bf16:
         for i in (0, 1, 2, 3, 7, 8, 9):
             args[i] = args[i].to(torch.bfloat16)
-    # per pair: the two gate projections (on the tensor cores in bf16), the
-    # W0 product, the W1 product, and about 12 operations per channel for
-    # sums, LayerNorm, modulation, silu
-    products = B * N * N * 2 * (de + dd) * dh
-    rest = B * N * N * (2 * dh * dh + 2 * dh * (1 + n_adj) + 12 * dh)
+    # per pair: the two gate projections (on the tensor cores in bf16, but
+    # a 1-wide dist's, an outer product the bf16 kernel folds into its f32
+    # epilogue), the W0 product, the W1 product, and about 12 operations per
+    # channel for sums, LayerNorm, modulation, silu
+    folded = B * N * N * 2 * dd * dh if bf16 and dd == 1 else 0
+    products = B * N * N * 2 * (de + dd) * dh - folded
+    rest = B * N * N * (2 * dh * dh + 2 * dh * (1 + n_adj) + 12 * dh) + folded
     work = (products, rest) if bf16 else (0, products + rest)
     return args, {}, (*work, nbytes_of(args) + 4 * B * N * 3)
 
@@ -418,6 +466,10 @@ def phase_kernels(dev):
          "diffspectra_tpu_torch/csrc/mix_attention.cu", "diffspectra_tpu/ops/pallas_attention.py:147"),
         ("equi_update", equi_update, equi_update_reference, equi_case,
          "diffspectra_tpu_torch/csrc/equi_update.cu", "diffspectra_tpu/ops/pallas_equi_update.py:139"),
+        # dist_gbf=False: a 1-wide dist (in bf16 folded into the epilogue)
+        ("equi_update_dd1", equi_update, equi_update_reference,
+         functools.partial(equi_case, dd=1), "diffspectra_tpu_torch/csrc/equi_update.cu",
+         "diffspectra_tpu/ops/pallas_equi_update.py:139"),
         ("block_fused", block_fused, block_fused_reference, block_case,
          "diffspectra_tpu_torch/csrc/block_fused.cu", "diffspectra_tpu/ops/pallas_block.py:230"),
     )
@@ -435,15 +487,16 @@ def phase_kernels(dev):
         err = 0.0
         for g, w in zip(got, want):  # every output, padded rows and pairs included
             e = (g - w).abs().max().item()
+            atol = KERNEL_ATOL[base_name(name)]
             say(f"[kernels] {name}: {tuple(g.shape)} max |kernel - plain| = {e:.3e} "
-                f"(tolerance {KERNEL_ATOL[base]:.0e}, max |plain| = {w.abs().max().item():.3e})")
-            assert torch.isfinite(g).all() and e <= KERNEL_ATOL[base], name
+                f"(tolerance {atol:.0e}, max |plain| = {w.abs().max().item():.3e})")
+            assert torch.isfinite(g).all() and e <= atol, name
             err = max(err, e)
         ms = cuda_time_ms(lambda: kernel(*args, **kw), iters=200)
         plain_ms = cuda_time_ms(lambda: plain(*args, **kw), iters=50)
         bound_ms, bound_by = bound_of(work)
         tc, f32, nbytes = work
-        regs = kernel_registers(base, bf16, registers)
+        regs = kernel_registers(base_name(name), bf16, registers)
         say(f"[kernels] {name}: {ms:.4f} ms kernel, {plain_ms:.4f} ms plain version, "
             f"bound {bound_ms:.4f} ms by {bound_by} ({tc / 1e9:.3f} GFLOP on the bf16 tensor "
             f"cores, {f32 / 1e9:.3f} GFLOP f32, {nbytes / 1e6:.3f} MB); ptxas registers a thread "
@@ -1074,7 +1127,8 @@ def phase_profile(path, model, dev):
 
 def sweep_figures(fig, K=10):
     """The sweep's figures by the names of ROUND5 and NOT_COMPARABLE (its
-    Top-K as Top-10 where K is 10, else under its own K)."""
+    Top-K as Top-10 where K is 10, else under its own K; no Top-K and no
+    consensus at K=1)."""
     m3, m2 = fig["metric_3d"], fig["metric_2d"]
     out = {"Metric-3D atom stability": m3["atom_stable"], "Metric-3D mol stability": m3["mol_stable"],
            "Metric-3D validity": m3["Validity"], "Metric-3D complete": m3["Complete"],
@@ -1082,9 +1136,10 @@ def sweep_figures(fig, K=10):
            "Metric-2D validity": m2["Validity"], "Metric-2D complete": m2["Complete"],
            "Metric-2D unique & valid": m2["Unique"], "Metric-2D novelty": m2["Novelty"],
            "Top-1 2D": fig["top1_2d"], "Top-1 3D": fig["top1_3d"],
-           f"Top-{K} 2D": fig["topk_2d"], f"Top-{K} 3D": fig["topk_3d"],
-           "Consensus 2D": fig["consensus_2d"], "Consensus 3D": fig["consensus_3d"],
            "memorization bound": fig["generalization"]["seen"] / fig["generalization"]["targets"]}
+    if K > 1:
+        out.update({f"Top-{K} 2D": fig["topk_2d"], f"Top-{K} 3D": fig["topk_3d"],
+                    "Consensus 2D": fig["consensus_2d"], "Consensus 3D": fig["consensus_3d"]})
     for dim in ("2D", "3D"):
         for name, value in fig[f"similarity_{dim.lower()}"].items():
             out[f"{dim} {name}"] = value
@@ -1124,11 +1179,12 @@ def phase_sweep(dev, dt):
             f"({decode_s / len(rounds):.4f} s a round)")
     sweep_s = sum(sw["seconds"] for sw in fig["sweeps"])
     ph = fig["phase_seconds"]
+    extra = ("" if K == 1 else f", the extra sweeps' scoring "
+             f"{ph[f'topk-extra-sweeps(x{K - 1})'] - sum(s['seconds'] for s in fig['sweeps'][1:]):.2f} s")
     say(f"[{tag}] sampling {sweep_s:.1f} s over {K} sweeps ({K * draws / sweep_s:.3f} sampled "
         f"mols/s); host scoring: metrics-3d {ph['metrics-3d']:.2f} s, metrics-2d "
-        f"{ph['metrics-2d']:.2f} s, the extra sweeps' scoring "
-        f"{ph[f'topk-extra-sweeps(x{K - 1})'] - sum(s['seconds'] for s in fig['sweeps'][1:]):.2f} s, "
-        f"similarity {ph['similarity']:.2f} s; phase-time {json.dumps(ph)}")
+        f"{ph['metrics-2d']:.2f} s{extra}, similarity {ph['similarity']:.2f} s; phase-time "
+        f"{json.dumps(ph)}")
     expected = config.model.n_layers * steps * len(rounds) * K
     say(f"[{tag}] launches {nonzero(launches)}, expected {expected} for "
         f"{kernels_of('block', dt)} (8 blocks x {steps} steps x {len(rounds)} rounds x {K} "
@@ -1216,9 +1272,9 @@ def train_check_cpu(dev, smi):
         train_ds, CHECK_BATCH, config.data.spectra_version, seed=config.seed,
         bucket_sizes=config.data.bucket_sizes)), torch.device("cpu"))
     draws = draw(torch.Generator().manual_seed(1), torch.Generator().manual_seed(2), batch,
-                 config.model.n_layers)
+                 config.model.n_layers, config.model.include_fc_charge)
     draws["use_sc"] = True
-    loss_fn = get_sde_graph_loss_fn(NoiseScheduleVP(config.sde.schedule),
+    loss_fn = get_sde_graph_loss_fn(NoiseScheduleVP.from_config(config),
                                     get_data_scaler(config), config)
 
     def step(device):
@@ -1440,6 +1496,160 @@ def phase_train(dev, smi):
     return launches
 
 
+def variant_config(over, ops=None, precision=None):
+    """The flagship config with ``over``, and ``pallas_ops`` and
+    ``training.matmul_precision`` where given."""
+    from diffspectra_tpu_torch import configs
+
+    extra = {} if ops is None else {"model.pallas_ops": ops}
+    if precision is not None:
+        extra["training.matmul_precision"] = precision
+    return configs.apply_overrides(configs.get_config(), {**over, **extra})
+
+
+def variant_forwards(dev, smi):
+    """Phase 9 (a): each of VARIANTS at full width from random weights,
+    bf16 and f32 forwards (self-conditioned, B=10, N=29) on cuda against
+    the same models on the CPU: f32 within FORWARD_RTOL, bf16 within
+    BF16_FORWARD_RATIO of the CPU's own bf16-against-f32 difference (the
+    block bound where block_fused runs, the per-op bound where the pair grid
+    is rounded in bf16: the per-op kernels or the XLA branch); each forward's
+    launches exactly its kernels', 8 each. Returns the launches by kernel."""
+    from diffspectra_tpu_torch.models.dmt import DMT
+    from diffspectra_tpu_torch.ops import LAUNCHES, reset_launches
+    from diffspectra_tpu_torch.tools.bf16_noise import forward
+    from diffspectra_tpu_torch.warm_state import load_model_state, random_variables
+
+    total = {}
+    for name, (over, ops, kernels) in VARIANTS.items():
+        outs = {}
+        for dt in ("f32", "bf16"):
+            config = variant_config(over, ops, DTYPES[dt])
+            cpu_model = DMT.from_config(config)
+            load_model_state(cpu_model, random_variables(cpu_model, seed=0))
+            gpu_model = copy.deepcopy(cpu_model).to(dev)
+            reset_launches()
+            got = forward(gpu_model, dev, True)
+            torch.cuda.synchronize()
+            launches = dict(LAUNCHES)
+            want = [k + ("_bf16" if dt == "bf16" else "") for k in kernels]
+            expected = {k: (config.model.n_layers if k in want else 0) for k in launches}
+            say(f"[variants] {name} {dt}: pallas_ops={ops}, launches a forward "
+                f"{nonzero(launches)} (expected {nonzero(expected) or 'none'})")
+            assert launches == expected, (name, dt, launches)
+            for k, v in launches.items():
+                total[k] = total.get(k, 0) + v
+            outs[dt] = got, forward(cpu_model, "cpu", True)
+            del gpu_model
+        (g32, w32), (g16, w16) = outs["f32"], outs["bf16"]
+        compare(f"variant {name} f32 cuda vs cpu", g32, w32)
+        bound = BF16_FORWARD_RATIO["block" if "block_fused" in kernels else "attn_equi"]
+        for out, g, w, w_f32 in zip(("pred", "edge_pred"), g16, w16, w32):
+            err, gap = (g - w).abs().max().item(), (w - w_f32).abs().max().item()
+            say(f"[variants] {name} bf16 {out}: max |cuda bf16 - cpu bf16| = {err:.3e}, max "
+                f"|cpu bf16 - cpu f32| = {gap:.3e}, ratio {err / gap:.4f} (bound {bound})")
+            assert torch.isfinite(g).all() and gap > 0 and err <= bound * gap, (name, out)
+    say(f"[variants] (a) forwards held on cuda; {smi}")
+    return total
+
+
+def variant_train_serve(dev, smi):
+    """Phase 9 (b): VARIANT_TRAIN trained from a fresh init for 10 steps
+    through ``run_lib.train`` (finite losses, a checkpoint), served from its
+    workdir through ``Elucidator.from_workdir`` (the EMA weights and batch
+    statistics restored equal to the trained state's): one fidelity-4
+    request at K=10 with 100 ancestral steps, then with DPM-Solver++, each
+    launching the bf16 per-op kernels 8 x 100 times (equi_update on the
+    1-wide dist) and no other. Returns the launches by kernel."""
+    import logging
+
+    from diffspectra_tpu_torch import checkpoint, run_lib
+    from diffspectra_tpu_torch.api import Elucidator
+    from diffspectra_tpu_torch.data.synthetic import generate
+    from diffspectra_tpu_torch.ops import LAUNCHES, reset_launches
+
+    config = variant_config(VARIANT_TRAIN)
+    marks, losses = [], []
+
+    class StepLines(logging.Handler):
+        def emit(self, record):
+            msg = record.getMessage()
+            if "training_loss" in msg:
+                marks.append(time.perf_counter())
+                losses.append(float(msg.split("training_loss: ")[1].split(",")[0]))
+
+    root = logging.getLogger()
+    root.setLevel(logging.INFO)
+    handler = StepLines()
+    root.addHandler(handler)
+    workdir = tempfile.mkdtemp(prefix="variant_")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    try:
+        state = run_lib.train(config, workdir, dev)
+    finally:
+        root.removeHandler(handler)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = [(b - a) * 1e3 for a, b in zip(marks, marks[1:])]
+    say(f"[variants] (b) run_lib.train of {VARIANT_TRAIN}: {len(losses)} steps from a fresh "
+        f"init in {wall:.1f} s (the set's build included); step ms "
+        f"{[round(t, 1) for t in step_ms]}, median {np.median(step_ms):.1f}; "
+        f"max_memory_allocated {peak / 2**30:.2f} GiB; losses {[round(x, 4) for x in losses]}; "
+        f"launches {nonzero(dict(LAUNCHES)) or 'none'}; {smi}")
+    assert len(losses) == VARIANT_TRAIN_STEPS and all(math.isfinite(x) for x in losses), losses
+    assert state.step == VARIANT_TRAIN_STEPS and not nonzero(dict(LAUNCHES))
+    assert checkpoint.latest_numbered_checkpoint(workdir) == 1
+
+    el = Elucidator.from_workdir(workdir, config, device=dev)
+    restored = el.model.state_dict()
+    trained = {**state.model.state_dict(), **state.ema.shadow_params}
+    assert set(restored) == set(trained)
+    assert all(torch.equal(restored[k], trained[k]) for k in restored)
+    assert el.noise_scheduler.schedule == "linear" and el.model.dtype == torch.bfloat16
+    data = generate(seed=11, size=1, max_n=29, fidelity=4)
+    n = int(data["num_atom"][0])
+    spectra = {k: data[k][0] for k in ("uv", "ir", "raman")}
+    want = ("mix_attention_bf16", "equi_update_dd1_bf16")
+    total = {}
+    dpm_config = copy.deepcopy(config)
+    dpm_config.sampling.method = "dpm_solver"
+    for method, server in (("ancestral", el), ("dpm_solver", Elucidator(dpm_config, el.model, dev))):
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = server.elucidate(spectra, n_atoms=n, num_candidates=CANDIDATES, seed=0)
+        torch.cuda.synchronize()
+        serve_s = time.perf_counter() - t0
+        launches = dict(LAUNCHES)
+        expected = config.model.n_layers * config.sampling.steps
+        finite = all(np.isfinite(c.positions).all() for c in result.candidates)
+        say(f"[variants] (b) served from the workdir's checkpoint ({method}, "
+            f"{config.sampling.steps} steps, n_atoms {n}, {CANDIDATES} candidates): {serve_s:.3f} "
+            f"s, {len(result.candidates)} distinct, best frequency {result.best.frequency:.2f}, "
+            f"finite={finite}; launches {nonzero(launches)}, expected {expected} for {want}; "
+            f"{smi}")
+        assert finite and sum(c.count for c in result.candidates) == CANDIDATES
+        launched_only(want, launches, expected)
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+    shutil.rmtree(workdir)
+    return total
+
+
+def phase_variants(dev, smi):
+    """Phase 9: the DMT's other configurations on the card. Returns the
+    launches of both parts by kernel."""
+    t0 = time.perf_counter()
+    forwards = variant_forwards(dev, smi)
+    served = variant_train_serve(dev, smi)
+    say(f"[variants] phase 9 in {time.perf_counter() - t0:.1f} s")
+    return {k: forwards.get(k, 0) + served.get(k, 0) for k in set(forwards) | set(served)}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on the GPU only",
@@ -1487,13 +1697,21 @@ def main() -> int:
     sweeps = {dt: phase_sweep(dev, dt) for dt in ("bf16", "f32")}
     compare_sweeps(sweeps)
     trained = phase_train(dev, smi)
+    variants = phase_variants(dev, smi)
     sweep = {k: sum(r[0][k] for r in sweeps.values()) for k in serving}
     for row in rows:
-        row["launches"] = launches[row["name"]]
+        # the dd1 rows' main path is phase 9's (dist_gbf=False); the others'
+        # the 3 served requests
+        dd1 = "_dd1" in row["name"]
+        row["launches"] = variants.get(row["name"], 0) if dd1 else launches[row["name"]]
+        row["serving_launches"] = serving[row["name"]]
         row["sweep_launches"] = sweep[row["name"]]
         row["train_snapshot_launches"] = trained[row["name"]]
+        row["variant_launches"] = variants.get(row["name"], 0)
+        assert row["launches"] > 0, row
     for row in probe_rows:  # launches: the probe tool's run; none on the serving paths
-        row["serving_launches"] = serving[row["name"]] + sweep[row["name"]] + trained[row["name"]]
+        row["serving_launches"] = (serving[row["name"]] + sweep[row["name"]] + trained[row["name"]]
+                                   + variants.get(row["name"], 0))
         assert row["serving_launches"] == 0, row
     say(f"[probes] launches in the probe tool's run "
         f"{ {r['name']: r['launches'] for r in probe_rows} }, on the serving paths 0 each")

@@ -7,6 +7,9 @@
     for c in result.candidates:
         print(c.frequency, c.molgraph.wl_hash())
 
+``Elucidator.from_workdir(workdir, config)`` serves the EMA weights of a
+checkpoint that ``run_lib.train`` wrote with the same config.
+
 All K draws of one request run as one batched reverse diffusion (one
 *round*); the spectra are encoded once per round. Candidates are ranked by
 consensus (how many draws gave the same Weisfeiler-Lehman hash). Without
@@ -20,11 +23,13 @@ passes ``device="cpu"``; without CUDA they raise.
 from __future__ import annotations
 
 import dataclasses
+import logging
 from typing import List, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
+from . import checkpoint as ckpt_lib
 from . import configs
 from .data.info import get_dataset_info
 from .device import resolve_device
@@ -32,9 +37,12 @@ from .diffusion.schedule import NoiseScheduleVP
 from .evaluation.molgraph import MolGraph, consensus_rank, from_decoded
 from .models import atom_count
 from .models.dmt import DMT
+from .models.ema import init as ema_init
 from .models.specformer import SPECTRUM_LENGTHS, used_spectra_indices
 from .sampling.decode import mol_process
 from .sampling.harness import bucket_for, bucket_sizes_of, make_sampler, sample_round
+from .training.step import load_ema_weights
+from .training.train_state import TrainState, params_of
 from .utils.scalers import get_data_inverse_scaler
 from .warm_state import load_model_state, load_warm_state
 
@@ -48,6 +56,30 @@ def load_dmt(npz_path: str, config, device=None) -> DMT:
     model = DMT.from_config(config)
     load_model_state(model, load_warm_state(npz_path)["variables"])
     return model.eval().to(device)
+
+
+def restore_dmt(workdir: str, config, device=None, ckpt: Optional[int] = None):
+    """``(model, step)``: the DMT of ``config`` with the EMA weights and
+    batch statistics of a train workdir's checkpoint (``checkpoint.py``, as
+    ``run_lib.train`` writes it), in eval mode on ``device``. With
+    ``ckpt=None`` the latest resumable one (the preemption checkpoint, else
+    the latest numbered one), else numbered checkpoint ``ckpt``. Raises
+    ``FileNotFoundError`` when nothing can be restored."""
+    device = resolve_device(device)
+    model = DMT.from_config(config)
+    params = params_of(model)
+    # a skeleton whose values the restore overwrites: the optimizer state
+    # is read whole, the EMA shadow filled in place
+    state = TrainState(step=0, model=model, opt_state={},
+                       ema=ema_init(params, config.model.ema_decay))
+    if ckpt is None:
+        state = ckpt_lib.restore_for_resume(workdir, state)
+    else:
+        state = ckpt_lib.restore_checkpoint(ckpt_lib.numbered_checkpoint_dir(workdir, ckpt), state)
+    if int(state.step) == 0:
+        raise FileNotFoundError(f"no restorable checkpoint in {workdir}")
+    load_ema_weights(state, model)
+    return model.eval().to(device), int(state.step)
 
 
 @dataclasses.dataclass
@@ -83,7 +115,7 @@ class Elucidator:
         self.model = model
         self.device = device
         self.dataset_info = get_dataset_info(config.data.info_name)
-        self.noise_scheduler = NoiseScheduleVP(config.sde.schedule)
+        self.noise_scheduler = NoiseScheduleVP.from_config(config)
         self.sampler = make_sampler(config, self.noise_scheduler)
         self._inverse_scaler = get_data_inverse_scaler(config)
         self._count_head = None  # set by load_count_head
@@ -95,6 +127,19 @@ class Elucidator:
         device = resolve_device(device)
         config = configs.apply_overrides(config or configs.get_config(), overrides)
         return cls(config, load_dmt(npz_path, config, device), device)
+
+    @classmethod
+    def from_workdir(cls, workdir: str, config=None, ckpt: Optional[int] = None,
+                     overrides: Optional[dict] = None, device=None) -> "Elucidator":
+        """Serve the EMA weights of a train workdir's latest resumable
+        checkpoint, or of numbered checkpoint ``ckpt`` (``restore_dmt``);
+        ``config`` is the one it was trained with. Raises
+        ``FileNotFoundError`` when nothing can be restored."""
+        device = resolve_device(device)
+        config = configs.apply_overrides(config or configs.get_config(), overrides)
+        model, step = restore_dmt(workdir, config, device, ckpt)
+        logging.info("Elucidator: workdir %s at step %d", workdir, step)
+        return cls(config, model, device)
 
     def _prepare_context(self, spectra: SpectraInput, normalized: bool):
         """One molecule's spectra as a tuple of ``[L]`` arrays in the order

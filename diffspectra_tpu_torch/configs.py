@@ -19,11 +19,13 @@ import torch
 
 def get_config() -> NS:
     """The QM9S allspectra flagship: DMT nf=256, 8 blocks, 16 heads (2 of
-    them adjacency heads), N <= 29, 1000 ancestral steps. The port serves
-    what the JAX config fixes as pred_edge=True, only_2D=False,
-    compress_edge=True, include_fc_charge=True, cond_time=True, dist_gbf=True
-    and gbf_name='CondGaussianLayer', so those are no keys here. The DMT
-    runs in bfloat16, as the JAX config's ``training.matmul_precision``."""
+    them adjacency heads), N <= 29, 1000 ancestral steps, the cosine
+    schedule. The model keys ``include_fc_charge``, ``cond_time``,
+    ``dist_gbf`` and ``gbf_name`` and the schedules of ``sde.schedule``
+    take the JAX config's values; the port runs what the JAX config fixes
+    as pred_edge=True, only_2D=False and compress_edge=True, so those are
+    no keys here. The DMT runs in bfloat16, as the JAX config's
+    ``training.matmul_precision``."""
     return NS(
         seed=42,
         data=NS(
@@ -44,9 +46,18 @@ def get_config() -> NS:
             # atom-count buckets of the training batches (empty: one static N)
             bucket_sizes=(),
         ),
+        # 'cosine', 'linear' (with the betas below) or 'discrete_poly'
         sde=NS(schedule="cosine", continuous_beta_0=0.1, continuous_beta_1=20.0),
         model=NS(
             pred_data=True,
+            # the formal charge as the last node channel
+            include_fc_charge=True,
+            # the time embedding and its adaLN modulation of every block
+            cond_time=True,
+            # the Gaussian basis of distances ('CondGaussianLayer', time
+            # conditioned, or 'GaussianLayer'); False: the raw distance
+            dist_gbf=True,
+            gbf_name="CondGaussianLayer",
             normalize_factors="1, 4, 4, 1",
             edge_ch=2,
             nf=256,
@@ -65,7 +76,8 @@ def get_config() -> NS:
             # the JAX package's use_pallas=True with these pallas_ops: the
             # kernels always run for CUDA tensors. ('attn', 'equi'): the
             # attention and equi-update kernels; ('block',): the whole-block
-            # kernel in every block
+            # kernel in every block, where the JAX block takes it (cond_time
+            # and dist_gbf on; else its XLA branch, no kernel)
             pallas_ops=("attn", "equi"),
             # training
             dropout=0.1,

@@ -71,6 +71,19 @@
 // node_j and node_i, then the pairs; max(ring, max(De, Dd) 264 2) for the
 // weight tile, then the ring; the rest as f32: 109,312 bytes for TR = 64
 // at the flagship widths (two blocks an SM) and 73,600 for TR = 32.
+//
+// Dd = 1 (the DMT's dist_gbf=False: the raw distance, not its Gaussian
+// basis). In f32 the [edge | dist] product takes K = De + 1 as any other
+// depth (its last ring chunk short). In bf16 a 1-deep product cannot be an
+// mma operand, whose k is 16: the tile would have to load Wd as a 16-row
+// operand and the slab carry 15 zero columns a pair, or the wrapper write a
+// [B, N, N, 16] zero-padded copy of dist on every call. Instead the product
+// dist_ij Wd[0, :] is an outer product, folded into the f32 epilogue beside
+// the bias: each thread reads the distance of its two fragment rows and Wd's
+// values at its columns from device memory (bf16 x bf16 is exact in f32, so
+// only the order of the sums differs from the plain version), the slab holds
+// the edge rows alone ([TR, ld16(De)]) and the Wd chunk of the tensor-core
+// product is skipped. Shared memory as above with De + Dd read as De.
 
 #include "row_tile.cuh"
 
@@ -91,12 +104,18 @@ struct Args {
   float eps;
 };
 
+// The bf16 slab's columns a pair: edge | dist, or the edge alone where a
+// 1-wide dist is folded into the epilogue.
+__host__ __device__ inline int bf16_slab_width(int de, int dd) { return dd == 1 ? de : de + dd; }
+
 // Shared-memory floats of a tile of tr rows: the slab, node_j and node_i,
 // then the transposed pairs over them; the ring (then the gates), which
 // with bf16 operands first holds the weight tile.
 __host__ __device__ inline int front_floats(int tr, int n, int r, int de, int dd, int dh,
                                             bool bf16) {
-  if (bf16) return imax(dh * (tr + 4), (tr * ld16(de + dd) + (n + r) * ld16(dh)) / 2);
+  if (bf16) {
+    return imax(dh * (tr + 4), (tr * ld16(bf16_slab_width(de, dd)) + (n + r) * ld16(dh)) / 2);
+  }
   return imax(dh * (tr + 4), (de + dd) * (tr + 4) + (n + r) * dh);
 }
 __host__ __device__ inline int weight_floats(int de, int dd, bool bf16) {
@@ -323,7 +342,8 @@ __device__ inline void equi_update_bf16(const Args& a, float* smem) {
   using T = Tiling<TR>;
   const Tile t = tile_of(a.n, a.rows_per_tile, a.tiles);
   const int n = a.n, dh = a.dh, de = a.de, dd = a.dd;
-  const int lds = ld16(de + dd), ldn = ld16(dh), wc = (threadIdx.x >> 5) & 1;
+  const bool fold_dist = dd == 1;  // dist @ Wd as an outer product in the epilogue
+  const int lds = ld16(bf16_slab_width(de, dd)), ldn = ld16(dh), wc = (threadIdx.x >> 5) & 1;
   const bool lead = (threadIdx.x & 3) == 0;  // lane t = 0 of its fragment rows
   uint16_t* slab_s = reinterpret_cast<uint16_t*>(smem);  // [TR, lds]: edge | dist rows
   uint16_t* nj_s = slab_s + TR * lds;                    // [n, ldn]
@@ -332,12 +352,11 @@ __device__ inline void equi_update_bf16(const Args& a, float* smem) {
   float* ring = smem + front_floats(TR, n, a.rows_per_tile, de, dd, dh, true);
   uint16_t* w_s = reinterpret_cast<uint16_t*>(ring);     // [max(De, Dd), kMmaLd]: We; then Wd
   const Tail s = tail_of<TR>(ring + weight_floats(de, dd, true));
+  const uint16_t* dist = static_cast<const uint16_t*>(a.dist) + (size_t)t.row0 * n * dd;
 
   copy_bf16_rows_async<T::kThreads>(
       slab_s, lds, static_cast<const uint16_t*>(a.edge) + (size_t)t.row0 * n * de, de, t.pairs, de);
-  copy_bf16_rows_async<T::kThreads>(
-      slab_s + de, lds, static_cast<const uint16_t*>(a.dist) + (size_t)t.row0 * n * dd, dd, t.pairs,
-      dd);
+  if (!fold_dist) copy_bf16_rows_async<T::kThreads>(slab_s + de, lds, dist, dd, t.pairs, dd);
   copy_bf16_rows_async<T::kThreads>(
       nj_s, ldn, static_cast<const uint16_t*>(a.node_j) + (size_t)t.b * n * dh, dh, n, dh);
   copy_bf16_rows_async<T::kThreads>(
@@ -353,17 +372,20 @@ __device__ inline void equi_update_bf16(const Args& a, float* smem) {
 #pragma unroll
   for (int nt = 0; nt < 16; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
   mma_product(acc, slab_s, lds, 0, de, w_s, t.pairs);
-  __syncthreads();  // every warp is done with We: Wd takes its place
-  load_weight_bf16<T::kThreads>(w_s, static_cast<const uint16_t*>(a.wd), dd, dh);
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
-  mma_product(acc, slab_s, lds, de, dd, w_s, t.pairs);
-  __syncthreads();  // every warp is done with Wd: W0's first chunks take its place
+  if (!fold_dist) {
+    __syncthreads();  // every warp is done with We: Wd takes its place
+    load_weight_bf16<T::kThreads>(w_s, static_cast<const uint16_t*>(a.wd), dd, dh);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+    mma_product(acc, slab_s, lds, de, dd, w_s, t.pairs);
+  }
+  __syncthreads();  // every warp is done with the weight tile: W0's first chunks take its place
   const Weight w0{a.w0, a.w0, dh, dh, dh};
   start_ring<TR>(w0, ring);
 
   const uint16_t* bias = static_cast<const uint16_t*>(a.bias);
+  const uint16_t* wd = static_cast<const uint16_t*>(a.wd);  // [1, Dh] where fold_dist
   float sum[2] = {0.f, 0.f};
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
@@ -371,12 +393,17 @@ __device__ inline void equi_update_bf16(const Args& a, float* smem) {
     const int r = p / n;
     const uint16_t* ni = ni_s + r * ldn;
     const uint16_t* nj = nj_s + (p - r * n) * ldn;
+    const float dv = fold_dist ? bf16_to_float(__ldg(dist + p)) : 0.f;
 #pragma unroll
     for (int nt = 0; nt < 16; ++nt) {
       const int c = frag_col(nt);
       float* x = acc[nt] + 2 * h;
       if (c < dh) {
         const float2 vi = bf16x2_to_float2(ni + c), vj = bf16x2_to_float2(nj + c);
+        if (fold_dist) {
+          x[0] = fmaf(dv, bf16_to_float(__ldg(wd + c)), x[0]);
+          x[1] = fmaf(dv, bf16_to_float(__ldg(wd + c + 1)), x[1]);
+        }
         x[0] = (vi.x + vj.x) + x[0] + bf16_to_float(__ldg(bias + c));
         x[1] = (vi.y + vj.y) + x[1] + bf16_to_float(__ldg(bias + c + 1));
         sum[h] += x[0] + x[1];
@@ -467,7 +494,7 @@ const void* kernel_of(const Plan& p, bool bf16) {
 }  // namespace
 
 // node_i, node_j, edge, dist, we, wd, bias: float, or bf16 where bf16 is 1
-// (then de and dd multiples of 16). plan: the wrapper's launch plan (rows a
+// (then de a multiple of 16, dd one or a multiple of 16). plan: the wrapper's launch plan (rows a
 // tile, rows of its molecule, tiles a molecule, blocks, threads,
 // shared-memory bytes, blocks an SM), which must equal this file's.
 // Launches on `stream`; the caller checked shapes, types and contiguity.
@@ -481,7 +508,7 @@ extern "C" int dstt_equi_update(
     int n_adj, int bf16, float eps, const int* plan, int n_plan, void* stream) {
   if (batch < 1 || n < 1 || n > kMaxN || de < 1 || dd < 1 || dh < 1 || dh > kCols ||
       dh % 4 != 0 || n_adj < 0 || 1 + n_adj > kMaxGate || (bf16 != 0 && bf16 != 1) ||
-      (bf16 && (de % 16 != 0 || dd % 16 != 0))) {
+      (bf16 && (de % 16 != 0 || (dd % 16 != 0 && dd != 1)))) {
     return (int)cudaErrorInvalidValue;
   }
   const Plan p = make_plan(batch, n, de, dd, dh, bf16);

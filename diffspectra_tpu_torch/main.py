@@ -9,8 +9,10 @@ evaluation sweep.
 ``train`` runs ``run_lib.train`` (the flagship config, or the small test
 config with ``--smoke``), warm-started from ``--warm-start`` when the
 workdir holds no checkpoint, and leaves ``<workdir>/warm_state.npz``.
-``eval`` runs ``run_lib.evaluate`` on ``--warm-start`` or else on
-``<workdir>/warm_state.npz``, its tables in ``<workdir>/eval``. Runs on
+``eval`` runs the sweep (``run_lib.evaluate``) on ``--warm-start``, or else
+(``run_lib.evaluate_workdir``) on the workdir's latest resumable
+checkpoint, restored as ``Elucidator.from_workdir`` restores it, its tables
+in ``<workdir>/eval``. Runs on
 ``cuda`` unless ``--device cpu`` is given. Logs to stdout and to
 ``<workdir>/stdout.txt`` (``eval_stdout.txt`` for eval).
 """
@@ -48,8 +50,10 @@ def main(argv=None):
         state = run_lib.train(config, args.workdir, args.device)
         logging.info("trained to step %d", state.step)
         return state
-    weights = args.warm_start or os.path.join(args.workdir, "warm_state.npz")
-    return run_lib.evaluate(config, weights, os.path.join(args.workdir, "eval"), args.device)
+    eval_dir = os.path.join(args.workdir, "eval")
+    if args.warm_start:
+        return run_lib.evaluate(config, args.warm_start, eval_dir, args.device)
+    return run_lib.evaluate_workdir(config, args.workdir, eval_dir, args.device)
 
 
 if __name__ == "__main__":

@@ -168,20 +168,45 @@ def _gaussian(x, mean, std):
     return torch.exp(-0.5 * ((x - mean) / std) ** 2) / (a * std)
 
 
-class CondGaussianLayer(nn.Module):
+class GaussianLayer(nn.Module):
     """Gaussian basis of squared distances ``[B, N, N, 1] -> [B, N, N, K]``
-    with a time-conditioned scale and shift of the input; ``time_mlp``
-    output column 0 is the scale, column 1 the shift."""
+    = [x, gauss(x; means, stds)], without time conditioning (``time_dim``
+    is taken and unused, as the JAX layer's)."""
 
-    def __init__(self, K: int, time_dim: int):
+    def __init__(self, K: int, time_dim=None):
         super().__init__()
         self.means = empty_param(K - 1)
         self.stds = empty_param(K - 1)
-        self.time_mlp = Dense(time_dim, 2)
 
-    def forward(self, x, time_emb):
-        _, _, scale, shift = self.export_params(time_emb)
-        x = x * (scale[:, None, None, None] + 1) + shift[:, None, None, None]
+    def forward(self, x, time_emb=None):
+        std = self.stds.abs() + 1e-5
+        return torch.cat([x, _gaussian(x, self.means, std)], dim=-1)
+
+    def export_params(self, time_emb):
+        """``(means, stds, scale [B], shift [B])`` for the whole-block
+        kernel: zero scale and shift, which leave its input as it is."""
+        zeros = time_emb.new_zeros(time_emb.shape[0], dtype=torch.float32)
+        return self.means, self.stds, zeros, zeros
+
+
+class CondGaussianLayer(nn.Module):
+    """Gaussian basis of squared distances ``[B, N, N, 1] -> [B, N, N, K]``
+    with a time-conditioned scale and shift of the input; ``time_mlp``
+    output column 0 is the scale, column 1 the shift. Without a
+    ``time_dim`` (the DMT's ``cond_time=False``) it has no ``time_mlp`` and
+    leaves the input as it is, as the JAX layer does without a time
+    embedding."""
+
+    def __init__(self, K: int, time_dim=None):
+        super().__init__()
+        self.means = empty_param(K - 1)
+        self.stds = empty_param(K - 1)
+        self.time_mlp = None if time_dim is None else Dense(time_dim, 2)
+
+    def forward(self, x, time_emb=None):
+        if self.time_mlp is not None:
+            _, _, scale, shift = self.export_params(time_emb)
+            x = x * (scale[:, None, None, None] + 1) + shift[:, None, None, None]
         std = self.stds.abs() + 1e-5
         return torch.cat([x, _gaussian(x, self.means, std)], dim=-1)
 
@@ -190,6 +215,9 @@ class CondGaussianLayer(nn.Module):
         kernel, which applies the basis on the pair grid itself."""
         ss = self.time_mlp(F.silu(time_emb))
         return self.means, self.stds, ss[:, 0], ss[:, 1]
+
+
+GBF_LAYERS = {"GaussianLayer": GaussianLayer, "CondGaussianLayer": CondGaussianLayer}
 
 
 class CoorsNorm(nn.Module):
@@ -214,15 +242,19 @@ class DenseTransMixLayer(nn.Module):
     and ``extra_heads`` raw adjacency heads. ``x [B, N, D]``, ``edge_attr
     [B, N, N, De]``, ``extra_heads [B, N, N, n]``, ``edge_mask [B, N, N]`` ->
     ``[B, N, H*C]``. The learned logits are scaled by ``1/sqrt(out_channels)``.
-    In eval mode the pair-grid part is the ``mix_attention`` kernel; in
-    training mode it is the JAX module's XLA branch under autograd, with
-    dropout on the attention weights (``_attention_train``). In ``dtype``:
-    the q/k/v projections, and the edge and gate operands."""
+    In eval mode with ``kernel`` (the JAX layer's ``use_pallas``) the
+    pair-grid part is the ``mix_attention`` kernel; in training mode, or
+    without ``kernel``, it is the JAX module's XLA branch
+    (``_attention_train``, under autograd in training mode, with dropout on
+    the attention weights). In ``dtype``: the q/k/v projections, and the
+    edge and gate operands."""
 
     def __init__(self, x_channels: int, out_channels: int, edge_dim: int,
                  extra_heads: int = 2, heads: int = 4, set_inf: bool = False,
-                 dropout: float = 0.0, dtype: torch.dtype = torch.float32):
+                 dropout: float = 0.0, dtype: torch.dtype = torch.float32,
+                 kernel: bool = True):
         super().__init__()
+        self.kernel = kernel
         self.heads, self.extra_heads, self.out_channels = heads, extra_heads, out_channels
         self.set_inf, self.dropout, self.dtype = set_inf, dropout, dtype
         n_sub = heads - extra_heads
@@ -244,7 +276,7 @@ class DenseTransMixLayer(nn.Module):
         q = self.lin_query(x).reshape(B, N, n_sub, self.sub_c)
         k = self.lin_key(x).reshape(B, N, n_sub, self.sub_c)
         v = self.lin_value(x).reshape(B, N, self.heads, self.out_channels)
-        if self.training:
+        if self.training or not self.kernel:
             return self._attention_train(q, k, v, edge_attr, extra_heads, edge_mask, generator)
         return mix_attention(
             q, k, v, edge_attr.to(self.dtype),
@@ -254,7 +286,8 @@ class DenseTransMixLayer(nn.Module):
 
     def _attention_train(self, q, k, v, edge_attr, extra_heads, edge_mask, generator):
         """The JAX module's branch without its kernel
-        (``diffspectra_tpu/models/layers.py:245-270``): the two gate
+        (``diffspectra_tpu/models/layers.py:245-270``; dropout only with a
+        ``generator``): the two gate
         products and their tanh in ``dtype``, the learned logits in float32
         over ``sqrt(out_channels)``, the adjacency logits, the masked softmax
         over j (float32, then ``dtype``), dropout on the weights, and the

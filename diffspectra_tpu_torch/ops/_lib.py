@@ -28,9 +28,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 # kernel launches per wrapper, since the process started or reset_launches();
-# a serving kernel's launches on bfloat16 operands count under its name + "_bf16"
-LAUNCHES = {**{f"{k}{v}": 0 for k in ("mix_attention", "equi_update", "block_fused")
-               for v in ("", "_bf16")},
+# a serving kernel's launches on bfloat16 operands count under its name + "_bf16",
+# equi_update's with a 1-wide dist (dist_gbf=False) under "equi_update_dd1"
+LAUNCHES = {**{f"{k}{v}": 0 for k in ("mix_attention", "equi_update", "equi_update_dd1",
+                                      "block_fused") for v in ("", "_bf16")},
             **{f"probe_t{i}": 0 for i in range(1, 15)}}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float

@@ -27,6 +27,13 @@ from ._row_tile import MMA_LD, RING, RowTilePlan, ld16, row_tile_plan
 DTYPES = (torch.float32, torch.bfloat16)  # of node_i, node_j, edge_attr, dist, w_e, w_d, bias
 
 
+def launch_key(dd: int, bf16: bool) -> str:
+    """The ``LAUNCHES`` key of a launch: ``equi_update``, with ``_dd1`` for
+    a 1-wide dist (the DMT's ``dist_gbf=False``) and ``_bf16`` for
+    bfloat16 operands."""
+    return "equi_update" + ("_dd1" if dd == 1 else "") + ("_bf16" if bf16 else "")
+
+
 def launch_plan(batch: int, n: int, de: int, dd: int, dh: int,
                 bf16: bool = False) -> RowTilePlan:
     """The kernel's launch at these shapes (``csrc/equi_update.cu``
@@ -37,10 +44,11 @@ def launch_plan(batch: int, n: int, de: int, dd: int, dh: int,
     normed_diff of the tile's pairs. bfloat16 operands: the slab (rows of
     pairs), node_j and node_i in bfloat16, then the pairs; We, then Wd, whole
     in bfloat16 (MMA_LD columns), then the ring (then the gates); the rest
-    as for float32."""
+    as for float32. A 1-wide dist in bfloat16 is not in the slab: the
+    kernel folds ``dist @ Wd`` into its epilogue."""
     def floats(tr, r):
         if bf16:
-            slab = (tr * ld16(de + dd) + (n + r) * ld16(dh)) // 2
+            slab = (tr * ld16(de if dd == 1 else de + dd) + (n + r) * ld16(dh)) // 2
             front, weights = max(dh * (tr + 4), slab), max(RING, max(de, dd) * MMA_LD // 2)
         else:
             front, weights = max(dh * (tr + 4), (de + dd) * (tr + 4) + (n + r) * dh), RING
@@ -95,10 +103,10 @@ def equi_update(node_i, node_j, edge_attr, dist, normed_diff, adj_extra, edge_ma
             w_e, w_d, bias, shift, scale, w0, b0, w1, eps_ln=eps_ln,
         )
     bf16 = dt == torch.bfloat16
-    if N > 32 or dh % 4 or dh > 256 or n_adj > 3 or (bf16 and (de % 16 or dd % 16)):
+    if N > 32 or dh % 4 or dh > 256 or n_adj > 3 or (bf16 and (de % 16 or dd % 16 and dd != 1)):
         raise ValueError(f"equi_update kernel: takes N <= 32, Dh a multiple of 4 up to 256, "
-                         f"A <= 3 and, in bfloat16, De and Dd multiples of 16, got N={N}, "
-                         f"Dh={dh}, A={n_adj}, De={de}, Dd={dd}")
+                         f"A <= 3 and, in bfloat16, De a multiple of 16 and Dd 1 or a multiple "
+                         f"of 16, got N={N}, Dh={dh}, A={n_adj}, De={de}, Dd={dd}")
     plan = launch_plan(B, N, de, dd, dh, bf16)
     lib = _lib.build()
     out = torch.empty((B, N, 3), device=device, dtype=f32)
@@ -112,5 +120,5 @@ def equi_update(node_i, node_j, edge_attr, dist, normed_diff, adj_extra, edge_ma
         _lib.stream_handle(device),
     )
     _lib.check_rc("equi_update", rc)
-    _lib.LAUNCHES["equi_update_bf16" if bf16 else "equi_update"] += 1
+    _lib.LAUNCHES[launch_key(dd, bf16)] += 1
     return out

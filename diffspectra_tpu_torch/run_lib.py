@@ -4,6 +4,7 @@
     from diffspectra_tpu_torch import configs, run_lib
     state = run_lib.train(configs.get_config(), "exp/train")
     figures = run_lib.evaluate(configs.get_config(), "artifacts/warm_qm9s_as.npz", "eval")
+    figures = run_lib.evaluate_workdir(configs.get_config(), "exp/train", "exp/train/eval")
 
 ``train`` trains on the second train half of the synthetic set in bucketed
 batches, augmented by a random rotation and translation, with the loss,
@@ -27,10 +28,13 @@ valid pairs, MCES, WL Tanimoto and cosine, functional groups). The log
 lines are the JAX package's, text and figures; ``evaluate`` returns the
 figures as a dict.
 
-The weights come from a warm-state export: checkpoint loading is training
-work (``ROADMAP.md`` queue 1, item 6). Left out: the moses metrics, the
-sub-geometry MMDs, ``save_mols``, the original-QM9 reference sets, the mesh
-and the checkpoint loop.
+The weights come from a warm-state export (``evaluate``) or from a train
+workdir's latest resumable checkpoint, as ``Elucidator.from_workdir``
+restores it (``evaluate_workdir``). Both build the schedule of
+``config.sde`` (``NoiseScheduleVP.from_config``) and run any of the
+config's model variants. Left out: the moses metrics, the sub-geometry
+MMDs, ``save_mols``, the original-QM9 reference sets, the mesh and the
+loop over every numbered checkpoint.
 """
 
 from __future__ import annotations
@@ -45,7 +49,7 @@ import numpy as np
 import torch
 
 from . import checkpoint as ckpt_lib
-from .api import load_dmt
+from .api import load_dmt, restore_dmt
 from .data.pipeline import augment_positions, get_batch_iterator, get_dataset, inf_iterator
 from .device import resolve_device
 from .diffusion.schedule import NoiseScheduleVP
@@ -90,7 +94,7 @@ def diffspectra_evaluate(config, model, eval_dir: str, device, ckpt: str = "warm
     _, train_ds, _, test_ds, dataset_info = get_dataset(config)
     n_samples, batch_size = int(config.eval.num_samples), int(config.eval.batch_size)
     sampling_fn = make_cond_sampling_fn(
-        config, model, NoiseScheduleVP(config.sde.schedule), batch_size, n_samples,
+        config, model, NoiseScheduleVP.from_config(config), batch_size, n_samples,
         get_data_inverse_scaler(config), test_ds, device,
         sampling_temperature=config.eval.sampling_temperature,
     )
@@ -264,6 +268,15 @@ def evaluate(config, warm_state: str, eval_dir: str, device=None) -> dict:
     return diffspectra_evaluate(config, model, eval_dir, device, ckpt)
 
 
+def evaluate_workdir(config, workdir: str, eval_dir: str, device=None) -> dict:
+    """The sweep with the EMA weights of a train workdir's latest resumable
+    checkpoint (``api.restore_dmt``), on ``cuda`` unless ``device="cpu"``;
+    ``FileNotFoundError`` when the workdir holds none."""
+    device = resolve_device(device)
+    model, step = restore_dmt(workdir, config, device)
+    return diffspectra_evaluate(config, model, eval_dir, device, f"step_{step}")
+
+
 def batch_to_device(batch, device) -> dict:
     """A collated numpy batch as tensors on ``device`` (``num_atom``
     dropped, ``context`` a tuple)."""
@@ -303,8 +316,7 @@ def train(config, workdir: str, device=None):
         drop_last=True, bucket_sizes=bucket_sizes))
 
     tx, state = init_train_state(config, device)
-    noise_scheduler = NoiseScheduleVP(config.sde.schedule, config.sde.continuous_beta_0,
-                                      config.sde.continuous_beta_1)
+    noise_scheduler = NoiseScheduleVP.from_config(config)
     state = ckpt_lib.restore_for_resume(workdir, state)
     initial_step = state.step
     if initial_step == 0 and t.warm_start:
@@ -333,7 +345,8 @@ def train(config, workdir: str, device=None):
         batch["positions"] = augment_positions(
             generator, batch["positions"], batch["atom_mask"], True, True,
             config.data.aug_translation_scale)
-        state, loss = step_fn(state, batch, draw(generator, host_generator, batch, n_layers))
+        draws = draw(generator, host_generator, batch, n_layers, config.model.include_fc_charge)
+        state, loss = step_fn(state, batch, draws)
 
         if step % t.log_freq == 0:
             loss_val = float(loss)

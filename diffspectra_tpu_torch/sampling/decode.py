@@ -22,11 +22,16 @@ def quantize_edges(h_edge: torch.Tensor) -> torch.Tensor:
     return exist * edge_type
 
 
-def post_process(xh, atom_types: int, node_mask, inverse_scaler, edge_x, edge_mask):
+def post_process(xh, atom_types: int, node_mask, inverse_scaler, edge_x, edge_mask,
+                 include_charge: bool = True):
     """Split and discretise ``(xh, edge_x)``, whose last node channel is the
-    formal charge, into ``(pos, one_hot, formal_charge, edge_types)``."""
+    formal charge with ``include_charge`` (else the charge is a zero-width
+    channel), into ``(pos, one_hot, formal_charge, edge_types)``."""
     pos, h = xh[:, :, :3], xh[:, :, 3:]
-    h_int, h_cat = h[:, :, -1:], h[:, :, :-1]
+    if include_charge:
+        h_int, h_cat = h[:, :, -1:], h[:, :, :-1]
+    else:
+        h_int, h_cat = h[:, :, :0], h
     if h_cat.shape[-1] != atom_types:
         raise ValueError(f"expected {atom_types} atom-type channels, got {h_cat.shape[-1]}")
     pos, h_cat, h_int, h_edge = inverse_scaler(pos, h_cat, h_int, node_mask, edge_x, edge_mask)
@@ -37,13 +42,14 @@ def post_process(xh, atom_types: int, node_mask, inverse_scaler, edge_x, edge_ma
 
 def mol_process(one_hot, pos, formal_charges, n_nodes, edge_types) -> List[Tuple]:
     """Per-molecule host tuples ``(pos, atom_type, edge_type, fc)`` trimmed
-    to the true atom count."""
+    to the true atom count; ``fc`` int64 ``[n]``, or the zero-width ``[n,
+    0]`` of a model without a charge channel, as the JAX decode leaves it."""
     one_hot = one_hot.cpu().numpy()
     pos_np = pos.cpu().numpy()
     fc_np = formal_charges.cpu().numpy()
     edge_np = edge_types.cpu().numpy()
     mols = []
     for i, n in enumerate(np.asarray(n_nodes).tolist()):
-        mols.append((pos_np[i, :n], one_hot[i, :n].argmax(axis=1), edge_np[i, :n, :n],
-                     fc_np[i, :n, 0].astype(np.int64)))
+        fc = fc_np[i, :n, 0].astype(np.int64) if fc_np.shape[-1] else fc_np[i, :n]
+        mols.append((pos_np[i, :n], one_hot[i, :n].argmax(axis=1), edge_np[i, :n, :n], fc))
     return mols

@@ -63,14 +63,16 @@ def sample_round(model, sampler, config, inverse_scaler, specs, n_nodes: torch.T
     device."""
     batch = n_nodes.shape[0]
     node_mask, edge_mask = M.build_masks(n_nodes, n_pad)
-    node_nf = config.data.atom_types + 1  # atom types, formal charge
+    include_fc = bool(config.model.include_fc_charge)
+    node_nf = config.data.atom_types + int(include_fc)  # atom types[, formal charge]
     z = M.sample_combined_position_feature_noise(generator, batch, n_pad, node_nf, node_mask)
     edge_z = M.sample_symmetric_edge_feature_noise(
         generator, batch, n_pad, config.model.edge_ch, edge_mask
     )
     ctx = model.encode_context(specs)
     x, edge_x = sampler.sampling(model, generator, z, node_mask, edge_mask, edge_z, ctx)
-    return post_process(x, config.data.atom_types, node_mask, inverse_scaler, edge_x, edge_mask)
+    return post_process(x, config.data.atom_types, node_mask, inverse_scaler, edge_x, edge_mask,
+                        include_fc)
 
 
 def bucket_sizes_of(config, pad_to_max: bool = False) -> Tuple[int, ...]:

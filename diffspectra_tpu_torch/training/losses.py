@@ -6,8 +6,10 @@ flagship's ``pred_edge=True`` without ``only_2D``).
 The draws are apart from the arithmetic: ``draw`` takes ``t`` on
 ``[T_EPS, 1)``, the node and edge noise and the self-conditioning coin
 (``use_sc``, one a batch) from generators, with the seeds of the dropout
-masks; the loss takes them, so a test can feed JAX's own draws. The 2D
-loss and the node loss are not ported (``ROADMAP.md``).
+masks; the loss takes them, so a test can feed JAX's own draws. The
+schedule, the model's variant and ``model.include_fc_charge`` come from
+the config. The 2D loss and the node loss belong to the CDGS model's 2-D
+path (``ROADMAP.md``).
 """
 
 from __future__ import annotations
@@ -29,33 +31,38 @@ def parse_loss_weights(loss_weights) -> tuple:
     return tuple(float(w) for w in loss_weights)
 
 
-def process_edge_batch(batch, scaler):
+def process_edge_batch(batch, scaler, include_charges: bool = True):
     """Centre the positions, normalise and pack a dense batch of tensors
     (keys positions, atom_mask, edge_mask, atom_one_hot, edge_one_hot,
     formal_charges, context) into ``(xh [B, N, 3+A+1], edge_x, node_mask
-    [B, N, 1], edge_mask, context)``."""
+    [B, N, 1], edge_mask, context)``; without ``include_charges`` the
+    charge is a zero-width channel and ``xh`` is ``[B, N, 3+A]``."""
     node_mask = batch["atom_mask"][..., None]
     edge_mask = batch["edge_mask"]
+    atom_type = batch["atom_one_hot"]
+    fc_charge = batch["formal_charges"] if include_charges else atom_type[..., :0]
     pos = M.remove_mean_with_mask(batch["positions"], node_mask)
     pos, atom_type, fc_charge, edge_type = scaler(
-        pos, batch["atom_one_hot"], batch["formal_charges"], node_mask, batch["edge_one_hot"],
-        edge_mask,
+        pos, atom_type, fc_charge, node_mask, batch["edge_one_hot"], edge_mask,
     )
     xh = torch.cat([pos, atom_type, fc_charge], dim=2)
     return xh, edge_type, node_mask, edge_mask, batch.get("context")
 
 
 def draw(generator: torch.Generator, host_generator: torch.Generator, batch,
-         n_layers: int) -> dict:
+         n_layers: int, include_charges: bool = True) -> dict:
     """One train step's draws for ``batch``: ``t [B]``, ``noise [B, N, 3+F]``
-    (CoM-free positions), ``edge_noise [B, N, N, C]`` (symmetric) from
+    (CoM-free positions; F the atom types, plus the charge with
+    ``include_charges``), ``edge_noise [B, N, N, C]`` (symmetric) from
     ``generator`` on the batch's device; ``use_sc`` and ``seeds`` (the
     encoder's and each block's dropout seed for the two forwards,
     ``2 * n_layers + 1`` integers) from ``host_generator`` on the CPU, so
     the host never waits for the device."""
     node_mask = batch["atom_mask"][..., None]
     bs, n = batch["atom_mask"].shape
-    feat = batch["atom_one_hot"].shape[-1] + batch["formal_charges"].shape[-1]
+    feat = batch["atom_one_hot"].shape[-1]
+    if include_charges:
+        feat += batch["formal_charges"].shape[-1]
     dev = node_mask.device
     t = torch.rand((bs,), generator=generator, device=dev) * (1.0 - T_EPS) + T_EPS
     noise = M.sample_combined_position_feature_noise(generator, bs, n, feat, node_mask)
@@ -79,9 +86,11 @@ def get_sde_graph_loss_fn(noise_scheduler, scaler, config):
     self_cond = config.model.self_cond
     cond_process_fn = get_self_cond_fn(config) if self_cond else None
     reuse_cond_emb = bool(config.model.reuse_cond_emb and self_cond)
+    include_charges = bool(config.model.include_fc_charge)
 
     def loss_fn(model, batch, draws):
-        xh, edge_x, node_mask, edge_mask, context = process_edge_batch(batch, scaler)
+        xh, edge_x, node_mask, edge_mask, context = process_edge_batch(
+            batch, scaler, include_charges)
         bs = xh.shape[0]
         n_atoms = node_mask[..., 0].sum(dim=-1)
         t, noise, edge_noise = draws["t"], draws["noise"], draws["edge_noise"]

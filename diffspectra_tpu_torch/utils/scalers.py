@@ -1,7 +1,8 @@
 """Data scaler, its inverse and self-conditioning post-processing (port of
 ``diffspectra_tpu/utils/scalers.py``). One-hots are centred to [-1, 1] and
 divided by the per-channel factors '1, 4, 4, 1' (pos, atom types, formal
-charge, edges), all masked."""
+charge, edges), all masked. Without ``model.include_fc_charge`` the formal
+charge is a zero-width channel."""
 
 from __future__ import annotations
 
@@ -64,12 +65,13 @@ def get_data_inverse_scaler(config):
 
 def get_self_cond_fn(config):
     """'ori' passes the previous prediction through; 'clamp' clips the atom,
-    charge (the last node channel) and edge channels to their normalised
-    value ranges."""
+    charge (the last node channel, with ``model.include_fc_charge``) and
+    edge channels to their normalised value ranges."""
     process_type = config.model.self_cond_type
     if process_type not in ("ori", "clamp"):
         raise ValueError("Self-condition data process error.")
     atom_types = config.data.atom_types
+    include_fc = bool(config.model.include_fc_charge)
     _, atom_type_norm, fc_norm, edge_norm = parse_normalize_factors(
         config.model.normalize_factors
     )
@@ -86,8 +88,9 @@ def get_self_cond_fn(config):
     def process(cond_x, cond_edge_x):
         if process_type == "ori":
             return cond_x, cond_edge_x
-        pieces = [cond_x[:, :, :3], cond_x[:, :, 3 : 3 + atom_types].clamp(atom_lo, atom_hi),
-                  cond_x[:, :, -1:].clamp(fc_lo, fc_hi)]
+        pieces = [cond_x[:, :, :3], cond_x[:, :, 3 : 3 + atom_types].clamp(atom_lo, atom_hi)]
+        if include_fc:
+            pieces.append(cond_x[:, :, -1:].clamp(fc_lo, fc_hi))
         return torch.cat(pieces, dim=-1), cond_edge_x.clamp(edge_lo, edge_hi)
 
     return process

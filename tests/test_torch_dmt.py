@@ -58,16 +58,22 @@ def _inputs(rng, n_nodes, n, xh_dim, spec_lens, has_cond):
     )
 
 
-def _jax_forward(model, variables, inp, has_cond):
-    specs = [jnp.asarray(s) for s in inp["specs"]]
-    ctx = jax_encode_context(model, variables, specs if len(specs) > 1 else specs[0])
-    pred, edge = model.apply(
-        variables, jnp.asarray(inp["t"]), jnp.asarray(inp["xh"]),
-        jnp.asarray(inp["node_mask"]), jnp.asarray(inp["edge_mask"]), None,
-        edge_x=jnp.asarray(inp["edge_x"]), noise_level=jnp.asarray(inp["noise_level"]),
-        cond_x=jnp.asarray(inp["cond_x"]), cond_edge_x=jnp.asarray(inp["cond_edge_x"]),
-        has_cond=has_cond, context_emb=ctx,
-    )
+def _jax_forward(model, variables, inp, has_cond, jit=False):
+    """The JAX DMT's forward: eager ``model.apply``, or with ``jit`` the
+    spectra encoding and the forward jitted together, as JAX samples (a
+    jitted step leaves unrounded what only float32 math reads)."""
+    def forward(variables, arrays):
+        specs = arrays["specs"]
+        ctx = jax_encode_context(model, variables, specs if len(specs) > 1 else specs[0])
+        return model.apply(
+            variables, arrays["t"], arrays["xh"], arrays["node_mask"], arrays["edge_mask"], None,
+            edge_x=arrays["edge_x"], noise_level=arrays["noise_level"], cond_x=arrays["cond_x"],
+            cond_edge_x=arrays["cond_edge_x"], has_cond=has_cond, context_emb=ctx,
+        )
+
+    arrays = {k: ([jnp.asarray(s) for s in v] if k == "specs" else jnp.asarray(v))
+              for k, v in inp.items()}
+    pred, edge = (jax.jit(forward) if jit else forward)(variables, arrays)
     return np.asarray(pred), np.asarray(edge)
 
 

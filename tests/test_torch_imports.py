@@ -175,10 +175,22 @@ def test_unported_modes_raise():
         el.elucidate(np.ones(3501, np.float32), n_atoms=17)  # above max_node=16
     with pytest.raises(ValueError, match="n_atoms_list"):
         el.elucidate_batch([np.ones(3501, np.float32)], [5, 6])
-    configs.apply_overrides(config, {"sde.schedule": "linear"})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # every schedule of the JAX package is ported; an unknown one raises, as
+    # does 'discrete', whose betas no config holds (the JAX package's too)
+    configs.apply_overrides(config, {"sde.schedule": "sigmoid"})
+    with pytest.raises(ValueError, match="Unsupported noise schedule"):
         Elucidator(config, model.eval(), torch.device("cpu"))
-    configs.apply_overrides(config, {"sde.schedule": "cosine", "model.pallas_ops": ("mlp",)})
+    configs.apply_overrides(config, {"sde.schedule": "discrete"})
+    with pytest.raises(ValueError, match="betas"):
+        Elucidator(config, model.eval(), torch.device("cpu"))
+    configs.apply_overrides(config, {"sde.schedule": "cosine", "model.remat_policy": "dots"})
+    with pytest.raises(ValueError, match="ROADMAP"):
+        DMT.from_config(config)
+    configs.apply_overrides(config, {"model.remat_policy": "full", "model.gbf_name": "Gauss"})
+    with pytest.raises(ValueError, match="gbf_name"):
+        DMT.from_config(config)
+    configs.apply_overrides(config, {"model.gbf_name": "GaussianLayer",
+                                     "model.pallas_ops": ("mlp",)})
     with pytest.raises(ValueError, match="pallas_ops"):
         DMT.from_config(config)
     with pytest.raises(AttributeError):

@@ -20,7 +20,11 @@ collectives by the stand-in) at N in {8, 17, 29}, ragged, in tiles of 32
 and 64 rows, with mix_attention's 252-wide W0 tile zero-padded to 256
 columns in shared memory, held to the plain version on the same bfloat16
 operands; a plan reckoned for float32 slabs is refused with nothing
-launched.
+launched. The ``dd1`` cases give equi_update a 1-wide dist (the DMT's
+``dist_gbf=False``), in float32 and in bfloat16 (where the kernel folds
+``dist @ Wd`` into its epilogue), at N in {8, 17, 29} in tiles of 32 and
+64 rows; the ``zero_mod`` cases a zero shift and scale (``cond_time=False``);
+a plan reckoned for a 16-wide dist is refused with nothing launched.
 
 This checks the kernels' tiling, indexing, barriers and copy pipeline, not
 the card's arithmetic or speed; ``chip_smoke.py`` does that on the H100.
@@ -113,12 +117,26 @@ EQUI_CASES = {  # B, N, De, Dd, Dh, A; tiles of 32 rows unless named
     "bf16_flagship_N29": (2, 29, 64, 64, 256, 2),
     "bf16_tile64_N17": (10, 17, 16, 32, 64, 2),  # 64-row tiles of two rows, the last partial
     "bf16_N8_narrow": (3, 8, 16, 16, 40, 1),  # Dh = 40: the last n8 tile half past Dh
+    # a 1-wide dist (dist_gbf=False): K = De + 1 in float32; in bfloat16
+    # dist @ Wd folded into the epilogue
+    "dd1_N29": (3, 29, 64, 1, 256, 2),
+    "dd1_tile64_N17": (10, 17, 16, 1, 64, 2),
+    "dd1_N8_narrow": (1, 8, 8, 1, 32, 1),
+    "bf16_dd1_N29": (2, 29, 64, 1, 256, 2),
+    "bf16_dd1_tile64_N17": (10, 17, 16, 1, 64, 2),
+    "bf16_dd1_N8_narrow": (3, 8, 16, 1, 40, 1),
+    # a zero shift and scale (cond_time=False)
+    "zero_mod_dd1_N17": (3, 17, 16, 1, 64, 2),
+    "bf16_zero_mod_N29": (2, 29, 64, 64, 256, 2),
+    "bf16_zero_mod_dd1_tile64_N17": (10, 17, 16, 1, 64, 2),
 }
 
 
 @pytest.mark.parametrize("case", sorted(EQUI_CASES))
 def test_equi_update_source_on_the_host_matches_the_plain_version(equi_lib, case):
     args = _tensors("equi_update", _equi_inputs(11, *EQUI_CASES[case]), case.startswith("bf16_"))
+    if "zero_mod" in case:
+        args[10], args[11] = torch.zeros_like(args[10]), torch.zeros_like(args[11])
     rc, got = _equi_call(equi_lib, args)
     assert rc == 0
     want = equi_update_reference(*args)
@@ -158,6 +176,22 @@ def test_equi_update_source_refuses_a_wrong_plan(equi_lib, where):
     rc, out = _equi_call(equi_lib, args, bump=where)
     assert rc != 0
     assert torch.isnan(out).all()  # nothing launched
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_equi_update_source_refuses_a_plan_reckoned_for_a_16_wide_dist(equi_lib, bf16):
+    """A plan reckoned for Dd = 16 (another shared-memory size: the bf16
+    slab holds no dist column at Dd = 1) is refused at Dd = 1 with nothing
+    launched."""
+    B, N, de, dd, dh, n_adj = 3, 8, 64, 1, 16, 1
+    assert equi_plan(B, N, de, 16, dh, bf16) != equi_plan(B, N, de, dd, dh, bf16)
+    args = _tensors("equi_update", _equi_inputs(17, B, N, de, dd, dh, n_adj), bf16)
+    out = torch.full((B, N, 3), float("nan"))
+    ints = _ints(equi_plan(B, N, de, 16, dh, bf16))
+    rc = equi_lib.dstt_equi_update(*(a.data_ptr() for a in args), out.data_ptr(), B, N, de, dd,
+                                   dh, n_adj, int(bf16), 1e-6, ints, len(ints), None)
+    assert rc != 0
+    assert torch.isnan(out).all()
 
 
 @pytest.mark.parametrize("where", [0, 3])  # rows a tile, blocks
