@@ -39,7 +39,8 @@ seeds; the JAX Pallas paths run in interpret mode.
 - ``Elucidator.from_workdir``: ``run_lib.train`` for 3 steps of a variant,
   then the checkpoint it wrote serves the same candidates as the live EMA
   weights; a missing checkpoint raises ``FileNotFoundError``; ``main.py
-  --mode eval`` sweeps the workdir's checkpoint.
+  --mode eval`` sweeps the workdir's checkpoint; without CUDA and without
+  ``device="cpu"`` it raises.
 """
 
 import copy
@@ -505,3 +506,12 @@ def test_from_workdir_serves_the_checkpoint_train_wrote(tmp_path, monkeypatch):
     with pytest.raises(FileNotFoundError):
         main.main(["--mode", "eval", "--workdir", str(tmp_path / "none"), "--smoke",
                    "--device", "cpu"])
+
+
+def test_from_workdir_runs_on_cuda_unless_told(tmp_path, monkeypatch):
+    """``device=None`` means cuda: without CUDA the entry point raises before
+    it reads the workdir."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    _, config = _configs(SMALL)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Elucidator.from_workdir(str(tmp_path), config)
