@@ -1,5 +1,5 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU (H100): build, check, serve,
-sweep, train.
+sweep, train, pretrain.
 
     python3 chip_smoke.py
 
@@ -107,6 +107,28 @@ Phases, each printing its own lines:
      one fidelity-4 request at K=10 with 100 ancestral steps, then with
      DPM-Solver++, each launching the bf16 per-op kernels 8 x 100 times;
      step times, peak memory and serve times beside the card's line.
+ 10. training as the JAX flagship config trains (bf16, dropout 0.1, batch
+     128, buckets 17, 21, 25, 29): (a) the sweep's set written as the
+     reference's processed QM9S file with its split file, read through
+     ``load_qm9s`` (``data.synthetic=False``), 16 steps from
+     ``warm_qm9s_as.npz`` through the device store with
+     ``training.profile`` (the trace written; numbered checkpoints every 8
+     steps), then 12 through the host iterator: finite losses, the store's
+     bytes on the card equal to ``estimate_bytes``, its first batch equal
+     to the host collate's (max |diff| 0), each path's median step time and
+     graphs/s; (b) ``pretrain_specformer`` at the flagship's widths
+     (allspectra, batch 128) for 20 steps, warmup 5 (finite losses,
+     spectra/s), then a fresh DMT with the file as
+     ``model.pretrained_specformer_path`` (its SpecFormer equal to the
+     file's) trained 5 finite steps; (c) the allspectra flagship from
+     ``warm_qm9s_ir.npz``, partial, ``cond_encoder/head_linear/kernel``
+     zeroed: the logged restored, fresh and zeroed counts equal the CPU's,
+     5 finite steps; (d) ``remat_policy='dots'`` for 10 steps, its median
+     step and peak memory beside phase 8's ``full`` and ``none``, the peak
+     between theirs; (e) ``evaluate_checkpoints`` over (a)'s two numbered
+     checkpoints, 8 targets, K=1, 100 steps: finite figures for each, the
+     bf16 per-op kernels launched 8 x steps x rounds times; (f) the host
+     packer built on the card's host, against ``pack_batch_numpy``.
 Then one ``{"kernels": [...]}`` line, the card's ``nvidia-smi`` line, and as
 the last line ``{"ok": true, "device": {...}}``. Any failed check raises and
 the script exits non-zero without that last line; without CUDA it exits 2.
@@ -114,6 +136,7 @@ the script exits non-zero without that last line; without CUDA it exits 2.
 
 from __future__ import annotations
 
+import atexit
 import copy
 import functools
 import itertools
@@ -139,7 +162,11 @@ SHORT_STEPS, DPM_STEPS = 100, 50  # the count-head, batch and DPM-Solver phases
 MARGINAL_STEPS, MARGINAL_DRAWS = 20, 2  # the marginal over the histogram's counts
 # phase 7, the eval sweep: tools/tpu_eval_10k.py's batch of 128; a synthetic
 # set of 1280 molecules, whose test split holds exactly 128 targets
-SWEEP = {"seed": 42, "data.synthetic_size": 1280, "data.synthetic_fidelity": 4,
+# the synthetic sets are generated once a run and read back from here (the
+# sweep's set of 1280 molecules takes about 16 s a build)
+SYNTH_CACHE = os.path.join(tempfile.gettempdir(), f"chip_smoke_synth_{os.getpid()}")
+SWEEP = {"seed": 42, "data.synthetic": True, "data.synthetic_cache": SYNTH_CACHE,
+         "data.synthetic_size": 1280, "data.synthetic_fidelity": 4,
          "eval.num_samples": 128, "eval.batch_size": 128, "eval.num_candidates": 10,
          "eval.bucket_sizes": (17, 21, 25, 29), "eval.sampling_temperature": 1.0,
          "sampling.steps": 1000, "sampling.method": "ancestral", "model.pallas_ops": ("block",)}
@@ -180,7 +207,8 @@ NOT_COMPARABLE = {"Metric-2D unique & valid": (0.7428, "distinct structures of 1
                   "memorization bound": (0.5564, "against each set's own train split")}
 # phase 8, training: the flagship at full width (bf16, dropout 0.1, batch
 # 128) on the sweep's synthetic set in buckets, warm-started from WARM
-TRAIN = {"seed": 42, "data.synthetic_size": 1280, "data.synthetic_fidelity": 4,
+TRAIN = {"seed": 42, "data.synthetic": True, "data.synthetic_cache": SYNTH_CACHE,
+         "data.synthetic_size": 1280, "data.synthetic_fidelity": 4,
          "data.bucket_sizes": (17, 21, 25, 29), "training.batch_size": 128,
          "training.eval_batch_size": 128, "training.eval_samples": 128,
          "training.log_freq": 1, "sampling.steps": 1000, "training.warm_start": WARM}
@@ -219,12 +247,29 @@ VARIANTS = {
 # train split, 136 molecules, holds one batch); a checkpoint at the last of
 # 10 steps
 VARIANT_TRAIN = {"seed": 42, "model.dist_gbf": False, "model.gbf_name": "GaussianLayer",
-                 "sde.schedule": "linear", "data.synthetic_size": 320,
+                 "sde.schedule": "linear", "data.synthetic": True, "data.synthetic_size": 320,
                  "data.synthetic_fidelity": 4, "data.bucket_sizes": (),
                  "training.batch_size": 128, "training.n_iters": 9, "training.log_freq": 1,
                  "training.snapshot_freq": 9, "training.snapshot_freq_for_preemption": 10**9,
                  "training.snapshot_sampling": False, "sampling.steps": 100}
 VARIANT_TRAIN_STEPS = 10
+# phase 10, training as the JAX flagship config trains: the sweep's set
+# written as the reference's processed QM9S file (with its conditional split)
+# and read with data.synthetic=False, bf16, dropout 0.1, batch 128, buckets
+FLAGSHIP = {"seed": 42, "data.synthetic": False, "data.bucket_sizes": (17, 21, 25, 29),
+            "training.batch_size": 128, "training.log_freq": 1,
+            "training.snapshot_sampling": False, "training.snapshot_freq_for_preemption": 10**9,
+            "training.snapshot_freq": 10**9}
+WARM_IR = os.path.join(ROOT, "artifacts", "warm_qm9s_ir.npz")
+STORE_STEPS, HOST_STEPS = 16, 12  # (a): through the store (profiled), then the host iterator
+STORE_SNAPSHOT_FREQ = 8  # (a) writes two numbered checkpoints, (e)'s
+PRETRAIN = {"pretrain.n_iters": 20, "pretrain.warmup": 5, "pretrain.batch_size": 128,
+            "pretrain.log_freq": 1, "pretrain.snapshot_freq": 20}
+RESTORE_STEPS = PARTIAL_STEPS = 5  # (b) from the pretrained SpecFormer, (c) partial
+ZERO_FRESH = "cond_encoder/head_linear/kernel"
+DOTS_STEPS = 10
+EVAL_LOOP = {"eval.num_samples": 8, "eval.batch_size": 8, "eval.num_candidates": 1,
+             "sampling.steps": 100}
 F32_PEAK = 67e12  # H100 SXM float32 outside the tensor cores, FLOP/s
 BF16_PEAK = 989e12  # H100 SXM bf16 on the tensor cores, dense, FLOP/s
 HBM_RATE = 3.35e12  # H100 SXM device memory, bytes/s
@@ -1481,7 +1526,8 @@ def train_round_trip(dev, state, config, smi):
 
 
 def phase_train(dev, smi):
-    """Phase 8: training on the card. Returns the snapshot's launches."""
+    """Phase 8: training on the card. Returns the snapshot's launches and
+    the timings of the ``full`` and ``none`` runs."""
     t0 = time.perf_counter()
     train_check_cpu(dev, smi)
     state, config, full, launches = train_run(dev, smi, "full", TRAIN_STEPS, snapshot=True)
@@ -1493,7 +1539,7 @@ def phase_train(dev, smi):
     print(json.dumps({"train": {"full": full, "none": none, "phase_s": time.perf_counter() - t0}}),
           flush=True)
     say(f"[train] phase 8 in {time.perf_counter() - t0:.1f} s")
-    return launches
+    return launches, {"full": full, "none": none}
 
 
 def variant_config(over, ops=None, precision=None):
@@ -1650,12 +1696,347 @@ def phase_variants(dev, smi):
     return {k: forwards.get(k, 0) + served.get(k, 0) for k in set(forwards) | set(served)}
 
 
+class LogLines:
+    """The root logger's messages while in use, with the time and peak
+    memory at each train step's log line (written after its loss is read,
+    which waits for the step)."""
+
+    def __init__(self):
+        import logging
+
+        self.messages, self.marks, self.peaks, self.losses = [], [], [], []
+        outer = self
+
+        class Handler(logging.Handler):
+            def emit(self, record):
+                msg = record.getMessage()
+                outer.messages.append(msg)
+                if "training_loss" in msg or msg.startswith("pretrain step"):
+                    outer.marks.append(time.perf_counter())
+                    outer.peaks.append(torch.cuda.max_memory_allocated())
+                    key = "training_loss: " if "training_loss" in msg else "loss: "
+                    outer.losses.append(float(msg.split(key)[1].split(",")[0]))
+
+        self.handler = Handler()
+
+    def __enter__(self):
+        import logging
+
+        root = logging.getLogger()
+        root.setLevel(logging.INFO)
+        root.addHandler(self.handler)
+        return self
+
+    def __exit__(self, *exc):
+        import logging
+
+        logging.getLogger().removeHandler(self.handler)
+
+    def step_ms(self):
+        return [(b - a) * 1e3 for a, b in zip(self.marks, self.marks[1:])]
+
+    def having(self, text):
+        return [m for m in self.messages if text in m]
+
+
+def flagship_config(**overrides):
+    from diffspectra_tpu_torch import configs
+
+    return configs.apply_overrides(configs.get_config(), {**FLAGSHIP, **overrides})
+
+
+def logged_train(config, dev, keep=False):
+    """``run_lib.train`` in a new temporary workdir under ``LogLines``, the
+    peak memory from its start; the workdir is removed unless ``keep``
+    (then ``lines.workdir``)."""
+    from diffspectra_tpu_torch import run_lib
+
+    workdir = tempfile.mkdtemp(prefix="flagship_")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with LogLines() as lines:
+        state = run_lib.train(config, workdir, dev)
+    torch.cuda.synchronize()
+    lines.wall, lines.workdir = time.perf_counter() - t0, workdir
+    if not keep:
+        shutil.rmtree(workdir)
+    return state, lines
+
+
+def median_of(step_ms, first, last):
+    """The median of the step times of steps ``first`` ... ``last - 1``
+    (counted from the run's first step: ``step_ms[i]`` is step i + 1's)."""
+    return float(np.median(step_ms[first - 1:last - 1]))
+
+
+def qm9s_loader_and_store(dev, smi, root, warm_step):
+    """Phase 10 (a): the sweep's set written as the reference's processed
+    file, read through ``load_qm9s`` (``data.synthetic=False``) and trained
+    16 steps through the device store from WARM with ``training.profile``
+    (numbered checkpoints every 8 steps), then 12 steps through the host
+    iterator; the store's bytes and first batch checked against
+    ``estimate_bytes`` and the host collate. Returns the store run's
+    workdir and both runs' timings."""
+    from diffspectra_tpu_torch.data import device_store, qm9s
+    from diffspectra_tpu_torch.data.pipeline import (
+        _conditional_splits,
+        _truncate_batch,
+        collate,
+        get_dataset,
+    )
+    from diffspectra_tpu_torch.data.synthetic import generate
+
+    t0 = time.perf_counter()
+    raw = generate(seed=42, size=1280, max_n=29, fidelity=4, cache_dir=SYNTH_CACHE)
+    splits = _conditional_splits(np.random.default_rng(42), 1280)
+    qm9s.write_processed_from_raw(root, raw, splits)
+    say(f"[flagship] (a) wrote generate(seed=42, size=1280, fidelity=4) as "
+        f"{qm9s.PROCESSED} with its split file in {time.perf_counter() - t0:.1f} s")
+    last = warm_step + STORE_STEPS - 1
+    config = flagship_config(**{"data.root": root, "training.warm_start": WARM,
+                                "training.profile": True, "training.n_iters": last,
+                                "training.snapshot_freq": STORE_SNAPSHOT_FREQ})
+    state, store = logged_train(config, dev, keep=True)
+    trace = os.path.join(store.workdir, "profile", f"trace_step_{warm_step + 15}.json")
+    assert store.having("device-resident dataset") and not store.having("host input pipeline")
+    assert len(store.losses) == STORE_STEPS and all(map(math.isfinite, store.losses))
+    assert os.path.getsize(trace) > 0, trace
+
+    # the store's bytes on the card, and its first batch against the host collate
+    _, train_ds, _, _, _ = get_dataset(config)
+    spectra_version = config.data.spectra_version
+    ds_store = device_store.DeviceStore(train_ds, spectra_version, dev)
+    n_pad, idx = next(device_store.index_iterator(
+        len(train_ds), config.training.batch_size, seed=config.seed,
+        bucket_sizes=config.data.bucket_sizes, num_atom=ds_store.host_num_atom))
+    got = device_store.build_batch(ds_store.arrays, torch.from_numpy(idx).to(dev),
+                                   atom_types=config.data.atom_types,
+                                   include_aromatic=config.data.include_aromatic,
+                                   spectra_keys=ds_store.spectra_keys, n_pad=n_pad)
+    want = collate(_truncate_batch(train_ds.take(idx), n_pad), spectra_version)
+    batch_err = max([float(np.abs(got[k].cpu().numpy() - want[k]).max()) for k in
+                     ("atom_one_hot", "edge_one_hot", "positions", "formal_charges",
+                      "atom_mask", "edge_mask")]
+                    + [float(np.abs(g.cpu().numpy() - w).max())
+                       for g, w in zip(got["context"], want["context"])])
+    nbytes, estimate = ds_store.nbytes(), device_store.estimate_bytes(train_ds, spectra_version)
+    del ds_store
+
+    host_config = flagship_config(**{"data.root": root, "training.warm_start": WARM,
+                                     "data.device_resident": False,
+                                     "training.n_iters": warm_step + HOST_STEPS - 1})
+    _, host = logged_train(host_config, dev)
+    assert host.having("host input pipeline") and not host.having("device-resident dataset")
+    assert len(host.losses) == HOST_STEPS and all(map(math.isfinite, host.losses))
+    # the median over the steps after the second and before the profiled window
+    timing = {"store_ms": median_of(store.step_ms(), 2, 10),
+              "host_ms": median_of(host.step_ms(), 2, HOST_STEPS),
+              "store_peak_bytes": store.peaks[-1], "host_peak_bytes": host.peaks[-1]}
+    bs = config.training.batch_size
+    say(f"[flagship] (a) {len(train_ds)} train molecules from {root}/packed; store: {nbytes} "
+        f"bytes on the card (estimate_bytes {estimate}); its first batch (n_pad {n_pad}) against "
+        f"the host collate: max |diff| {batch_err}")
+    say(f"[flagship] (a) {STORE_STEPS} steps through the store from step {warm_step} (profile of "
+        f"steps {warm_step + 10}-{warm_step + 14}: {os.path.getsize(trace)} bytes) in "
+        f"{store.wall:.1f} s, {HOST_STEPS} through the host iterator in {host.wall:.1f} s; median "
+        f"step (steps 2-9 of each) store {timing['store_ms']:.1f} ms ({bs / timing['store_ms'] * 1e3:.1f} "
+        f"graphs/s), host {timing['host_ms']:.1f} ms ({bs / timing['host_ms'] * 1e3:.1f} graphs/s); "
+        f"step ms store {[round(t, 1) for t in store.step_ms()]}, host "
+        f"{[round(t, 1) for t in host.step_ms()]}; peak {timing['store_peak_bytes'] / 2**30:.2f}, "
+        f"{timing['host_peak_bytes'] / 2**30:.2f} GiB; losses store "
+        f"{[round(x, 4) for x in store.losses]}, host {[round(x, 4) for x in host.losses]}; {smi}")
+    assert nbytes == estimate and batch_err == 0.0, (nbytes, estimate, batch_err)
+    del state
+    return store.workdir, timing
+
+
+def pretrain_and_restore(dev, smi, root):
+    """Phase 10 (b): ``pretrain_specformer`` at the flagship's widths for 20
+    steps (warmup 5), then a fresh DMT with the file as
+    ``model.pretrained_specformer_path``: its SpecFormer equal to the file's
+    tensors, then 5 finite train steps."""
+    from diffspectra_tpu_torch import run_lib
+    from diffspectra_tpu_torch.training.pretrain import CKPT_NAME, load_specformer_npz
+    from diffspectra_tpu_torch.training.pretrain import pretrain_specformer
+    from diffspectra_tpu_torch.warm_state import flax_variables
+
+    config = flagship_config(**{"data.root": root, **PRETRAIN})
+    workdir = tempfile.mkdtemp(prefix="pretrain_")
+    t0 = time.perf_counter()
+    with LogLines() as lines:
+        pretrain_specformer(config, workdir, dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    bs = config.pretrain.batch_size
+    median = median_of(lines.step_ms(), 2, len(lines.losses))
+    path = os.path.join(workdir, CKPT_NAME)
+    say(f"[flagship] (b) pretrain_specformer ({config.data.spectra_version}, nf "
+        f"{config.model.nf}, batch {bs}, {config.pretrain.n_iters} steps, warmup "
+        f"{config.pretrain.warmup}) in {wall:.1f} s: median step {median:.2f} ms, "
+        f"{bs / median * 1e3:.1f} spectra/s; losses {[round(x, 4) for x in lines.losses]}; {smi}")
+    assert len(lines.losses) == config.pretrain.n_iters and all(map(math.isfinite, lines.losses))
+
+    train_config = flagship_config(**{"data.root": root, "model.pretrained_specformer_path": path,
+                                      "training.n_iters": RESTORE_STEPS - 1})
+    params, stats = load_specformer_npz(path)
+    _, fresh = run_lib.init_train_state(train_config, dev)
+    got = flax_variables(fresh.model)
+    equal = all(np.array_equal(got[f"params/cond_encoder/{k}"], v) for k, v in params.items()) \
+        and all(np.array_equal(got[f"batch_stats/cond_encoder/{k}"], v) for k, v in stats.items())
+    del fresh
+    _, run = logged_train(train_config, dev)
+    say(f"[flagship] (b) a fresh flagship DMT with the pretrained SpecFormer: {len(params)} "
+        f"params and {len(stats)} batch statistics of cond_encoder equal to the file's: {equal}; "
+        f"{len(run.losses)} steps, losses {[round(x, 4) for x in run.losses]}, "
+        f"{run.wall:.1f} s; {smi}")
+    assert equal and run.having("Load pretrained SpecFormer")
+    assert len(run.losses) == RESTORE_STEPS and all(map(math.isfinite, run.losses))
+    shutil.rmtree(workdir)
+    return {"pretrain_ms": median, "spectra_per_s": bs / median * 1e3}
+
+
+def partial_warm_start(dev, smi, root):
+    """Phase 10 (c): the allspectra flagship from WARM_IR, partial, its fresh
+    ``cond_encoder/head_linear/kernel`` zeroed: the logged counts of
+    restored, fresh and zeroed leaves on cuda equal the CPU's; 5 finite
+    steps."""
+    from diffspectra_tpu_torch import run_lib
+    from diffspectra_tpu_torch.warm_state import read_warm_state, warm_start_partial
+
+    config = flagship_config(**{"data.root": root, "training.warm_start": WARM_IR,
+                                "training.warm_start_partial": True,
+                                "training.warm_start_zero_fresh": ZERO_FRESH})
+    with LogLines() as cpu:
+        _, cpu_state = run_lib.init_train_state(config, torch.device("cpu"))
+        _, reports = warm_start_partial(cpu_state, WARM_IR, (ZERO_FRESH,))
+    del cpu_state
+    config.training.n_iters = read_warm_state(WARM_IR)["step"] + PARTIAL_STEPS - 1
+    _, run = logged_train(config, dev)
+    want, got = cpu.having("partial warm start"), run.having("partial warm start")
+    counts = {t: (len(r["restored"]), len(r["fresh"]), len(r["zeroed"]))
+              for t, r in reports.items()}
+    say(f"[flagship] (c) allspectra from {os.path.basename(WARM_IR)}, partial, zeroing "
+        f"{ZERO_FRESH}: (restored, fresh, zeroed) by tree {counts}; cuda's log lines equal the "
+        f"CPU's: {want == got}; {len(run.losses)} steps, losses "
+        f"{[round(x, 4) for x in run.losses]}, {run.wall:.1f} s; {smi}")
+    assert len(want) == 3 and want == got
+    assert all(reports[t]["zeroed"] == ["params/" + ZERO_FRESH] for t in ("params", "ema"))
+    assert len(run.losses) == PARTIAL_STEPS and all(map(math.isfinite, run.losses))
+    return counts
+
+
+def dots_run(dev, smi, root, warm_step, phase8):
+    """Phase 10 (d): ``remat_policy='dots'`` for 10 steps from WARM; its
+    median step and peak memory beside phase 8's ``full`` and ``none``, the
+    peak between theirs."""
+    config = flagship_config(**{"data.root": root, "training.warm_start": WARM,
+                                "model.remat_policy": "dots",
+                                "training.n_iters": warm_step + DOTS_STEPS - 1})
+    _, run = logged_train(config, dev)
+    median = median_of(run.step_ms(), 2, DOTS_STEPS)
+    peak = run.peaks[-1]
+    full, none = phase8["full"], phase8["none"]
+    say(f"[flagship] (d) remat_policy='dots': {DOTS_STEPS} steps in {run.wall:.1f} s, median "
+        f"step {median:.1f} ms (phase 8: full {full['median_ms']:.1f}, none "
+        f"{none['median_ms']:.1f}), peak {peak / 2**30:.2f} GiB (full "
+        f"{full['max_memory_bytes'] / 2**30:.2f}, none {none['max_memory_bytes'] / 2**30:.2f}); "
+        f"step ms {[round(t, 1) for t in run.step_ms()]}; losses "
+        f"{[round(x, 4) for x in run.losses]}; {smi}")
+    assert len(run.losses) == DOTS_STEPS and all(map(math.isfinite, run.losses))
+    assert full["max_memory_bytes"] < peak < none["max_memory_bytes"], peak
+    return {"median_ms": median, "max_memory_bytes": peak}
+
+
+def eval_loop(dev, smi, root, workdir, warm_step):
+    """Phase 10 (e): ``--mode eval``'s loop over (a)'s two numbered
+    checkpoints (``eval.ckpts``), 8 targets, K=1, 100 steps: finite figures
+    for each, the bf16 per-op kernels launched 8 x steps x rounds times a
+    checkpoint and no other. Returns the launches."""
+    from diffspectra_tpu_torch import run_lib
+    from diffspectra_tpu_torch.ops import LAUNCHES, reset_launches
+
+    first = (warm_step + STORE_SNAPSHOT_FREQ - 1) // STORE_SNAPSHOT_FREQ
+    ckpts = [first, first + 1]
+    config = flagship_config(**{"data.root": root, **EVAL_LOOP,
+                                "eval.ckpts": ",".join(map(str, ckpts))})
+    reset_launches()
+    t0 = time.perf_counter()
+    figures = run_lib.evaluate_checkpoints(config, workdir, "eval", dev)
+    wall = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    rounds = sum(len(f["rounds"]) for f in figures.values())
+    expected = config.model.n_layers * config.sampling.steps * rounds
+    say(f"[flagship] (e) evaluate_checkpoints over checkpoints {ckpts} of (a)'s workdir "
+        f"({config.eval.num_samples} targets, K=1, {config.sampling.steps} steps) in {wall:.1f} "
+        f"s: " + "; ".join(
+            f"checkpoint {c}: Top-1 2D {f['top1_2d']:.4f}, 3D {f['top1_3d']:.4f}, 2D validity "
+            f"{f['metric_2d']['Validity']:.4f}, rounds {f['rounds']}" for c, f in figures.items())
+        + f"; launches {nonzero(launches)}, expected {expected} for "
+        f"{kernels_of('attn_equi', 'bf16')}; {smi}")
+    assert sorted(figures) == ckpts
+    for f in figures.values():
+        for v in (f["top1_2d"], f["top1_3d"], *f["metric_2d"].values(), *f["metric_3d"].values()):
+            assert math.isfinite(v) and v >= 0, f
+        assert all(s["decoded"] == config.eval.num_samples for s in f["sweeps"])
+    launched_only(kernels_of("attn_equi", "bf16"), launches, expected)
+    return launches
+
+
+def host_packer(smi, root):
+    """Phase 10 (f): ``native/packer.cc`` built with the card host's
+    compiler, against ``pack_batch_numpy`` on 128 of the set's molecules."""
+    from diffspectra_tpu_torch.data import native
+    from diffspectra_tpu_torch.data.qm9s import load_qm9s
+
+    raw, _ = load_qm9s(root)
+    args = [np.asarray(raw[k][:128]) for k in ("atom_type", "pos", "edge_type", "fc", "num_atom")]
+    spectra = np.asarray(raw["ir"][:128])
+    t0 = time.perf_counter()
+    native.load_library()
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    got = native.pack_batch(*args, spectra)
+    pack_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    want = native.pack_batch_numpy(*args, spectra)
+    numpy_ms = (time.perf_counter() - t0) * 1e3
+    err = max(float(np.abs(got[k] - want[k]).max()) for k in want)
+    say(f"[flagship] (f) the host packer: built in {build_s:.2f} s; 128 molecules packed in "
+        f"{pack_ms:.2f} ms (numpy {numpy_ms:.2f} ms), max |diff| {err:.3g}; {smi}")
+    assert set(got) == set(want) and err <= 1e-6, err
+
+
+def phase_flagship(dev, smi, phase8):
+    """Phase 10: training as the JAX flagship config trains. Returns the
+    launches of its main path (the eval loop) by kernel."""
+    from diffspectra_tpu_torch.warm_state import read_warm_state
+
+    t0 = time.perf_counter()
+    warm_step = read_warm_state(WARM)["step"]
+    root = tempfile.mkdtemp(prefix="qm9s_")
+    store_dir, loader = qm9s_loader_and_store(dev, smi, root, warm_step)
+    pretrain = pretrain_and_restore(dev, smi, root)
+    counts = partial_warm_start(dev, smi, root)
+    dots = dots_run(dev, smi, root, warm_step, phase8)
+    launches = eval_loop(dev, smi, root, store_dir, warm_step)
+    host_packer(smi, root)
+    shutil.rmtree(store_dir)
+    shutil.rmtree(root)
+    seconds = time.perf_counter() - t0
+    print(json.dumps({"flagship": {"loader": loader, "pretrain": pretrain, "partial": counts,
+                                   "dots": dots, "phase_s": seconds}}), flush=True)
+    say(f"[flagship] phase 10 in {seconds:.1f} s")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on the GPU only",
               file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
+    atexit.register(shutil.rmtree, SYNTH_CACHE, True)  # the cached sets, however the run ends
     from diffspectra_tpu_torch.ops import _lib
 
     dev = torch.device("cuda")
@@ -1696,8 +2077,9 @@ def main() -> int:
         phase_profile(f"{path} {dt}", model, dev)
     sweeps = {dt: phase_sweep(dev, dt) for dt in ("bf16", "f32")}
     compare_sweeps(sweeps)
-    trained = phase_train(dev, smi)
+    trained, phase8 = phase_train(dev, smi)
     variants = phase_variants(dev, smi)
+    flagship = phase_flagship(dev, smi, phase8)
     sweep = {k: sum(r[0][k] for r in sweeps.values()) for k in serving}
     for row in rows:
         # the dd1 rows' main path is phase 9's (dist_gbf=False); the others'
@@ -1708,10 +2090,11 @@ def main() -> int:
         row["sweep_launches"] = sweep[row["name"]]
         row["train_snapshot_launches"] = trained[row["name"]]
         row["variant_launches"] = variants.get(row["name"], 0)
+        row["flagship_train_launches"] = flagship.get(row["name"], 0)
         assert row["launches"] > 0, row
     for row in probe_rows:  # launches: the probe tool's run; none on the serving paths
         row["serving_launches"] = (serving[row["name"]] + sweep[row["name"]] + trained[row["name"]]
-                                   + variants.get(row["name"], 0))
+                                   + variants.get(row["name"], 0) + flagship.get(row["name"], 0))
         assert row["serving_launches"] == 0, row
     say(f"[probes] launches in the probe tool's run "
         f"{ {r['name']: r['launches'] for r in probe_rows} }, on the serving paths 0 each")

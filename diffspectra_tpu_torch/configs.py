@@ -2,9 +2,11 @@
 
 Replaces ``diffspectra_tpu/configs/diffspectra_qm9s.py`` and
 ``configs/smoke.py`` (both ``ml_collections``) with nested
-``SimpleNamespace`` trees holding only the values that serving, the sweep
-and the train loop read, at the JAX package's defaults (the batch sizes
-resolved for one device).
+``SimpleNamespace`` trees holding only the values that serving, the sweep,
+the train loop and SpecFormer's pretraining read, at the JAX package's
+defaults (the batch sizes resolved for one device). Left out: the keys of
+the mesh (``training.num_devices``), of the 2-D models (``only_2D``) and
+of the moses and sub-geometry metrics.
 ``apply_overrides`` takes the same dotted ``{"model.nf": 64}`` overrides as
 the JAX ``Elucidator``.
 """
@@ -28,7 +30,14 @@ def get_config() -> NS:
     ``training.matmul_precision``."""
     return NS(
         seed=42,
+        # 'diffspectra': the 4-way conditional split; else the original-QM9 split
+        exp_type="diffspectra",
         data=NS(
+            # the QM9S store (data/qm9s.py): <root>/packed/*.npy, or the
+            # reference's processed/data_qm9_allspectra.pt converted once
+            root="data/QM9S",
+            # True: the synthetic set below in place of QM9S (tests, smoke runs)
+            synthetic=False,
             info_name="qm9_second_half",
             centered=True,
             atom_types=5,
@@ -39,6 +48,13 @@ def get_config() -> NS:
             # max_node, fidelity=synthetic_fidelity), split by seed
             synthetic_size=4096,
             synthetic_fidelity=1,
+            # a directory to keep generated synthetic sets in ('' keeps none)
+            synthetic_cache="",
+            # the train split on the device, each batch gathered there from
+            # an index vector (data/device_store.py), when it fits
+            # device_store_max_bytes; else the host iterator
+            device_resident=True,
+            device_store_max_bytes=6_000_000_000,
             # the dataset transform and the training batches
             include_aromatic=False,
             use_normalize=True,
@@ -88,8 +104,13 @@ def get_config() -> NS:
             # forwards (training/losses.py)
             reuse_cond_emb=True,
             # 'full': each block recomputed in the backward pass
-            # (torch.utils.checkpoint); 'none': activations kept
+            # (torch.utils.checkpoint); 'dots': the 2-D weight products'
+            # outputs kept, the rest recomputed; 'none': activations kept
             remat_policy="full",
+            # a pretrained SpecFormer merged into cond_encoder before the
+            # train state is built: the reference's Lightning checkpoint or
+            # the .npz of --mode pretrain (models/pretrained.py)
+            pretrained_specformer_path="",
         ),
         # 'ancestral', 'dpm_solver' (DPM-Solver++(2M)) or 'dpm_solver_sde'
         sampling=NS(steps=1000, method="ancestral"),
@@ -97,7 +118,8 @@ def get_config() -> NS:
             # the DMT's working dtype, as the JAX config's: 'bfloat16' (its
             # production default) or 'float32' (MATMUL_PRECISIONS)
             matmul_precision="bfloat16",
-            # the JAX defaults on one device (base_batch_size 128)
+            # the JAX defaults on one device
+            base_batch_size=128,
             batch_size=128,
             n_iters=2000000,
             log_freq=500,
@@ -109,9 +131,22 @@ def get_config() -> NS:
             reduce_mean=False,
             # a warm-state .npz to start from when the workdir has no checkpoint
             warm_start="",
+            # restore only the leaves of the same path and shape (say, an
+            # allspectra model from an IR-only state), the rest fresh
+            warm_start_partial=False,
+            # comma-separated substrings of flax paths: fresh leaves matching
+            # one are zeroed (e.g. 'cond_encoder/head_linear/kernel')
+            warm_start_zero_fresh="",
+            # a torch.profiler trace of steps [init+10, init+15) to <workdir>/profile
+            profile=False,
         ),
         optim=NS(optimizer="AdamW", lr=2e-4, beta1=0.9, eps=1e-8, warmup=100000,
                  grad_clip=10.0, weight_decay=0.0),
+        # SpecFormer's masked-patch pretraining (training/pretrain.py);
+        # batch_size 0 means training.base_batch_size
+        pretrain=NS(mask_ratio=0.4, n_iters=200000, batch_size=0, lr=1e-4, warmup=10000,
+                    weight_decay=1e-4, grad_clip=1.0, dropout=0.1, log_freq=500,
+                    snapshot_freq=20000),
         eval=NS(
             bucket_sizes=(17, 21, 25, 29),
             # the sweep: num_samples test targets in rounds of batch_size
@@ -121,6 +156,11 @@ def get_config() -> NS:
             batch_size=128,
             num_candidates=1,
             sampling_temperature=1.0,
+            # the numbered checkpoints --mode eval sweeps: ckpts ("1,2"), or
+            # begin_ckpt ... end_ckpt
+            ckpts="",
+            begin_ckpt=40,
+            end_ckpt=40,
         ),
     )
 
@@ -128,10 +168,12 @@ def get_config() -> NS:
 def get_smoke_config() -> NS:
     """The small test model of ``configs/smoke.py``: IR only, N <= 16,
     nf=64, 4 blocks, 8 heads, 50 steps, float32, no buckets; a sweep of 8
-    targets in rounds of 8 over 256 synthetic molecules; training at batch
-    8, dropout 0, warmup 10, 20 steps (a log line every 5, a snapshot at
-    20, a preemption checkpoint every 10)."""
+    targets in rounds of 8 over 256 synthetic molecules, of checkpoint 1;
+    training at batch 8, dropout 0, warmup 10, 20 steps (a log line every
+    5, a snapshot at 20, a preemption checkpoint every 10); pretraining 10
+    steps at batch 8, warmup 2, dropout 0."""
     config = get_config()
+    config.data.synthetic = True
     config.data.spectra_version = "ir"
     config.data.max_node = 16
     config.model.nf = 64
@@ -147,7 +189,11 @@ def get_smoke_config() -> NS:
     t = config.training
     t.batch_size = t.eval_batch_size = t.eval_samples = 8
     t.n_iters, t.log_freq, t.snapshot_freq, t.snapshot_freq_for_preemption = 20, 5, 20, 10
+    t.base_batch_size = 8
     config.optim.warmup = 10
+    p = config.pretrain
+    p.n_iters, p.batch_size, p.warmup, p.log_freq, p.snapshot_freq, p.dropout = 10, 8, 2, 5, 10, 0.0
+    config.eval.begin_ckpt = config.eval.end_ckpt = 1
     return config
 
 

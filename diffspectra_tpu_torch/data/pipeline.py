@@ -1,25 +1,28 @@
 """Dataset assembly, splits, batching and augmentation (port of
-``diffspectra_tpu/data/pipeline.py``, the synthetic dataset).
+``diffspectra_tpu/data/pipeline.py``).
 
-``get_dataset`` builds the synthetic set with its 4-way conditional split,
-through the dataset transform; ``get_batch_iterator`` yields collated numpy
-batches (bucketed by atom count, or padded to ``data.max_node``);
+``get_dataset`` reads QM9S from ``data.root`` (``qm9s.load_qm9s``) or
+builds the synthetic set (``data.synthetic``), splits it (the 4-way
+conditional split, or the original-QM9 split for another ``exp_type``)
+and runs the dataset transform; ``get_batch_iterator`` yields collated
+numpy batches (bucketed by atom count, or padded to ``data.max_node``),
+which ``prefetch`` assembles on a background thread;
 ``augment_positions`` rotates and translates a batch on its device, with
-draws from a ``torch.Generator``.
-
-Left out (``ROADMAP.md``): the QM9S loader, the original-QM9 split, the
-dataset cache, the device-resident store and the background-thread
-``prefetch``.
+draws from a ``torch.Generator``. The device-resident twin of the iterator
+and the collate is ``device_store.py``.
 """
 
 from __future__ import annotations
 
+import queue
+import threading
 from typing import Dict, Iterator
 
 import numpy as np
 import torch
 
 from .info import get_dataset_info
+from .qm9s import load_qm9s
 from .synthetic import generate as generate_synthetic
 from .transform import edge_com_spectra_transform
 
@@ -59,23 +62,53 @@ def _conditional_splits(rng: np.random.Generator, size: int):
     return first, second, val, test
 
 
-def get_dataset(config):
-    """``(first_train, second_train, val, test, dataset_info)`` of
-    ``generate(config.seed, config.data.synthetic_size, data.max_node,
-    fidelity=data.synthetic_fidelity)`` through the dataset transform,
-    split by a permutation drawn from ``config.seed``. The train loop
+def _original_splits(rng: np.random.Generator, size: int):
+    """The original-QM9 split, scaled to ``size``: 100,000 of 130,831 to
+    train (both halves alias it), 10% test, the rest validation."""
+    perm = rng.permutation(size)
+    n_train = max(1, int(size * 100000 / 130831))
+    n_test = max(1, int(size * 0.1))
+    train = perm[:n_train]
+    test = perm[n_train : n_train + n_test]
+    val = perm[n_train + n_test :]
+    return train, train, val, test
+
+
+def get_dataset(config, transform: bool = True):
+    """``(first_train, second_train, val, test, dataset_info)``.
+
+    With ``data.synthetic``: ``generate(config.seed, data.synthetic_size,
+    data.max_node, fidelity=data.synthetic_fidelity)`` (kept in
+    ``data.synthetic_cache`` when set), split by a permutation drawn from
+    ``config.seed``. Else QM9S from ``data.root`` with its split file's
+    splits. ``exp_type`` other than ``'diffspectra'`` takes the original-QM9
+    split instead (from ``config.seed`` on the synthetic set, from seed 42
+    on QM9S). ``transform=False`` keeps the raw arrays. The train loop
     trains on the second half, as the JAX package does."""
     dataset_info = get_dataset_info(config.data.info_name)
-    raw = generate_synthetic(
-        seed=config.seed, size=config.data.synthetic_size, max_n=config.data.max_node,
-        info_name=config.data.info_name, fidelity=config.data.synthetic_fidelity,
-    )
-    split_rng = np.random.default_rng(config.seed)
-    first, second, val, test = _conditional_splits(split_rng, len(raw["num_atom"]))
+    max_n = config.data.max_node
+    conditional = config.exp_type == "diffspectra"
+    if config.data.synthetic:
+        raw = generate_synthetic(
+            seed=config.seed, size=config.data.synthetic_size, max_n=max_n,
+            info_name=config.data.info_name, fidelity=config.data.synthetic_fidelity,
+            cache_dir=config.data.synthetic_cache,
+        )
+        split_fn = _conditional_splits if conditional else _original_splits
+        first, second, val, test = split_fn(np.random.default_rng(config.seed),
+                                             len(raw["num_atom"]))
+    else:
+        raw, splits = load_qm9s(config.data.root, max_n=max_n)
+        if conditional:
+            first, second, val, test = splits
+        else:
+            # a property of the dataset, not of the split file or config.seed
+            first, second, val, test = _original_splits(np.random.default_rng(42),
+                                                        len(raw["num_atom"]))
     arrays = edge_com_spectra_transform(
         raw, atom_types=config.data.atom_types, include_aromatic=config.data.include_aromatic,
         use_normalize=config.data.use_normalize,
-    )
+    ) if transform else raw
     ds = ArrayDataset(arrays, np.arange(len(arrays["num_atom"])))
     return ds.select(first), ds.select(second), ds.select(val), ds.select(test), dataset_info
 
@@ -204,3 +237,29 @@ def inf_iterator(make_iter):
         yield from make_iter(epoch)
         epoch += 1
 
+
+def prefetch(iterator, size: int = 2):
+    """``iterator``'s items, made ``size`` ahead on a background thread, so
+    that the host assembles the next batches while the device computes. An
+    exception in the thread ends the iteration with it raised here."""
+    q: "queue.Queue" = queue.Queue(maxsize=size)
+    end = object()
+    failure = []
+
+    def producer():
+        try:
+            for item in iterator:
+                q.put(item)
+        except BaseException as e:  # handed to the consumer, raised there
+            failure.append(e)
+        finally:
+            q.put(end)
+
+    threading.Thread(target=producer, daemon=True).start()
+    while True:
+        item = q.get()
+        if item is end:
+            if failure:
+                raise failure[0]
+            return
+        yield item

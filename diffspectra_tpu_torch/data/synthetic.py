@@ -1,7 +1,7 @@
 """Synthetic QM9S-like molecules and spectra (numpy only).
 
-A copy of ``diffspectra_tpu/data/synthetic.py`` without its on-disk cache, so
-that the port can make real requests (spectra of known molecules, fidelity 4
+A copy of ``diffspectra_tpu/data/synthetic.py``, its on-disk cache
+included, so that the port can make real requests (spectra of known molecules, fidelity 4
 being what ``artifacts/warm_qm9s_as.npz`` was tuned on) without importing the
 JAX package. ``generate(seed, size, max_n, fidelity=...)`` returns the same
 arrays from the same seed as the original.
@@ -9,6 +9,7 @@ arrays from the same seed as the original.
 
 from __future__ import annotations
 
+import os
 from typing import Dict
 
 import numpy as np
@@ -733,10 +734,22 @@ def generate(
     max_n: int,
     info_name: str = "qm9_second_half",
     fidelity: int = 1,
+    cache_dir: str = "",
 ) -> Dict[str, np.ndarray]:
     """Generate a raw synthetic dataset with the QM9S schema:
     atom_type [M, N], pos [M, N, 3], edge_type [M, N, N] (bond orders),
-    num_atom [M], fc [M, N], uv/ir/raman [M, L]."""
+    num_atom [M], fc [M, N], uv/ir/raman [M, L].
+
+    ``cache_dir``: keep the arrays in
+    ``synth_<seed>_<size>_<max_n>_<info>_f<fidelity>.npz`` there (the JAX
+    package's file name and layout) and read them back on the next call."""
+    cache_path = None
+    if cache_dir:
+        cache_path = os.path.join(
+            cache_dir, f"synth_{seed}_{size}_{max_n}_{info_name}_f{fidelity}.npz")
+        if os.path.exists(cache_path):
+            with np.load(cache_path) as z:
+                return {k: z[k] for k in z.files}
     rng = np.random.default_rng(seed)
     info = get_dataset_info(info_name)
     n_atoms = np.minimum(_sample_n_atoms(rng, info, size), max_n)
@@ -797,7 +810,7 @@ def generate(
         )
         for ch, (k, L) in enumerate(SPEC_LENS.items())
     }
-    return dict(
+    out = dict(
         atom_type=atom_type,
         pos=pos,
         edge_type=edge_type,
@@ -805,3 +818,10 @@ def generate(
         num_atom=n_atoms.astype(np.int64),
         **spectra,
     )
+    if cache_path:
+        os.makedirs(cache_dir, exist_ok=True)
+        # a file of each writer's own, renamed into place whole
+        tmp = f"{cache_path}.tmp{os.getpid()}.npz"
+        np.savez(tmp, **out)
+        os.replace(tmp, cache_path)
+    return out

@@ -1,6 +1,7 @@
 """Exact MCES (maximum common edge subgraph) distance by branch-and-bound:
 the Python search of ``diffspectra_tpu/evaluation/mces.py``, without its C++
-twin (``native/mces.cc``; the port builds no host C++).
+twin (``native/mces.cc``; of ``native/`` the port builds only the batch
+packer, ``data/native.py``).
 
     d(G1, G2) = |E1| + |E2| - 2 * |MCES(G1, G2)|
 

@@ -1,38 +1,80 @@
-"""The port's command line (``diffspectra_tpu/main.py``): train, or run the
-evaluation sweep.
+"""The port's command line (``diffspectra_tpu/main.py``): train, evaluate, or
+pretrain SpecFormer.
 
     python -m diffspectra_tpu_torch.main --mode train --workdir exp/train \\
         --warm-start artifacts/warm_qm9s_as.npz
     python -m diffspectra_tpu_torch.main --mode train --workdir /tmp/smoke --smoke --device cpu
-    python -m diffspectra_tpu_torch.main --mode eval --workdir exp/train
+    python -m diffspectra_tpu_torch.main --mode eval --workdir exp/train --config eval.ckpts=1,2
+    python -m diffspectra_tpu_torch.main --mode pretrain --workdir exp/pre \\
+        --config data.spectra_version=allspectra
 
 ``train`` runs ``run_lib.train`` (the flagship config, or the small test
 config with ``--smoke``), warm-started from ``--warm-start`` when the
 workdir holds no checkpoint, and leaves ``<workdir>/warm_state.npz``.
-``eval`` runs the sweep (``run_lib.evaluate``) on ``--warm-start``, or else
-(``run_lib.evaluate_workdir``) on the workdir's latest resumable
-checkpoint, restored as ``Elucidator.from_workdir`` restores it, its tables
-in ``<workdir>/eval``. Runs on
-``cuda`` unless ``--device cpu`` is given. Logs to stdout and to
-``<workdir>/stdout.txt`` (``eval_stdout.txt`` for eval).
+``eval`` runs the sweep (``run_lib.evaluate``) on ``--warm-start``, or
+else (``run_lib.evaluate_checkpoints``) on each numbered checkpoint of the
+workdir that ``eval.ckpts`` or ``eval.begin_ckpt`` ... ``eval.end_ckpt``
+names (40 by default, 1 with ``--smoke``), its tables in
+``<workdir>/eval``. ``pretrain`` runs ``training/pretrain.py`` and leaves
+``<workdir>/specformer_pretrained.npz`` for
+``model.pretrained_specformer_path``. ``--config KEY=VALUE`` (repeated)
+sets any config key, the value read as the key's type (``data.root``,
+``data.synthetic=true``, ``training.warm_start_partial=true``,
+``data.bucket_sizes=(17,21,25,29)``). Runs on ``cuda`` unless ``--device
+cpu`` is given. Logs to stdout and to ``<workdir>/stdout.txt``
+(``eval_stdout.txt``, ``pretrain_stdout.txt``).
 """
 
 from __future__ import annotations
 
 import argparse
+import ast
 import logging
 import os
 import sys
 
+LOG_NAMES = {"train": "stdout.txt", "eval": "eval_stdout.txt", "pretrain": "pretrain_stdout.txt"}
+
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    p.add_argument("--mode", choices=("train", "eval"), required=True)
+    p.add_argument("--mode", choices=tuple(LOG_NAMES), required=True)
     p.add_argument("--workdir", required=True)
     p.add_argument("--smoke", action="store_true", help="the small test config")
     p.add_argument("--warm-start", default="", help="a warm-state .npz")
+    p.add_argument("--config", action="append", default=[], metavar="KEY=VALUE",
+                   help="set a config key (repeatable)")
     p.add_argument("--device", default=None, help="cuda (default) or cpu")
     return p.parse_args(argv)
+
+
+def parse_overrides(config, items) -> dict:
+    """``["a.b=v", ...]`` -> ``{"a.b": value}``, each value read as the
+    type the key holds; an unknown key raises."""
+    out = {}
+    for item in items:
+        key, sep, text = item.partition("=")
+        if not sep:
+            raise ValueError(f"--config takes KEY=VALUE, got {item!r}")
+        node = config
+        *path, leaf = key.split(".")
+        for part in path:
+            node = getattr(node, part)
+        if not hasattr(node, leaf):
+            raise AttributeError(f"unknown config key {key!r}")
+        current = getattr(node, leaf)
+        if isinstance(current, bool):
+            if text.lower() not in ("true", "false"):
+                raise ValueError(f"{key} takes true or false, got {text!r}")
+            value = text.lower() == "true"
+        elif isinstance(current, (int, float)):
+            value = type(current)(text)
+        elif isinstance(current, str):
+            value = text
+        else:
+            value = ast.literal_eval(text)
+        out[key] = value
+    return out
 
 
 def main(argv=None):
@@ -40,20 +82,25 @@ def main(argv=None):
     from diffspectra_tpu_torch import configs, run_lib
 
     os.makedirs(args.workdir, exist_ok=True)
-    log_name = "stdout.txt" if args.mode == "train" else "eval_stdout.txt"
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s", force=True,
                         handlers=[logging.StreamHandler(sys.stdout),
-                                  logging.FileHandler(os.path.join(args.workdir, log_name))])
+                                  logging.FileHandler(os.path.join(args.workdir,
+                                                                   LOG_NAMES[args.mode]))])
     config = configs.get_smoke_config() if args.smoke else configs.get_config()
+    configs.apply_overrides(config, parse_overrides(config, args.config))
     if args.mode == "train":
-        config.training.warm_start = args.warm_start
+        config.training.warm_start = args.warm_start or config.training.warm_start
         state = run_lib.train(config, args.workdir, args.device)
         logging.info("trained to step %d", state.step)
         return state
-    eval_dir = os.path.join(args.workdir, "eval")
+    if args.mode == "pretrain":
+        from diffspectra_tpu_torch.training.pretrain import pretrain_specformer
+
+        return pretrain_specformer(config, args.workdir, args.device)
     if args.warm_start:
-        return run_lib.evaluate(config, args.warm_start, eval_dir, args.device)
-    return run_lib.evaluate_workdir(config, args.workdir, eval_dir, args.device)
+        return run_lib.evaluate(config, args.warm_start, os.path.join(args.workdir, "eval"),
+                                args.device)
+    return run_lib.evaluate_checkpoints(config, args.workdir, "eval", args.device)
 
 
 if __name__ == "__main__":

@@ -13,8 +13,11 @@ kernel runs the JAX package's XLA branch. All paths read the same
 parameters. In training mode (the ``deterministic=False`` of the JAX DMT)
 the blocks run the XLA branches under autograd, as JAX trains without its
 kernels, with dropout drawn from a generator a block seeded by
-``dropout_seeds``, and ``remat_policy='full'`` recomputes each block in
-the backward pass.
+``dropout_seeds``; ``remat_policy='full'`` recomputes each block in the
+backward pass, and ``'dots'`` keeps the outputs of its 2-D weight products
+(``aten.mm``, ``aten.addmm``) and recomputes the rest, as JAX's
+``dots_with_no_batch_dims_saveable`` keeps the products without a batch
+dimension (torch's selective checkpointing).
 
 The variants of the JAX config: ``cond_time=False`` (no time embedding:
 no time MLPs, the blocks' unmodulated branch, zero modulation of the
@@ -39,7 +42,11 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from .. import configs
 from ..ops.block_fused import block_fused
@@ -326,7 +333,18 @@ class Block(nn.Module):
         return pos, h, edge_attr, self.node_proj(h), self.edge_proj(edge_attr)
 
 
-REMAT_POLICIES = ("full", "none")
+REMAT_POLICIES = ("full", "dots", "none")
+# 'dots': the ops whose outputs a block's backward keeps
+SAVED_BY_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in SAVED_BY_DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _dots_context():
+    return create_selective_checkpoint_contexts(_dots_policy)
 
 
 class DMT(nn.Module):
@@ -350,8 +368,7 @@ class DMT(nn.Module):
                  dist_gbf: bool = True, gbf_name: str = "CondGaussianLayer"):
         super().__init__()
         if remat_policy not in REMAT_POLICIES:
-            raise ValueError(f"remat_policy {remat_policy!r}: the port takes {REMAT_POLICIES}; "
-                             "'dots' is queued in ROADMAP.md")
+            raise ValueError(f"remat_policy {remat_policy!r}: takes one of {REMAT_POLICIES}")
         if gbf_name not in GBF_LAYERS:
             raise ValueError(f"gbf_name {gbf_name!r}: takes one of {sorted(GBF_LAYERS)}")
         self.dtype, self.dropout, self.remat_policy = dtype, dropout, remat_policy
@@ -454,14 +471,16 @@ class DMT(nn.Module):
             raise ValueError("a DMT in training mode with dropout takes dropout_seeds")
         seeds = (list(dropout_seeds) if self.training and dropout_seeds is not None
                  else [None] * len(self.blocks))
-        remat = self.training and self.remat_policy == "full" and torch.is_grad_enabled()
+        remat = self.training and self.remat_policy != "none" and torch.is_grad_enabled()
+        remat_kwargs = {"use_reentrant": False, "preserve_rng_state": False}
+        if self.remat_policy == "dots":
+            remat_kwargs["context_fn"] = _dots_context
         cat_h, cat_e = [], []
         for block, seed in zip(self.blocks, seeds):
             args = (seed, self.CoM, pos, h, edge_attr, node_mask, edge_mask, extra_adj, time_emb)
             # the recomputation draws its dropout masks from its own seed
             pos, h, edge_attr, ch, ce = (
-                checkpoint(block, *args, use_reentrant=False, preserve_rng_state=False)
-                if remat else block(*args))
+                checkpoint(block, *args, **remat_kwargs) if remat else block(*args))
             cat_h.append(ch)
             cat_e.append(ce)
 

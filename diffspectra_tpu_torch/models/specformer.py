@@ -9,7 +9,10 @@ flatten head and an affine LayerNorm (eps 1e-6) give the pooled
 ``[B, output_dim]`` embedding. In eval mode BatchNorm reads its running
 statistics (``batch_stats``); in training mode it normalises with the
 batch's and updates the running ones, and dropout (0 in the DMT, as in the
-JAX package) draws from the generator ``forward`` is given.
+JAX package) draws from the generator ``forward`` is given. For the
+masked-patch pretraining (``training/pretrain.py``), ``forward`` zeroes the
+patches its ``patch_masks`` name before the projection and, with
+``return_tokens``, also returns the encoder's tokens.
 """
 
 from __future__ import annotations
@@ -35,6 +38,11 @@ def used_spectra_indices(spectra_version: str) -> Tuple[int, ...]:
 
 def patch_count(length: int, patch_len: int, stride: int) -> int:
     return (length - patch_len) // stride + 1
+
+
+def unfold_patches(spec: torch.Tensor, patch_len: int, stride: int) -> torch.Tensor:
+    """``[B, L] -> [B, n_patches, patch_len]``, overlapping windows."""
+    return spec.unfold(-1, patch_len, stride)
 
 
 class BatchNorm(nn.Module):
@@ -133,7 +141,7 @@ class SpecFormer(nn.Module):
                  n_layers: int = 3, d_model: int = 128, n_heads: int = 16, d_ff: int = 256,
                  dropout: float = 0.0, attn_dropout: float = 0.0):
         super().__init__()
-        self.dropout = dropout
+        self.dropout, self.d_model = dropout, d_model
         self.used = used_spectra_indices(spectra_version)
         self.patch_len, self.stride = tuple(patch_len), tuple(stride)
         n_patches = 0
@@ -154,20 +162,37 @@ class SpecFormer(nn.Module):
         self.out_norm = LayerNorm(output_dim)
         self.eval()
 
-    def forward(self, specs: Sequence[torch.Tensor], generator=None) -> torch.Tensor:
-        """``specs``: one ``[B, L_i]`` tensor per used spectrum, in the
-        order uv, ir, raman; ``generator`` draws the dropout masks in
-        training mode."""
+    def normalize_context(self, context) -> Tuple[torch.Tensor, ...]:
+        """One ``[B, L]`` tensor per used spectrum from a tensor or a
+        sequence of them, each ``[B, L]`` or ``[B, 1, L]``; another count of
+        spectra than the version uses raises."""
+        specs = list(context) if isinstance(context, (list, tuple)) else [context]
         if len(specs) != len(self.used):
             raise ValueError(f"expected {len(self.used)} spectra, got {len(specs)}")
+        return tuple(s.reshape(s.shape[0], s.shape[-1]) if s.dim() == 3 else s for s in specs)
+
+    def forward(self, specs: Sequence[torch.Tensor], generator=None, patch_masks=None,
+                return_tokens: bool = False):
+        """``specs``: one ``[B, L_i]`` tensor per used spectrum, in the
+        order uv, ir, raman; ``generator`` draws the dropout masks in
+        training mode. ``patch_masks``: one ``[B, n_patches_i]`` tensor per
+        spectrum, a patch above 0 zeroed before the projection. Returns the
+        ``[B, output_dim]`` embedding, and with ``return_tokens`` also the
+        ``[B, P, d_model]`` tokens of the last encoder layer."""
+        specs = self.normalize_context(specs)
         generator = generator if self.training else None
         tokens = []
-        for i, pos_name, spec in zip(self.used, self.pos_names, specs):
-            patches = spec.unfold(-1, self.patch_len[i], self.stride[i])
+        for slot, (i, pos_name, spec) in enumerate(zip(self.used, self.pos_names, specs)):
+            patches = unfold_patches(spec, self.patch_len[i], self.stride[i])
+            if patch_masks is not None:
+                patches = torch.where(patch_masks[slot][..., None] > 0,
+                                      torch.zeros((), dtype=patches.dtype,
+                                                  device=patches.device), patches)
             z = getattr(self, f"W_P_{i}")(patches)
             tokens.append(dropout(z + getattr(self, pos_name), self.dropout, generator))
         z = torch.cat(tokens, dim=1)
         scores = None
         for li in range(self.n_layers):
             z, scores = getattr(self, f"encoder_layer_{li}")(z, scores, generator)
-        return self.out_norm(self.head_linear(z.reshape(z.shape[0], -1)))
+        pooled = self.out_norm(self.head_linear(z.reshape(z.shape[0], -1)))
+        return (pooled, z) if return_tokens else pooled

@@ -6,18 +6,28 @@
     figures = run_lib.evaluate(configs.get_config(), "artifacts/warm_qm9s_as.npz", "eval")
     figures = run_lib.evaluate_workdir(configs.get_config(), "exp/train", "exp/train/eval")
 
-``train`` trains on the second train half of the synthetic set in bucketed
-batches, augmented by a random rotation and translation, with the loss,
-optimizer and EMA of ``training/``; logs the loss and graphs/s every
-``training.log_freq`` steps and stops on a non-finite loss; writes the
-preemption and numbered checkpoints (``checkpoint.py``) and resumes from
-them, or warm-starts from ``training.warm_start``; and at each snapshot
-samples ``training.eval_samples`` validation targets from the EMA weights
-through ``sampling/harness.py`` (the serving kernels) and logs their
-stability figures (also to ``<workdir>/samples/iter_<step>.json``, where
-the JAX package draws the molecules). It exports the last state as ``<workdir>/warm_state.npz``
-(``warm_state.export_warm_state``). Left out: ``visualize.visualize_mols``
-(RDKit), the device-resident dataset, the mesh and the profile hook.
+``train`` trains on the second train half of QM9S (``data.root``) or of
+the synthetic set in bucketed batches, augmented by a random rotation and
+translation, with the loss, optimizer and EMA of ``training/``. The split
+sits on the device and each batch is gathered there from an index vector
+(``data/device_store.py``) when ``data.device_resident`` is set and the
+split fits ``data.device_store_max_bytes``; else the host iterator
+collates each batch on a background thread and copies it over. It logs the
+loss and graphs/s every ``training.log_freq`` steps and stops on a
+non-finite loss; writes the preemption and numbered checkpoints
+(``checkpoint.py``) and resumes from them, or warm-starts from
+``training.warm_start`` (whole, or with ``training.warm_start_partial``
+the leaves that match, ``warm_start_zero_fresh`` zeroing fresh ones);
+merges ``model.pretrained_specformer_path`` into a fresh model before its
+train state is built; with ``training.profile`` writes a
+``torch.profiler`` trace of steps ``[init+10, init+15)`` under
+``<workdir>/profile``; and at each snapshot samples
+``training.eval_samples`` validation targets from the EMA weights through
+``sampling/harness.py`` (the serving kernels) and logs their stability
+figures (also to ``<workdir>/samples/iter_<step>.json``, where the JAX
+package draws the molecules). It exports the last state as
+``<workdir>/warm_state.npz`` (``warm_state.export_warm_state``). Left
+out: ``visualize.visualize_mols`` (RDKit) and the mesh.
 
 Samples ``eval.num_samples`` test targets of the synthetic split with the
 seed-42 harness, scores the 3D and 2D stability and validity, repeats the
@@ -28,13 +38,15 @@ valid pairs, MCES, WL Tanimoto and cosine, functional groups). The log
 lines are the JAX package's, text and figures; ``evaluate`` returns the
 figures as a dict.
 
-The weights come from a warm-state export (``evaluate``) or from a train
-workdir's latest resumable checkpoint, as ``Elucidator.from_workdir``
-restores it (``evaluate_workdir``). Both build the schedule of
-``config.sde`` (``NoiseScheduleVP.from_config``) and run any of the
-config's model variants. Left out: the moses metrics, the sub-geometry
-MMDs, ``save_mols``, the original-QM9 reference sets, the mesh and the
-loop over every numbered checkpoint.
+The weights come from a warm-state export (``evaluate``), from each of a
+train workdir's numbered checkpoints that ``eval.ckpts`` (or
+``eval.begin_ckpt`` ... ``eval.end_ckpt``) names, one sweep and one set of
+figures a checkpoint (``evaluate_checkpoints``, ``--mode eval``), or from
+its latest resumable checkpoint, as ``Elucidator.from_workdir`` restores it
+(``evaluate_workdir``). All build the schedule of ``config.sde``
+(``NoiseScheduleVP.from_config``) and run any of the config's model
+variants. Left out: the moses metrics, the sub-geometry MMDs,
+``save_mols``, the original-QM9 reference sets and the mesh.
 """
 
 from __future__ import annotations
@@ -50,13 +62,22 @@ import torch
 
 from . import checkpoint as ckpt_lib
 from .api import load_dmt, restore_dmt
-from .data.pipeline import augment_positions, get_batch_iterator, get_dataset, inf_iterator
+from .data import device_store
+from .data.pipeline import (
+    augment_positions,
+    get_batch_iterator,
+    get_dataset,
+    inf_iterator,
+    prefetch,
+)
 from .device import resolve_device
 from .diffusion.schedule import NoiseScheduleVP
 from .evaluation import compute_metrics as cm
 from .evaluation.molgraph import from_decoded
 from .evaluation.stability import get_2D_edm_metric, get_edm_metric
 from .models.dmt import DMT
+from .models.layers import refresh_casts
+from .models.pretrained import load_pretrained_specformer
 from .sampling.harness import make_cond_sampling_fn
 from .training.losses import draw
 from .training.optim import get_optimizer
@@ -222,11 +243,11 @@ def diffspectra_evaluate(config, model, eval_dir: str, device, ckpt: str = "warm
     gt_hashes = [None if g is None else g.wl_hash() for g in gt_graphs]
     n_seen = sum(1 for h in gt_hashes if h is not None and h in train_hashes)
     n_tot = sum(1 for h in gt_hashes if h is not None)
-    logging.info(
-        "Generalization || train split counted against: the second train half of the "
-        "synthetic set (seed %d, size %d, fidelity %d), %d molecules",
-        config.seed, config.data.synthetic_size, config.data.synthetic_fidelity, len(train_ds),
-    )
+    source = (f"synthetic set (seed {config.seed}, size {config.data.synthetic_size}, "
+              f"fidelity {config.data.synthetic_fidelity})" if config.data.synthetic
+              else f"QM9S at {config.data.root}")
+    logging.info("Generalization || train split counted against: the second train half of the "
+                 "%s, %d molecules", source, len(train_ds))
     logging.info(
         "Generalization || memorization bound: %.4f of targets "
         "(%d/%d) have their exact graph in the train set",
@@ -268,6 +289,35 @@ def evaluate(config, warm_state: str, eval_dir: str, device=None) -> dict:
     return diffspectra_evaluate(config, model, eval_dir, device, ckpt)
 
 
+def checkpoints_to_evaluate(config) -> list:
+    """``eval.ckpts`` (``"1,2"``), or ``eval.begin_ckpt`` ...
+    ``eval.end_ckpt``."""
+    if config.eval.ckpts != "":
+        return [int(c) for c in str(config.eval.ckpts).split(",")]
+    return list(range(config.eval.begin_ckpt, config.eval.end_ckpt + 1))
+
+
+def evaluate_checkpoints(config, workdir: str, eval_folder: str = "eval", device=None) -> dict:
+    """The sweep with the EMA weights of each numbered checkpoint
+    ``checkpoints/checkpoint_<N>`` of ``workdir`` that
+    ``checkpoints_to_evaluate`` names, in turn, on ``cuda`` unless
+    ``device="cpu"``; each one's tables and ``figures_ckpt_<N>.json`` go to
+    ``<workdir>/<eval_folder>``. Returns ``{N: figures}``; a missing
+    checkpoint raises ``FileNotFoundError`` when its turn comes."""
+    device = resolve_device(device)
+    eval_dir = os.path.join(workdir, eval_folder)
+    out = {}
+    for ckpt in checkpoints_to_evaluate(config):
+        path = ckpt_lib.numbered_checkpoint_dir(workdir, ckpt)
+        if not os.path.exists(path):
+            raise FileNotFoundError("Checkpoint path error: " + path)
+        model, _ = restore_dmt(workdir, config, device, ckpt=ckpt)
+        out[ckpt] = diffspectra_evaluate(config, model, eval_dir, device, str(ckpt))
+        with open(os.path.join(eval_dir, f"figures_ckpt_{ckpt}.json"), "w") as f:
+            json.dump(out[ckpt], f)
+    return out
+
+
 def evaluate_workdir(config, workdir: str, eval_dir: str, device=None) -> dict:
     """The sweep with the EMA weights of a train workdir's latest resumable
     checkpoint (``api.restore_dmt``), on ``cuda`` unless ``device="cpu"``;
@@ -288,10 +338,18 @@ def batch_to_device(batch, device) -> dict:
 
 
 def init_train_state(config, device):
-    """A fresh DMT (flax's initializers, from ``config.seed``) in training
-    mode on ``device``, its optimizer and train state."""
+    """A fresh DMT (flax's initializers, from ``config.seed``; SpecFormer
+    from ``model.pretrained_specformer_path`` where set) in training mode on
+    ``device``, its optimizer and train state."""
     model = DMT.from_config(config)
     load_model_state(model, init_variables(model, config.seed))
+    if config.model.pretrained_specformer_path:
+        logging.info("Load pretrained SpecFormer")
+        load_pretrained_specformer(model, config.model.pretrained_specformer_path,
+                                   config.data.spectra_version)
+        refresh_casts(model)
+    else:
+        logging.info("Train SpecFormer from scratch")
     model.to(device).train()
     tx = get_optimizer(config)
     state = create_train_state(model, tx, config.model.ema_decay)
@@ -311,9 +369,6 @@ def train(config, workdir: str, device=None):
     t = config.training
     spectra_version, batch_size = config.data.spectra_version, t.batch_size
     bucket_sizes = tuple(config.data.bucket_sizes)
-    train_iter = inf_iterator(lambda epoch: get_batch_iterator(
-        train_ds, batch_size, spectra_version, shuffle=True, seed=config.seed + epoch,
-        drop_last=True, bucket_sizes=bucket_sizes))
 
     tx, state = init_train_state(config, device)
     noise_scheduler = NoiseScheduleVP.from_config(config)
@@ -321,7 +376,9 @@ def train(config, workdir: str, device=None):
     initial_step = state.step
     if initial_step == 0 and t.warm_start:
         # only when the workdir has no checkpoint of its own: a resume wins
-        state = warm_start(state, t.warm_start)
+        zero_fresh = tuple(p for p in str(t.warm_start_zero_fresh).split(",") if p)
+        state = warm_start(state, t.warm_start, partial=t.warm_start_partial,
+                           zero_fresh=zero_fresh)
         initial_step = state.step
     if initial_step == 0:
         logging.info("%s", config)
@@ -331,6 +388,34 @@ def train(config, workdir: str, device=None):
     host_generator = torch.Generator().manual_seed(config.seed)
     n_layers = len(state.model.blocks)
 
+    store_bytes = device_store.estimate_bytes(train_ds, spectra_version)
+    if config.data.device_resident and store_bytes <= config.data.device_store_max_bytes:
+        store = device_store.DeviceStore(train_ds, spectra_version, device)
+        idx_iter = inf_iterator(lambda epoch: device_store.index_iterator(
+            len(store), batch_size, shuffle=True, seed=config.seed + epoch, drop_last=True,
+            bucket_sizes=bucket_sizes, num_atom=store.host_num_atom))
+        batch_kwargs = dict(atom_types=config.data.atom_types,
+                            include_aromatic=config.data.include_aromatic,
+                            spectra_keys=store.spectra_keys)
+
+        def next_batch():
+            n_pad, idx = next(idx_iter)
+            return device_store.build_batch(store.arrays, torch.from_numpy(idx).to(device),
+                                            n_pad=n_pad, **batch_kwargs)
+
+        logging.info("device-resident dataset: %.0f MB on %s", store_bytes / 2**20, device)
+    else:
+        train_iter = prefetch(inf_iterator(lambda epoch: get_batch_iterator(
+            train_ds, batch_size, spectra_version, shuffle=True, seed=config.seed + epoch,
+            drop_last=True, bucket_sizes=bucket_sizes)), size=2)
+
+        def next_batch():
+            return batch_to_device(next(train_iter), device)
+
+        logging.info("host input pipeline: the split's %.0f MB %s", store_bytes / 2**20,
+                     "over data.device_store_max_bytes" if config.data.device_resident
+                     else "kept on the host (data.device_resident off)")
+
     if t.snapshot_sampling:
         eval_model = DMT.from_config(config).to(device).eval()
         snapshot_sampling_fn = make_cond_sampling_fn(
@@ -339,9 +424,15 @@ def train(config, workdir: str, device=None):
         edm_metric = get_edm_metric(dataset_info)
         edm_metric_2d = get_2D_edm_metric(dataset_info)
 
+    profiler = None
     t_last, step_last = time.time(), initial_step
     for step in range(initial_step, t.n_iters + 1):
-        batch = batch_to_device(next(train_iter), device)
+        if t.profile and step == initial_step + 10:
+            profiler = start_profile(device)
+        if profiler is not None and step == initial_step + 15:
+            stop_profile(profiler, device, os.path.join(workdir, "profile"), step)
+            profiler = None
+        batch = next_batch()
         batch["positions"] = augment_positions(
             generator, batch["positions"], batch["atom_mask"], True, True,
             config.data.aug_translation_scale)
@@ -370,10 +461,36 @@ def train(config, workdir: str, device=None):
                                    edm_metric_2d, host_generator, device)
                 with open(os.path.join(sample_dir, f"iter_{step}.json"), "w") as f:
                     json.dump(figures, f)
+    if profiler is not None:  # the run ended inside the window
+        stop_profile(profiler, device, os.path.join(workdir, "profile"), t.n_iters + 1)
 
     export_warm_state(state, os.path.join(workdir, "warm_state.npz"),
                       meta={"step": state.step, "source": "diffspectra_tpu_torch.run_lib.train"})
     return state
+
+
+def start_profile(device):
+    """A ``torch.profiler`` recording host ops, and the device's kernels on cuda."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    profiler = profile(activities=activities)
+    profiler.__enter__()
+    return profiler
+
+
+def stop_profile(profiler, device, profile_dir: str, step: int) -> str:
+    """End ``profiler`` once ``device`` is done and write its Chrome trace
+    to ``<profile_dir>/trace_step_<step>.json``; returns the path."""
+    _sync(device)
+    profiler.__exit__(None, None, None)
+    os.makedirs(profile_dir, exist_ok=True)
+    path = os.path.join(profile_dir, f"trace_step_{step}.json")
+    profiler.export_chrome_trace(path)
+    logging.info("profile of the steps before %d written to %s", step, path)
+    return path
 
 
 def snapshot(step, state, eval_model, sampling_fn, edm_metric, edm_metric_2d, host_generator,

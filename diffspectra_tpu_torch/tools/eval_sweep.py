@@ -55,6 +55,7 @@ def build_config(args):
     from diffspectra_tpu_torch import configs
 
     config = configs.get_smoke_config() if args.smoke else configs.get_config()
+    config.data.synthetic = True  # the sweep's set; QM9S is not in the repository
     flags = {"eval.num_samples": args.num_samples, "eval.batch_size": args.batch_size,
              "eval.num_candidates": args.num_candidates, "sampling.steps": args.steps,
              "sampling.method": args.method, "eval.sampling_temperature": args.temperature,

@@ -17,6 +17,7 @@ from __future__ import annotations
 import json
 import logging
 import math
+import zipfile
 from typing import Dict, Optional
 
 import numpy as np
@@ -258,7 +259,10 @@ def train_state_from_flax(jax_state, model: torch.nn.Module, tx, device=None):
 def export_warm_state(state, path: str, meta: Optional[dict] = None) -> None:
     """Write a port ``TrainState``'s params, EMA, batch statistics and step
     in the JAX package's layout (float arrays as bfloat16 bits), which both
-    packages' ``load_warm_state`` read."""
+    packages' ``load_warm_state`` read: an ``.npz`` deflated at level 1
+    (bfloat16 bits hardly compress: the flagship state takes 127.9 MB at
+    level 1 and 126.7 at ``np.savez_compressed``'s 6, in a third of the
+    time)."""
     model = state.model
     params = {k: v for k, v in model.state_dict().items() if k in state.ema.shadow_params}
     buffers = {k: v for k, v in model.state_dict().items() if k not in params}
@@ -270,14 +274,19 @@ def export_warm_state(state, path: str, meta: Optional[dict] = None) -> None:
     out[_RAW + "step"] = np.asarray(int(state.step), np.int64)
     out[_RAW + "ema_num_updates"] = np.asarray(int(state.ema.num_updates), np.int64)
     out[_META] = np.asarray(json.dumps(meta or {}))
-    np.savez_compressed(path, **out)
+    with zipfile.ZipFile(path, "w", zipfile.ZIP_DEFLATED, compresslevel=1) as zf:
+        for key, arr in out.items():
+            with zf.open(key + ".npy", "w", force_zip64=True) as f:
+                np.lib.format.write_array(f, np.asanyarray(arr), allow_pickle=False)
 
 
-def warm_start(state, npz_path: str):
+def warm_start(state, npz_path: str, partial: bool = False, zero_fresh=()):
     """``state`` (fresh) with the params, EMA, batch statistics and step of
     a warm-state file; the optimizer state stays fresh, so the moments
     rebuild and the learning-rate warmup replays, as the JAX package's
-    warm start does."""
+    warm start does. With ``partial``: ``warm_start_partial``."""
+    if partial:
+        return warm_start_partial(state, npz_path, zero_fresh)[0]
     warm = read_warm_state(npz_path)
     load_model_state(state.model, {**warm["params"], **warm["batch_stats"]})
     shadow = params_from_flax(warm["ema"])
@@ -285,7 +294,71 @@ def warm_start(state, npz_path: str):
         raise KeyError(f"{npz_path}: its ema tree does not match the model")
     for k, v in shadow.items():
         state.ema.shadow_params[k].copy_(v)
+    return _restored(state, warm, npz_path)
+
+
+def _restored(state, warm, npz_path):
     state.step, state.ema.num_updates = warm["step"], warm["ema_num_updates"]
     logging.info("warm start: restored step %d from %s (meta: %s); optimizer state is fresh "
                  "(Adam moments rebuild, LR warmup replays)", state.step, npz_path, warm["meta"])
     return state
+
+
+def _merge_partial(want: Dict[str, np.ndarray], flat: Dict[str, np.ndarray], what: str,
+                   zero_fresh=()):
+    """``(merged, report)``: each leaf of ``want`` (flat flax variables)
+    from ``flat`` where the file has its path and shape, else kept fresh,
+    or zeroed where its path (without the tree's prefix) holds one of the
+    ``zero_fresh`` substrings. ``report``: the paths ``restored``,
+    ``fresh`` and ``zeroed``, and the counts ``shape_mismatched`` and
+    ``unused`` (file keys the model lacks). Nothing restored raises."""
+    merged, report = {}, {"restored": [], "fresh": [], "zeroed": [], "shape_mismatched": 0}
+    for path, leaf in want.items():
+        if path in flat and flat[path].shape == leaf.shape:
+            merged[path] = flat[path]
+            report["restored"].append(path)
+            continue
+        report["shape_mismatched"] += path in flat
+        report["fresh"].append(path)
+        if any(pat and pat in path.split("/", 1)[1] for pat in zero_fresh):
+            merged[path] = np.zeros_like(leaf)
+            report["zeroed"].append(path)
+        else:
+            merged[path] = leaf
+    report["unused"] = len(set(flat) - set(want))
+    logging.info("partial warm start %s: %d/%d leaves restored (%d shape-mismatched kept fresh, "
+                 "%d npz keys unused%s)", what, len(report["restored"]), len(want),
+                 report["shape_mismatched"], report["unused"],
+                 f", zeroed fresh: {[p.split('/', 1)[1] for p in report['zeroed']]}"
+                 if report["zeroed"] else "")
+    if not report["restored"]:
+        raise ValueError(f"partial warm state restored nothing for {what} -- wrong file?")
+    return merged, report
+
+
+def warm_start_partial(state, npz_path: str, zero_fresh=()):
+    """``(state, reports)``: the cross-spectra warm start (an allspectra
+    model from an IR-only state, say). The leaves of the params, the batch
+    statistics and the EMA that the file holds at the same path and shape
+    are restored, the rest keep their fresh values, or are zeroed where a
+    ``zero_fresh`` substring (a flax path such as
+    ``cond_encoder/head_linear/kernel``) is in their path; the optimizer
+    state stays fresh and the step is the file's. ``reports``: each tree's
+    ``_merge_partial`` report. A tree of which nothing is restored raises."""
+    warm = read_warm_state(npz_path)
+    model = state.model
+    current = flax_variables(model)
+    reports = {}
+    params, reports["params"] = _merge_partial(
+        {k: v for k, v in current.items() if k.startswith("params/")}, warm["params"],
+        "params", zero_fresh)
+    stats = {k: v for k, v in current.items() if k.startswith("batch_stats/")}
+    if stats:
+        stats, reports["batch_stats"] = _merge_partial(stats, warm["batch_stats"],
+                                                      "batch_stats", zero_fresh)
+    ema, reports["ema"] = _merge_partial(flax_variables(model, state.ema.shadow_params),
+                                         warm["ema"], "ema", zero_fresh)
+    load_model_state(model, {**params, **stats})
+    for k, v in params_from_flax(ema).items():
+        state.ema.shadow_params[k].copy_(v)
+    return _restored(state, warm, npz_path), reports

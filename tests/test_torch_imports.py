@@ -6,9 +6,12 @@ the CPU (one request at a known atom count, one through the whole-block
 path, and one without the atom count through a count head), the
 evaluation sweep scores a tiny run and writes its files, and the train
 loop takes two steps, writes a checkpoint that ``torch.load`` reads with
-``weights_only`` and an export a warm start reads. Also the entry points'
-refusals: no CUDA without asking for the CPU, and the modes that are not
-ported."""
+``weights_only`` and an export a warm start reads. The QM9S loader reads a
+processed file without ``torch_geometric`` (its stand-ins registered under
+the PyG names, no module of that name imported) and the host packer runs
+from the port's own build, never ``native/libdiffspectra_native.so``. Also
+the entry points' refusals: no CUDA without asking for the CPU, and the
+modes that are not ported."""
 
 import os
 import subprocess
@@ -41,7 +44,8 @@ BARE_INSTALL = textwrap.dedent(
     import torch._dynamo
 
     BLOCKED = {"jax", "jaxlib", "flax", "optax", "orbax", "ml_collections",
-               "ml_dtypes", "absl", "rdkit", "pandas", "triton", "diffspectra_tpu"}
+               "ml_dtypes", "absl", "rdkit", "pandas", "triton", "diffspectra_tpu",
+               "torch_geometric"}
 
     class Refuse(importlib.abc.MetaPathFinder):
         def find_spec(self, name, path, target=None):
@@ -64,6 +68,7 @@ BARE_INSTALL = textwrap.dedent(
         diffspectra_tpu_torch.__path__, "diffspectra_tpu_torch.")]
     for name in names:
         importlib.import_module(name)
+    assert "torch_geometric" not in sys.modules
 
     from diffspectra_tpu_torch import configs
     from diffspectra_tpu_torch.api import Elucidator
@@ -140,7 +145,25 @@ BARE_INSTALL = textwrap.dedent(
         assert blob["step"] == 2
         _, fresh = run_lib.init_train_state(config, torch.device("cpu"))
         assert warm_start(fresh, os.path.join(tmp, "warm_state.npz")).step == 2
-    loaded = sorted(n for n in sys.modules if n.split(".")[0] in BLOCKED)
+    # QM9S from a processed file in the reference's layout, and the packer
+    from diffspectra_tpu_torch.data import native, qm9s
+    from diffspectra_tpu_torch.data.pipeline import get_dataset
+    raw = generate(seed=3, size=12, max_n=16, fidelity=1)
+    with tempfile.TemporaryDirectory() as tmp:
+        qm9s.write_processed_from_raw(tmp, raw, (np.arange(4), np.arange(4, 8), [8, 9], [10, 11]))
+        configs.apply_overrides(config, {"data.synthetic": False, "data.root": tmp})
+        second = get_dataset(config)[1]
+        np.testing.assert_array_equal(second.take(np.arange(4))["atom_type"], raw["atom_type"][4:8])
+    shims = sorted(n for n in sys.modules if n.split(".")[0] == "torch_geometric")
+    assert shims and all(getattr(sys.modules[n], "__file__", None) is None for n in shims), shims
+    out = native.pack_batch(raw["atom_type"], raw["pos"], raw["edge_type"], raw["fc"],
+                            raw["num_atom"], raw["ir"])
+    assert out["spectra"].shape == raw["ir"].shape
+    with open("/proc/self/maps") as f:
+        maps = f.read()
+    assert "libdstt_packer.so" in maps and "libdiffspectra_native" not in maps
+    loaded = sorted(n for n in sys.modules
+                    if n.split(".")[0] in BLOCKED and n.split(".")[0] != "torch_geometric")
     assert not loaded, loaded
     print("served", len(names), "modules", len(result.candidates), "candidates")
     """
@@ -183,8 +206,8 @@ def test_unported_modes_raise():
     configs.apply_overrides(config, {"sde.schedule": "discrete"})
     with pytest.raises(ValueError, match="betas"):
         Elucidator(config, model.eval(), torch.device("cpu"))
-    configs.apply_overrides(config, {"sde.schedule": "cosine", "model.remat_policy": "dots"})
-    with pytest.raises(ValueError, match="ROADMAP"):
+    configs.apply_overrides(config, {"sde.schedule": "cosine", "model.remat_policy": "dots_all"})
+    with pytest.raises(ValueError, match="remat_policy"):
         DMT.from_config(config)
     configs.apply_overrides(config, {"model.remat_policy": "full", "model.gbf_name": "Gauss"})
     with pytest.raises(ValueError, match="gbf_name"):

@@ -555,11 +555,12 @@ def test_bf16_train_forward_matches_jax_xla_path(has_cond):
 def test_dropout_masks_replay_under_remat():
     """At dropout 0.1 the same seeds give the same output; other seeds
     another; and the gradient with ``remat_policy='full'`` (each block
-    recomputed, its masks drawn again from its seed) equals the one with
-    ``'none'`` within 1e-6."""
+    recomputed, its masks drawn again from its seed) or ``'dots'`` (all but
+    the 2-D products recomputed) equals the one with ``'none'`` within
+    1e-6; an unknown policy raises."""
     inp = _forward_inputs()
     grads = {}
-    for policy in ("full", "none"):
+    for policy in ("full", "dots", "none"):
         model = _small_dmt(_configs()[1], **{"model.dropout": 0.1,
                                               "model.remat_policy": policy}).train()
         out = _forward(model, inp, True, [11, 12])
@@ -570,12 +571,13 @@ def test_dropout_masks_replay_under_remat():
             assert (out[0] - other[0]).abs().max() > 1e-3
         loss = out[0].square().sum() + out[1].square().sum()
         grads[policy] = torch.autograd.grad(loss, list(model.parameters()), allow_unused=True)
-    for a, b in zip(grads["full"], grads["none"]):
-        assert (a is None) == (b is None)
-        if a is not None:
-            np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0, atol=1e-6)
-    with pytest.raises(ValueError, match="ROADMAP"):
-        _small_dmt(_configs()[1], **{"model.remat_policy": "dots"})
+    for policy in ("full", "dots"):
+        for a, b in zip(grads[policy], grads["none"]):
+            assert (a is None) == (b is None)
+            if a is not None:
+                np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0, atol=1e-6)
+    with pytest.raises(ValueError, match="remat_policy"):
+        _small_dmt(_configs()[1], **{"model.remat_policy": "dots_all"})
 
 
 def test_bf16_train_step_reads_live_weights():

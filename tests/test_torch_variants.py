@@ -501,7 +501,8 @@ def test_from_workdir_serves_the_checkpoint_train_wrote(tmp_path, monkeypatch):
         Elucidator.from_workdir(workdir, config, ckpt=5, device="cpu")
 
     monkeypatch.setattr(configs, "get_smoke_config", lambda: copy.deepcopy(config))
-    figures = main.main(["--mode", "eval", "--workdir", workdir, "--smoke", "--device", "cpu"])
+    # --mode eval sweeps the smoke config's numbered checkpoint 1
+    figures = main.main(["--mode", "eval", "--workdir", workdir, "--smoke", "--device", "cpu"])[1]
     assert figures["targets"] == 4 and 0.0 <= figures["top1_2d"] <= 1.0
     with pytest.raises(FileNotFoundError):
         main.main(["--mode", "eval", "--workdir", str(tmp_path / "none"), "--smoke",
