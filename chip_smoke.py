@@ -87,7 +87,7 @@ Phases, each printing its own lines:
      steps from the EMA weights, launching each bf16 per-op kernel 8 x
      steps x rounds times and the steps none (and no port kernel among a
      profiled step's kernel names), its stability figures finite in
-     [0, 1]; timed steps (the median over the last 12 of 20, graphs/s, peak
+     [0, 1], the xyz files of its samples and targets written; timed steps (the median over the last 12 of 20, graphs/s, peak
      memory) with ``remat_policy='full'``, then 10 with ``'none'``, and the
      busy share over two profiled steps; (d) a checkpoint written and
      restored (every tensor equal), and a warm-state export serving one
@@ -129,6 +129,25 @@ Phases, each printing its own lines:
      checkpoints, 8 targets, K=1, 100 steps: finite figures for each, the
      bf16 per-op kernels launched 8 x steps x rounds times; (f) the host
      packer built on the card's host, against ``pack_batch_numpy``.
+ 11. DMT_WO_EQ, the non-equivariant ablation, which runs on PyTorch ops and
+     no port kernel, at full width (nf=256, 8 blocks, 16 heads), random
+     weights from seed 0: (a) the forwards (B=10, N=29, self-conditioned)
+     of ``trans_ver`` v1, v2 and optim, each in f32 and bf16 on cuda against
+     the CPU (phase 4's tolerances: FORWARD_RTOL, and in bf16 the per-op
+     bound of the CPU's own bf16-against-f32 difference), no port kernel
+     launched and none among a profiled forward's kernels; (b) v2 in bf16,
+     dropout 0.1, batch 128, trained from a fresh init for 10 steps through
+     ``run_lib.train`` with a snapshot of 16 draws at 100 steps (its xyz
+     files written), served from its workdir through
+     ``Elucidator.from_workdir`` (one fidelity-4 request at K=10, 100
+     ancestral steps, then DPM-Solver++) and swept by
+     ``evaluate_checkpoints`` (8 targets, K=1, 100 steps): finite losses and
+     figures, no port kernel launched, the step times, graphs/s, peak
+     memory and serve seconds; (c) the flagship from ``warm_qm9s_as.npz``
+     with ``model.specformer_bf16`` in bf16, one request at 100 steps on
+     each path (its bf16 kernels 8 x 100 launches), the spectra embedding on
+     cuda against the CPU's within SPECFORMER_BF16_RATIO of the CPU's own
+     difference between SpecFormer in bf16 and in f32.
 Then one ``{"kernels": [...]}`` line, the card's ``nvidia-smi`` line, and as
 the last line ``{"ok": true, "device": {...}}``. Any failed check raises and
 the script exits non-zero without that last line; without CUDA it exits 2.
@@ -247,7 +266,8 @@ VARIANTS = {
 # train split, 136 molecules, holds one batch); a checkpoint at the last of
 # 10 steps
 VARIANT_TRAIN = {"seed": 42, "model.dist_gbf": False, "model.gbf_name": "GaussianLayer",
-                 "sde.schedule": "linear", "data.synthetic": True, "data.synthetic_size": 320,
+                 "sde.schedule": "linear", "data.synthetic": True,
+                 "data.synthetic_cache": SYNTH_CACHE, "data.synthetic_size": 320,
                  "data.synthetic_fidelity": 4, "data.bucket_sizes": (),
                  "training.batch_size": 128, "training.n_iters": 9, "training.log_freq": 1,
                  "training.snapshot_freq": 9, "training.snapshot_freq_for_preemption": 10**9,
@@ -270,6 +290,32 @@ ZERO_FRESH = "cond_encoder/head_linear/kernel"
 DOTS_STEPS = 10
 EVAL_LOOP = {"eval.num_samples": 8, "eval.batch_size": 8, "eval.num_candidates": 1,
              "sampling.steps": 100}
+# phase 11, DMT_WO_EQ (the non-equivariant ablation; no port kernel) at full
+# width, random weights from seed 0: (a) the forwards of each trans_ver in
+# f32 and bf16, (b) v2 trained from a fresh init, served and swept, (c) the
+# flagship with model.specformer_bf16 served on both paths
+WO_EQ = {"model.name": "DMT_WO_EQ"}
+WO_EQ_TRANS_VERS = ("v1", "v2", "optim")
+# (b): bf16, dropout 0.1, batch 128 on phase 9's 320-molecule set (one
+# bucket, n_pad 29), 10 steps, the last with a checkpoint and a snapshot of
+# 16 draws at 100 steps; then one request on each sampler and the sweep of
+# its checkpoint at 8 targets, K=1, 100 steps
+WO_EQ_TRAIN = {**WO_EQ, "seed": 42, "data.synthetic": True,
+               "data.synthetic_cache": SYNTH_CACHE, "data.synthetic_size": 320,
+               "data.synthetic_fidelity": 4, "data.bucket_sizes": (),
+               "training.batch_size": 128, "training.n_iters": 9, "training.log_freq": 1,
+               "training.snapshot_freq": 9, "training.snapshot_freq_for_preemption": 10**9,
+               "training.eval_samples": 16, "training.eval_batch_size": 16,
+               "sampling.steps": 100, "eval.ckpts": "1", **EVAL_LOOP}
+WO_EQ_TRAIN_STEPS = 10
+SPECFORMER_BF16_STEPS = 100  # (c): one request a path
+# (c): the spectra embedding on cuda against the CPU, over the CPU's own
+# difference between SpecFormer in bf16 and in f32 (both DMTs bf16). No
+# kernel runs in SpecFormer: the bound catches an encoder that is not the
+# CPU's, not the bf16 rounding noise of two correct ones (cuda's and the
+# CPU's exp and sums in another order flip roundings of the softmax
+# weights: on the CPU, against JAX, 0.58 of that difference)
+SPECFORMER_BF16_RATIO = 2.0
 F32_PEAK = 67e12  # H100 SXM float32 outside the tensor cores, FLOP/s
 BF16_PEAK = 989e12  # H100 SXM bf16 on the tensor cores, dense, FLOP/s
 HBM_RATE = 3.35e12  # H100 SXM device memory, bytes/s
@@ -922,14 +968,14 @@ def phase_forward(dev):
     on the same inputs, and the drop_k control above it. Returns the cuda
     models by (path, dtype)."""
     from diffspectra_tpu_torch import configs
-    from diffspectra_tpu_torch.api import load_dmt
+    from diffspectra_tpu_torch.api import load_model
     from diffspectra_tpu_torch.tools.bf16_noise import forward, max_ratio, perturbed
 
     gpu_models, cuda_outs, cpu_f32 = {}, {}, {}
     for (path, ops), dt in itertools.product(PATHS.items(), DTYPES):
         config = configs.apply_overrides(configs.get_config(), {
             "model.pallas_ops": ops, "training.matmul_precision": DTYPES[dt]})
-        cpu_model = load_dmt(WARM, config, "cpu")
+        cpu_model = load_model(WARM, config, "cpu")
         gpu_models[path, dt] = gpu_model = copy.deepcopy(cpu_model).to(dev)
         assert all(b.e_block.block_kernel == (path == "block") for b in gpu_model.blocks)
         assert gpu_model.dtype == (torch.bfloat16 if dt == "bf16" else torch.float32)
@@ -1454,6 +1500,12 @@ def train_run(dev, smi, policy, steps, snapshot):
         timing["busy_share"] = found["busy"]
         with open(os.path.join(workdir, "samples", f"iter_{last}.json")) as f:
             timing["figures"] = json.load(f)
+        # the snapshot's molecule files, of its samples and of their targets
+        xyz = {sub: sorted(os.listdir(os.path.join(workdir, "samples", sub)))
+               for sub in (f"iter_{last}", f"iter_{last}_gt")}
+        say(f"[train] (c) snapshot's xyz files: { {k: len(v) for k, v in xyz.items()} }")
+        assert xyz[f"iter_{last}_gt"] and all(
+            n.startswith("mol_") and n.endswith(".xyz") for v in xyz.values() for n in v), xyz
     shutil.rmtree(workdir)
     return state, config, timing, launches
 
@@ -2030,6 +2082,226 @@ def phase_flagship(dev, smi, phase8):
     return launches
 
 
+def wo_eq_forwards(dev, smi):
+    """Phase 11 (a): DMT_WO_EQ of each trans_ver at full width from random
+    weights (seed 0), f32 and bf16 forwards (self-conditioned, B=10, N=29)
+    on cuda against the same models on the CPU: f32 within FORWARD_RTOL,
+    bf16 within the per-op bound of the CPU's own bf16-against-f32
+    difference (its pair grid is rounded in bf16, as the per-op path's);
+    no port kernel launched, and none among a profiled forward's kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from diffspectra_tpu_torch.ops import LAUNCHES, reset_launches
+    from diffspectra_tpu_torch.tools.bf16_noise import forward
+    from diffspectra_tpu_torch.utils.registry import create_model
+    from diffspectra_tpu_torch.warm_state import load_model_state, random_variables
+
+    ours = set(itertools.chain(*KERNEL_STAGES.values())) | {k for _, k in PROBE_KERNELS.values()}
+    bound = BF16_FORWARD_RATIO["attn_equi"]
+    ratios = {}
+    for tv in WO_EQ_TRANS_VERS:
+        outs = {}
+        for dt in ("f32", "bf16"):
+            config = variant_config({**WO_EQ, "model.trans_ver": tv}, precision=DTYPES[dt])
+            cpu_model = create_model(config)
+            load_model_state(cpu_model, random_variables(cpu_model, seed=0))
+            gpu_model = copy.deepcopy(cpu_model).to(dev)
+            reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = forward(gpu_model, dev, True)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launches = nonzero(dict(LAUNCHES))
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                forward(gpu_model, dev, True)
+                torch.cuda.synchronize()
+            names = {e.key for e in prof.key_averages() if e.device_type.name == "CUDA"}
+            hit = sorted(n for n in names if any(k in n for k in ours))
+            say(f"[wo_eq] {tv} {dt}: forward on cuda {seconds:.3f} s (the first, with its "
+                f"setup); port kernels launched {launches or 'none'}; {len(names)} kernels by "
+                f"name under the profiler, the port's among them {hit or 'none'}; {smi}")
+            assert not launches and not hit, (tv, dt, launches, hit)
+            outs[dt] = got, forward(cpu_model, "cpu", True)
+            del gpu_model
+        (g32, w32), (g16, w16) = outs["f32"], outs["bf16"]
+        compare(f"wo_eq {tv} f32 cuda vs cpu", g32, w32)
+        for out, g, w, w_f32 in zip(("pred", "edge_pred"), g16, w16, w32):
+            err, gap = (g - w).abs().max().item(), (w - w_f32).abs().max().item()
+            ratios[f"{tv} {out}"] = err / gap
+            say(f"[wo_eq] {tv} bf16 {out}: max |cuda bf16 - cpu bf16| = {err:.3e}, max |cpu "
+                f"bf16 - cpu f32| = {gap:.3e}, ratio {err / gap:.4f} (bound {bound})")
+            assert torch.isfinite(g).all() and gap > 0 and err <= bound * gap, (tv, out)
+    say(f"[wo_eq] (a) forwards held on cuda; {smi}")
+    return ratios
+
+
+def wo_eq_train_serve_sweep(dev, smi):
+    """Phase 11 (b): DMT_WO_EQ v2 (WO_EQ_TRAIN) trained from a fresh init
+    through ``run_lib.train`` (finite losses; a checkpoint and a snapshot
+    whose xyz files are written), served from its workdir through
+    ``Elucidator.from_workdir`` (one fidelity-4 request at K=10 with each
+    sampler) and swept by ``evaluate_checkpoints``: finite figures, no port
+    kernel launched. Returns the launches by kernel and the timings."""
+    from diffspectra_tpu_torch import checkpoint, run_lib
+    from diffspectra_tpu_torch.api import Elucidator
+    from diffspectra_tpu_torch.data.synthetic import generate
+    from diffspectra_tpu_torch.ops import LAUNCHES, reset_launches
+
+    config = variant_config(WO_EQ_TRAIN)
+    workdir = tempfile.mkdtemp(prefix="wo_eq_")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    with LogLines() as log:
+        state = run_lib.train(config, workdir, dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    step_ms = log.step_ms()
+    median = float(np.median(step_ms[1:])) if len(step_ms) > 1 else float("nan")
+    peak = max(log.peaks)
+    timing = {"median_step_ms": median, "graphs_per_s": config.training.batch_size / median * 1e3,
+              "max_memory_bytes": peak, "step_ms": step_ms}
+    say(f"[wo_eq] (b) run_lib.train of {WO_EQ_TRAIN}: {len(log.losses)} steps from a fresh init "
+        f"and a snapshot in {wall:.1f} s (the set's build included); step ms "
+        f"{[round(t, 1) for t in step_ms]}, median after the first {median:.1f} ms "
+        f"({timing['graphs_per_s']:.1f} graphs/s); max_memory_allocated {peak / 2**30:.2f} GiB "
+        f"at the last step; losses {[round(x, 4) for x in log.losses]}; launches "
+        f"{nonzero(dict(LAUNCHES)) or 'none'}; {smi}")
+    assert len(log.losses) == WO_EQ_TRAIN_STEPS and all(math.isfinite(x) for x in log.losses)
+    assert state.step == WO_EQ_TRAIN_STEPS and not nonzero(dict(LAUNCHES))
+    assert type(state.model).__name__ == "DMT_WO_EQ"
+    assert checkpoint.latest_numbered_checkpoint(workdir) == 1
+    last = WO_EQ_TRAIN_STEPS - 1
+    with open(os.path.join(workdir, "samples", f"iter_{last}.json")) as f:
+        figures = json.load(f)
+    files = {sub: sorted(os.listdir(os.path.join(workdir, "samples", sub)))
+             for sub in (f"iter_{last}", f"iter_{last}_gt")}
+    say(f"[wo_eq] (b) snapshot, {config.training.eval_samples} draws at "
+        f"{config.sampling.steps} steps: {json.dumps(figures)}; xyz files "
+        f"{ {k: len(v) for k, v in files.items()} }")
+    assert files[f"iter_{last}_gt"] and all(n.endswith(".xyz") for v in files.values() for n in v)
+    for dim in ("3D", "2D"):
+        assert all(math.isfinite(v) and 0 <= v <= 1 for v in figures[dim].values()), figures
+
+    el = Elucidator.from_workdir(workdir, config, device=dev)
+    assert type(el.model).__name__ == "DMT_WO_EQ" and el.model.dtype == torch.bfloat16
+    data = generate(seed=11, size=1, max_n=29, fidelity=4)
+    n = int(data["num_atom"][0])
+    spectra = {k: data[k][0] for k in ("uv", "ir", "raman")}
+    dpm_config = copy.deepcopy(config)
+    dpm_config.sampling.method = "dpm_solver"
+    timing["serve_s"] = {}
+    for method, server in (("ancestral", el), ("dpm_solver", Elucidator(dpm_config, el.model, dev))):
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = server.elucidate(spectra, n_atoms=n, num_candidates=CANDIDATES, seed=0)
+        torch.cuda.synchronize()
+        timing["serve_s"][method] = serve_s = time.perf_counter() - t0
+        finite = all(np.isfinite(c.positions).all() for c in result.candidates)
+        say(f"[wo_eq] (b) served from the workdir's checkpoint ({method}, "
+            f"{config.sampling.steps} steps, n_atoms {n}, {CANDIDATES} candidates): "
+            f"{serve_s:.3f} s, {len(result.candidates)} distinct, best frequency "
+            f"{result.best.frequency:.2f}, finite={finite}; launches "
+            f"{nonzero(dict(LAUNCHES)) or 'none'}; {smi}")
+        assert finite and sum(c.count for c in result.candidates) == CANDIDATES
+        assert not nonzero(dict(LAUNCHES))
+
+    reset_launches()
+    t0 = time.perf_counter()
+    swept = run_lib.evaluate_checkpoints(config, workdir, "eval", dev)
+    timing["sweep_s"] = time.perf_counter() - t0
+    fig = swept[1]
+    numbers = sweep_numbers(fig)
+    say(f"[wo_eq] (b) evaluate_checkpoints over checkpoint 1 ({config.eval.num_samples} targets, "
+        f"K={config.eval.num_candidates}, {config.sampling.steps} steps) in "
+        f"{timing['sweep_s']:.1f} s: {json.dumps(numbers)}; launches "
+        f"{nonzero(dict(LAUNCHES)) or 'none'}; {smi}")
+    assert fig["targets"] == config.eval.num_samples and not nonzero(dict(LAUNCHES))
+    assert all(math.isfinite(v) for v in numbers.values()), numbers
+    shutil.rmtree(workdir)
+    return timing
+
+
+def sweep_numbers(fig):
+    """The sweep's figures that are numbers: Top-1, and the 3D and 2D
+    stability and validity."""
+    out = {"top1_2d": fig["top1_2d"], "top1_3d": fig["top1_3d"]}
+    for dim in ("metric_3d", "metric_2d"):
+        out.update({f"{dim} {k}": float(v) for k, v in fig[dim].items()})
+    return out
+
+
+def specformer_bf16_serve(dev, smi):
+    """Phase 11 (c): the flagship from WARM in bf16 with
+    ``model.specformer_bf16``: one request at SPECFORMER_BF16_STEPS steps on
+    each path, each path's bf16 kernels launched 8 x steps times and no
+    other; the spectra embedding on cuda against the CPU's within
+    SPECFORMER_BF16_RATIO of the CPU's own difference between SpecFormer in
+    bf16 and in f32. Returns the launches by kernel."""
+    from diffspectra_tpu_torch import configs
+    from diffspectra_tpu_torch.api import Elucidator, load_model
+    from diffspectra_tpu_torch.data.synthetic import generate
+    from diffspectra_tpu_torch.ops import LAUNCHES, reset_launches
+
+    data = generate(seed=7, size=B, max_n=29, fidelity=4)
+    specs = [torch.from_numpy(np.log10(data[k] + 1.0).astype(np.float32)) for k in
+             ("uv", "ir", "raman")]
+    on = {"model.specformer_bf16": True, "sampling.steps": SPECFORMER_BF16_STEPS}
+    cpu = {flag: load_model(WARM, configs.apply_overrides(configs.get_config(), {
+        "model.specformer_bf16": flag}), "cpu") for flag in (True, False)}
+    with torch.no_grad():
+        want = {flag: m.encode_context(specs) for flag, m in cpu.items()}
+    total = {}
+    for path, ops in PATHS.items():
+        el = Elucidator.from_warm_state(WARM, overrides={**on, "model.pallas_ops": ops},
+                                        device=dev)
+        assert el.model.cond_encoder.W_P_1.dtype == torch.bfloat16
+        with torch.no_grad():
+            got = el.model.encode_context([s.to(dev) for s in specs]).float().cpu()
+        err = (got - want[True]).abs().max().item()
+        gap = (want[True] - want[False]).abs().max().item()
+        n = int(data["num_atom"][0])
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = el.elucidate({k: data[k][0] for k in ("uv", "ir", "raman")}, n_atoms=n,
+                              num_candidates=CANDIDATES, seed=0)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = dict(LAUNCHES)
+        expected = el.config.model.n_layers * SPECFORMER_BF16_STEPS
+        say(f"[specformer_bf16] {path}: spectra embedding max |cuda - cpu| = {err:.3e}, max "
+            f"|cpu SpecFormer bf16 - cpu SpecFormer f32| = {gap:.3e}, ratio {err / gap:.4f} "
+            f"(bound {SPECFORMER_BF16_RATIO}); one request ({SPECFORMER_BF16_STEPS} steps, "
+            f"n_atoms {n}, {CANDIDATES} candidates) in {seconds:.3f} s, "
+            f"{len(result.candidates)} distinct; launches {nonzero(launches)}, expected "
+            f"{expected} for {kernels_of(path, 'bf16')}; {smi}")
+        assert gap > 0 and err <= SPECFORMER_BF16_RATIO * gap, (path, err / gap)
+        assert all(np.isfinite(c.positions).all() for c in result.candidates)
+        launched_only(kernels_of(path, "bf16"), launches, expected)
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+def phase_wo_eq(dev, smi):
+    """Phase 11: DMT_WO_EQ and ``model.specformer_bf16`` on the card.
+    Returns the launches of its runs by kernel (DMT_WO_EQ's none)."""
+    t0 = time.perf_counter()
+    ratios = wo_eq_forwards(dev, smi)
+    timing = wo_eq_train_serve_sweep(dev, smi)
+    torch.cuda.empty_cache()
+    launches = specformer_bf16_serve(dev, smi)
+    seconds = time.perf_counter() - t0
+    print(json.dumps({"wo_eq": {"bf16_ratios": ratios, **timing, "phase_s": seconds}}),
+          flush=True)
+    say(f"[wo_eq] phase 11 in {seconds:.1f} s; {smi}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on the GPU only",
@@ -2080,6 +2352,7 @@ def main() -> int:
     trained, phase8 = phase_train(dev, smi)
     variants = phase_variants(dev, smi)
     flagship = phase_flagship(dev, smi, phase8)
+    wo_eq = phase_wo_eq(dev, smi)
     sweep = {k: sum(r[0][k] for r in sweeps.values()) for k in serving}
     for row in rows:
         # the dd1 rows' main path is phase 9's (dist_gbf=False); the others'
@@ -2091,10 +2364,13 @@ def main() -> int:
         row["train_snapshot_launches"] = trained[row["name"]]
         row["variant_launches"] = variants.get(row["name"], 0)
         row["flagship_train_launches"] = flagship.get(row["name"], 0)
+        row["wo_eq_specformer_bf16_launches"] = wo_eq.get(row["name"], 0)
         assert row["launches"] > 0, row
     for row in probe_rows:  # launches: the probe tool's run; none on the serving paths
+        row["wo_eq_specformer_bf16_launches"] = wo_eq.get(row["name"], 0)
         row["serving_launches"] = (serving[row["name"]] + sweep[row["name"]] + trained[row["name"]]
-                                   + variants.get(row["name"], 0) + flagship.get(row["name"], 0))
+                                   + variants.get(row["name"], 0) + flagship.get(row["name"], 0)
+                                   + row["wo_eq_specformer_bf16_launches"])
         assert row["serving_launches"] == 0, row
     say(f"[probes] launches in the probe tool's run "
         f"{ {r['name']: r['launches'] for r in probe_rows} }, on the serving paths 0 each")

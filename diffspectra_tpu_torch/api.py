@@ -8,7 +8,10 @@
         print(c.frequency, c.molgraph.wl_hash())
 
 ``Elucidator.from_workdir(workdir, config)`` serves the EMA weights of a
-checkpoint that ``run_lib.train`` wrote with the same config.
+checkpoint that ``run_lib.train`` wrote with the same config. The model is
+``config.model.name``'s (``utils/registry.py``): the DMT, or its
+non-equivariant ablation DMT_WO_EQ (``overrides={"model.name":
+"DMT_WO_EQ"}``).
 
 All K draws of one request run as one batched reverse diffusion (one
 *round*); the spectra are encoded once per round. Candidates are ranked by
@@ -36,37 +39,37 @@ from .device import resolve_device
 from .diffusion.schedule import NoiseScheduleVP
 from .evaluation.molgraph import MolGraph, consensus_rank, from_decoded
 from .models import atom_count
-from .models.dmt import DMT
 from .models.ema import init as ema_init
 from .models.specformer import SPECTRUM_LENGTHS, used_spectra_indices
 from .sampling.decode import mol_process
 from .sampling.harness import bucket_for, bucket_sizes_of, make_sampler, sample_round
 from .training.step import load_ema_weights
 from .training.train_state import TrainState, params_of
+from .utils.registry import create_model
 from .utils.scalers import get_data_inverse_scaler
 from .warm_state import load_model_state, load_warm_state
 
 SpectraInput = Union[np.ndarray, Sequence[np.ndarray], dict]
 
 
-def load_dmt(npz_path: str, config, device=None) -> DMT:
-    """The DMT of ``config`` with the EMA weights and batch statistics of a
-    warm-state export, in eval mode on ``device``."""
+def load_model(npz_path: str, config, device=None) -> torch.nn.Module:
+    """The model of ``config`` with the EMA weights and batch statistics of
+    a warm-state export, in eval mode on ``device``."""
     device = resolve_device(device)
-    model = DMT.from_config(config)
+    model = create_model(config)
     load_model_state(model, load_warm_state(npz_path)["variables"])
     return model.eval().to(device)
 
 
-def restore_dmt(workdir: str, config, device=None, ckpt: Optional[int] = None):
-    """``(model, step)``: the DMT of ``config`` with the EMA weights and
+def restore_model(workdir: str, config, device=None, ckpt: Optional[int] = None):
+    """``(model, step)``: the model of ``config`` with the EMA weights and
     batch statistics of a train workdir's checkpoint (``checkpoint.py``, as
     ``run_lib.train`` writes it), in eval mode on ``device``. With
     ``ckpt=None`` the latest resumable one (the preemption checkpoint, else
     the latest numbered one), else numbered checkpoint ``ckpt``. Raises
     ``FileNotFoundError`` when nothing can be restored."""
     device = resolve_device(device)
-    model = DMT.from_config(config)
+    model = create_model(config)
     params = params_of(model)
     # a skeleton whose values the restore overwrites: the optimizer state
     # is read whole, the EMA shadow filled in place
@@ -110,7 +113,7 @@ class ElucidationResult:
 class Elucidator:
     """Conditional-diffusion structure elucidation with the EMA weights."""
 
-    def __init__(self, config, model: DMT, device: torch.device):
+    def __init__(self, config, model: torch.nn.Module, device: torch.device):
         self.config = config
         self.model = model
         self.device = device
@@ -126,18 +129,18 @@ class Elucidator:
         """Load a warm-state export (``artifacts/warm_*.npz``)."""
         device = resolve_device(device)
         config = configs.apply_overrides(config or configs.get_config(), overrides)
-        return cls(config, load_dmt(npz_path, config, device), device)
+        return cls(config, load_model(npz_path, config, device), device)
 
     @classmethod
     def from_workdir(cls, workdir: str, config=None, ckpt: Optional[int] = None,
                      overrides: Optional[dict] = None, device=None) -> "Elucidator":
         """Serve the EMA weights of a train workdir's latest resumable
-        checkpoint, or of numbered checkpoint ``ckpt`` (``restore_dmt``);
+        checkpoint, or of numbered checkpoint ``ckpt`` (``restore_model``);
         ``config`` is the one it was trained with. Raises
         ``FileNotFoundError`` when nothing can be restored."""
         device = resolve_device(device)
         config = configs.apply_overrides(config or configs.get_config(), overrides)
-        model, step = restore_dmt(workdir, config, device, ckpt)
+        model, step = restore_model(workdir, config, device, ckpt)
         logging.info("Elucidator: workdir %s at step %d", workdir, step)
         return cls(config, model, device)
 

@@ -22,9 +22,9 @@ import torch
 def get_config() -> NS:
     """The QM9S allspectra flagship: DMT nf=256, 8 blocks, 16 heads (2 of
     them adjacency heads), N <= 29, 1000 ancestral steps, the cosine
-    schedule. The model keys ``include_fc_charge``, ``cond_time``,
-    ``dist_gbf`` and ``gbf_name`` and the schedules of ``sde.schedule``
-    take the JAX config's values; the port runs what the JAX config fixes
+    schedule. The model keys ``name``, ``trans_ver``, ``specformer_bf16``,
+    ``include_fc_charge``, ``cond_time``, ``dist_gbf`` and ``gbf_name`` and
+    the schedules of ``sde.schedule`` take the JAX config's values; the port runs what the JAX config fixes
     as pred_edge=True, only_2D=False and compress_edge=True, so those are
     no keys here. The DMT runs in bfloat16, as the JAX config's
     ``training.matmul_precision``."""
@@ -65,6 +65,18 @@ def get_config() -> NS:
         # 'cosine', 'linear' (with the betas below) or 'discrete_poly'
         sde=NS(schedule="cosine", continuous_beta_0=0.1, continuous_beta_1=20.0),
         model=NS(
+            # the registered model (utils/registry.py): 'DMT', the
+            # equivariant flagship, or 'DMT_WO_EQ', its non-equivariant
+            # ablation
+            name="DMT",
+            # DMT_WO_EQ's attention: 'v1' (per-head q/k/v, tanh edge gates),
+            # 'v2' (fused qkv, additive edge key and value) or 'optim' (fused
+            # qkv, tanh edge gates)
+            trans_ver="v2",
+            # the DMT's SpecFormer in the working dtype (its products in
+            # bfloat16 under training.matmul_precision='bfloat16'); off, as
+            # in the JAX config
+            specformer_bf16=False,
             pred_data=True,
             # the formal charge as the last node channel
             include_fc_charge=True,

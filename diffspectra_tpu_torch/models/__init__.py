@@ -1,1 +1,1 @@
-"""DMT, SpecFormer and their layers, inference only."""
+"""DMT, its non-equivariant ablation DMT_WO_EQ, SpecFormer and their layers."""

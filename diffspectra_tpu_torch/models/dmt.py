@@ -27,14 +27,15 @@ of the Gaussian basis), ``gbf_name`` (``CondGaussianLayer`` or
 ``include_fc_charge``).
 
 ``dtype`` is the JAX DMT's ``dtype`` (``training.matmul_precision``): in
-bfloat16 each module casts where the JAX module casts. A block rounds to
+bfloat16 each module casts where the JAX module casts. SpecFormer runs in
+``dtype`` with ``specformer_bf16`` (``model.specformer_bf16``), else in
+float32. A block rounds to
 bfloat16 where XLA, compiling the JAX block scan, rounds: a bfloat16 op
 whose only readers cast it to float32 stays unrounded
 (``Dense.forward_f32``, the edge embedding's bias add ahead of its
 LayerNorm, ``1 + scale`` of a float32 modulation), in both modes: JAX
 trains and samples through jitted steps. Positions, the distance
-features, SpecFormer, the skip-concat heads and the kernels' sums stay
-float32.
+features, the skip-concat heads and the kernels' sums stay float32.
 """
 
 from __future__ import annotations
@@ -52,6 +53,7 @@ from .. import configs
 from ..ops.block_fused import block_fused
 from ..ops.equi_update import equi_update
 from ..utils import masks as M
+from ..utils.registry import register_model
 from .layers import (
     GBF_LAYERS,
     CoorsNorm,
@@ -347,6 +349,55 @@ def _dots_context():
     return create_selective_checkpoint_contexts(_dots_policy)
 
 
+def block_runner(model: nn.Module, dropout_seeds):
+    """``(seeds, run)`` for one forward through ``model.blocks``: a dropout
+    seed a block (None outside training mode or without
+    ``dropout_seeds``) and ``run(block, *args)``, which calls the block, or
+    under ``model.remat_policy`` in training mode with gradients
+    recomputes it in the backward pass (``torch.utils.checkpoint``; the
+    recomputation draws its dropout masks from its own seed). A model in
+    training mode with dropout and no ``dropout_seeds`` raises."""
+    if model.training and model.dropout > 0 and dropout_seeds is None:
+        raise ValueError(f"a {type(model).__name__} in training mode with dropout takes "
+                         "dropout_seeds")
+    seeds = (list(dropout_seeds) if model.training and dropout_seeds is not None
+             else [None] * len(model.blocks))
+    if not (model.training and model.remat_policy != "none" and torch.is_grad_enabled()):
+        return seeds, lambda block, *args: block(*args)
+    kwargs = {"use_reentrant": False, "preserve_rng_state": False}
+    if model.remat_policy == "dots":
+        kwargs["context_fn"] = _dots_context
+    return seeds, lambda block, *args: checkpoint(block, *args, **kwargs)
+
+
+def skip_heads(model: nn.Module, atom_hids, edge_hids, node_mask, edge_mask):
+    """The skip-concat prediction heads that the DMT and DMT_WO_EQ share:
+    ``(atom_pred [B, N, F], edge_final [B, N, N, edge_ch])`` from the node
+    and edge embeddings of before the blocks, each concatenated with every
+    block's projection; the edge prediction masked and symmetrised."""
+    atom_pred = model.node_pred_mlp_2(F.silu(model.node_pred_mlp_1(
+        F.silu(model.node_pred_mlp_0(atom_hids))))) * node_mask
+    heads = []
+    for head in ("edge_exist_mlp", "edge_type_mlp"):
+        x = F.silu(getattr(model, f"{head}_0")(edge_hids))
+        x = F.silu(getattr(model, f"{head}_1")(x))
+        heads.append(getattr(model, f"{head}_2")(x))
+    return atom_pred, M.symmetrize_edges(torch.cat(heads, dim=-1) * edge_mask[..., None])
+
+
+def add_skip_heads(model: nn.Module, hidden_dim: int, edge_dim: int, in_node_dim: int,
+                   edge_ch: int, n_layers: int, cat_node_dim: int, cat_edge_dim: int) -> None:
+    """The parameters of ``skip_heads`` on ``model``, flax's names."""
+    model.node_pred_mlp_0 = Dense(hidden_dim + n_layers * cat_node_dim, hidden_dim)
+    model.node_pred_mlp_1 = Dense(hidden_dim, hidden_dim // 2)
+    model.node_pred_mlp_2 = Dense(hidden_dim // 2, in_node_dim)
+    for head, out in (("edge_exist_mlp", 1), ("edge_type_mlp", edge_ch - 1)):
+        setattr(model, f"{head}_0", Dense(edge_dim + n_layers * cat_edge_dim, edge_dim))
+        setattr(model, f"{head}_1", Dense(edge_dim, edge_dim // 2))
+        setattr(model, f"{head}_2", Dense(edge_dim // 2, out))
+
+
+@register_model(name="DMT")
 class DMT(nn.Module):
     """``forward(t, xh, node_mask, edge_mask, edge_x, noise_level, cond_x,
     cond_edge_x, has_cond, context_emb, dropout_seeds=None) -> (pred [B, N,
@@ -365,7 +416,8 @@ class DMT(nn.Module):
                  patch_len=(20, 50, 50), stride=(10, 25, 25), pallas_ops=("attn", "equi"),
                  dropout: float = 0.0, remat_policy: str = "full",
                  dtype: torch.dtype = torch.float32, cond_time: bool = True,
-                 dist_gbf: bool = True, gbf_name: str = "CondGaussianLayer"):
+                 dist_gbf: bool = True, gbf_name: str = "CondGaussianLayer",
+                 specformer_bf16: bool = False):
         super().__init__()
         if remat_policy not in REMAT_POLICIES:
             raise ValueError(f"remat_policy {remat_policy!r}: takes one of {REMAT_POLICIES}")
@@ -382,7 +434,8 @@ class DMT(nn.Module):
             self.time_emb = LearnedSinusoidalPosEmb(16)
             self.time_mlp_1 = Dense(17, time_dim)
             self.time_mlp_2 = Dense(time_dim, time_dim)
-        self.cond_encoder = SpecFormer(spectra_version, patch_len, stride, output_dim=hidden_dim)
+        self.cond_encoder = SpecFormer(spectra_version, patch_len, stride, output_dim=hidden_dim,
+                                       dtype=dtype if specformer_bf16 else torch.float32)
         self.cond_lin = Dense(hidden_dim, time_dim)
         if dist_gbf:
             self.dist_layer = GBF_LAYERS[gbf_name](De, time_dim if cond_time else None)
@@ -396,14 +449,8 @@ class DMT(nn.Module):
                   dist_gbf, gbf_name)
             for _ in range(n_layers)
         )
-        width = hidden_dim + n_layers * cat_node_dim
-        self.node_pred_mlp_0 = Dense(width, hidden_dim)
-        self.node_pred_mlp_1 = Dense(hidden_dim, hidden_dim // 2)
-        self.node_pred_mlp_2 = Dense(hidden_dim // 2, in_node_dim)
-        for head, out in (("edge_exist_mlp", 1), ("edge_type_mlp", edge_ch - 1)):
-            setattr(self, f"{head}_0", Dense(De + n_layers * cat_edge_dim, De))
-            setattr(self, f"{head}_1", Dense(De, De // 2))
-            setattr(self, f"{head}_2", Dense(De // 2, out))
+        add_skip_heads(self, hidden_dim, De, in_node_dim, edge_ch, n_layers, cat_node_dim,
+                       cat_edge_dim)
         self.eval()  # deterministic until train(), as the JAX DMT's default
 
     @staticmethod
@@ -423,6 +470,7 @@ class DMT(nn.Module):
             pallas_ops=tuple(m.pallas_ops), dropout=m.dropout,
             remat_policy=m.remat_policy, dtype=configs.model_dtype(config),
             cond_time=m.cond_time, dist_gbf=m.dist_gbf, gbf_name=m.gbf_name,
+            specformer_bf16=m.specformer_bf16,
         )
 
     def encode_context(self, specs, generator=None) -> torch.Tensor:
@@ -467,36 +515,18 @@ class DMT(nn.Module):
         h = h0 = self.node_emb.forward_f32(h)
         edge_attr0 = edge_attr
 
-        if self.training and self.dropout > 0 and dropout_seeds is None:
-            raise ValueError("a DMT in training mode with dropout takes dropout_seeds")
-        seeds = (list(dropout_seeds) if self.training and dropout_seeds is not None
-                 else [None] * len(self.blocks))
-        remat = self.training and self.remat_policy != "none" and torch.is_grad_enabled()
-        remat_kwargs = {"use_reentrant": False, "preserve_rng_state": False}
-        if self.remat_policy == "dots":
-            remat_kwargs["context_fn"] = _dots_context
+        seeds, run = block_runner(self, dropout_seeds)
         cat_h, cat_e = [], []
         for block, seed in zip(self.blocks, seeds):
-            args = (seed, self.CoM, pos, h, edge_attr, node_mask, edge_mask, extra_adj, time_emb)
-            # the recomputation draws its dropout masks from its own seed
-            pos, h, edge_attr, ch, ce = (
-                checkpoint(block, *args, **remat_kwargs) if remat else block(*args))
+            pos, h, edge_attr, ch, ce = run(block, seed, self.CoM, pos, h, edge_attr, node_mask,
+                                            edge_mask, extra_adj, time_emb)
             cat_h.append(ch)
             cat_e.append(ce)
 
         # the skip-concat heads read the embeddings from before the blocks
-        atom_hids = torch.cat([h0, *cat_h], dim=-1)
-        atom_pred = self.node_pred_mlp_2(F.silu(self.node_pred_mlp_1(
-            F.silu(self.node_pred_mlp_0(atom_hids))))) * node_mask
-
-        hids = torch.cat([edge_attr0, *cat_e], dim=-1)
-        heads = []
-        for head in ("edge_exist_mlp", "edge_type_mlp"):
-            x = F.silu(getattr(self, f"{head}_0")(hids))
-            x = F.silu(getattr(self, f"{head}_1")(x))
-            heads.append(getattr(self, f"{head}_2")(x))
-        edge_final = M.symmetrize_edges(torch.cat(heads, dim=-1) * edge_mask[..., None])
-
+        atom_pred, edge_final = skip_heads(self, torch.cat([h0, *cat_h], dim=-1),
+                                           torch.cat([edge_attr0, *cat_e], dim=-1), node_mask,
+                                           edge_mask)
         pos = pos * node_mask if self.pred_data else (pos - xh[:, :, :3]) * node_mask
         # a NaN anywhere zeroes the positions of the whole batch, as in the reference
         pos = torch.where(torch.isnan(pos).any(), torch.zeros_like(pos), pos)

@@ -111,6 +111,14 @@ class Dense(nn.Module):
         return y if self.bias is None else y + cast_param(self, "bias").float()
 
 
+def product(equation: str, *operands, dtype: torch.dtype) -> torch.Tensor:
+    """``torch.einsum`` summed in float32 and rounded once to ``dtype``, as
+    XLA's dot of ``dtype`` operands."""
+    if dtype == torch.float32:
+        return torch.einsum(equation, *operands)
+    return torch.einsum(equation, *(x.float() for x in operands)).to(dtype)
+
+
 def layer_norm(x, eps: float = 1e-6, dtype: torch.dtype = None):
     """flax ``nn.LayerNorm(use_bias=False, use_scale=False)``, eps 1e-6, its
     output in ``dtype`` (default: x's). A bfloat16 output takes flax's
@@ -144,9 +152,23 @@ def silu(x):
     return x * torch.reciprocal(1 + torch.exp(-x))
 
 
+def _bf16(value: float) -> float:
+    """``value`` rounded to bfloat16, as XLA holds a constant of a bfloat16 op."""
+    return float(torch.tensor(value).to(torch.bfloat16))
+
+
+GELU_C, GELU_S = _bf16(0.044715), _bf16(math.sqrt(2.0 / math.pi))
+
+
 def gelu(x):
-    """flax ``nn.gelu``, whose default is the tanh approximation."""
-    return F.gelu(x, approximate="tanh")
+    """flax ``nn.gelu``, whose default is the tanh approximation,
+    ``x * 0.5 * (1 + tanh(sqrt(2/pi) * (x + 0.044715 x^3)))``. For a
+    bfloat16 input, XLA's expansion: the constants in bfloat16, each op
+    rounded to bfloat16 as XLA rounds it."""
+    if x.dtype == torch.float32:
+        return F.gelu(x, approximate="tanh")
+    inner = (x + x * x * x * GELU_C) * GELU_S
+    return x * ((torch.tanh(inner) + 1) * 0.5)
 
 
 class LearnedSinusoidalPosEmb(nn.Module):

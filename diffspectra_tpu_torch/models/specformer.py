@@ -13,6 +13,14 @@ JAX package) draws from the generator ``forward`` is given. For the
 masked-patch pretraining (``training/pretrain.py``), ``forward`` zeroes the
 patches its ``patch_masks`` name before the projection and, with
 ``return_tokens``, also returns the encoder's tokens.
+
+``dtype`` is the JAX module's ``dtype`` (the DMT's working dtype under
+``model.specformer_bf16``, else float32): in bfloat16 the patch
+projections, ``W_Q``/``W_K``/``W_V``, the score and value products,
+``to_out`` and ``ff1``/``ff2`` run in bfloat16, cast where flax casts
+them; the scores, softmax, BatchNorms, residuals, flatten head and
+``out_norm`` stay float32. A product that only a cast to float32 reads
+keeps its bias add in float32 (``Dense.forward_f32``), as XLA compiles it.
 """
 
 from __future__ import annotations
@@ -23,7 +31,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import Dense, dropout, empty_param, gelu
+from .layers import Dense, dropout, empty_param, gelu, product
 
 SPECTRUM_LENGTHS = (701, 3501, 3501)  # uv, ir, raman
 SPECTRA_VERSIONS = {"uv": (0,), "ir": (1,), "raman": (2,), "allspectra": (0, 1, 2)}
@@ -88,49 +96,54 @@ class LayerNorm(nn.Module):
 
 
 class MultiheadAttention(nn.Module):
-    """MHA whose pre-softmax scores carry to the next layer."""
+    """MHA whose pre-softmax scores (float32) carry to the next layer."""
 
     def __init__(self, d_model: int, n_heads: int, attn_dropout: float = 0.0,
-                 proj_dropout: float = 0.0):
+                 proj_dropout: float = 0.0, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.n_heads = n_heads
+        self.n_heads, self.dtype = n_heads, dtype
         self.attn_dropout, self.proj_dropout = attn_dropout, proj_dropout
-        self.W_Q = Dense(d_model, d_model)
-        self.W_K = Dense(d_model, d_model)
-        self.W_V = Dense(d_model, d_model)
-        self.to_out = Dense(d_model, d_model)
+        self.W_Q = Dense(d_model, d_model, dtype=dtype)
+        self.W_K = Dense(d_model, d_model, dtype=dtype)
+        self.W_V = Dense(d_model, d_model, dtype=dtype)
+        self.to_out = Dense(d_model, d_model, dtype=dtype)
 
     def forward(self, x, prev=None, generator=None):
         B, L, D = x.shape
-        H = self.n_heads
+        H, dt = self.n_heads, self.dtype
         dk = D // H
         q = self.W_Q(x).reshape(B, L, H, dk)
         k = self.W_K(x).reshape(B, L, H, dk)
         v = self.W_V(x).reshape(B, L, H, dk)
-        scores = torch.einsum("bihd,bjhd->bhij", q, k) * dk**-0.5
-        if prev is not None:
-            scores = scores + prev
-        attn = dropout(torch.softmax(scores, dim=-1), self.attn_dropout, generator)
-        out = torch.einsum("bhij,bjhd->bihd", attn, v).reshape(B, L, D)
-        return dropout(self.to_out(out), self.proj_dropout, generator), scores
+        scores = product("bihd,bjhd->bhij", q, k, dtype=dt).float()
+        if prev is not None and dt != torch.float32:
+            # one fused multiply-add, as XLA fuses the scale and the carry
+            scores = torch.add(prev, scores, alpha=dk**-0.5)
+        else:
+            scores = scores * dk**-0.5
+            if prev is not None:
+                scores = scores + prev
+        attn = dropout(torch.softmax(scores, dim=-1).to(dt), self.attn_dropout, generator)
+        out = product("bhij,bjhd->bihd", attn, v, dtype=dt).reshape(B, L, D)
+        return dropout(self.to_out.forward_f32(out), self.proj_dropout, generator), scores
 
 
 class TSTEncoderLayer(nn.Module):
     def __init__(self, d_model: int, n_heads: int, d_ff: int, dropout: float = 0.0,
-                 attn_dropout: float = 0.0):
+                 attn_dropout: float = 0.0, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.dropout = dropout
-        self.self_attn = MultiheadAttention(d_model, n_heads, attn_dropout, dropout)
+        self.self_attn = MultiheadAttention(d_model, n_heads, attn_dropout, dropout, dtype)
         self.norm_attn = BatchNorm(d_model)
-        self.ff1 = Dense(d_model, d_ff)
-        self.ff2 = Dense(d_ff, d_model)
+        self.ff1 = Dense(d_model, d_ff, dtype=dtype)
+        self.ff2 = Dense(d_ff, d_model, dtype=dtype)
         self.norm_ffn = BatchNorm(d_model)
 
     def forward(self, src, prev=None, generator=None):
         p = self.dropout
         src2, scores = self.self_attn(src, prev, generator)
         src = self.norm_attn(src + dropout(src2, p, generator))
-        ff = self.ff2(dropout(gelu(self.ff1(src)), p, generator))
+        ff = self.ff2.forward_f32(dropout(gelu(self.ff1(src)), p, generator))
         src = self.norm_ffn(src + dropout(ff, p, generator))
         return src, scores
 
@@ -139,14 +152,15 @@ class SpecFormer(nn.Module):
     def __init__(self, spectra_version: str = "ir", patch_len: Sequence[int] = (20, 50, 50),
                  stride: Sequence[int] = (10, 25, 25), output_dim: int = 256,
                  n_layers: int = 3, d_model: int = 128, n_heads: int = 16, d_ff: int = 256,
-                 dropout: float = 0.0, attn_dropout: float = 0.0):
+                 dropout: float = 0.0, attn_dropout: float = 0.0,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.dropout, self.d_model = dropout, d_model
         self.used = used_spectra_indices(spectra_version)
         self.patch_len, self.stride = tuple(patch_len), tuple(stride)
         n_patches = 0
         for i in self.used:
-            setattr(self, f"W_P_{i}", Dense(self.patch_len[i], d_model))
+            setattr(self, f"W_P_{i}", Dense(self.patch_len[i], d_model, dtype=dtype))
             p = patch_count(SPECTRUM_LENGTHS[i], self.patch_len[i], self.stride[i])
             name = _POS_NAMES[i] if spectra_version == "allspectra" else "W_pos"
             setattr(self, name, empty_param(p, d_model))
@@ -156,7 +170,7 @@ class SpecFormer(nn.Module):
         ]
         for li in range(n_layers):
             setattr(self, f"encoder_layer_{li}",
-                    TSTEncoderLayer(d_model, n_heads, d_ff, dropout, attn_dropout))
+                    TSTEncoderLayer(d_model, n_heads, d_ff, dropout, attn_dropout, dtype))
         self.n_layers = n_layers
         self.head_linear = Dense(n_patches * d_model, output_dim)
         self.out_norm = LayerNorm(output_dim)
@@ -188,7 +202,7 @@ class SpecFormer(nn.Module):
                 patches = torch.where(patch_masks[slot][..., None] > 0,
                                       torch.zeros((), dtype=patches.dtype,
                                                   device=patches.device), patches)
-            z = getattr(self, f"W_P_{i}")(patches)
+            z = getattr(self, f"W_P_{i}").forward_f32(patches)
             tokens.append(dropout(z + getattr(self, pos_name), self.dropout, generator))
         z = torch.cat(tokens, dim=1)
         scores = None

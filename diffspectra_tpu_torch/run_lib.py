@@ -8,7 +8,8 @@
 
 ``train`` trains on the second train half of QM9S (``data.root``) or of
 the synthetic set in bucketed batches, augmented by a random rotation and
-translation, with the loss, optimizer and EMA of ``training/``. The split
+translation, with the loss, optimizer and EMA of ``training/``; the model
+is ``model.name``'s (``utils/registry.py``: the DMT or DMT_WO_EQ). The split
 sits on the device and each batch is gathered there from an index vector
 (``data/device_store.py``) when ``data.device_resident`` is set and the
 split fits ``data.device_store_max_bytes``; else the host iterator
@@ -24,10 +25,12 @@ train state is built; with ``training.profile`` writes a
 ``<workdir>/profile``; and at each snapshot samples
 ``training.eval_samples`` validation targets from the EMA weights through
 ``sampling/harness.py`` (the serving kernels) and logs their stability
-figures (also to ``<workdir>/samples/iter_<step>.json``, where the JAX
-package draws the molecules). It exports the last state as
-``<workdir>/warm_state.npz`` (``warm_state.export_warm_state``). Left
-out: ``visualize.visualize_mols`` (RDKit) and the mesh.
+figures (also to ``<workdir>/samples/iter_<step>.json``), and writes the
+xyz files of up to 16 sampled molecules and of their targets to
+``<workdir>/samples/iter_<step>`` and ``iter_<step>_gt``
+(``visualize.py``; the JAX package's grid image needs RDKit). It exports
+the last state as ``<workdir>/warm_state.npz``
+(``warm_state.export_warm_state``). Left out: the mesh.
 
 Samples ``eval.num_samples`` test targets of the synthetic split with the
 seed-42 harness, scores the 3D and 2D stability and validity, repeats the
@@ -61,7 +64,7 @@ import numpy as np
 import torch
 
 from . import checkpoint as ckpt_lib
-from .api import load_dmt, restore_dmt
+from .api import load_model, restore_model
 from .data import device_store
 from .data.pipeline import (
     augment_positions,
@@ -75,7 +78,6 @@ from .diffusion.schedule import NoiseScheduleVP
 from .evaluation import compute_metrics as cm
 from .evaluation.molgraph import from_decoded
 from .evaluation.stability import get_2D_edm_metric, get_edm_metric
-from .models.dmt import DMT
 from .models.layers import refresh_casts
 from .models.pretrained import load_pretrained_specformer
 from .sampling.harness import make_cond_sampling_fn
@@ -83,7 +85,9 @@ from .training.losses import draw
 from .training.optim import get_optimizer
 from .training.step import get_step_fn, load_ema_weights
 from .training.train_state import create_train_state
+from .utils.registry import create_model
 from .utils.scalers import get_data_inverse_scaler, get_data_scaler
+from .visualize import visualize_mols
 from .warm_state import export_warm_state, init_variables, load_model_state, warm_start
 
 
@@ -106,7 +110,8 @@ def _sync(device):
 
 
 def diffspectra_evaluate(config, model, eval_dir: str, device, ckpt: str = "warm") -> dict:
-    """The sweep with ``model`` (a DMT in eval mode on ``device``); files go
+    """The sweep with ``model`` (the config's model in eval mode on
+    ``device``); files go
     to ``eval_dir`` under the name ``ckpt``. Returns the figures: each log
     line's values, the rounds (draws, ``n_pad``), each sweep's wall time
     and decoded targets, and the phase times."""
@@ -284,7 +289,7 @@ def evaluate(config, warm_state: str, eval_dir: str, device=None) -> dict:
     """The sweep with the EMA weights of the warm-state export
     ``warm_state``, on ``cuda`` unless ``device="cpu"``."""
     device = resolve_device(device)
-    model = load_dmt(warm_state, config, device)
+    model = load_model(warm_state, config, device)
     ckpt = os.path.splitext(os.path.basename(warm_state))[0]
     return diffspectra_evaluate(config, model, eval_dir, device, ckpt)
 
@@ -311,7 +316,7 @@ def evaluate_checkpoints(config, workdir: str, eval_folder: str = "eval", device
         path = ckpt_lib.numbered_checkpoint_dir(workdir, ckpt)
         if not os.path.exists(path):
             raise FileNotFoundError("Checkpoint path error: " + path)
-        model, _ = restore_dmt(workdir, config, device, ckpt=ckpt)
+        model, _ = restore_model(workdir, config, device, ckpt=ckpt)
         out[ckpt] = diffspectra_evaluate(config, model, eval_dir, device, str(ckpt))
         with open(os.path.join(eval_dir, f"figures_ckpt_{ckpt}.json"), "w") as f:
             json.dump(out[ckpt], f)
@@ -320,10 +325,10 @@ def evaluate_checkpoints(config, workdir: str, eval_folder: str = "eval", device
 
 def evaluate_workdir(config, workdir: str, eval_dir: str, device=None) -> dict:
     """The sweep with the EMA weights of a train workdir's latest resumable
-    checkpoint (``api.restore_dmt``), on ``cuda`` unless ``device="cpu"``;
+    checkpoint (``api.restore_model``), on ``cuda`` unless ``device="cpu"``;
     ``FileNotFoundError`` when the workdir holds none."""
     device = resolve_device(device)
-    model, step = restore_dmt(workdir, config, device)
+    model, step = restore_model(workdir, config, device)
     return diffspectra_evaluate(config, model, eval_dir, device, f"step_{step}")
 
 
@@ -337,11 +342,16 @@ def batch_to_device(batch, device) -> dict:
     return out
 
 
+# the models trained with a random rotation and translation of each batch
+AUGMENTED = ("DMT", "DMT_WO_EQ")
+
+
 def init_train_state(config, device):
-    """A fresh DMT (flax's initializers, from ``config.seed``; SpecFormer
-    from ``model.pretrained_specformer_path`` where set) in training mode on
-    ``device``, its optimizer and train state."""
-    model = DMT.from_config(config)
+    """A fresh model of ``model.name`` (flax's initializers, from
+    ``config.seed``; SpecFormer from ``model.pretrained_specformer_path``
+    where set) in training mode on ``device``, its optimizer and train
+    state."""
+    model = create_model(config)
     load_model_state(model, init_variables(model, config.seed))
     if config.model.pretrained_specformer_path:
         logging.info("Load pretrained SpecFormer")
@@ -387,6 +397,7 @@ def train(config, workdir: str, device=None):
     generator = torch.Generator(device=device).manual_seed(config.seed)
     host_generator = torch.Generator().manual_seed(config.seed)
     n_layers = len(state.model.blocks)
+    augment = config.model.name in AUGMENTED
 
     store_bytes = device_store.estimate_bytes(train_ds, spectra_version)
     if config.data.device_resident and store_bytes <= config.data.device_store_max_bytes:
@@ -417,7 +428,7 @@ def train(config, workdir: str, device=None):
                      else "kept on the host (data.device_resident off)")
 
     if t.snapshot_sampling:
-        eval_model = DMT.from_config(config).to(device).eval()
+        eval_model = create_model(config).to(device).eval()
         snapshot_sampling_fn = make_cond_sampling_fn(
             config, eval_model, noise_scheduler, t.eval_batch_size, t.eval_samples,
             get_data_inverse_scaler(config), val_ds, device)
@@ -434,7 +445,7 @@ def train(config, workdir: str, device=None):
             profiler = None
         batch = next_batch()
         batch["positions"] = augment_positions(
-            generator, batch["positions"], batch["atom_mask"], True, True,
+            generator, batch["positions"], batch["atom_mask"], augment, augment,
             config.data.aug_translation_scale)
         draws = draw(generator, host_generator, batch, n_layers, config.model.include_fc_charge)
         state, loss = step_fn(state, batch, draws)
@@ -458,7 +469,8 @@ def train(config, workdir: str, device=None):
                 ckpt_lib.numbered_checkpoint_dir(workdir, step // t.snapshot_freq), state)
             if t.snapshot_sampling:
                 figures = snapshot(step, state, eval_model, snapshot_sampling_fn, edm_metric,
-                                   edm_metric_2d, host_generator, device)
+                                   edm_metric_2d, host_generator, device, sample_dir,
+                                   dataset_info["atom_decoder"])
                 with open(os.path.join(sample_dir, f"iter_{step}.json"), "w") as f:
                     json.dump(figures, f)
     if profiler is not None:  # the run ended inside the window
@@ -494,21 +506,25 @@ def stop_profile(profiler, device, profile_dir: str, step: int) -> str:
 
 
 def snapshot(step, state, eval_model, sampling_fn, edm_metric, edm_metric_2d, host_generator,
-             device) -> dict:
-    """Sample from the EMA weights and log the 3D and 2D stability figures
-    (``visualize_mols`` needs RDKit and is skipped)."""
+             device, sample_dir: str, atom_decoder) -> dict:
+    """Sample from the EMA weights, log the 3D and 2D stability figures, and
+    write ``mol_<i>.xyz`` of up to 16 of the 3D metric's molecules (the 2D
+    metric's where it has none) to ``<sample_dir>/iter_<step>`` and of their
+    targets to ``iter_<step>_gt`` (``visualize.visualize_mols``)."""
     load_ema_weights(state, eval_model)
     generator = torch.Generator(device=device)
     generator.manual_seed(int(torch.randint(0, 2**62, (), generator=host_generator)))
-    processed_mols, _, _ = sampling_fn(generator)
-    figures = {}
+    processed_mols, _, gt_mols = sampling_fn(generator)
+    figures, scored = {}, {}
     for dim, metric in (("3D", edm_metric), ("2D", edm_metric_2d)):
-        stability_res, rdkit_res, mols = metric(processed_mols)
+        stability_res, rdkit_res, scored[dim] = metric(processed_mols)
         logging.info(
             "step: %d, n_mol: %d, %s atom stability: %.4f, mol stability: %.4f, validity: "
-            "%.4f, complete: %.4f, unique & valid: %.4f", step, len(mols), dim,
+            "%.4f, complete: %.4f, unique & valid: %.4f", step, len(scored[dim]), dim,
             stability_res["atom_stable"], stability_res["mol_stable"], rdkit_res["Validity"],
             rdkit_res["Complete"], rdkit_res["Unique"])
         figures[dim] = {k: float(v) for k, v in {**stability_res, **rdkit_res}.items()}
-    logging.info("step: %d, molecule pictures skipped: visualize_mols needs RDKit", step)
+    visualize_mols(scored["3D"] or scored["2D"], os.path.join(sample_dir, f"iter_{step}"))
+    visualize_mols([from_decoded(m, atom_decoder) for m in gt_mols],
+                   os.path.join(sample_dir, f"iter_{step}_gt"))
     return figures

@@ -1,6 +1,7 @@
 """Decode sampled tensors into discrete molecules (port of
 ``diffspectra_tpu/sampling/decode.py``): un-normalise, argmax the atom
-types, threshold edge existence at 0.5 and quantise the bond order x3."""
+types, threshold edge existence at 0.5 and quantise the bond order x3; a
+third, aromatic channel (``data.include_aromatic``) gives order 4."""
 
 from __future__ import annotations
 
@@ -13,13 +14,18 @@ import torch.nn.functional as F
 
 def quantize_edges(h_edge: torch.Tensor) -> torch.Tensor:
     """Compressed edge channels ``[B, N, N, 2]`` (exists, order/3) -> bond
-    orders ``[B, N, N]`` in {0, 1, 2, 3}."""
+    orders ``[B, N, N]`` in {0, 1, 2, 3}. With a third channel (aromatic),
+    an existing pair whose aromatic channel reaches 0.5 and which has no
+    other order is aromatic, 4."""
     exist = (h_edge[..., 0] >= 0.5).to(h_edge.dtype)
     et = h_edge[..., 1] * 3.0
     one = torch.ones_like(et)
-    edge_type = torch.where(et >= 2.5, 3.0 * one, torch.where(
+    edge_type = exist * torch.where(et >= 2.5, 3.0 * one, torch.where(
         et >= 1.5, 2.0 * one, torch.where(et >= 0.5, one, 0.0 * one)))
-    return exist * edge_type
+    if h_edge.shape[-1] == 3:
+        aroma = (h_edge[..., 2] >= 0.5).to(h_edge.dtype) * exist
+        edge_type = torch.where((aroma > 0) & (edge_type == 0), 4.0 * one, edge_type)
+    return edge_type
 
 
 def post_process(xh, atom_types: int, node_mask, inverse_scaler, edge_x, edge_mask,

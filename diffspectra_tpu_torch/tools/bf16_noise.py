@@ -41,7 +41,7 @@ import numpy as np
 import torch
 
 from .. import configs
-from ..api import load_dmt
+from ..api import load_model
 from ..data.synthetic import generate
 from ..device import resolve_device
 from ..models import dmt, layers
@@ -151,7 +151,7 @@ def main(argv=None) -> int:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     for path, ops in PATHS.items():
-        models = {p: load_dmt(WARM, configs.apply_overrides(configs.get_config(), {
+        models = {p: load_model(WARM, configs.apply_overrides(configs.get_config(), {
             "model.pallas_ops": ops, "training.matmul_precision": p}), dev)
             for p in ("bfloat16", "float32")}
         for has_cond in (True, False):

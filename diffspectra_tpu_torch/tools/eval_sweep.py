@@ -13,6 +13,9 @@ nothing, the run checks the path):
     python -m diffspectra_tpu_torch.tools.eval_sweep --smoke --random-weights \\
         --device cpu --steps 3 --num-samples 6 --num-candidates 2 --synthetic-size 64
 
+``--model-name DMT_WO_EQ --trans-ver v1`` sweeps the non-equivariant
+ablation (a warm state of that model, or ``--random-weights``).
+
 Runs on ``cuda`` unless ``--device cpu`` is given. Logs to stdout and to
 ``<workdir>/eval_sweep.log``; the similarity tables go to ``<workdir>/eval``;
 the last line of stdout is the figures as JSON.
@@ -48,6 +51,8 @@ def parse_args(argv=None):
     p.add_argument("--seed", type=int, help="config.seed (data, split and noise)")
     p.add_argument("--pallas-ops", type=lambda v: tuple(op for op in v.split(",") if op),
                    help="model.pallas_ops, comma-separated: block, or attn,equi (the default)")
+    p.add_argument("--model-name", help="model.name: DMT (the default) or DMT_WO_EQ")
+    p.add_argument("--trans-ver", help="model.trans_ver of DMT_WO_EQ: v1, v2 or optim")
     return p.parse_args(argv)
 
 
@@ -61,7 +66,8 @@ def build_config(args):
              "sampling.method": args.method, "eval.sampling_temperature": args.temperature,
              "data.synthetic_size": args.synthetic_size,
              "data.synthetic_fidelity": args.fidelity, "seed": args.seed,
-             "model.pallas_ops": args.pallas_ops}
+             "model.pallas_ops": args.pallas_ops, "model.name": args.model_name,
+             "model.trans_ver": args.trans_ver}
     return configs.apply_overrides(config, {k: v for k, v in flags.items() if v is not None})
 
 
@@ -75,7 +81,7 @@ def main(argv=None) -> int:
     )
     from diffspectra_tpu_torch import run_lib
     from diffspectra_tpu_torch.device import resolve_device
-    from diffspectra_tpu_torch.models.dmt import DMT
+    from diffspectra_tpu_torch.utils.registry import create_model
     from diffspectra_tpu_torch.warm_state import load_model_state, random_variables
 
     config = build_config(args)
@@ -83,7 +89,7 @@ def main(argv=None) -> int:
     eval_dir = os.path.join(args.workdir, "eval")
     t0 = time.time()
     if args.random_weights:
-        model = DMT.from_config(config)
+        model = create_model(config)
         load_model_state(model, random_variables(model, seed=config.seed))
         figures = run_lib.diffspectra_evaluate(config, model.eval().to(device), eval_dir, device,
                                                "random")

@@ -7,9 +7,9 @@ The draws are apart from the arithmetic: ``draw`` takes ``t`` on
 ``[T_EPS, 1)``, the node and edge noise and the self-conditioning coin
 (``use_sc``, one a batch) from generators, with the seeds of the dropout
 masks; the loss takes them, so a test can feed JAX's own draws. The
-schedule, the model's variant and ``model.include_fc_charge`` come from
-the config. The 2D loss and the node loss belong to the CDGS model's 2-D
-path (``ROADMAP.md``).
+schedule, the model (``model.name``: ``DMT`` or ``DMT_WO_EQ``), its
+variant and ``model.include_fc_charge`` come from the config. The 2D loss
+and the node loss belong to the CDGS model's 2-D path (``ROADMAP.md``).
 """
 
 from __future__ import annotations
@@ -17,7 +17,7 @@ from __future__ import annotations
 import torch
 
 from ..models.layers import seeded_generator
-from ..ops.kabsch import get_align_noise, get_align_position
+from ..ops.kabsch import get_align_noise, get_align_position, get_align_position_v2
 from ..utils import masks as M
 from ..utils.scalers import get_self_cond_fn
 
@@ -31,17 +31,26 @@ def parse_loss_weights(loss_weights) -> tuple:
     return tuple(float(w) for w in loss_weights)
 
 
-def process_edge_batch(batch, scaler, include_charges: bool = True):
-    """Centre the positions, normalise and pack a dense batch of tensors
-    (keys positions, atom_mask, edge_mask, atom_one_hot, edge_one_hot,
-    formal_charges, context) into ``(xh [B, N, 3+A+1], edge_x, node_mask
-    [B, N, 1], edge_mask, context)``; without ``include_charges`` the
-    charge is a zero-width channel and ``xh`` is ``[B, N, 3+A]``."""
+MODEL_NAMES = ("DMT", "DMT_WO_EQ")
+
+
+def process_edge_batch(batch, scaler, model_name: str, include_charges: bool = True):
+    """Normalise and pack a dense batch of tensors (keys positions,
+    atom_mask, edge_mask, atom_one_hot, edge_one_hot, formal_charges,
+    context) into ``(xh [B, N, 3+A+1], edge_x, node_mask [B, N, 1],
+    edge_mask, context)``; without ``include_charges`` the charge is a
+    zero-width channel and ``xh`` is ``[B, N, 3+A]``. The DMT's positions
+    are centred; DMT_WO_EQ keeps the translation of the augmentation.
+    Another ``model_name`` raises."""
     node_mask = batch["atom_mask"][..., None]
     edge_mask = batch["edge_mask"]
     atom_type = batch["atom_one_hot"]
     fc_charge = batch["formal_charges"] if include_charges else atom_type[..., :0]
-    pos = M.remove_mean_with_mask(batch["positions"], node_mask)
+    if model_name not in MODEL_NAMES:
+        raise NotImplementedError(f"{model_name} not supported yet!")
+    pos = batch["positions"]
+    if model_name == "DMT":
+        pos = M.remove_mean_with_mask(pos, node_mask)
     pos, atom_type, fc_charge, edge_type = scaler(
         pos, atom_type, fc_charge, node_mask, batch["edge_one_hot"], edge_mask,
     )
@@ -87,10 +96,11 @@ def get_sde_graph_loss_fn(noise_scheduler, scaler, config):
     cond_process_fn = get_self_cond_fn(config) if self_cond else None
     reuse_cond_emb = bool(config.model.reuse_cond_emb and self_cond)
     include_charges = bool(config.model.include_fc_charge)
+    model_name = config.model.name
 
     def loss_fn(model, batch, draws):
         xh, edge_x, node_mask, edge_mask, context = process_edge_batch(
-            batch, scaler, include_charges)
+            batch, scaler, model_name, include_charges)
         bs = xh.shape[0]
         n_atoms = node_mask[..., 0].sum(dim=-1)
         t, noise, edge_noise = draws["t"], draws["noise"], draws["edge_noise"]
@@ -99,11 +109,15 @@ def get_sde_graph_loss_fn(noise_scheduler, scaler, config):
         z_t = a * xh + s * noise
         edge_z_t = a[..., None] * edge_x + s[..., None] * edge_noise
 
-        # the clean positions rotated onto the noisy frame
+        # the clean positions rotated onto the noisy frame (DMT_WO_EQ's
+        # both centred first)
         align_pos = xh[:, :, :3]
         if noise_align:
-            if pred_data:
+            if pred_data and model_name == "DMT":
                 align_pos = get_align_position(z_t, xh)
+            elif pred_data:
+                centred = (M.remove_mean_with_mask(x[:, :, :3], node_mask) for x in (z_t, xh))
+                align_pos = get_align_position_v2(*centred)
             else:
                 noise = get_align_noise(z_t, xh, alpha_t, sigma_t, noise, node_mask)
         noise_level = torch.log(alpha_t**2 / sigma_t**2)

@@ -92,8 +92,9 @@ def load_warm_state(npz_path: str) -> dict:
 def params_from_flax(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
     """Flat flax variables (``"params/<path>"`` / ``"batch_stats/<path>"``,
     ``/``-separated as ``flax.traverse_util.flatten_dict(..., sep="/")``
-    gives them) -> a ``state_dict`` for ``DMT``. ``params/blocks/<path>``
-    arrays are stacked over layers and become ``blocks.<l>.<path>``."""
+    gives them) -> a ``state_dict`` for the DMT or DMT_WO_EQ.
+    ``params/blocks/<path>`` arrays are stacked over layers and become
+    ``blocks.<l>.<path>``."""
     state = {}
     for key, value in flat.items():
         tree, _, path = key.partition("/")
@@ -169,7 +170,8 @@ def random_variables(model: torch.nn.Module, seed: int) -> Dict[str, np.ndarray]
 
 
 def init_variables(model: torch.nn.Module, seed: int) -> Dict[str, np.ndarray]:
-    """A fresh init of the DMT with flax's initializers, layer by layer, as
+    """A fresh init of the model (the DMT or DMT_WO_EQ) with flax's
+    initializers, layer by layer, as
     JAX's ``model.init`` draws them (the distributions, not the numbers):
     kernels ``lecun_normal`` (a normal truncated at 2 standard deviations,
     variance 1 / fan_in), biases 0, the time embedding's weights N(0, 1),

@@ -34,7 +34,7 @@ from diffspectra_tpu.configs import smoke
 from diffspectra_tpu.models.dmt import DMT as JaxDMT
 from diffspectra_tpu.ops.pallas_block import block_fused as jax_block_fused
 from diffspectra_tpu_torch import configs
-from diffspectra_tpu_torch.api import load_dmt
+from diffspectra_tpu_torch.api import load_model
 from diffspectra_tpu_torch.data.synthetic import generate
 from diffspectra_tpu_torch.models.dmt import DMT
 from diffspectra_tpu_torch.ops.block_fused import (MAX_SMEM, NODE_ROWS, _DATA, _WEIGHTS,
@@ -130,8 +130,8 @@ def test_small_block_dmt_matches_jax_block_path(monkeypatch, has_cond):
 
 def test_warm_weights_serve_both_paths():
     f32 = {"training.matmul_precision": "float32"}  # the paths agree to float32 sums
-    base = load_dmt(WARM, configs.apply_overrides(configs.get_config(), f32), "cpu")
-    block = load_dmt(WARM, configs.apply_overrides(configs.get_config(),
+    base = load_model(WARM, configs.apply_overrides(configs.get_config(), f32), "cpu")
+    block = load_model(WARM, configs.apply_overrides(configs.get_config(),
                                                    {"model.pallas_ops": ("block",), **f32}), "cpu")
     assert block.blocks[0].e_block.block_kernel and not base.blocks[0].e_block.block_kernel
     assert block.state_dict().keys() == base.state_dict().keys()

@@ -3,7 +3,8 @@ jax, flax, optax, orbax, ml_collections, ml_dtypes, absl, rdkit, pandas,
 triton and the JAX package ``diffspectra_tpu``, every module of
 ``diffspectra_tpu_torch`` imports, a small-config ``Elucidator`` serves on
 the CPU (one request at a known atom count, one through the whole-block
-path, and one without the atom count through a count head), the
+path, one without the atom count through a count head, and one from a
+small DMT_WO_EQ built through the model registry), the
 evaluation sweep scores a tiny run and writes its files, and the train
 loop takes two steps, writes a checkpoint that ``torch.load`` reads with
 ``weights_only`` and an export a warm start reads. The QM9S loader reads a
@@ -162,6 +163,23 @@ BARE_INSTALL = textwrap.dedent(
     with open("/proc/self/maps") as f:
         maps = f.read()
     assert "libdstt_packer.so" in maps and "libdiffspectra_native" not in maps
+    # the non-equivariant ablation through the registry, served; and the
+    # snapshot's molecule files
+    from diffspectra_tpu_torch.models.dmt_wo_eq import DMT_WO_EQ
+    from diffspectra_tpu_torch.utils.registry import create_model
+    from diffspectra_tpu_torch.visualize import visualize_mols
+    wo_config = configs.apply_overrides(configs.get_smoke_config(), {
+        "model.name": "DMT_WO_EQ", "model.nf": 32, "model.n_layers": 2, "model.n_heads": 4,
+        "sampling.steps": 3})
+    wo_eq = create_model(wo_config)
+    assert type(wo_eq) is DMT_WO_EQ
+    load_model_state(wo_eq, random_variables(wo_eq, seed=0))
+    result = Elucidator(wo_config, wo_eq.eval(), torch.device("cpu")).elucidate(
+        data["ir"][0], n_atoms=n_atoms, num_candidates=2, seed=0)
+    assert sum(c.count for c in result.candidates) == 2
+    with tempfile.TemporaryDirectory() as tmp:
+        written = visualize_mols([c.molgraph for c in result.candidates], tmp)
+        assert written == len(result.candidates) == len(os.listdir(tmp))
     loaded = sorted(n for n in sys.modules
                     if n.split(".")[0] in BLOCKED and n.split(".")[0] != "torch_geometric")
     assert not loaded, loaded

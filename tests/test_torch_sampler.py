@@ -5,7 +5,9 @@ the temperature, so both loops are deterministic: atom types and bond
 matrices must be identical, positions within atol 2e-3, and the WL
 consensus ranking
 must equal ``compute_metrics.consensus_rank``. Plus the leaves the loop is
-made of: schedule, scalers, masks and edge quantisation.
+made of: schedule, scalers, masks and edge quantisation, the latter also
+with the third, aromatic edge channel (order 4), on a tensor and through
+a narrow DMT with ``model.edge_ch=3``.
 
 The position tolerance: one step of the two float32 forwards differs by
 about 7e-6 (sums in another order), and the random-weight model amplifies
@@ -199,3 +201,80 @@ def test_masks_and_edge_quantisation_match_jax():
         tdec.quantize_edges(torch.from_numpy(h)).numpy(),
         np.asarray(jdec.quantize_edges(jnp.asarray(h), compress_edge=True)),
     )
+
+
+def test_three_channel_edge_quantisation_matches_jax():
+    """With the aromatic channel (``data.include_aromatic``, ``model.edge_ch
+    = 3``) an existing pair whose aromatic channel reaches 0.5 and which has
+    no other order decodes as 4, as JAX's decode gives it."""
+    h = np.random.default_rng(5).uniform(0, 1, size=(2, 5, 5, 3)).astype(np.float32)
+    got = tdec.quantize_edges(torch.from_numpy(h)).numpy()
+    want = np.asarray(jdec.quantize_edges(jnp.asarray(h), compress_edge=True))
+    np.testing.assert_array_equal(got, want)
+    assert (want == 4).sum() > 0
+
+
+def test_aromatic_model_samples_and_decodes_like_jax():
+    """A narrow DMT with the third edge channel: 10 ancestral steps at
+    temperature 0 from a shared ``z_T``, decoded, against JAX."""
+    steps, n, n_nodes = 10, 8, [8, 6, 8, 7]
+    bs = len(n_nodes)
+    pcfg = configs.apply_overrides(configs.get_smoke_config(), {
+        **OVERRIDES, "data.include_aromatic": True, "model.edge_ch": 3})
+    port = DMT.from_config(pcfg)
+    flat = random_variables(port, seed=4)
+    load_model_state(port, flat)
+    variables = traverse_util.unflatten_dict(
+        {tuple(k.split("/")): jnp.asarray(v) for k, v in flat.items()})
+    cfg = smoke.get_config()
+    cfg.model.nf, cfg.model.n_layers, cfg.model.n_heads, cfg.model.edge_ch = 32, 2, 4, 3
+    cfg.data.max_node, cfg.data.include_aromatic = n, True
+    model = JaxDMT.from_config(cfg)
+
+    rng = np.random.default_rng(1)
+    node_mask, edge_mask = (np.array(a) for a in JM.build_masks(jnp.asarray(n_nodes), n))
+    z = rng.normal(size=(bs, n, 9)).astype(np.float32) * node_mask
+    z[..., :3] -= z[..., :3].sum(1, keepdims=True) / node_mask.sum(1, keepdims=True) * node_mask
+    e = np.tril(rng.normal(size=(bs, n, n, 3)).astype(np.float32).transpose(0, 3, 1, 2), -1)
+    edge_z = (e + e.transpose(0, 1, 3, 2)).transpose(0, 2, 3, 1) * edge_mask[..., None]
+    spec = np.log10(np.abs(rng.normal(size=(bs, 3501))).astype(np.float32) * 10 + 1)
+
+    jsch = JaxSchedule(cfg.sde.schedule)
+    jsampler = JaxSampler(jsch, jax_time_steps(jsch, steps), cfg.model.pred_data,
+                          pred_edge=True, self_cond=True,
+                          cond_process_fn=jsc.get_self_cond_fn(cfg), sampling_temperature=0.0)
+
+    def model_apply(t, x, nm, em, edge_x, nl, cond_x, cond_edge_x, has_cond, c_emb):
+        return model.apply(variables, t, x, nm, em, None, edge_x=edge_x, noise_level=nl,
+                           cond_x=cond_x, cond_edge_x=cond_edge_x, has_cond=has_cond,
+                           context_emb=c_emb)
+
+    ctx = jax_encode_context(model, variables, jnp.asarray(spec))
+    jx, je = jax.jit(lambda z_, e_: jsampler.sampling(
+        model_apply, jax.random.PRNGKey(0), z_, jnp.asarray(node_mask),
+        jnp.asarray(edge_mask), e_, ctx))(jnp.asarray(z), jnp.asarray(edge_z))
+    jout = jdec.post_process(jx, 5, True, jnp.asarray(node_mask),
+                             jsc.get_data_inverse_scaler(cfg), je, jnp.asarray(edge_mask),
+                             compress_edge=True)
+    jmols = jdec.mol_process(jout[1], jout[0], jout[2], np.asarray(n_nodes), jout[3])
+
+    sch = NoiseScheduleVP(pcfg.sde.schedule)
+    sampler = AncestralSampler(sch, make_time_steps(sch, steps), pcfg.model.pred_data,
+                               self_cond=True, cond_process_fn=tsc.get_self_cond_fn(pcfg),
+                               sampling_temperature=0.0)
+    T = lambda a: torch.from_numpy(np.array(a))
+    with torch.no_grad():
+        tctx = port.encode_context([T(spec)])
+        tx, te = sampler.sampling(port, torch.Generator().manual_seed(0), T(z), T(node_mask),
+                                  T(edge_mask), T(edge_z), tctx)
+    tout = tdec.post_process(tx, 5, T(node_mask), tsc.get_data_inverse_scaler(pcfg), te,
+                             T(edge_mask))
+    tmols = tdec.mol_process(tout[1], tout[0], tout[2], n_nodes, tout[3])
+
+    np.testing.assert_allclose(te.numpy(), np.asarray(je), rtol=0, atol=2e-3)
+    assert len(tmols) == len(jmols) == bs
+    for (tp, ta, tb, tf), (jp, ja, jb, jf) in zip(tmols, jmols):
+        np.testing.assert_array_equal(ta, ja)
+        np.testing.assert_array_equal(tb, jb)
+        np.testing.assert_array_equal(tf, jf)
+        np.testing.assert_allclose(tp, jp, rtol=0, atol=2e-3)

@@ -13,6 +13,10 @@ its fresh init, on the CPU at small widths.
   smoke config cut to a few steps): finite losses on every log line,
   checkpoints, a snapshot's figures, the exported warm state; a resume runs
   on from the checkpoint; a non-finite loss stops the run.
+- The snapshot writes ``mol_<i>.xyz`` of its sampled molecules to
+  ``samples/iter_<step>`` and of their targets to ``iter_<step>_gt``, each
+  file's lines as the JAX package's ``visualize_mols`` writes them for the
+  same molecules.
 - The fresh init against JAX's ``model.init``: the same leaves and shapes,
   the constant ones equal, each random one's standard deviation within 15%
   of JAX's (leaves of 1000 values or more).
@@ -29,7 +33,9 @@ import pytest
 import torch
 from flax import traverse_util
 
+from diffspectra_tpu import visualize as jax_visualize
 from diffspectra_tpu import warm_state as jax_warm_state
+from diffspectra_tpu.evaluation.molgraph import MolGraph as JaxMolGraph
 from diffspectra_tpu.configs import smoke as jax_smoke
 from diffspectra_tpu.models.dmt import DMT as JaxDMT
 from diffspectra_tpu.training import optim as jax_optim
@@ -196,6 +202,34 @@ def test_train_loop_writes_checkpoints_and_resumes(tmp_path, caplog):
     assert resumed.step == 7  # from the checkpoint at step 4 (state step 5), steps 5 and 6
 
 
+def test_snapshot_writes_the_molecule_files_as_jax(tmp_path, monkeypatch):
+    seen = []
+    real = run_lib.visualize_mols
+
+    def record(mols, save_dir, max_mols=16):
+        seen.append((list(mols), save_dir))
+        return real(mols, save_dir, max_mols)
+
+    monkeypatch.setattr(run_lib, "visualize_mols", record)
+    workdir = str(tmp_path / "run")
+    run_lib.train(_loop_config(**{"training.snapshot_freq_for_preemption": 100}), workdir, "cpu")
+    samples = os.path.join(workdir, "samples")
+    assert [d for _, d in seen] == [os.path.join(samples, "iter_4"),
+                                    os.path.join(samples, "iter_4_gt")]
+    for mols, save_dir in seen:
+        names = sorted(os.listdir(save_dir))
+        assert names == sorted(f"mol_{i}.xyz" for i in range(4)), names
+        jax_dir = str(tmp_path / ("jax_" + os.path.basename(save_dir)))
+        jax_visualize.visualize_mols(
+            [JaxMolGraph(m.atom_syms, m.formal_charges, m.bond_orders, m.positions)
+             for m in mols], jax_dir)
+        assert sorted(os.listdir(jax_dir)) == names
+        for name in names:
+            with open(os.path.join(save_dir, name)) as f, open(os.path.join(jax_dir, name)) as g:
+                got, want = f.read().splitlines(), g.read().splitlines()
+            assert got == want and int(got[0]) == len(got) - 2 > 0
+
+
 def test_non_finite_loss_stops_the_run(tmp_path, monkeypatch):
     real = run_lib.get_step_fn
 
@@ -218,7 +252,10 @@ def test_main_trains_the_smoke_config_on_the_cpu(tmp_path, monkeypatch):
     assert state.step == 4
     with open(os.path.join(workdir, "stdout.txt")) as f:
         log = f.read()
-    assert "training_loss" in log and "3D atom stability" in log and "visualize_mols" in log
+    assert "training_loss" in log and "3D atom stability" in log
+    # the snapshot's molecule files, where the log once said they were skipped
+    for sub in ("iter_3", "iter_3_gt"):
+        assert os.listdir(os.path.join(workdir, "samples", sub))
     assert ckpt.latest_numbered_checkpoint(workdir) == 1
 
 
