@@ -148,6 +148,22 @@ Phases, each printing its own lines:
      each path (its bf16 kernels 8 x 100 launches), the spectra embedding on
      cuda against the CPU's within SPECFORMER_BF16_RATIO of the CPU's own
      difference between SpecFormer in bf16 and in f32.
+ 12. CDGS on the 2-D path (``only_2D``: atoms and bonds, no positions),
+     which runs on PyTorch ops and no port kernel, at the flagship's widths
+     (nf=256, 8 blocks, 16 heads, ``rw_depth`` 8) with ``smoke_2d``'s
+     overrides, random weights from seed 0: (a) the forwards (B=10, N=29)
+     in f32 and bf16 on cuda against the CPU (phase 11's tolerances), each
+     timed, no port kernel launched and none among a profiled forward's
+     kernels; (b) bf16, dropout 0.1, batch 128, trained from a fresh init
+     for 10 steps through ``run_lib.train`` with a snapshot of 16 draws at
+     100 steps (2-D figures only, its targets' xyz files and none of its
+     samples): finite losses, params and EMA moved, the step times,
+     graphs/s and peak memory; (c) served from its workdir through
+     ``Elucidator.from_workdir`` (one fidelity-4 request at K=10, 100
+     ancestral steps, then DPM-Solver++): every candidate without positions
+     and with a decoded graph; (d) swept by ``evaluate_checkpoints`` (8
+     targets, K=1, 100 steps): the 2-D figures alone, finite, in [0, 1];
+     no port kernel launched in any of it.
 Then one ``{"kernels": [...]}`` line, the card's ``nvidia-smi`` line, and as
 the last line ``{"ok": true, "device": {...}}``. Any failed check raises and
 the script exits non-zero without that last line; without CUDA it exits 2.
@@ -309,6 +325,15 @@ WO_EQ_TRAIN = {**WO_EQ, "seed": 42, "data.synthetic": True,
                "sampling.steps": 100, "eval.ckpts": "1", **EVAL_LOOP}
 WO_EQ_TRAIN_STEPS = 10
 SPECFORMER_BF16_STEPS = 100  # (c): one request a path
+# phase 12, CDGS on the 2-D path (only_2D; no port kernel) at the flagship's
+# widths with configs/smoke_2d.py's overrides, random weights from seed 0:
+# (a) the forwards in f32 and bf16, (b) trained from a fresh init as phase
+# 11 (b) trains, (c) served from its workdir, (d) swept
+CDGS_PATH = {"only_2D": True, "model.name": "CDGS", "model.pred_data": False,
+             "model.self_cond": False, "model.noise_align": False,
+             "model.include_fc_charge": False}
+CDGS_TRAIN = {**WO_EQ_TRAIN, **CDGS_PATH}
+CDGS_TRAIN_STEPS = 10
 # (c): the spectra embedding on cuda against the CPU, over the CPU's own
 # difference between SpecFormer in bf16 and in f32 (both DMTs bf16). No
 # kernel runs in SpecFormer: the bound catches an encoder that is not the
@@ -1009,6 +1034,12 @@ def nonzero(launches):
     return {k: v for k, v in launches.items() if v}
 
 
+def add_launches(total, launches):
+    """Add the counts of ``launches`` into ``total``, by kernel."""
+    for k, v in launches.items():
+        total[k] = total.get(k, 0) + v
+
+
 def launched_only(path_kernels, launches, expected):
     """The kernels of the path launched ``expected`` times, the others never."""
     want = {k: (expected if k in path_kernels else 0) for k in launches}
@@ -1635,8 +1666,7 @@ def variant_forwards(dev, smi):
             say(f"[variants] {name} {dt}: pallas_ops={ops}, launches a forward "
                 f"{nonzero(launches)} (expected {nonzero(expected) or 'none'})")
             assert launches == expected, (name, dt, launches)
-            for k, v in launches.items():
-                total[k] = total.get(k, 0) + v
+            add_launches(total, launches)
             outs[dt] = got, forward(cpu_model, "cpu", True)
             del gpu_model
         (g32, w32), (g16, w16) = outs["f32"], outs["bf16"]
@@ -1732,8 +1762,7 @@ def variant_train_serve(dev, smi):
             f"{smi}")
         assert finite and sum(c.count for c in result.candidates) == CANDIDATES
         launched_only(want, launches, expected)
-        for k, v in launches.items():
-            total[k] = total.get(k, 0) + v
+        add_launches(total, launches)
     shutil.rmtree(workdir)
     return total
 
@@ -2082,74 +2111,121 @@ def phase_flagship(dev, smi, phase8):
     return launches
 
 
-def wo_eq_forwards(dev, smi):
-    """Phase 11 (a): DMT_WO_EQ of each trans_ver at full width from random
-    weights (seed 0), f32 and bf16 forwards (self-conditioned, B=10, N=29)
-    on cuda against the same models on the CPU: f32 within FORWARD_RTOL,
-    bf16 within the per-op bound of the CPU's own bf16-against-f32
-    difference (its pair grid is rounded in bf16, as the per-op path's);
-    no port kernel launched, and none among a profiled forward's kernels."""
+def model_outputs(model, args, specs):
+    """The model's outputs on ``args`` and the embedding of ``specs``,
+    float32 on the CPU."""
+    with torch.no_grad():
+        return [o.float().cpu() for o in model(*args, model.encode_context(specs))]
+
+
+def held_forwards(dev, smi, tag, over, inputs, outputs):
+    """The flagship config with ``over`` at full width from random weights
+    (seed 0): f32 and bf16 forwards on ``inputs(device)`` (the model's
+    positional arguments before the spectra embedding, and the spectra;
+    B=10, N=29) on cuda against the same model on the CPU: f32 within
+    FORWARD_RTOL, bf16 within the per-op bound of the CPU's own
+    bf16-against-f32 difference; no port kernel launched, and none among a
+    profiled forward's kernels. Returns the bf16 ratios by name of
+    ``outputs``, a forward's ms by dtype (CUDA events, 10 calls, the
+    spectra embedding made once) and the launches of the first forward of
+    each dtype by kernel."""
     from torch.profiler import ProfilerActivity, profile
 
     from diffspectra_tpu_torch.ops import LAUNCHES, reset_launches
-    from diffspectra_tpu_torch.tools.bf16_noise import forward
     from diffspectra_tpu_torch.utils.registry import create_model
     from diffspectra_tpu_torch.warm_state import load_model_state, random_variables
 
     ours = set(itertools.chain(*KERNEL_STAGES.values())) | {k for _, k in PROBE_KERNELS.values()}
     bound = BF16_FORWARD_RATIO["attn_equi"]
-    ratios = {}
-    for tv in WO_EQ_TRANS_VERS:
-        outs = {}
-        for dt in ("f32", "bf16"):
-            config = variant_config({**WO_EQ, "model.trans_ver": tv}, precision=DTYPES[dt])
-            cpu_model = create_model(config)
-            load_model_state(cpu_model, random_variables(cpu_model, seed=0))
-            gpu_model = copy.deepcopy(cpu_model).to(dev)
-            reset_launches()
+    outs, ratios, forward_ms, total = {}, {}, {}, {}
+    for dt in ("f32", "bf16"):
+        config = variant_config(over, precision=DTYPES[dt])
+        cpu_model = create_model(config)
+        assert type(cpu_model).__name__ == config.model.name
+        load_model_state(cpu_model, random_variables(cpu_model, seed=0))
+        gpu_model = copy.deepcopy(cpu_model).to(dev)
+        args, specs = inputs(dev)
+        reset_launches()
+        got = model_outputs(gpu_model, args, specs)
+        add_launches(total, LAUNCHES)
+        launches = nonzero(dict(LAUNCHES))
+        with torch.no_grad():
+            emb = gpu_model.encode_context(specs)
+            forward_ms[dt] = cuda_time_ms(lambda: gpu_model(*args, emb), iters=10, warmup=2)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            model_outputs(gpu_model, args, specs)
             torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            got = forward(gpu_model, dev, True)
-            torch.cuda.synchronize()
-            seconds = time.perf_counter() - t0
-            launches = nonzero(dict(LAUNCHES))
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                forward(gpu_model, dev, True)
-                torch.cuda.synchronize()
-            names = {e.key for e in prof.key_averages() if e.device_type.name == "CUDA"}
-            hit = sorted(n for n in names if any(k in n for k in ours))
-            say(f"[wo_eq] {tv} {dt}: forward on cuda {seconds:.3f} s (the first, with its "
-                f"setup); port kernels launched {launches or 'none'}; {len(names)} kernels by "
-                f"name under the profiler, the port's among them {hit or 'none'}; {smi}")
-            assert not launches and not hit, (tv, dt, launches, hit)
-            outs[dt] = got, forward(cpu_model, "cpu", True)
-            del gpu_model
-        (g32, w32), (g16, w16) = outs["f32"], outs["bf16"]
-        compare(f"wo_eq {tv} f32 cuda vs cpu", g32, w32)
-        for out, g, w, w_f32 in zip(("pred", "edge_pred"), g16, w16, w32):
-            err, gap = (g - w).abs().max().item(), (w - w_f32).abs().max().item()
-            ratios[f"{tv} {out}"] = err / gap
-            say(f"[wo_eq] {tv} bf16 {out}: max |cuda bf16 - cpu bf16| = {err:.3e}, max |cpu "
-                f"bf16 - cpu f32| = {gap:.3e}, ratio {err / gap:.4f} (bound {bound})")
-            assert torch.isfinite(g).all() and gap > 0 and err <= bound * gap, (tv, out)
-    say(f"[wo_eq] (a) forwards held on cuda; {smi}")
-    return ratios
+        names = {e.key for e in prof.key_averages() if e.device_type.name == "CUDA"}
+        hit = sorted(n for n in names if any(k in n for k in ours))
+        say(f"[{tag}] {dt}: a forward (B={B}, N={N}) on cuda {forward_ms[dt]:.2f} ms (CUDA "
+            f"events, 10 calls); port kernels launched {launches or 'none'}; {len(names)} "
+            f"kernels by name under the profiler, the port's among them {hit or 'none'}; {smi}")
+        assert not launches and not hit, (tag, dt, launches, hit)
+        outs[dt] = got, model_outputs(cpu_model, *inputs("cpu"))
+        del gpu_model
+    (g32, w32), (g16, w16) = outs["f32"], outs["bf16"]
+    compare(f"{tag} f32 cuda vs cpu", g32, w32)
+    for out, g, w, w_f32 in zip(outputs, g16, w16, w32):
+        err, gap = (g - w).abs().max().item(), (w - w_f32).abs().max().item()
+        ratios[out] = err / gap
+        say(f"[{tag}] bf16 {out}: max |cuda bf16 - cpu bf16| = {err:.3e}, max |cpu bf16 - cpu "
+            f"f32| = {gap:.3e}, ratio {err / gap:.4f} (bound {bound})")
+        assert torch.isfinite(g).all() and gap > 0 and err <= bound * gap, (tag, out)
+    say(f"[{tag}] forwards held on cuda; {smi}")
+    return ratios, forward_ms, total
 
 
-def wo_eq_train_serve_sweep(dev, smi):
-    """Phase 11 (b): DMT_WO_EQ v2 (WO_EQ_TRAIN) trained from a fresh init
-    through ``run_lib.train`` (finite losses; a checkpoint and a snapshot
-    whose xyz files are written), served from its workdir through
-    ``Elucidator.from_workdir`` (one fidelity-4 request at K=10 with each
-    sampler) and swept by ``evaluate_checkpoints``: finite figures, no port
-    kernel launched. Returns the launches by kernel and the timings."""
+def wo_eq_inputs(dev):
+    """``bf16_noise``'s self-conditioned reverse step (B=10, N=29) as
+    DMT_WO_EQ takes it, and its spectra."""
+    from diffspectra_tpu_torch.tools.bf16_noise import forward_inputs
+
+    args, specs = forward_inputs(dev, True)
+    return args + [True], specs
+
+
+def cdgs_inputs(dev):
+    """One reverse step of the 2-D path at B=10, N=29 (N_NODES) as CDGS
+    takes it: masked atom features, symmetric bonds, times across the
+    schedule, no self-conditioning; and the spectra of synthetic
+    molecules."""
+    from diffspectra_tpu_torch.data.synthetic import generate
+
+    rng = np.random.default_rng(1)
+    T = lambda a: torch.from_numpy(np.asarray(a, np.float32))
+    edge_mask = ragged_masks("cpu")
+    node_mask = (torch.arange(N)[None] < torch.tensor(N_NODES)[:, None]).float()[..., None]
+    e = T(rng.normal(size=(B, N, N, 2)))
+    args = (torch.linspace(1e-3, 1.0, B), T(rng.normal(size=(B, N, 5))) * node_mask, node_mask,
+            edge_mask, (e + e.transpose(1, 2)) * edge_mask[..., None])
+    data = generate(seed=3, size=B, max_n=N, fidelity=4)
+    specs = [T(np.log10(data[k] + 1.0)) for k in ("uv", "ir", "raman")]
+    return [a.to(dev) for a in args] + [None, None, None, False], [s.to(dev) for s in specs]
+
+
+def train_serve_sweep(dev, smi, tag, over, steps):
+    """The flagship config with ``over`` (bf16) trained from a fresh init
+    for ``steps`` steps through ``run_lib.train``: finite losses, params
+    and EMA moved, a checkpoint, and a snapshot that writes its targets'
+    xyz files and its samples' (none under ``only_2D``: they have no
+    positions). Served from its workdir through ``Elucidator.from_workdir``:
+    one fidelity-4 request at K=10 with each sampler, each candidate a
+    decoded graph with finite positions (none under ``only_2D``). Swept by
+    ``evaluate_checkpoints``: the 3D and 2D figures (the 2D alone under
+    ``only_2D``), each finite and in [0, 1]. No port kernel launched.
+    Returns the timings and the launches of the runs by kernel."""
     from diffspectra_tpu_torch import checkpoint, run_lib
     from diffspectra_tpu_torch.api import Elucidator
     from diffspectra_tpu_torch.data.synthetic import generate
     from diffspectra_tpu_torch.ops import LAUNCHES, reset_launches
+    from diffspectra_tpu_torch.utils.registry import create_model
+    from diffspectra_tpu_torch.warm_state import flax_variables, init_variables
 
-    config = variant_config(WO_EQ_TRAIN)
-    workdir = tempfile.mkdtemp(prefix="wo_eq_")
+    config = variant_config(over)
+    only_2d = bool(config.only_2D)
+    dims = ["2d"] if only_2d else ["3d", "2d"]
+    workdir = tempfile.mkdtemp(prefix=f"{config.model.name.lower()}_")
+    total = {}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
@@ -2158,35 +2234,45 @@ def wo_eq_train_serve_sweep(dev, smi):
         state = run_lib.train(config, workdir, dev)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    add_launches(total, LAUNCHES)
     step_ms = log.step_ms()
     median = float(np.median(step_ms[1:])) if len(step_ms) > 1 else float("nan")
-    peak = max(log.peaks)
     timing = {"median_step_ms": median, "graphs_per_s": config.training.batch_size / median * 1e3,
-              "max_memory_bytes": peak, "step_ms": step_ms}
-    say(f"[wo_eq] (b) run_lib.train of {WO_EQ_TRAIN}: {len(log.losses)} steps from a fresh init "
-        f"and a snapshot in {wall:.1f} s (the set's build included); step ms "
+              "max_memory_bytes": max(log.peaks), "step_ms": step_ms}
+    say(f"[{tag}] train: run_lib.train of {over}: {len(log.losses)} steps from a fresh init and "
+        f"a snapshot in {wall:.1f} s (the set's build included); step ms "
         f"{[round(t, 1) for t in step_ms]}, median after the first {median:.1f} ms "
-        f"({timing['graphs_per_s']:.1f} graphs/s); max_memory_allocated {peak / 2**30:.2f} GiB "
-        f"at the last step; losses {[round(x, 4) for x in log.losses]}; launches "
-        f"{nonzero(dict(LAUNCHES)) or 'none'}; {smi}")
-    assert len(log.losses) == WO_EQ_TRAIN_STEPS and all(math.isfinite(x) for x in log.losses)
-    assert state.step == WO_EQ_TRAIN_STEPS and not nonzero(dict(LAUNCHES))
-    assert type(state.model).__name__ == "DMT_WO_EQ"
+        f"({timing['graphs_per_s']:.1f} graphs/s); max_memory_allocated "
+        f"{max(log.peaks) / 2**30:.2f} GiB at the last step; losses "
+        f"{[round(x, 4) for x in log.losses]}; launches {nonzero(dict(LAUNCHES)) or 'none'}; "
+        f"{smi}")
+    assert len(log.losses) == steps and all(math.isfinite(x) for x in log.losses)
+    assert state.step == steps and not nonzero(dict(LAUNCHES))
+    assert type(state.model).__name__ == config.model.name
     assert checkpoint.latest_numbered_checkpoint(workdir) == 1
-    last = WO_EQ_TRAIN_STEPS - 1
+    fresh = init_variables(create_model(config), config.seed)
+    trained = flax_variables(state.model)
+    ema = flax_variables(state.model, state.ema.shadow_params)
+    moved = [sum(not np.array_equal(tree[k], fresh[k]) for k in fresh if k.startswith("params/"))
+             for tree in (trained, ema)]
+    say(f"[{tag}] train: leaves moved from the fresh init: params {moved[0]}, EMA {moved[1]} of "
+        f"{sum(k.startswith('params/') for k in fresh)}")
+    assert all(moved), moved
+    last = steps - 1
     with open(os.path.join(workdir, "samples", f"iter_{last}.json")) as f:
         figures = json.load(f)
     files = {sub: sorted(os.listdir(os.path.join(workdir, "samples", sub)))
              for sub in (f"iter_{last}", f"iter_{last}_gt")}
-    say(f"[wo_eq] (b) snapshot, {config.training.eval_samples} draws at "
+    say(f"[{tag}] train: snapshot, {config.training.eval_samples} draws at "
         f"{config.sampling.steps} steps: {json.dumps(figures)}; xyz files "
         f"{ {k: len(v) for k, v in files.items()} }")
-    assert files[f"iter_{last}_gt"] and all(n.endswith(".xyz") for v in files.values() for n in v)
-    for dim in ("3D", "2D"):
-        assert all(math.isfinite(v) and 0 <= v <= 1 for v in figures[dim].values()), figures
+    assert [d.lower() for d in figures] == dims, figures
+    assert files[f"iter_{last}_gt"] and bool(files[f"iter_{last}"]) != only_2d, files
+    assert all(n.endswith(".xyz") for v in files.values() for n in v)
+    assert all(math.isfinite(v) and 0 <= v <= 1 for d in figures.values() for v in d.values())
 
     el = Elucidator.from_workdir(workdir, config, device=dev)
-    assert type(el.model).__name__ == "DMT_WO_EQ" and el.model.dtype == torch.bfloat16
+    assert type(el.model).__name__ == config.model.name and el.model.dtype == torch.bfloat16
     data = generate(seed=11, size=1, max_n=29, fidelity=4)
     n = int(data["num_atom"][0])
     spectra = {k: data[k][0] for k in ("uv", "ir", "raman")}
@@ -2200,38 +2286,39 @@ def wo_eq_train_serve_sweep(dev, smi):
         result = server.elucidate(spectra, n_atoms=n, num_candidates=CANDIDATES, seed=0)
         torch.cuda.synchronize()
         timing["serve_s"][method] = serve_s = time.perf_counter() - t0
-        finite = all(np.isfinite(c.positions).all() for c in result.candidates)
-        say(f"[wo_eq] (b) served from the workdir's checkpoint ({method}, "
-            f"{config.sampling.steps} steps, n_atoms {n}, {CANDIDATES} candidates): "
-            f"{serve_s:.3f} s, {len(result.candidates)} distinct, best frequency "
-            f"{result.best.frequency:.2f}, finite={finite}; launches "
-            f"{nonzero(dict(LAUNCHES)) or 'none'}; {smi}")
-        assert finite and sum(c.count for c in result.candidates) == CANDIDATES
+        add_launches(total, LAUNCHES)
+        say(f"[{tag}] serve: from the workdir's checkpoint ({method}, {config.sampling.steps} "
+            f"steps, n_atoms {n}, {CANDIDATES} candidates): {serve_s:.3f} s, "
+            f"{len(result.candidates)} distinct, best frequency {result.best.frequency:.2f}; "
+            f"launches {nonzero(dict(LAUNCHES)) or 'none'}; {smi}")
+        assert sum(c.count for c in result.candidates) == CANDIDATES
+        for c in result.candidates:
+            assert c.molgraph.n_atoms == n and c.molgraph.bond_orders.shape == (n, n)
+            if only_2d:
+                assert c.positions is None and c.molgraph.positions is None
+            else:
+                assert np.isfinite(c.positions).all()
         assert not nonzero(dict(LAUNCHES))
 
     reset_launches()
     t0 = time.perf_counter()
     swept = run_lib.evaluate_checkpoints(config, workdir, "eval", dev)
     timing["sweep_s"] = time.perf_counter() - t0
+    add_launches(total, LAUNCHES)
     fig = swept[1]
-    numbers = sweep_numbers(fig)
-    say(f"[wo_eq] (b) evaluate_checkpoints over checkpoint 1 ({config.eval.num_samples} targets, "
-        f"K={config.eval.num_candidates}, {config.sampling.steps} steps) in "
+    numbers = {f"top1_{d}": fig[f"top1_{d}"] for d in dims}
+    for d in dims:
+        numbers.update({f"metric_{d} {k}": float(v) for k, v in fig[f"metric_{d}"].items()})
+    say(f"[{tag}] sweep: evaluate_checkpoints over checkpoint 1 ({config.eval.num_samples} "
+        f"targets, K={config.eval.num_candidates}, {config.sampling.steps} steps) in "
         f"{timing['sweep_s']:.1f} s: {json.dumps(numbers)}; launches "
         f"{nonzero(dict(LAUNCHES)) or 'none'}; {smi}")
     assert fig["targets"] == config.eval.num_samples and not nonzero(dict(LAUNCHES))
-    assert all(math.isfinite(v) for v in numbers.values()), numbers
+    assert all(math.isfinite(v) and 0 <= v <= 1 for v in numbers.values()), numbers
+    if only_2d:
+        assert not [k for k in fig if "3d" in k] and "Top-1 3D" not in fig["generalization"]
     shutil.rmtree(workdir)
-    return timing
-
-
-def sweep_numbers(fig):
-    """The sweep's figures that are numbers: Top-1, and the 3D and 2D
-    stability and validity."""
-    out = {"top1_2d": fig["top1_2d"], "top1_3d": fig["top1_3d"]}
-    for dim in ("metric_3d", "metric_2d"):
-        out.update({f"{dim} {k}": float(v) for k, v in fig[dim].items()})
-    return out
+    return timing, total
 
 
 def specformer_bf16_serve(dev, smi):
@@ -2282,8 +2369,7 @@ def specformer_bf16_serve(dev, smi):
         assert gap > 0 and err <= SPECFORMER_BF16_RATIO * gap, (path, err / gap)
         assert all(np.isfinite(c.positions).all() for c in result.candidates)
         launched_only(kernels_of(path, "bf16"), launches, expected)
-        for k, v in launches.items():
-            total[k] = total.get(k, 0) + v
+        add_launches(total, launches)
     return total
 
 
@@ -2291,14 +2377,39 @@ def phase_wo_eq(dev, smi):
     """Phase 11: DMT_WO_EQ and ``model.specformer_bf16`` on the card.
     Returns the launches of its runs by kernel (DMT_WO_EQ's none)."""
     t0 = time.perf_counter()
-    ratios = wo_eq_forwards(dev, smi)
-    timing = wo_eq_train_serve_sweep(dev, smi)
+    ratios, forward_ms, launches = {}, {}, {}
+    for tv in WO_EQ_TRANS_VERS:
+        r, forward_ms[tv], counts = held_forwards(
+            dev, smi, f"wo_eq {tv}", {**WO_EQ, "model.trans_ver": tv}, wo_eq_inputs,
+            ("pred", "edge_pred"))
+        ratios.update({f"{tv} {k}": v for k, v in r.items()})
+        add_launches(launches, counts)
+    timing, counts = train_serve_sweep(dev, smi, "wo_eq", WO_EQ_TRAIN, WO_EQ_TRAIN_STEPS)
+    add_launches(launches, counts)
+    assert not nonzero(launches), launches
     torch.cuda.empty_cache()
-    launches = specformer_bf16_serve(dev, smi)
+    add_launches(launches, specformer_bf16_serve(dev, smi))
     seconds = time.perf_counter() - t0
-    print(json.dumps({"wo_eq": {"bf16_ratios": ratios, **timing, "phase_s": seconds}}),
-          flush=True)
+    print(json.dumps({"wo_eq": {"bf16_ratios": ratios, "forward_ms": forward_ms, **timing,
+                                "phase_s": seconds}}), flush=True)
     say(f"[wo_eq] phase 11 in {seconds:.1f} s; {smi}")
+    return launches
+
+
+def phase_cdgs(dev, smi):
+    """Phase 12: CDGS and the 2-D path on the card. Returns the launches of
+    its runs by kernel (none)."""
+    t0 = time.perf_counter()
+    ratios, forward_ms, launches = held_forwards(dev, smi, "cdgs", CDGS_PATH, cdgs_inputs,
+                                                 ("atom", "bond"))
+    timing, counts = train_serve_sweep(dev, smi, "cdgs", CDGS_TRAIN, CDGS_TRAIN_STEPS)
+    add_launches(launches, counts)
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t0
+    print(json.dumps({"cdgs": {"bf16_ratios": ratios, "forward_ms": forward_ms, **timing,
+                               "phase_s": seconds}}), flush=True)
+    say(f"[cdgs] phase 12 in {seconds:.1f} s; launches {nonzero(launches) or 'none'}; {smi}")
+    assert not nonzero(launches), launches
     return launches
 
 
@@ -2353,6 +2464,7 @@ def main() -> int:
     variants = phase_variants(dev, smi)
     flagship = phase_flagship(dev, smi, phase8)
     wo_eq = phase_wo_eq(dev, smi)
+    cdgs = phase_cdgs(dev, smi)
     sweep = {k: sum(r[0][k] for r in sweeps.values()) for k in serving}
     for row in rows:
         # the dd1 rows' main path is phase 9's (dist_gbf=False); the others'
@@ -2365,12 +2477,14 @@ def main() -> int:
         row["variant_launches"] = variants.get(row["name"], 0)
         row["flagship_train_launches"] = flagship.get(row["name"], 0)
         row["wo_eq_specformer_bf16_launches"] = wo_eq.get(row["name"], 0)
-        assert row["launches"] > 0, row
+        row["cdgs_launches"] = cdgs.get(row["name"], 0)
+        assert row["launches"] > 0 and row["cdgs_launches"] == 0, row
     for row in probe_rows:  # launches: the probe tool's run; none on the serving paths
         row["wo_eq_specformer_bf16_launches"] = wo_eq.get(row["name"], 0)
+        row["cdgs_launches"] = cdgs.get(row["name"], 0)
         row["serving_launches"] = (serving[row["name"]] + sweep[row["name"]] + trained[row["name"]]
                                    + variants.get(row["name"], 0) + flagship.get(row["name"], 0)
-                                   + row["wo_eq_specformer_bf16_launches"])
+                                   + row["wo_eq_specformer_bf16_launches"] + row["cdgs_launches"])
         assert row["serving_launches"] == 0, row
     say(f"[probes] launches in the probe tool's run "
         f"{ {r['name']: r['launches'] for r in probe_rows} }, on the serving paths 0 each")

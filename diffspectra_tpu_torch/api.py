@@ -9,9 +9,10 @@
 
 ``Elucidator.from_workdir(workdir, config)`` serves the EMA weights of a
 checkpoint that ``run_lib.train`` wrote with the same config. The model is
-``config.model.name``'s (``utils/registry.py``): the DMT, or its
+``config.model.name``'s (``utils/registry.py``): the DMT, its
 non-equivariant ablation DMT_WO_EQ (``overrides={"model.name":
-"DMT_WO_EQ"}``).
+"DMT_WO_EQ"}``), or CDGS on the 2-D path (``configs.get_smoke_2d_config()``
+or ``only_2D``), whose candidates have bonds and no positions.
 
 All K draws of one request run as one batched reverse diffusion (one
 *round*); the spectra are encoded once per round. Candidates are ranked by
@@ -94,7 +95,8 @@ class Candidate:
     frequency: float  # count / num_draws
     first_draw: int  # index of the first draw that produced it
     smiles: Optional[str]  # always None: the port has no RDKit
-    positions: Optional[np.ndarray]  # [n_atoms, 3] conformer of the first draw
+    # [n_atoms, 3] conformer of the first draw; None on the 2-D path (only_2D)
+    positions: Optional[np.ndarray]
 
 
 @dataclasses.dataclass
@@ -186,7 +188,8 @@ class Elucidator:
     def _round(self, contexts, n_atoms: Sequence[int], n_pad: int, generator):
         """One batched reverse diffusion: draw ``d`` conditioned on the
         spectra ``contexts[d]`` (a tuple of ``[L]`` arrays) at ``n_atoms[d]``
-        atoms, padded to ``n_pad``; returns the decoded molecules."""
+        atoms, padded to ``n_pad``; returns the decoded molecules (without
+        positions under ``only_2D``)."""
         dev = self.device
         specs = [torch.from_numpy(np.stack([c[s] for c in contexts])).to(dev)
                  for s in range(len(contexts[0]))]
@@ -337,7 +340,8 @@ class Elucidator:
         candidates = [
             Candidate(
                 molgraph=graphs[first], count=count, frequency=count / num_draws,
-                first_draw=first, smiles=None, positions=np.asarray(mols[first][0]),
+                first_draw=first, smiles=None,
+                positions=None if self.config.only_2D else np.asarray(mols[first][0]),
             )
             for _, count, first in ranked
         ]

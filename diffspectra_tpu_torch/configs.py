@@ -5,8 +5,8 @@ Replaces ``diffspectra_tpu/configs/diffspectra_qm9s.py`` and
 ``SimpleNamespace`` trees holding only the values that serving, the sweep,
 the train loop and SpecFormer's pretraining read, at the JAX package's
 defaults (the batch sizes resolved for one device). Left out: the keys of
-the mesh (``training.num_devices``), of the 2-D models (``only_2D``) and
-of the moses and sub-geometry metrics.
+the mesh (``training.num_devices``) and of the moses and sub-geometry
+metrics.
 ``apply_overrides`` takes the same dotted ``{"model.nf": 64}`` overrides as
 the JAX ``Elucidator``.
 """
@@ -23,13 +23,18 @@ def get_config() -> NS:
     """The QM9S allspectra flagship: DMT nf=256, 8 blocks, 16 heads (2 of
     them adjacency heads), N <= 29, 1000 ancestral steps, the cosine
     schedule. The model keys ``name``, ``trans_ver``, ``specformer_bf16``,
-    ``include_fc_charge``, ``cond_time``, ``dist_gbf`` and ``gbf_name`` and
-    the schedules of ``sde.schedule`` take the JAX config's values; the port runs what the JAX config fixes
-    as pred_edge=True, only_2D=False and compress_edge=True, so those are
-    no keys here. The DMT runs in bfloat16, as the JAX config's
-    ``training.matmul_precision``."""
+    ``include_fc_charge``, ``cond_time``, ``dist_gbf``, ``gbf_name`` and
+    ``rw_depth`` and the schedules of ``sde.schedule`` take the JAX
+    config's values; the port runs what the JAX config fixes as
+    compress_edge=True, so that is no key here. The model runs in
+    bfloat16, as the JAX config's ``training.matmul_precision``."""
     return NS(
         seed=42,
+        # diffuse the bonds beside the atoms; False selects the node loss
+        # (training/losses.py), which no model of the JAX package runs
+        pred_edge=True,
+        # the 2-D path: atoms and bonds, no positions (CDGS, get_smoke_2d_config)
+        only_2D=False,
         # 'diffspectra': the 4-way conditional split; else the original-QM9 split
         exp_type="diffspectra",
         data=NS(
@@ -66,8 +71,8 @@ def get_config() -> NS:
         sde=NS(schedule="cosine", continuous_beta_0=0.1, continuous_beta_1=20.0),
         model=NS(
             # the registered model (utils/registry.py): 'DMT', the
-            # equivariant flagship, or 'DMT_WO_EQ', its non-equivariant
-            # ablation
+            # equivariant flagship, 'DMT_WO_EQ', its non-equivariant
+            # ablation, or 'CDGS', the 2-D model of only_2D
             name="DMT",
             # DMT_WO_EQ's attention: 'v1' (per-head q/k/v, tanh edge gates),
             # 'v2' (fused qkv, additive edge key and value) or 'optim' (fused
@@ -101,6 +106,9 @@ def get_config() -> NS:
             softmax_inf=True,
             patch_len=(20, 50, 50),
             stride=(10, 25, 25),
+            # CDGS's random-walk steps (its landing probabilities and
+            # shortest-path one-hot)
+            rw_depth=8,
             # the JAX package's use_pallas=True with these pallas_ops: the
             # kernels always run for CUDA tensors. ('attn', 'equi'): the
             # attention and equi-update kernels; ('block',): the whole-block
@@ -209,11 +217,25 @@ def get_smoke_config() -> NS:
     return config
 
 
+def get_smoke_2d_config() -> NS:
+    """The 2-D path of ``configs/smoke_2d.py``: the smoke config with
+    ``only_2D``, CDGS (a noise-prediction model: no data prediction, no
+    self-conditioning, no noise alignment, no charge channel) and 4
+    random-walk steps."""
+    config = get_smoke_config()
+    config.only_2D = True
+    m = config.model
+    m.name = "CDGS"
+    m.pred_data = m.self_cond = m.noise_align = m.include_fc_charge = False
+    m.rw_depth = 4
+    return config
+
+
 MATMUL_PRECISIONS = ("bfloat16", "float32")
 
 
 def model_dtype(config: NS) -> torch.dtype:
-    """The DMT's working dtype, from ``training.matmul_precision``; any other
+    """The model's working dtype, from ``training.matmul_precision``; any other
     value than those of MATMUL_PRECISIONS raises."""
     precision = config.training.matmul_precision
     if precision not in MATMUL_PRECISIONS:

@@ -4,17 +4,19 @@ pretrain SpecFormer.
     python -m diffspectra_tpu_torch.main --mode train --workdir exp/train \\
         --warm-start artifacts/warm_qm9s_as.npz
     python -m diffspectra_tpu_torch.main --mode train --workdir /tmp/smoke --smoke --device cpu
+    python -m diffspectra_tpu_torch.main --mode train --workdir /tmp/s2d --smoke-2d --device cpu
     python -m diffspectra_tpu_torch.main --mode eval --workdir exp/train --config eval.ckpts=1,2
     python -m diffspectra_tpu_torch.main --mode pretrain --workdir exp/pre \\
         --config data.spectra_version=allspectra
 
-``train`` runs ``run_lib.train`` (the flagship config, or the small test
-config with ``--smoke``), warm-started from ``--warm-start`` when the
+``train`` runs ``run_lib.train`` (the flagship config, the small test
+config with ``--smoke``, or its 2-D path, CDGS without positions, with
+``--smoke-2d``), warm-started from ``--warm-start`` when the
 workdir holds no checkpoint, and leaves ``<workdir>/warm_state.npz``.
 ``eval`` runs the sweep (``run_lib.evaluate``) on ``--warm-start``, or
 else (``run_lib.evaluate_checkpoints``) on each numbered checkpoint of the
 workdir that ``eval.ckpts`` or ``eval.begin_ckpt`` ... ``eval.end_ckpt``
-names (40 by default, 1 with ``--smoke``), its tables in
+names (40 by default, 1 with ``--smoke`` or ``--smoke-2d``), its tables in
 ``<workdir>/eval``. ``pretrain`` runs ``training/pretrain.py`` and leaves
 ``<workdir>/specformer_pretrained.npz`` for
 ``model.pretrained_specformer_path``. ``--config KEY=VALUE`` (repeated)
@@ -40,7 +42,10 @@ def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--mode", choices=tuple(LOG_NAMES), required=True)
     p.add_argument("--workdir", required=True)
-    p.add_argument("--smoke", action="store_true", help="the small test config")
+    smoke = p.add_mutually_exclusive_group()
+    smoke.add_argument("--smoke", action="store_true", help="the small test config")
+    smoke.add_argument("--smoke-2d", action="store_true",
+                       help="the small test config's 2-D path (CDGS, no positions)")
     p.add_argument("--warm-start", default="", help="a warm-state .npz")
     p.add_argument("--config", action="append", default=[], metavar="KEY=VALUE",
                    help="set a config key (repeatable)")
@@ -86,7 +91,10 @@ def main(argv=None):
                         handlers=[logging.StreamHandler(sys.stdout),
                                   logging.FileHandler(os.path.join(args.workdir,
                                                                    LOG_NAMES[args.mode]))])
-    config = configs.get_smoke_config() if args.smoke else configs.get_config()
+    if args.smoke_2d:
+        config = configs.get_smoke_2d_config()
+    else:
+        config = configs.get_smoke_config() if args.smoke else configs.get_config()
     configs.apply_overrides(config, parse_overrides(config, args.config))
     if args.mode == "train":
         config.training.warm_start = args.warm_start or config.training.warm_start

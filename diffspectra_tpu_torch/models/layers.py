@@ -341,3 +341,59 @@ class DenseTransMixLayer(nn.Module):
         kernel."""
         return (self.lin_query(x), self.lin_key(x), self.lin_value(x),
                 self.lin_edge0_kernel, self.lin_edge1_kernel)
+
+
+class DenseEdgeGateTransLayer(nn.Module):
+    """Dense masked multi-head attention whose logits and values are gated
+    by tanh-transformed edge features (CDGS's global attention): ``x [B, N,
+    D]``, ``edge_attr [B, N, N, D]``, ``edge_mask [B, N, N]`` -> ``[B, N,
+    heads * out_channels]`` (float32). q, k and v have biases, the two edge
+    gates none. The logits ``sum_c q_i k_j tanh(e0_ij)`` are float32 over
+    ``sqrt(out_channels)``, the padding ``MASK_INF``, the softmax over j;
+    dropout (with a ``generator``) falls on the weights, and ``out_i =
+    sum_j alpha_ij v_j tanh(e1_ij)``. In ``dtype``: the projections, the
+    gates and both weighted sums."""
+
+    def __init__(self, x_channels: int, out_channels: int, heads: int = 1, dropout: float = 0.0,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.heads, self.out_channels = heads, out_channels
+        self.dropout, self.dtype = dropout, dtype
+        width = heads * out_channels
+        self.lin_query = Dense(x_channels, width, dtype=dtype)
+        self.lin_key = Dense(x_channels, width, dtype=dtype)
+        self.lin_value = Dense(x_channels, width, dtype=dtype)
+        self.lin_edge0 = Dense(x_channels, width, use_bias=False, dtype=dtype)
+        self.lin_edge1 = Dense(x_channels, width, use_bias=False, dtype=dtype)
+
+    def forward(self, x, edge_attr, edge_mask, generator=None):
+        B, N, _ = x.shape
+        H, C, dt = self.heads, self.out_channels, self.dtype
+        q = self.lin_query(x).reshape(B, N, H, C)
+        k = self.lin_key(x).reshape(B, N, H, C)
+        v = self.lin_value(x).reshape(B, N, H, C)
+        e0 = torch.tanh(self.lin_edge0(edge_attr)).reshape(B, N, N, H, C)
+        e1 = torch.tanh(self.lin_edge1(edge_attr)).reshape(B, N, N, H, C)
+        # q_i * k_j first, then the gate, as jnp.einsum orders the three
+        qk = q[:, :, None] * k[:, None]
+        logits = product("bijhc,bijhc->bijh", qk, e0, dtype=dt).float() * (1.0 / math.sqrt(C))
+        logits = torch.where(edge_mask[..., None] > 0, logits, torch.full_like(logits, MASK_INF))
+        alpha = dropout(torch.softmax(logits, dim=2).to(dt), self.dropout, generator)
+        # the gate times the weight first, then the value
+        out = product("bijhc,bjhc->bihc", e1 * alpha[..., None], v, dtype=dt)
+        return out.reshape(B, N, H * C).float()
+
+
+def sinusoidal_timestep_embedding(timesteps, embedding_dim: int, max_positions: int = 10000):
+    """The transformer's sinusoidal embedding ``[B] -> [B, embedding_dim]``
+    (CDGS's time embedding): frequencies ``exp(-i log(max_positions) /
+    (half - 1))``, sin then cos, a zero column after them when the width is
+    odd. Float32."""
+    half = embedding_dim // 2
+    scale = math.log(max_positions) / (half - 1)
+    freqs = torch.exp(torch.arange(half, dtype=torch.float32, device=timesteps.device) * -scale)
+    emb = timesteps.float()[:, None] * freqs[None, :]
+    emb = torch.cat([torch.sin(emb), torch.cos(emb)], dim=1)
+    if embedding_dim % 2 == 1:
+        emb = F.pad(emb, (0, 1))
+    return emb

@@ -9,7 +9,9 @@
 ``train`` trains on the second train half of QM9S (``data.root``) or of
 the synthetic set in bucketed batches, augmented by a random rotation and
 translation, with the loss, optimizer and EMA of ``training/``; the model
-is ``model.name``'s (``utils/registry.py``: the DMT or DMT_WO_EQ). The split
+is ``model.name``'s (``utils/registry.py``: the DMT, DMT_WO_EQ, or CDGS on
+the 2-D path of ``only_2D``, not augmented, its snapshot and sweep scoring
+the 2-D figures alone and writing no sample xyz files). The split
 sits on the device and each batch is gathered there from an index vector
 (``data/device_store.py``) when ``data.device_resident`` is set and the
 split fits ``data.device_store_max_bytes``; else the host iterator
@@ -166,15 +168,18 @@ def diffspectra_evaluate(config, model, eval_dir: str, device, ckpt: str = "warm
     logging.info("Sampling accomplished")
     tick("sampling+decode")
 
-    stability_res, rdkit_res, sample_mols = edm_metric(processed_mols)
-    logging.info(
-        "Metric-3D || atom stability: %.4f, mol stability: %.4f, "
-        "validity: %.4f, complete: %.4f,",
-        stability_res["atom_stable"], stability_res["mol_stable"],
-        rdkit_res["Validity"], rdkit_res["Complete"],
-    )
-    figures["metric_3d"] = {**stability_res, **rdkit_res}
-    tick("metrics-3d")
+    only_2d = bool(config.only_2D)  # no positions: the 2-D figures alone
+    sample_mols = []
+    if not only_2d:
+        stability_res, rdkit_res, sample_mols = edm_metric(processed_mols)
+        logging.info(
+            "Metric-3D || atom stability: %.4f, mol stability: %.4f, "
+            "validity: %.4f, complete: %.4f,",
+            stability_res["atom_stable"], stability_res["mol_stable"],
+            rdkit_res["Validity"], rdkit_res["Complete"],
+        )
+        figures["metric_3d"] = {**stability_res, **rdkit_res}
+        tick("metrics-3d")
 
     stability_res, rdkit_res, complete_mols = edm_metric_2d(processed_mols)
     logging.info(
@@ -214,7 +219,9 @@ def diffspectra_evaluate(config, model, eval_dir: str, device, ckpt: str = "warm
     hit_2d = [cm._exact_match(t, m) for t, m in zip(gt_graphs, complete_mols)]
     top1_3d, top1_2d = list(hit_3d), list(hit_2d)
     n_valid = max(sum(1 for t in gt_graphs if t is not None), 1)
-    figures["top1_3d"], figures["top1_2d"] = sum(top1_3d) / n_valid, sum(top1_2d) / n_valid
+    figures["top1_2d"] = sum(top1_2d) / n_valid
+    if not only_2d:
+        figures["top1_3d"] = sum(top1_3d) / n_valid
     splits = [("Top-1 2D", top1_2d), ("Top-1 3D", top1_3d)]
     if num_candidates > 1:
         cons_add(cons_2d, complete_mols)
@@ -222,26 +229,32 @@ def diffspectra_evaluate(config, model, eval_dir: str, device, ckpt: str = "warm
         for extra in range(num_candidates - 1):
             logging.info("Top-K candidate sweep %d/%d", extra + 2, num_candidates)
             extra_processed, _ = sweep()
-            _, _, extra_3d = edm_metric(extra_processed)
-            hit_3d = [h or cm._exact_match(t, m) for h, t, m in zip(hit_3d, gt_graphs, extra_3d)]
-            cons_add(cons_3d, extra_3d)
+            if not only_2d:
+                _, _, extra_3d = edm_metric(extra_processed)
+                hit_3d = [h or cm._exact_match(t, m)
+                          for h, t, m in zip(hit_3d, gt_graphs, extra_3d)]
+                cons_add(cons_3d, extra_3d)
             _, _, extra_2d = edm_metric_2d(extra_processed)
             hit_2d = [h or cm._exact_match(t, m) for h, t, m in zip(hit_2d, gt_graphs, extra_2d)]
             cons_add(cons_2d, extra_2d)
-        logging.info("Top-%d accuracy || 3D: %.4f", num_candidates, sum(hit_3d) / n_valid)
+        if not only_2d:
+            logging.info("Top-%d accuracy || 3D: %.4f", num_candidates, sum(hit_3d) / n_valid)
         logging.info("Top-%d accuracy || 2D: %.4f", num_candidates, sum(hit_2d) / n_valid)
         cons_hit_2d, cons_hit_3d = cons_hits(cons_2d), cons_hits(cons_3d)
-        logging.info("Consensus Top-1 (mode of %d draws) || 3D: %.4f",
-                     num_candidates, sum(cons_hit_3d) / n_valid)
+        if not only_2d:
+            logging.info("Consensus Top-1 (mode of %d draws) || 3D: %.4f",
+                         num_candidates, sum(cons_hit_3d) / n_valid)
+            figures.update(topk_3d=sum(hit_3d) / n_valid,
+                           consensus_3d=sum(cons_hit_3d) / n_valid)
         logging.info("Consensus Top-1 (mode of %d draws) || 2D: %.4f",
                      num_candidates, sum(cons_hit_2d) / n_valid)
-        figures.update(topk_3d=sum(hit_3d) / n_valid, topk_2d=sum(hit_2d) / n_valid,
-                       consensus_3d=sum(cons_hit_3d) / n_valid,
-                       consensus_2d=sum(cons_hit_2d) / n_valid)
+        figures.update(topk_2d=sum(hit_2d) / n_valid, consensus_2d=sum(cons_hit_2d) / n_valid)
         splits = [("Top-1 2D", top1_2d), ("Top-1 3D", top1_3d),
                   (f"Top-{num_candidates} 2D", hit_2d), (f"Top-{num_candidates} 3D", hit_3d),
                   ("Consensus 2D", cons_hit_2d), ("Consensus 3D", cons_hit_3d)]
         tick(f"topk-extra-sweeps(x{num_candidates - 1})")
+    if only_2d:
+        splits = [(tag, hits) for tag, hits in splits if not tag.endswith("3D")]
 
     # seen/unseen targets: a pure memorizer scores 0 on targets whose exact
     # graph is not in the model's train split
@@ -277,7 +290,10 @@ def diffspectra_evaluate(config, model, eval_dir: str, device, ckpt: str = "warm
         )
         figures["generalization"][tag] = {"seen": sh / max(st, 1), "unseen": uh / max(ut, 1)}
 
-    for mols, name in ((sample_mols, "3D"), (complete_mols, "2D")):
+    scored = [(complete_mols, "2D")]
+    if not only_2d:
+        scored.insert(0, (sample_mols, "3D"))
+    for mols, name in scored:
         table = cm.compute_similarity_metrics(mols, gt_graphs, eval_dir, ckpt, name)
         figures[f"similarity_{name.lower()}"] = (
             None if table is None else {k: float(v) for k, v in table.items()})
@@ -432,8 +448,9 @@ def train(config, workdir: str, device=None):
         snapshot_sampling_fn = make_cond_sampling_fn(
             config, eval_model, noise_scheduler, t.eval_batch_size, t.eval_samples,
             get_data_inverse_scaler(config), val_ds, device)
-        edm_metric = get_edm_metric(dataset_info)
-        edm_metric_2d = get_2D_edm_metric(dataset_info)
+        metrics = [("2D", get_2D_edm_metric(dataset_info))]
+        if not config.only_2D:  # no positions: the 2-D figures alone
+            metrics.insert(0, ("3D", get_edm_metric(dataset_info)))
 
     profiler = None
     t_last, step_last = time.time(), initial_step
@@ -447,7 +464,8 @@ def train(config, workdir: str, device=None):
         batch["positions"] = augment_positions(
             generator, batch["positions"], batch["atom_mask"], augment, augment,
             config.data.aug_translation_scale)
-        draws = draw(generator, host_generator, batch, n_layers, config.model.include_fc_charge)
+        draws = draw(generator, host_generator, batch, n_layers, config.model.include_fc_charge,
+                     config.only_2D, config.pred_edge)
         state, loss = step_fn(state, batch, draws)
 
         if step % t.log_freq == 0:
@@ -468,8 +486,8 @@ def train(config, workdir: str, device=None):
             ckpt_lib.save_checkpoint_if_finite(
                 ckpt_lib.numbered_checkpoint_dir(workdir, step // t.snapshot_freq), state)
             if t.snapshot_sampling:
-                figures = snapshot(step, state, eval_model, snapshot_sampling_fn, edm_metric,
-                                   edm_metric_2d, host_generator, device, sample_dir,
+                figures = snapshot(step, state, eval_model, snapshot_sampling_fn, metrics,
+                                   host_generator, device, sample_dir,
                                    dataset_info["atom_decoder"])
                 with open(os.path.join(sample_dir, f"iter_{step}.json"), "w") as f:
                     json.dump(figures, f)
@@ -505,18 +523,20 @@ def stop_profile(profiler, device, profile_dir: str, step: int) -> str:
     return path
 
 
-def snapshot(step, state, eval_model, sampling_fn, edm_metric, edm_metric_2d, host_generator,
-             device, sample_dir: str, atom_decoder) -> dict:
-    """Sample from the EMA weights, log the 3D and 2D stability figures, and
-    write ``mol_<i>.xyz`` of up to 16 of the 3D metric's molecules (the 2D
-    metric's where it has none) to ``<sample_dir>/iter_<step>`` and of their
-    targets to ``iter_<step>_gt`` (``visualize.visualize_mols``)."""
+def snapshot(step, state, eval_model, sampling_fn, metrics, host_generator, device,
+             sample_dir: str, atom_decoder) -> dict:
+    """Sample from the EMA weights, log the stability figures of each
+    ``(dim, metric)`` of ``metrics`` ("3D" and "2D", or "2D" alone on the
+    2-D path), and write ``mol_<i>.xyz`` of up to 16 of the 3D metric's
+    molecules to ``<sample_dir>/iter_<step>`` (the 2D metric's, where it has
+    none: none without positions) and of their targets to ``iter_<step>_gt``
+    (``visualize.visualize_mols``)."""
     load_ema_weights(state, eval_model)
     generator = torch.Generator(device=device)
     generator.manual_seed(int(torch.randint(0, 2**62, (), generator=host_generator)))
     processed_mols, _, gt_mols = sampling_fn(generator)
-    figures, scored = {}, {}
-    for dim, metric in (("3D", edm_metric), ("2D", edm_metric_2d)):
+    figures, scored = {}, {"3D": []}
+    for dim, metric in metrics:
         stability_res, rdkit_res, scored[dim] = metric(processed_mols)
         logging.info(
             "step: %d, n_mol: %d, %s atom stability: %.4f, mol stability: %.4f, validity: "

@@ -22,11 +22,15 @@ def make_time_steps(noise_scheduler, steps: int, eps: float = 1e-3) -> torch.Ten
 class AncestralSampler:
     """Joint reverse diffusion of atoms and bonds.
     ``model(t, x, node_mask, edge_mask, edge_x, noise_level, cond_x,
-    cond_edge_x, has_cond, context_emb) -> (pred, edge_pred)``."""
+    cond_edge_x, has_cond, context_emb) -> (pred, edge_pred)``. With
+    ``only_2d`` the nodes have no position channels and their noise is
+    masked, not centred; without ``pred_edge`` the edges stay as drawn and
+    the model's edge prediction only feeds self-conditioning."""
 
     def __init__(self, noise_scheduler, time_steps: torch.Tensor, model_pred_data: bool,
                  self_cond: bool = False, cond_process_fn: Optional[Callable] = None,
-                 sampling_temperature: float = 1.0):
+                 sampling_temperature: float = 1.0, pred_edge: bool = True,
+                 only_2d: bool = False):
         t = time_steps.to(torch.float32).cpu()
         s = torch.cat([t[1:], torch.zeros(1)])
         alpha_t, sigma_t = noise_scheduler.marginal_prob(t)
@@ -47,14 +51,14 @@ class AncestralSampler:
         self.self_cond = self_cond
         self.cond_process_fn = cond_process_fn
         self.sampling_temperature = sampling_temperature
+        self.pred_edge, self.only_2d = pred_edge, only_2d
 
     @torch.no_grad()
     def sampling(self, model, generator, z_T, node_mask, edge_mask, edge_z_T, context_emb):
         """Run the reverse loop from ``z_T``/``edge_z_T``; returns the final
-        posterior means ``(x_mean, edge_x_mean)``."""
+        posterior means ``(x_mean, edge_x_mean)``, or ``x_mean`` alone
+        without ``pred_edge``."""
         bs, n_nodes = z_T.shape[0], z_T.shape[1]
-        feat_nf = z_T.shape[2] - 3
-        edge_ch = edge_z_T.shape[-1]
         x, edge_x = z_T, edge_z_T
         cond_x, cond_edge_x, has_cond = None, None, False
         x_mean = edge_x_mean = None
@@ -71,13 +75,13 @@ class AncestralSampler:
                     cond_x, cond_edge_x = pred, edge_pred
                 has_cond = True
             x_mean = coef_x * x + coef_pred * pred
-            noise = M.sample_combined_position_feature_noise(
-                generator, bs, n_nodes, feat_nf, node_mask
-            )
+            noise = M.sample_node_noise(generator, x.shape, node_mask, self.only_2d)
             x = x_mean + coef_sigma * noise * temp
+            if not self.pred_edge:
+                continue
             edge_x_mean = coef_x * edge_x + coef_pred * edge_pred
             edge_noise = M.sample_symmetric_edge_feature_noise(
-                generator, bs, n_nodes, edge_ch, edge_mask
+                generator, bs, n_nodes, edge_x.shape[-1], edge_mask
             )
             edge_x = edge_x_mean + coef_sigma * edge_noise * temp
-        return x_mean, edge_x_mean
+        return (x_mean, edge_x_mean) if self.pred_edge else x_mean

@@ -29,11 +29,13 @@ def quantize_edges(h_edge: torch.Tensor) -> torch.Tensor:
 
 
 def post_process(xh, atom_types: int, node_mask, inverse_scaler, edge_x, edge_mask,
-                 include_charge: bool = True):
+                 include_charge: bool = True, has_positions: bool = True):
     """Split and discretise ``(xh, edge_x)``, whose last node channel is the
     formal charge with ``include_charge`` (else the charge is a zero-width
-    channel), into ``(pos, one_hot, formal_charge, edge_types)``."""
-    pos, h = xh[:, :, :3], xh[:, :, 3:]
+    channel), into ``(pos, one_hot, formal_charge, edge_types)``; without
+    ``has_positions`` (the 2-D path) ``xh`` has no position channels and
+    ``pos`` is None."""
+    pos, h = (xh[:, :, :3], xh[:, :, 3:]) if has_positions else (None, xh)
     if include_charge:
         h_int, h_cat = h[:, :, -1:], h[:, :, :-1]
     else:
@@ -49,13 +51,15 @@ def post_process(xh, atom_types: int, node_mask, inverse_scaler, edge_x, edge_ma
 def mol_process(one_hot, pos, formal_charges, n_nodes, edge_types) -> List[Tuple]:
     """Per-molecule host tuples ``(pos, atom_type, edge_type, fc)`` trimmed
     to the true atom count; ``fc`` int64 ``[n]``, or the zero-width ``[n,
-    0]`` of a model without a charge channel, as the JAX decode leaves it."""
+    0]`` of a model without a charge channel, as the JAX decode leaves it;
+    ``pos`` None (the 2-D path) gives None positions."""
     one_hot = one_hot.cpu().numpy()
-    pos_np = pos.cpu().numpy()
+    pos_np = None if pos is None else pos.cpu().numpy()
     fc_np = formal_charges.cpu().numpy()
     edge_np = edge_types.cpu().numpy()
     mols = []
     for i, n in enumerate(np.asarray(n_nodes).tolist()):
         fc = fc_np[i, :n, 0].astype(np.int64) if fc_np.shape[-1] else fc_np[i, :n]
-        mols.append((pos_np[i, :n], one_hot[i, :n].argmax(axis=1), edge_np[i, :n, :n], fc))
+        p = None if pos_np is None else pos_np[i, :n]
+        mols.append((p, one_hot[i, :n].argmax(axis=1), edge_np[i, :n, :n], fc))
     return mols

@@ -26,11 +26,15 @@ from ..utils import masks as M
 
 
 class DPMSolverPP:
-    """Same ``sampling`` interface as ``AncestralSampler``."""
+    """Same ``sampling`` interface, ``only_2d`` and ``pred_edge`` as
+    ``AncestralSampler``'s; without ``pred_edge`` the model's edge
+    prediction is taken as it is (no conversion to x0)."""
 
     def __init__(self, noise_scheduler, time_steps: torch.Tensor, model_pred_data: bool,
                  self_cond: bool = False, cond_process_fn: Optional[Callable] = None,
-                 sampling_temperature: float = 1.0, stochastic: bool = False):
+                 sampling_temperature: float = 1.0, stochastic: bool = False,
+                 pred_edge: bool = True, only_2d: bool = False):
+        self.pred_edge, self.only_2d = pred_edge, only_2d
         self.model_pred_data = model_pred_data
         self.self_cond = self_cond
         self.cond_process_fn = cond_process_fn
@@ -68,10 +72,9 @@ class DPMSolverPP:
     @torch.no_grad()
     def sampling(self, model, generator, z_T, node_mask, edge_mask, edge_z_T, context_emb):
         """Run the solver from ``z_T``/``edge_z_T``; returns the final data
-        predictions ``(x0, edge_x0)``."""
+        predictions ``(x0, edge_x0)``, or ``x0`` alone without
+        ``pred_edge``."""
         bs, n_nodes = z_T.shape[0], z_T.shape[1]
-        feat_nf = z_T.shape[2] - 3
-        edge_ch = edge_z_T.shape[-1]
         dev = z_T.device
         temp = self.sampling_temperature
         cond_x = cond_edge_x = None
@@ -82,10 +85,12 @@ class DPMSolverPP:
             nl = torch.full((bs,), self.noise_levels[i].item(), device=dev)
             pred, edge_pred = model(vec_t, x, node_mask, edge_mask, edge_x, nl,
                                     cond_x, cond_edge_x, has_cond, context_emb)
-            return self._to_x0(x, pred, i), self._to_x0(edge_x, edge_pred, i)
+            if self.pred_edge:
+                edge_pred = self._to_x0(edge_x, edge_pred, i)
+            return self._to_x0(x, pred, i), edge_pred
 
         x, edge_x = z_T, edge_z_T
-        prev_x0, prev_e0 = torch.zeros_like(x), torch.zeros_like(edge_x)
+        prev_x0, prev_e0 = torch.zeros_like(x), 0.0  # the first transition reads neither
         steps = zip(self.c_x.tolist(), self.c_d.tolist(), self.c_n.tolist(),
                     self.w_cur.tolist(), self.w_prev.tolist())
         for i, (c_x, c_d, c_n, w_cur, w_prev) in enumerate(steps):
@@ -97,17 +102,18 @@ class DPMSolverPP:
                     cond_x, cond_edge_x = x0, edge_x0
                 has_cond = True
             x = c_x * x + c_d * (w_cur * x0 + w_prev * prev_x0)
-            edge_x = c_x * edge_x + c_d * (w_cur * edge_x0 + w_prev * prev_e0)
+            if self.pred_edge:
+                edge_x = c_x * edge_x + c_d * (w_cur * edge_x0 + w_prev * prev_e0)
             if self.stochastic:
-                noise = M.sample_combined_position_feature_noise(
-                    generator, bs, n_nodes, feat_nf, node_mask
-                )
+                noise = M.sample_node_noise(generator, x.shape, node_mask, self.only_2d)
                 x = x + c_n * noise * temp
-                edge_noise = M.sample_symmetric_edge_feature_noise(
-                    generator, bs, n_nodes, edge_ch, edge_mask
-                )
-                edge_x = edge_x + c_n * edge_noise * temp
+                if self.pred_edge:
+                    edge_noise = M.sample_symmetric_edge_feature_noise(
+                        generator, bs, n_nodes, edge_x.shape[-1], edge_mask
+                    )
+                    edge_x = edge_x + c_n * edge_noise * temp
             prev_x0, prev_e0 = x0, edge_x0
 
         # the final denoise to t = eps returns x0
-        return call_model(x, edge_x, len(self.t_array) - 1)
+        x0, edge_x0 = call_model(x, edge_x, len(self.t_array) - 1)
+        return (x0, edge_x0) if self.pred_edge else x0

@@ -40,10 +40,12 @@ EVAL_PERMUTATION_SEED = 42
 
 
 def make_sampler(config, noise_scheduler, sampling_temperature: float = 1.0):
-    """The sampler of ``config.sampling.method``, as the JAX round builds it."""
+    """The sampler of ``config.sampling.method``, as the JAX round builds it
+    (``pred_edge`` and ``only_2D`` from the config)."""
     method = config.sampling.method
     kwargs = dict(self_cond=config.model.self_cond, cond_process_fn=get_self_cond_fn(config),
-                  sampling_temperature=sampling_temperature)
+                  sampling_temperature=sampling_temperature, pred_edge=config.pred_edge,
+                  only_2d=config.only_2D)
     time_steps = make_time_steps(noise_scheduler, config.sampling.steps, 1e-3)
     if method == "ancestral":
         return AncestralSampler(noise_scheduler, time_steps, config.model.pred_data, **kwargs)
@@ -60,19 +62,21 @@ def sample_round(model, sampler, config, inverse_scaler, specs, n_nodes: torch.T
     the spectra ``specs`` (``[B, L]`` tensors in the order uv, ir, raman,
     those the model reads) at ``n_nodes[d]`` atoms, padded to ``n_pad``.
     Returns ``post_process``'s ``(pos, one_hot, fc, edge_types)`` on the
-    device."""
+    device; with ``only_2D`` the nodes have no positions (``pos`` None)."""
     batch = n_nodes.shape[0]
     node_mask, edge_mask = M.build_masks(n_nodes, n_pad)
     include_fc = bool(config.model.include_fc_charge)
     node_nf = config.data.atom_types + int(include_fc)  # atom types[, formal charge]
-    z = M.sample_combined_position_feature_noise(generator, batch, n_pad, node_nf, node_mask)
+    if not config.only_2D:
+        node_nf += 3  # the positions
+    z = M.sample_node_noise(generator, (batch, n_pad, node_nf), node_mask, config.only_2D)
     edge_z = M.sample_symmetric_edge_feature_noise(
         generator, batch, n_pad, config.model.edge_ch, edge_mask
     )
     ctx = model.encode_context(specs)
     x, edge_x = sampler.sampling(model, generator, z, node_mask, edge_mask, edge_z, ctx)
     return post_process(x, config.data.atom_types, node_mask, inverse_scaler, edge_x, edge_mask,
-                        include_fc)
+                        include_fc, has_positions=not config.only_2D)
 
 
 def bucket_sizes_of(config, pad_to_max: bool = False) -> Tuple[int, ...]:

@@ -14,7 +14,8 @@ nothing, the run checks the path):
         --device cpu --steps 3 --num-samples 6 --num-candidates 2 --synthetic-size 64
 
 ``--model-name DMT_WO_EQ --trans-ver v1`` sweeps the non-equivariant
-ablation (a warm state of that model, or ``--random-weights``).
+ablation (a warm state of that model, or ``--random-weights``);
+``--smoke-2d`` the 2-D path (CDGS, no positions: the 2-D figures alone).
 
 Runs on ``cuda`` unless ``--device cpu`` is given. Logs to stdout and to
 ``<workdir>/eval_sweep.log``; the similarity tables go to ``<workdir>/eval``;
@@ -37,7 +38,10 @@ def parse_args(argv=None):
                    help="warm-state export whose EMA weights to score")
     p.add_argument("--random-weights", action="store_true",
                    help="random weights from --seed instead of a warm state")
-    p.add_argument("--smoke", action="store_true", help="the small test config")
+    smoke = p.add_mutually_exclusive_group()
+    smoke.add_argument("--smoke", action="store_true", help="the small test config")
+    smoke.add_argument("--smoke-2d", action="store_true",
+                       help="the small test config's 2-D path (CDGS, no positions)")
     p.add_argument("--workdir", default="exp/eval_sweep")
     p.add_argument("--device", default=None, help="cuda (default) or cpu")
     p.add_argument("--num-samples", type=int, help="eval.num_samples (targets)")
@@ -51,7 +55,7 @@ def parse_args(argv=None):
     p.add_argument("--seed", type=int, help="config.seed (data, split and noise)")
     p.add_argument("--pallas-ops", type=lambda v: tuple(op for op in v.split(",") if op),
                    help="model.pallas_ops, comma-separated: block, or attn,equi (the default)")
-    p.add_argument("--model-name", help="model.name: DMT (the default) or DMT_WO_EQ")
+    p.add_argument("--model-name", help="model.name: DMT (the default), DMT_WO_EQ or CDGS")
     p.add_argument("--trans-ver", help="model.trans_ver of DMT_WO_EQ: v1, v2 or optim")
     return p.parse_args(argv)
 
@@ -59,7 +63,10 @@ def parse_args(argv=None):
 def build_config(args):
     from diffspectra_tpu_torch import configs
 
-    config = configs.get_smoke_config() if args.smoke else configs.get_config()
+    if args.smoke_2d:
+        config = configs.get_smoke_2d_config()
+    else:
+        config = configs.get_smoke_config() if args.smoke else configs.get_config()
     config.data.synthetic = True  # the sweep's set; QM9S is not in the repository
     flags = {"eval.num_samples": args.num_samples, "eval.batch_size": args.batch_size,
              "eval.num_candidates": args.num_candidates, "sampling.steps": args.steps,

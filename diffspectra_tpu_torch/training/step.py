@@ -1,11 +1,12 @@
 """The train and eval steps (port of ``diffspectra_tpu/training/step.py``,
 on one device: the ``axis_name`` collectives wait for ``parallel/``).
 
-``train_step(state, batch, draws) -> (state, loss)``: the loss in training
-mode, its gradient with respect to every parameter (zeros where a
-parameter does not reach the loss, as ``jax.grad`` gives them), the
-clipped optimizer step, the bf16 weight copies made anew, then the EMA;
-SpecFormer's batch statistics move inside the loss. ``eval_step(state, batch, draws, eval_model)``: the loss
+``train_step(state, batch, draws) -> (state, loss)``: the loss of the
+config's path (``make_loss_fn``) in training mode, its gradient with
+respect to every parameter (zeros where a parameter does not reach the
+loss, as ``jax.grad`` gives them), the clipped optimizer step, the bf16
+weight copies made anew, then the EMA; SpecFormer's batch statistics move
+inside the loss. ``eval_step(state, batch, draws, eval_model)``: the loss
 with the EMA weights and the batch statistics loaded into ``eval_model``,
 deterministic.
 """
@@ -16,7 +17,7 @@ import torch
 
 from ..models import ema as ema_lib
 from ..models.layers import refresh_casts
-from .losses import get_sde_graph_loss_fn
+from .losses import get_sde_2d_loss_fn, get_sde_graph_loss_fn, get_sde_node_loss_fn
 from .train_state import TrainState, params_of
 
 
@@ -30,8 +31,18 @@ def load_ema_weights(state: TrainState, model: torch.nn.Module) -> torch.nn.Modu
     return model.eval()
 
 
+def make_loss_fn(noise_scheduler, scaler, config):
+    """The loss of the config's path: the graph loss, with ``only_2D`` the
+    2-D loss, and without ``pred_edge`` the node loss."""
+    if config.pred_edge:
+        if config.only_2D:
+            return get_sde_2d_loss_fn(noise_scheduler, scaler, config)
+        return get_sde_graph_loss_fn(noise_scheduler, scaler, config)
+    return get_sde_node_loss_fn(noise_scheduler, scaler, config)
+
+
 def get_step_fn(noise_scheduler, tx, scaler, config, train: bool = True):
-    loss_fn = get_sde_graph_loss_fn(noise_scheduler, scaler, config)
+    loss_fn = make_loss_fn(noise_scheduler, scaler, config)
 
     def train_step(state: TrainState, batch, draws):
         model = state.model.train()

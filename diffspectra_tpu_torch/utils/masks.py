@@ -28,6 +28,12 @@ def remove_mean_with_mask(x: torch.Tensor, node_mask: torch.Tensor) -> torch.Ten
     return x - mean * node_mask
 
 
+def sample_gaussian_with_mask(generator, shape, node_mask):
+    """Standard normal noise of ``shape`` zeroed at padded atoms (the 2-D
+    path's node noise: no positions to centre)."""
+    return torch.randn(shape, generator=generator, device=node_mask.device) * node_mask
+
+
 def sample_combined_position_feature_noise(generator, bs, n_nodes, feat_nf, node_mask):
     """CoM-free position noise concatenated with masked feature noise,
     ``[B, N, 3 + feat_nf]``."""
@@ -48,6 +54,15 @@ def sample_symmetric_edge_feature_noise(generator, bs, n_nodes, edge_ch, edge_ma
     return z * edge_mask[..., None]
 
 
+def sample_node_noise(generator, shape, node_mask, only_2d: bool = False):
+    """Node noise of ``shape`` ``[B, N, F]``: with ``only_2d`` masked (no
+    positions), else CoM-free in the first three (position) channels."""
+    if only_2d:
+        return sample_gaussian_with_mask(generator, shape, node_mask)
+    bs, n_nodes, nf = shape
+    return sample_combined_position_feature_noise(generator, bs, n_nodes, nf - 3, node_mask)
+
+
 def coord2dist_dense(pos: torch.Tensor) -> torch.Tensor:
     """Squared pairwise distances ``[B, N, 3] -> [B, N, N, 1]``."""
     diff = pos[:, :, None, :] - pos[:, None, :, :]
@@ -64,3 +79,31 @@ def coord2diff_adj_dense(pos, edge_mask, spatial_th: float = 2.0):
 def symmetrize_edges(edge: torch.Tensor) -> torch.Tensor:
     """``0.5 * (E + E^T)`` over the two node axes."""
     return 0.5 * (edge + edge.transpose(1, 2))
+
+
+def random_walk_maps(k_step: int, dense_adj: torch.Tensor) -> torch.Tensor:
+    """``k_step`` random-walk maps ``[B, k, N, N]`` of ``dense_adj [B, N,
+    N]``: with ``ad = adj / (degree + 1e-8)`` (a padded row, of degree 0,
+    walks nowhere), the powers ``ad^2 ... ad^(k+1)``, as the JAX model
+    stacks them (its first product is ``ad @ ad``)."""
+    ad = dense_adj / (dense_adj.sum(dim=-1, keepdim=True) + 1e-8)
+    maps = [ad @ ad]
+    for _ in range(k_step - 1):
+        maps.append(maps[-1] @ ad)
+    return torch.stack(maps, dim=1)
+
+
+def spd_onehot(rw_map: torch.Tensor, k_step: int) -> torch.Tensor:
+    """The shortest-path-distance one-hot ``[B, N, N, k_step + 1]`` of the
+    walk maps ``[B, k, N, N]``: the index is the number of steps that do not
+    reach j from i (a probability <= 0). The JAX function sorts the maps
+    over the steps first, which leaves that count as it is."""
+    return torch.nn.functional.one_hot((rw_map <= 0).sum(dim=1), k_step + 1).float()
+
+
+def get_rw_feat_dense(k_step: int, dense_adj: torch.Tensor) -> torch.Tensor:
+    """The k-step random-walk shortest-path-distance one-hot features
+    ``[B, N, N, k_step + 1]`` of ``dense_adj [B, N, N]``, without
+    gradient."""
+    with torch.no_grad():
+        return spd_onehot(random_walk_maps(k_step, dense_adj), k_step)

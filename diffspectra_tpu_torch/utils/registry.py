@@ -7,7 +7,7 @@ from __future__ import annotations
 
 _MODELS = {}
 # registered in the JAX package, not yet in the port
-NOT_PORTED = ("CDGS",)
+NOT_PORTED = ()
 
 
 def register_model(cls=None, *, name=None):
@@ -24,7 +24,7 @@ def register_model(cls=None, *, name=None):
 
 
 def get_model_cls(name: str):
-    from ..models import dmt, dmt_wo_eq  # noqa: F401 (they register themselves)
+    from ..models import cdgs, dmt, dmt_wo_eq  # noqa: F401 (they register themselves)
 
     if name in NOT_PORTED:
         raise ValueError(f"Model {name!r} is not yet ported; registered: {sorted(_MODELS)}")

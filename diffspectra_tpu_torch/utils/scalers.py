@@ -23,37 +23,47 @@ def parse_normalize_factors(normalize_factors) -> Sequence[float]:
 
 
 def get_data_scaler(config):
-    """The forward normaliser the training loss applies to a batch."""
+    """The forward normaliser the training loss applies to a batch:
+    ``(pos, atom_type, fc_charge[, edge_type])``, the edges where given;
+    ``pos`` None (the 2-D path) stays None."""
     pos_norm, atom_type_norm, fc_norm, edge_norm = parse_normalize_factors(
         config.model.normalize_factors
     )
     centered = config.data.centered
 
-    def scale_fn(pos, atom_type, fc_charge, node_mask, edge_type, edge_mask):
+    def scale_fn(pos, atom_type, fc_charge, node_mask, edge_type=None, edge_mask=None):
         if centered:
             atom_type = atom_type * 2.0 - 1.0
-            edge_type = edge_type * 2.0 - 1.0
-        pos = pos / pos_norm * node_mask
+        if pos is not None:
+            pos = pos / pos_norm * node_mask
         atom_type = atom_type / atom_type_norm * node_mask
         fc_charge = fc_charge / fc_norm * node_mask
-        edge_type = edge_type / edge_norm * edge_mask[..., None]
-        return pos, atom_type, fc_charge, edge_type
+        if edge_type is None:
+            return pos, atom_type, fc_charge
+        if centered:
+            edge_type = edge_type * 2.0 - 1.0
+        return pos, atom_type, fc_charge, edge_type / edge_norm * edge_mask[..., None]
 
     return scale_fn
 
 
 def get_data_inverse_scaler(config):
+    """The inverse of ``get_data_scaler``'s normaliser, the edges where
+    given, ``pos`` None staying None."""
     pos_norm, atom_type_norm, fc_norm, edge_norm = parse_normalize_factors(
         config.model.normalize_factors
     )
     centered = config.data.centered
 
-    def inverse_fn(pos, atom_type, fc_charge, node_mask, edge_type, edge_mask):
-        pos = pos * pos_norm * node_mask
+    def inverse_fn(pos, atom_type, fc_charge, node_mask, edge_type=None, edge_mask=None):
+        if pos is not None:
+            pos = pos * pos_norm * node_mask
         atom_type = atom_type * atom_type_norm
         fc_charge = fc_charge * fc_norm * node_mask
         if centered:
             atom_type = (atom_type + 1.0) / 2.0 * node_mask
+        if edge_type is None:
+            return pos, atom_type, fc_charge
         edge_type = edge_type * edge_norm
         if centered:
             edge_type = (edge_type + 1.0) / 2.0

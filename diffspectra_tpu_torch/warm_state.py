@@ -36,7 +36,9 @@ def bf16_bits_to_f32(bits: np.ndarray) -> np.ndarray:
 def f32_to_bf16_bits(arr: np.ndarray) -> np.ndarray:
     """float32 values -> their bfloat16 bit patterns (uint16), rounded to
     nearest even, as ``ml_dtypes`` rounds."""
-    t = torch.from_numpy(np.ascontiguousarray(arr, dtype=np.float32)).to(torch.bfloat16)
+    arr = np.asarray(arr, dtype=np.float32)
+    # ascontiguousarray makes a 0-d array (GINE's eps) 1-d: keep the shape
+    t = torch.from_numpy(np.ascontiguousarray(arr).reshape(arr.shape)).to(torch.bfloat16)
     return t.view(torch.int16).numpy().view(np.uint16)
 
 
@@ -92,9 +94,10 @@ def load_warm_state(npz_path: str) -> dict:
 def params_from_flax(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
     """Flat flax variables (``"params/<path>"`` / ``"batch_stats/<path>"``,
     ``/``-separated as ``flax.traverse_util.flatten_dict(..., sep="/")``
-    gives them) -> a ``state_dict`` for the DMT or DMT_WO_EQ.
+    gives them) -> a ``state_dict`` for the DMT, DMT_WO_EQ or CDGS.
     ``params/blocks/<path>`` arrays are stacked over layers and become
-    ``blocks.<l>.<path>``."""
+    ``blocks.<l>.<path>``; CDGS's blocks are apart in flax too
+    (``block_<l>``)."""
     state = {}
     for key, value in flat.items():
         tree, _, path = key.partition("/")
@@ -107,7 +110,7 @@ def params_from_flax(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
             for layer in range(arr.shape[0]):
                 state[f"blocks.{layer}.{sub}"] = torch.from_numpy(np.ascontiguousarray(arr[layer]))
         else:
-            state[dotted] = torch.from_numpy(np.ascontiguousarray(arr))
+            state[dotted] = torch.from_numpy(np.ascontiguousarray(arr).reshape(arr.shape))
     return state
 
 
@@ -170,11 +173,12 @@ def random_variables(model: torch.nn.Module, seed: int) -> Dict[str, np.ndarray]
 
 
 def init_variables(model: torch.nn.Module, seed: int) -> Dict[str, np.ndarray]:
-    """A fresh init of the model (the DMT or DMT_WO_EQ) with flax's
+    """A fresh init of the model (the DMT, DMT_WO_EQ or CDGS) with flax's
     initializers, layer by layer, as
     JAX's ``model.init`` draws them (the distributions, not the numbers):
     kernels ``lecun_normal`` (a normal truncated at 2 standard deviations,
-    variance 1 / fan_in), biases 0, the time embedding's weights N(0, 1),
+    variance 1 / fan_in), biases and GINE's ``eps`` 0, the time
+    embedding's weights N(0, 1),
     the Gaussian basis' means and stds U[0, 3), the coordinate norms' scale
     0.01, SpecFormer's positional embeddings U(-0.02, 0.02), norm scales 1,
     running means 0 and variances 1."""
@@ -186,7 +190,7 @@ def init_variables(model: torch.nn.Module, seed: int) -> Dict[str, np.ndarray]:
         if leaf.endswith("kernel"):
             std = math.sqrt(1.0 / tensor.shape[0]) / 0.87962566103423978
             torch.nn.init.trunc_normal_(out, 0.0, std, -2 * std, 2 * std, generator=gen)
-        elif leaf.endswith("bias") or leaf == "mean":
+        elif leaf.endswith("bias") or leaf in ("mean", "eps"):
             out.zero_()
         elif leaf == "weights":
             out.normal_(generator=gen)

@@ -5,9 +5,10 @@ the remat policies, both samplers with the decode, and training then
 serving from the workdir. Inputs come from numpy seeds; JAX runs on XLA
 (the model has no Pallas kernel).
 
-- The registry: ``create_model`` builds the model ``model.name`` names;
-  an unknown name raises and lists the registered ones, ``CDGS`` raises
-  as not yet ported; the config keys take the JAX config's defaults.
+- The registry: ``create_model`` builds the model ``model.name`` names
+  (``CDGS`` too: no registered model is left unported); an unknown name
+  raises and lists the registered ones; the config keys take the JAX
+  config's defaults.
 - The parameter trees of ``'v1'``, ``'v2'``, ``'optim'``,
   ``cond_time=False`` and ``dist_gbf=False`` + ``GaussianLayer``: equal to
   JAX's ``model.init`` (names and shapes); JAX's init loads strictly and
@@ -49,6 +50,8 @@ serving from the workdir. Inputs come from numpy seeds; JAX runs on XLA
   candidates of the live EMA weights.
 """
 
+import copy
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -73,6 +76,7 @@ from diffspectra_tpu_torch.api import Elucidator
 from diffspectra_tpu_torch.data.synthetic import generate
 from diffspectra_tpu_torch.diffusion.schedule import NoiseScheduleVP
 from diffspectra_tpu_torch.models import dmt_wo_eq as pwo
+from diffspectra_tpu_torch.models.cdgs import CDGS
 from diffspectra_tpu_torch.models.dmt import DMT
 from diffspectra_tpu_torch.sampling import decode as tdec
 from diffspectra_tpu_torch.sampling.ancestral import AncestralSampler, make_time_steps
@@ -81,7 +85,7 @@ from diffspectra_tpu_torch.training.losses import get_sde_graph_loss_fn
 from diffspectra_tpu_torch.training.step import load_ema_weights
 from diffspectra_tpu_torch.training.train_state import params_of
 from diffspectra_tpu_torch.utils import scalers as tsc
-from diffspectra_tpu_torch.utils.registry import create_model, get_model_cls
+from diffspectra_tpu_torch.utils.registry import NOT_PORTED, create_model, get_model_cls
 from diffspectra_tpu_torch.warm_state import (
     flax_variables,
     init_variables,
@@ -122,10 +126,12 @@ def test_registry_builds_the_named_model_and_refuses_others():
     model = create_model(config)
     assert type(model) is pwo.DMT_WO_EQ and get_model_cls("DMT_WO_EQ") is pwo.DMT_WO_EQ
     assert len(model.blocks) == config.model.n_layers
-    with pytest.raises(ValueError, match=r"Unknown model 'GNN'; registered: \['DMT', 'DMT_WO_EQ'\]"):
+    with pytest.raises(ValueError,
+                       match=r"Unknown model 'GNN'; registered: \['CDGS', 'DMT', 'DMT_WO_EQ'\]"):
         get_model_cls("GNN")
-    with pytest.raises(ValueError, match="'CDGS' is not yet ported"):
-        create_model(configs.apply_overrides(config, {"model.name": "CDGS"}))
+    assert not NOT_PORTED
+    cdgs = create_model(configs.apply_overrides(copy.deepcopy(config), {"model.name": "CDGS"}))
+    assert type(cdgs) is CDGS and get_model_cls("CDGS") is CDGS
     with pytest.raises(ValueError, match="unknown trans_ver"):
         create_model(configs.apply_overrides(config, {"model.name": "DMT_WO_EQ",
                                                       "model.trans_ver": "v3"}))

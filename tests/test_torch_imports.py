@@ -3,8 +3,9 @@ jax, flax, optax, orbax, ml_collections, ml_dtypes, absl, rdkit, pandas,
 triton and the JAX package ``diffspectra_tpu``, every module of
 ``diffspectra_tpu_torch`` imports, a small-config ``Elucidator`` serves on
 the CPU (one request at a known atom count, one through the whole-block
-path, one without the atom count through a count head, and one from a
-small DMT_WO_EQ built through the model registry), the
+path, one without the atom count through a count head, one from a
+small DMT_WO_EQ built through the model registry, and one from a small
+CDGS on the 2-D path, its candidates without positions), the
 evaluation sweep scores a tiny run and writes its files, and the train
 loop takes two steps, writes a checkpoint that ``torch.load`` reads with
 ``weights_only`` and an export a warm start reads. The QM9S loader reads a
@@ -180,6 +181,20 @@ BARE_INSTALL = textwrap.dedent(
     with tempfile.TemporaryDirectory() as tmp:
         written = visualize_mols([c.molgraph for c in result.candidates], tmp)
         assert written == len(result.candidates) == len(os.listdir(tmp))
+    # the 2-D path: CDGS through the registry, served without positions
+    from diffspectra_tpu_torch.models.cdgs import CDGS
+    from diffspectra_tpu_torch.models.layers import sinusoidal_timestep_embedding
+    from diffspectra_tpu_torch.utils.masks import get_rw_feat_dense
+    cdgs_config = configs.apply_overrides(configs.get_smoke_2d_config(), {
+        "model.nf": 32, "model.n_layers": 2, "model.n_heads": 4, "sampling.steps": 3})
+    cdgs = create_model(cdgs_config)
+    assert type(cdgs) is CDGS
+    load_model_state(cdgs, random_variables(cdgs, seed=0))
+    result = Elucidator(cdgs_config, cdgs.eval(), torch.device("cpu")).elucidate(
+        data["ir"][0], n_atoms=n_atoms, num_candidates=2, seed=0)
+    assert all(c.positions is None for c in result.candidates)
+    assert sinusoidal_timestep_embedding(torch.zeros(2), 7).shape == (2, 7)
+    assert get_rw_feat_dense(3, torch.ones(1, 4, 4)).shape == (1, 4, 4, 4)
     loaded = sorted(n for n in sys.modules
                     if n.split(".")[0] in BLOCKED and n.split(".")[0] != "torch_geometric")
     assert not loaded, loaded
