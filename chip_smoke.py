@@ -1,5 +1,5 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU (H100): build, check, serve,
-sweep, train, pretrain.
+sweep, train, pretrain, score.
 
     python3 chip_smoke.py
 
@@ -162,8 +162,28 @@ Phases, each printing its own lines:
      ``Elucidator.from_workdir`` (one fidelity-4 request at K=10, 100
      ancestral steps, then DPM-Solver++): every candidate without positions
      and with a decoded graph; (d) swept by ``evaluate_checkpoints`` (8
-     targets, K=1, 100 steps): the 2-D figures alone, finite, in [0, 1];
-     no port kernel launched in any of it.
+     targets, K=1, 100 steps, ``eval.sub_geometry`` off: 2-D molecules
+     have no positions): the 2-D figures alone, finite, in [0, 1]; no port
+     kernel launched in any of it.
+ 13. the rest of the eval stack: (a) ``run_lib.evaluate`` from
+     ``warm_qm9s_as.npz`` on the block path in bf16, 8 targets of phase 7's
+     set, K=2 at 100 steps, with the sub-geometry MMDs (``data.root`` a
+     temporary directory: the statistics computed from the test split and
+     written there), ``eval.save_mols`` and the original-QM9 reference
+     sets (``configs.original_qm9_config``): ``block_fused_bf16`` launched
+     8 x steps x rounds x K times and no other kernel, the reference-set
+     line naming original-QM9, FCD NaN, ``FCD_proxy`` finite and >= 0, SNN,
+     IntDiv and Filters in [0, 1], Frag and Scaf in [0, 1] or NaN exactly
+     where both count vectors are empty, weight > 0, each MMD mean finite
+     and >= 0, the statistics file written, the ``base_metrics`` CLI on the
+     saved pickles writing the sweep's own 2D and 3D tables, and the
+     Hungarian RMSD of the 3D samples against their targets finite; (b) the
+     MMD's kernel sums on cuda against the float64 plain version at 2,000
+     a side (identical, shifted, and of another width: each of xx/n^2,
+     yy/m^2, xy/nm within 1e-5 relative, the MMD within 1e-5 x (xx/n^2 +
+     yy/m^2)), then timed at the 10,000-a-side cap with its peak memory;
+     (c) ChemNet (``random_chemnet``) on cuda against the CPU on 64
+     SMILES, within 1e-5 of the largest activation.
 Then one ``{"kernels": [...]}`` line, the card's ``nvidia-smi`` line, and as
 the last line ``{"ok": true, "device": {...}}``. Any failed check raises and
 the script exits non-zero without that last line; without CUDA it exits 2.
@@ -178,6 +198,7 @@ import itertools
 import json
 import math
 import os
+import pickle
 import re
 import shutil
 import subprocess
@@ -193,6 +214,11 @@ WARM = os.path.join(ROOT, "artifacts", "warm_qm9s_as.npz")
 HEAD = os.path.join(ROOT, "artifacts", "atom_count_head.npz")
 B, N = 10, 29  # draws per request, padded atoms at the largest bucket
 REQUESTS, CANDIDATES, STEPS = 3, 10, 1000
+# requests served a path by dtype: bf16 (the default) all three, f32 (the
+# override) the first, to keep the script inside its time limit on a slower
+# card host (1287 s with three f32 requests a path on an H100 whose host ran
+# the host-bound phases 1.3x slower; 925 s with one: PERF.md §6)
+SERVED = {"bf16": REQUESTS, "f32": 1}
 SHORT_STEPS, DPM_STEPS = 100, 50  # the count-head, batch and DPM-Solver phases
 MARGINAL_STEPS, MARGINAL_DRAWS = 20, 2  # the marginal over the histogram's counts
 # phase 7, the eval sweep: tools/tpu_eval_10k.py's batch of 128; a synthetic
@@ -200,7 +226,9 @@ MARGINAL_STEPS, MARGINAL_DRAWS = 20, 2  # the marginal over the histogram's coun
 # the synthetic sets are generated once a run and read back from here (the
 # sweep's set of 1280 molecules takes about 16 s a build)
 SYNTH_CACHE = os.path.join(tempfile.gettempdir(), f"chip_smoke_synth_{os.getpid()}")
+# data.root: the committed upstream statistics of the sub-geometry MMDs
 SWEEP = {"seed": 42, "data.synthetic": True, "data.synthetic_cache": SYNTH_CACHE,
+         "data.root": os.path.join(ROOT, "data", "QM9S"),
          "data.synthetic_size": 1280, "data.synthetic_fidelity": 4,
          "eval.num_samples": 128, "eval.batch_size": 128, "eval.num_candidates": 10,
          "eval.bucket_sizes": (17, 21, 25, 29), "eval.sampling_temperature": 1.0,
@@ -332,8 +360,33 @@ SPECFORMER_BF16_STEPS = 100  # (c): one request a path
 CDGS_PATH = {"only_2D": True, "model.name": "CDGS", "model.pred_data": False,
              "model.self_cond": False, "model.noise_align": False,
              "model.include_fc_charge": False}
-CDGS_TRAIN = {**WO_EQ_TRAIN, **CDGS_PATH}
+# the 2-D sweep without the sub-geometry MMDs: 2-D molecules carry no
+# positions (as the JAX package's tests/test_2d_run_lib.py sets it)
+CDGS_TRAIN = {**WO_EQ_TRAIN, **CDGS_PATH, "eval.sub_geometry": False}
 CDGS_TRAIN_STEPS = 10
+# phase 13, the rest of the eval stack: (a) the flagship eval through
+# run_lib.evaluate on 8 targets of phase 7's synthetic set, K=2 at 100 steps
+# on the block path in bf16, with the sub-geometry MMDs (data.root set to a
+# temporary directory in the phase, so the statistics are computed from the
+# test split and written there), save_mols and the original-QM9 reference
+# sets of the same synthetic data
+EVAL_STACK = {**SWEEP, "eval.num_samples": 8, "eval.batch_size": 8, "eval.num_candidates": 2,
+              "sampling.steps": 100, "training.matmul_precision": "bfloat16",
+              "eval.sub_geometry": True, "eval.save_mols": "true"}
+# (b) the MMD's kernel sums on cuda against the float64 plain version: each
+# of xx/n^2, yy/m^2 and xy/nm within MMD_RTOL relative, the MMD within
+# MMD_RTOL x (xx/n^2 + yy/m^2), at MMD_SIDE samples a side; then the sums
+# timed at the sub-geometry MMDs' cap, 10,000 a side (the plain version is
+# not run there: 2e9 exps in numpy)
+MMD_SIDE, MMD_CAP, MMD_RTOL = 2000, 10000, 1e-5
+# (c) ChemNet (random_chemnet) on cuda against the CPU on 64 SMILES strings,
+# within CHEMNET_RTOL of the largest activation
+CHEMNET_SMILES, CHEMNET_RTOL = 64, 1e-5
+# round 5's moses lines (tools/pipeline_logs/r5/as_topk_10k.log:107-111): the
+# JAX package in bf16 on 10k targets; not comparable with a run of 128
+ROUND5_MOSES = {"2d": {"FCD_proxy": 0.0174, "SNN": 0.9096, "Frag": 1.0000, "Scaf": 0.0000,
+                       "IntDiv": 0.8001, "Filters": 1.0000, "weight": 115.7354},
+                "3d": {"FCD_proxy": 3.2275}}
 # (c): the spectra embedding on cuda against the CPU, over the CPU's own
 # difference between SpecFormer in bf16 and in f32 (both DMTs bf16). No
 # kernel runs in SpecFormer: the bound catches an encoder that is not the
@@ -1047,8 +1100,8 @@ def launched_only(path_kernels, launches, expected):
 
 
 def serve_path(path, dt, dev, data):
-    """Serve the REQUESTS through one path in one dtype; the counts are this
-    path's."""
+    """Serve the first SERVED[dt] of the REQUESTS through one path in one
+    dtype; the counts are this path's."""
     from diffspectra_tpu_torch.api import Elucidator
     from diffspectra_tpu_torch.data.info import get_dataset_info
     from diffspectra_tpu_torch.evaluation.molgraph import MolGraph
@@ -1063,12 +1116,12 @@ def serve_path(path, dt, dev, data):
     say(f"[{tag}] loaded {WARM} in {time.perf_counter() - t0:.2f} s; "
         f"pallas_ops={el.config.model.pallas_ops}, matmul_precision="
         f"{el.config.training.matmul_precision} (DMT {el.model.dtype}), "
-        f"steps={el.config.sampling.steps}, candidates={CANDIDATES}, requests={REQUESTS}")
+        f"steps={el.config.sampling.steps}, candidates={CANDIDATES}, requests={SERVED[dt]}")
     assert el.config.training.matmul_precision == DTYPES[dt]
     decoder = get_dataset_info("qm9_second_half")["atom_decoder"]
     reset_launches()  # counts from here on are this path's
     per_request = []
-    for m in range(REQUESTS):
+    for m in range(SERVED[dt]):
         n = int(data["num_atom"][m])
         spectra = {k: data[k][m] for k in ("uv", "ir", "raman")}
         before = dict(LAUNCHES)
@@ -1091,13 +1144,13 @@ def serve_path(path, dt, dev, data):
         per_request.append(dict(n_atoms=n, wall_s=wall, mols_per_s=CANDIDATES / wall,
                                 distinct=len(result.candidates), top1_hit=hit))
     launches = dict(LAUNCHES)
-    expected = el.config.model.n_layers * STEPS * REQUESTS
+    expected = el.config.model.n_layers * STEPS * SERVED[dt]
     say(f"[{tag}] launches {nonzero(launches)}, expected {expected} for "
         f"{kernels_of(path, dt)}, 0 for the others")
     launched_only(kernels_of(path, dt), launches, expected)
     total = sum(r["wall_s"] for r in per_request)
     say(f"[{tag}] " + json.dumps({"requests": per_request,
-                                  "mols_per_s": REQUESTS * CANDIDATES / total}))
+                                  "mols_per_s": SERVED[dt] * CANDIDATES / total}))
     return el, launches
 
 
@@ -1333,6 +1386,16 @@ def phase_sweep(dev, dt):
         say(f"[{tag}]   {name}: {figures[name]:.4f} (round 5 {r5:.4f}{se})")
     for name, (r5, why) in NOT_COMPARABLE.items():
         say(f"[{tag}]   {name}: {figures[name]:.4f} (round 5 {r5:.4f}; not comparable: {why})")
+    for dim, names in ROUND5_MOSES.items():
+        for name, r5 in names.items():
+            say(f"[{tag}]   moses {dim.upper()} {name}: {fig[f'moses_{dim}'][name]:.4f} (round 5 "
+                f"{r5:.4f}; not comparable: a set's own size and split)")
+        assert math.isnan(fig[f"moses_{dim}"]["FCD"]), fig[f"moses_{dim}"]
+    geo = fig["geometry"]
+    say(f"[{tag}]   Metric-Align against the committed upstream statistics "
+        f"({config.data.root}/target_geometry_stat.pk): bond length MMD "
+        f"{geo['bond_length_mean']:.4f}, bond angle {geo['bond_angle_mean']:.4f}, dihedral "
+        f"{geo['dihedral_angle_mean']:.6f}; by symbol {json.dumps(geo)}")
     for name, value in figures.items():
         if "MACCS" in name or "Fraggle" in name:
             assert math.isnan(value), (name, value)  # RDKit-only
@@ -1344,7 +1407,9 @@ def phase_sweep(dev, dt):
     assert figures[gate] >= floor, (gate, figures[gate])
     say(f"[{tag}] gates held: launches, {targets} of {targets} decoded in each of {K} sweeps, "
         f"figures in range, {gate} {figures[gate]:.4f} >= {floor}")
-    print(json.dumps({"sweep": {"dtype": dt, "figures": figures, "rounds": rounds, "wall_s": wall,
+    print(json.dumps({"sweep": {"dtype": dt, "figures": figures, "moses_2d": fig["moses_2d"],
+                                "moses_3d": fig["moses_3d"], "geometry": geo,
+                                "rounds": rounds, "wall_s": wall,
                                 "sweep_s": [sw["seconds"] for sw in fig["sweeps"]],
                                 "round_s": [sw["round_seconds"] for sw in fig["sweeps"]],
                                 "phase_s": ph}}), flush=True)
@@ -2413,6 +2478,183 @@ def phase_cdgs(dev, smi):
     return launches
 
 
+def eval_stack_sweep(dev, smi):
+    """Phase 13 (a): the flagship eval through ``run_lib.evaluate`` with
+    the original-QM9 reference sets, the sub-geometry MMDs and save_mols;
+    its checks raise. Returns its launches and figures."""
+    import logging
+
+    from diffspectra_tpu_torch import configs, run_lib
+    from diffspectra_tpu_torch.data.pipeline import get_dataset
+    from diffspectra_tpu_torch.evaluation import base_metrics, mose_metric, rmsd
+    from diffspectra_tpu_torch.ops import LAUNCHES, reset_launches
+
+    logging.basicConfig(level=logging.INFO, stream=sys.stdout,
+                        format="[eval-stack log] %(message)s", force=True)
+    root = tempfile.mkdtemp(prefix="eval_stack_root_")  # the geometry statistics
+    eval_dir = tempfile.mkdtemp(prefix="eval_stack_")
+    config = configs.apply_overrides(configs.get_config(), {**EVAL_STACK, "data.root": root})
+    original = configs.original_qm9_config(config)
+    say(f"[eval-stack] (a) settings {json.dumps({**EVAL_STACK, 'data.root': root})}; reference "
+        f"config: exp_type {original.exp_type}, data.info_name {original.data.info_name}")
+    reset_launches()
+    t0 = time.perf_counter()
+    with LogLines() as lines:
+        fig = run_lib.evaluate(config, WARM, eval_dir, dev, original)
+    wall = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    K, steps, rounds = config.eval.num_candidates, config.sampling.steps, fig["rounds"]
+    expected = config.model.n_layers * steps * len(rounds) * K
+    say(f"[eval-stack] (a) run_lib.evaluate in {wall:.1f} s, rounds {rounds}; launches "
+        f"{nonzero(launches)}, expected {expected} for {kernels_of('block', 'bf16')} (8 blocks x "
+        f"{steps} steps x {len(rounds)} rounds x {K} sweeps), 0 for the others; phase-time "
+        f"{json.dumps(fig['phase_seconds'])}")
+    launched_only(kernels_of("block", "bf16"), launches, expected)
+    assert "metric reference sets: original-QM9 (--original-qm9)" in lines.messages
+    assert fig["reference_sets"] == "original-QM9"
+
+    # the moses figures; Frag and Scaf NaN exactly where both count vectors are empty
+    _, _, _, ref_test, info = get_dataset(original, transform=False)
+    ref = mose_metric._precalc(mose_metric._sanitize_graphs(run_lib._all_graphs(
+        ref_test, info["atom_decoder"])))
+    saved = fig["saved_mols"]
+    mols = {}
+    for name in ("sample_rdmols_3d", "complete_rdmols_2d", "groundtruth_rdmols"):
+        with open(os.path.join(saved, f"{name}.pkl"), "rb") as f:
+            mols[name] = pickle.load(f)
+    gen = {"3d": mols["sample_rdmols_3d"], "2d": mols["complete_rdmols_2d"]}
+    for dim in ("3d", "2d"):
+        moses = fig[f"moses_{dim}"]
+        say(f"[eval-stack] (a) moses {dim.upper()}: {json.dumps(moses)}")
+        assert math.isnan(moses["FCD"]), moses
+        assert math.isfinite(moses["FCD_proxy"]) and moses["FCD_proxy"] >= 0, moses
+        if dim == "3d":
+            continue
+        pgen = mose_metric._precalc(mose_metric._sanitize_graphs(gen[dim]))
+        for key in ("SNN", "IntDiv", "Filters"):
+            assert 0 <= moses[key] <= 1, (key, moses)
+        for key, counter in (("Frag", "frag"), ("Scaf", "scaf")):
+            empty = not (set(pgen[counter]) | set(ref[counter]))
+            assert math.isnan(moses[key]) == empty, (key, moses[key], empty)
+            assert empty or 0 <= moses[key] <= 1, (key, moses)
+        assert moses["weight"] > 0, moses
+    geo = fig["geometry"]
+    say(f"[eval-stack] (a) Metric-Align against the test split's statistics: bond length "
+        f"{geo['bond_length_mean']:.4f}, bond angle {geo['bond_angle_mean']:.4f}, dihedral "
+        f"{geo['dihedral_angle_mean']:.6f}; by symbol {json.dumps(geo)}")
+    for key in ("bond_length_mean", "bond_angle_mean", "dihedral_angle_mean"):
+        assert math.isfinite(geo[key]) and geo[key] >= 0, (key, geo[key])
+    assert os.path.exists(os.path.join(root, "target_geometry_stat.pk"))
+
+    # the saved molecules rescored offline: the sweep's own tables
+    ckpt = os.path.splitext(os.path.basename(WARM))[0]
+    tables = base_metrics.main(["--base_path", eval_dir, "--ckpt", ckpt])
+    for dim in ("2d", "3d"):
+        with open(os.path.join(eval_dir, "metrics_results", f"similarity_metrics_{dim}.csv"),
+                  "rb") as a, open(os.path.join(
+                      eval_dir, f"similarity_metrics_{dim}_ckpt_{ckpt}.csv"), "rb") as b:
+            assert a.read() == b.read(), dim
+    say(f"[eval-stack] (a) base_metrics on {saved}: 2D and 3D tables equal to the sweep's own: "
+        f"{json.dumps(tables)}")
+    rmsds, rate, mean, accuracy = rmsd.hungarian_rmsd_batch(mols["groundtruth_rdmols"],
+                                                            mols["sample_rdmols_3d"])
+    say(f"[eval-stack] (a) Hungarian RMSD of the 3D samples against their targets: mean {mean}, "
+        f"success {rate:.4f}, atom-type accuracy {accuracy}; per target {rmsds}")
+    assert mean is not None and math.isfinite(mean), rmsds
+    shutil.rmtree(eval_dir)
+    shutil.rmtree(root)
+    return launches, {"wall_s": wall, "rounds": rounds, "phase_s": fig["phase_seconds"],
+                      "moses_2d": fig["moses_2d"], "moses_3d": fig["moses_3d"], "geometry": geo,
+                      "rmsd_mean": mean, "rmsd_success": rate}
+
+
+def mmd_sums(dev, smi):
+    """Phase 13 (b): the MMD's kernel sums on cuda against the float64 plain
+    version at MMD_SIDE a side, then timed at MMD_CAP a side."""
+    from diffspectra_tpu_torch.evaluation import mmd
+
+    rng = np.random.default_rng(0)
+    pairs = {  # bond lengths, and bond angles of another width (degrees)
+        "identical": (rng.normal(1.09, 0.02, MMD_SIDE),) * 2,
+        "shifted": (rng.normal(1.09, 0.02, MMD_SIDE), rng.normal(1.12, 0.02, MMD_SIDE)),
+        "width": (rng.normal(109.5, 3.0, MMD_SIDE), rng.normal(109.5, 9.0, MMD_SIDE)),
+    }
+    out = {}
+    for name, (source, target) in pairs.items():
+        total = np.concatenate([source, target]).astype(np.float32)
+        n, m = len(source), len(target)
+        t0 = time.perf_counter()
+        plain = mmd.kernel_sums_plain(total, n)
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        on_card = torch.from_numpy(total).to(dev)
+        got = mmd.kernel_sums(on_card, n)
+        scale = np.array([n * n, m * m, n * m], dtype=np.float64)
+        rel = np.abs(np.array(got) / scale - np.array(plain) / scale) / (np.array(plain) / scale)
+        value, want = mmd.mmd_from_sums(*got, n, m), mmd.mmd_from_sums(*plain, n, m)
+        bound = MMD_RTOL * (plain[0] / n**2 + plain[1] / m**2)
+        ms = cuda_time_ms(lambda: mmd.kernel_sums(on_card, n), iters=20)
+        out[name] = {"mmd": value, "plain_mmd": want, "rel_err": rel.tolist(), "ms": ms,
+                     "plain_ms": plain_ms}
+        say(f"[eval-stack] (b) {name}, {n} + {m}: MMD {value:.9f} on cuda, {want:.9f} float64 "
+            f"plain (|diff| {abs(value - want):.3e}, bound {bound:.3e}); xx/n^2, yy/m^2, xy/nm "
+            f"relative errors {rel.tolist()}; {ms:.3f} ms on cuda, plain {plain_ms:.1f} ms "
+            f"(numpy on the host); {smi}")
+        assert (rel <= MMD_RTOL).all() and abs(value - want) <= bound, out[name]
+    total = torch.from_numpy(rng.normal(1.09, 0.02, 2 * MMD_CAP).astype(np.float32)).to(dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    ms = cuda_time_ms(lambda: mmd.kernel_sums(total, MMD_CAP), iters=10, warmup=2)
+    peak = torch.cuda.max_memory_allocated() - base
+    # the least work: the bandwidth pass (3 operations a pair), the source
+    # rows against every column and the target rows against the targets
+    # (17 a pair: the square distance and five divides, exps and adds)
+    n = 2 * MMD_CAP
+    ops = 3 * n * n + 17 * (MMD_CAP * n + MMD_CAP * MMD_CAP)
+    out["cap"] = {"samples": n, "ms": ms, "peak_bytes": peak, "bound_ms": ops / F32_PEAK * 1e3}
+    say(f"[eval-stack] (b) the sums at the cap, {MMD_CAP} + {MMD_CAP} samples: {ms:.3f} ms "
+        f"(CUDA events, 10 calls), peak {peak / 2**20:.1f} MiB over the input, row blocks of "
+        f"{mmd.BLOCK_ELEMENTS // n} rows; bound {out['cap']['bound_ms']:.4f} ms ({ops:.3e} "
+        f"operations at 67 TFLOP/s); {smi}")
+    return out
+
+
+def chemnet_forward(dev, smi):
+    """Phase 13 (c): ChemNet (``random_chemnet``) on cuda against the CPU."""
+    from diffspectra_tpu_torch.evaluation import chemnet
+
+    rng = np.random.default_rng(0)
+    toks = ["C", "N", "O", "F", "(", ")", "=", "#", "1", "2", "3", "Cl", "Br", "c", "n", "o",
+            "[", "]", "+", "-", "H", "@", "Si"]
+    smiles = ["".join(rng.choice(toks, size=rng.integers(1, 60)))
+              for _ in range(CHEMNET_SMILES)]
+    net = chemnet.random_chemnet(0)
+    want = net.features(smiles, device="cpu")
+    got = net.features(smiles, device=dev)
+    err, scale = float(np.abs(got - want).max()), float(np.abs(want).max())
+    ms = cuda_time_ms(lambda: net.features(smiles, device=dev), iters=10)
+    say(f"[eval-stack] (c) ChemNet (random_chemnet, pad {net.pad_len}) on {len(smiles)} SMILES: "
+        f"{got.shape}, max |cuda - cpu| {err:.3e} of max |activation| {scale:.4f} (bound "
+        f"{CHEMNET_RTOL} of it); {ms:.3f} ms a call on cuda; {smi}")
+    assert got.shape == want.shape and err <= CHEMNET_RTOL * scale, (err, scale)
+    return {"max_abs_err": err, "max_abs": scale, "ms": ms}
+
+
+def phase_eval_stack(dev, smi):
+    """Phase 13: the rest of the eval stack on the card. Returns its
+    launches by kernel."""
+    t0 = time.perf_counter()
+    launches, sweep = eval_stack_sweep(dev, smi)
+    sums = mmd_sums(dev, smi)
+    net = chemnet_forward(dev, smi)
+    seconds = time.perf_counter() - t0
+    print(json.dumps({"eval_stack": {"sweep": sweep, "mmd": sums, "chemnet": net,
+                                     "phase_s": seconds}}), flush=True)
+    say(f"[eval-stack] phase 13 in {seconds:.1f} s (budget 60 s); launches {nonzero(launches)}; "
+        f"{smi}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on the GPU only",
@@ -2465,6 +2707,7 @@ def main() -> int:
     flagship = phase_flagship(dev, smi, phase8)
     wo_eq = phase_wo_eq(dev, smi)
     cdgs = phase_cdgs(dev, smi)
+    eval_stack = phase_eval_stack(dev, smi)
     sweep = {k: sum(r[0][k] for r in sweeps.values()) for k in serving}
     for row in rows:
         # the dd1 rows' main path is phase 9's (dist_gbf=False); the others'
@@ -2478,13 +2721,16 @@ def main() -> int:
         row["flagship_train_launches"] = flagship.get(row["name"], 0)
         row["wo_eq_specformer_bf16_launches"] = wo_eq.get(row["name"], 0)
         row["cdgs_launches"] = cdgs.get(row["name"], 0)
+        row["eval_stack_launches"] = eval_stack.get(row["name"], 0)
         assert row["launches"] > 0 and row["cdgs_launches"] == 0, row
     for row in probe_rows:  # launches: the probe tool's run; none on the serving paths
         row["wo_eq_specformer_bf16_launches"] = wo_eq.get(row["name"], 0)
         row["cdgs_launches"] = cdgs.get(row["name"], 0)
+        row["eval_stack_launches"] = eval_stack.get(row["name"], 0)
         row["serving_launches"] = (serving[row["name"]] + sweep[row["name"]] + trained[row["name"]]
                                    + variants.get(row["name"], 0) + flagship.get(row["name"], 0)
-                                   + row["wo_eq_specformer_bf16_launches"] + row["cdgs_launches"])
+                                   + row["wo_eq_specformer_bf16_launches"] + row["cdgs_launches"]
+                                   + row["eval_stack_launches"])
         assert row["serving_launches"] == 0, row
     say(f"[probes] launches in the probe tool's run "
         f"{ {r['name']: r['launches'] for r in probe_rows} }, on the serving paths 0 each")

@@ -1,12 +1,11 @@
 """Plain-Python configuration of serving, the evaluation sweep and training.
 
-Replaces ``diffspectra_tpu/configs/diffspectra_qm9s.py`` and
-``configs/smoke.py`` (both ``ml_collections``) with nested
-``SimpleNamespace`` trees holding only the values that serving, the sweep,
-the train loop and SpecFormer's pretraining read, at the JAX package's
-defaults (the batch sizes resolved for one device). Left out: the keys of
-the mesh (``training.num_devices``) and of the moses and sub-geometry
-metrics.
+Replaces ``diffspectra_tpu/configs/diffspectra_qm9s.py``, ``base_qm9.py``,
+``smoke.py`` and ``smoke_2d.py`` (all ``ml_collections``) with nested
+``SimpleNamespace`` trees holding only the values that serving, the sweep
+and its metrics, the train loop and SpecFormer's pretraining read, at the
+JAX package's defaults (the batch sizes resolved for one device). Left out:
+the keys of the mesh (``training.num_devices``).
 ``apply_overrides`` takes the same dotted ``{"model.nf": 64}`` overrides as
 the JAX ``Elucidator``.
 """
@@ -168,6 +167,14 @@ def get_config() -> NS:
                     weight_decay=1e-4, grad_clip=1.0, dropout=0.1, log_freq=500,
                     snapshot_freq=20000),
         eval=NS(
+            # False: --mode eval loads each checkpoint and samples nothing
+            enable_sampling=True,
+            # the sub-geometry MMDs (bond lengths, angles, dihedrals) of the
+            # 2D-checked molecules against <data.root>/target_geometry_stat.pk
+            sub_geometry=True,
+            # "true": pickle the sweep's 3D, 2D and target molecules under
+            # <eval_dir>/molecules_ckpt_<ckpt> (evaluation/base_metrics.py)
+            save_mols="false",
             bucket_sizes=(17, 21, 25, 29),
             # the sweep: num_samples test targets in rounds of batch_size
             # (the JAX default 0 resolves to 128 on one device), each drawn
@@ -183,6 +190,34 @@ def get_config() -> NS:
             end_ckpt=40,
         ),
     )
+
+
+def get_base_qm9_config() -> NS:
+    """The original-QM9 configuration of ``configs/base_qm9.py``, whose
+    only use is the metric reference sets of the sweep: ``exp_type``
+    ``'vpsde_edge_cond'`` (the original-QM9 split), ``data.info_name``
+    ``'qm9_with_h'``, allspectra."""
+    config = get_config()
+    config.exp_type = "vpsde_edge_cond"
+    config.data.spectra_version = "allspectra"
+    config.data.info_name = "qm9_with_h"
+    return config
+
+
+# the data keys get_base_qm9_config sets itself
+BASE_QM9_DATA_KEYS = ("info_name", "spectra_version")
+
+
+def original_qm9_config(config: NS, overrides: Optional[dict] = None) -> NS:
+    """``get_base_qm9_config()`` with the ``data`` keys of ``config`` but
+    those it sets itself (``BASE_QM9_DATA_KEYS``), then ``overrides``: the
+    original-QM9 reference config that follows the main config's data (a
+    synthetic set's size, fidelity and cache, or QM9S's root)."""
+    original = get_base_qm9_config()
+    for key, value in vars(config.data).items():
+        if key not in BASE_QM9_DATA_KEYS:
+            setattr(original.data, key, value)
+    return apply_overrides(original, overrides)
 
 
 def get_smoke_config() -> NS:

@@ -6,6 +6,8 @@ pretrain SpecFormer.
     python -m diffspectra_tpu_torch.main --mode train --workdir /tmp/smoke --smoke --device cpu
     python -m diffspectra_tpu_torch.main --mode train --workdir /tmp/s2d --smoke-2d --device cpu
     python -m diffspectra_tpu_torch.main --mode eval --workdir exp/train --config eval.ckpts=1,2
+    python -m diffspectra_tpu_torch.main --mode eval --workdir exp/train --original-qm9 \
+        --config eval.save_mols=true
     python -m diffspectra_tpu_torch.main --mode pretrain --workdir exp/pre \\
         --config data.spectra_version=allspectra
 
@@ -17,7 +19,12 @@ workdir holds no checkpoint, and leaves ``<workdir>/warm_state.npz``.
 else (``run_lib.evaluate_checkpoints``) on each numbered checkpoint of the
 workdir that ``eval.ckpts`` or ``eval.begin_ckpt`` ... ``eval.end_ckpt``
 names (40 by default, 1 with ``--smoke`` or ``--smoke-2d``), its tables in
-``<workdir>/eval``. ``pretrain`` runs ``training/pretrain.py`` and leaves
+``<workdir>/eval``; ``--original-qm9`` takes its metric reference sets from
+the original-QM9 split (``configs.original_qm9_config``: the main config's
+``data`` keys but ``info_name`` and ``spectra_version``, then
+``--original-qm9-config KEY=VALUE``); ``--config eval.save_mols=true``
+pickles the molecules for ``evaluation/base_metrics.py``. ``pretrain``
+runs ``training/pretrain.py`` and leaves
 ``<workdir>/specformer_pretrained.npz`` for
 ``model.pretrained_specformer_path``. ``--config KEY=VALUE`` (repeated)
 sets any config key, the value read as the key's type (``data.root``,
@@ -50,6 +57,10 @@ def parse_args(argv=None):
     p.add_argument("--config", action="append", default=[], metavar="KEY=VALUE",
                    help="set a config key (repeatable)")
     p.add_argument("--device", default=None, help="cuda (default) or cpu")
+    p.add_argument("--original-qm9", action="store_true",
+                   help="eval: the metric reference sets from the original-QM9 split")
+    p.add_argument("--original-qm9-config", action="append", default=[], metavar="KEY=VALUE",
+                   help="set a key of the original-QM9 config (repeatable)")
     return p.parse_args(argv)
 
 
@@ -105,10 +116,14 @@ def main(argv=None):
         from diffspectra_tpu_torch.training.pretrain import pretrain_specformer
 
         return pretrain_specformer(config, args.workdir, args.device)
+    original = None
+    if args.original_qm9:
+        original = configs.original_qm9_config(config)
+        configs.apply_overrides(original, parse_overrides(original, args.original_qm9_config))
     if args.warm_start:
         return run_lib.evaluate(config, args.warm_start, os.path.join(args.workdir, "eval"),
-                                args.device)
-    return run_lib.evaluate_checkpoints(config, args.workdir, "eval", args.device)
+                                args.device, original)
+    return run_lib.evaluate_checkpoints(config, args.workdir, "eval", args.device, original)
 
 
 if __name__ == "__main__":

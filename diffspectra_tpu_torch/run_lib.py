@@ -34,24 +34,31 @@ xyz files of up to 16 sampled molecules and of their targets to
 the last state as ``<workdir>/warm_state.npz``
 (``warm_state.export_warm_state``). Left out: the mesh.
 
-Samples ``eval.num_samples`` test targets of the synthetic split with the
-seed-42 harness, scores the 3D and 2D stability and validity, repeats the
-sweep ``eval.num_candidates`` times for Top-K and the consensus vote
-(ties to the first draw), splits each hit rate by whether the target's graph
-is in the train split, and scores the valid pairs' similarity (Top-1 over
-valid pairs, MCES, WL Tanimoto and cosine, functional groups). The log
-lines are the JAX package's, text and figures; ``evaluate`` returns the
-figures as a dict.
+Samples ``eval.num_samples`` test targets with the seed-42 harness, scores
+the 3D and 2D stability and validity and the moses metrics (FCD and its
+descriptor proxy, SNN, Frag, Scaf, IntDiv, Filters, weight; the RDKit
+ones NaN), with ``eval.sub_geometry`` the sub-geometry MMDs of the 2D
+molecules (their kernel sums on the device), repeats the sweep
+``eval.num_candidates`` times for Top-K and the consensus vote (ties to the
+first draw), splits each hit rate by whether the target's graph is in the
+model's own train split, scores the valid pairs' similarity (Top-1 over
+valid pairs, MCES, WL Tanimoto and cosine, functional groups), and with
+``eval.save_mols="true"`` pickles the molecules for
+``evaluation/base_metrics.py``. The metric reference sets (novelty's train
+molecules, the moses and geometry test molecules) come from the
+original-QM9 split of ``configs.original_qm9_config`` where it is passed
+(``--original-qm9``), else from the config's own split. The log lines are
+the JAX package's, text and figures; ``evaluate`` returns the figures as a
+dict. Without ``eval.enable_sampling`` nothing is sampled.
 
 The weights come from a warm-state export (``evaluate``), from each of a
 train workdir's numbered checkpoints that ``eval.ckpts`` (or
 ``eval.begin_ckpt`` ... ``eval.end_ckpt``) names, one sweep and one set of
-figures a checkpoint (``evaluate_checkpoints``, ``--mode eval``), or from
-its latest resumable checkpoint, as ``Elucidator.from_workdir`` restores it
-(``evaluate_workdir``). All build the schedule of ``config.sde``
-(``NoiseScheduleVP.from_config``) and run any of the config's model
-variants. Left out: the moses metrics, the sub-geometry MMDs,
-``save_mols``, the original-QM9 reference sets and the mesh.
+figures a checkpoint, the references built once (``evaluate_checkpoints``,
+``--mode eval``), or from its latest resumable checkpoint, as
+``Elucidator.from_workdir`` restores it (``evaluate_workdir``). All build
+the schedule of ``config.sde`` (``NoiseScheduleVP.from_config``) and run
+any of the config's model variants. Left out: the mesh.
 """
 
 from __future__ import annotations
@@ -60,6 +67,7 @@ import json
 import logging
 import math
 import os
+import pickle
 import time
 
 import numpy as np
@@ -78,7 +86,9 @@ from .data.pipeline import (
 from .device import resolve_device
 from .diffusion.schedule import NoiseScheduleVP
 from .evaluation import compute_metrics as cm
+from .evaluation.cal_geometry import get_sub_geometry_metric
 from .evaluation.molgraph import from_decoded
+from .evaluation.mose_metric import get_moses_metrics
 from .evaluation.stability import get_2D_edm_metric, get_edm_metric
 from .models.layers import refresh_casts
 from .models.pretrained import load_pretrained_specformer
@@ -94,13 +104,17 @@ from .warm_state import export_warm_state, init_variables, load_model_state, war
 
 
 def _rows_to_molgraphs(rows, atom_decoder):
-    """MolGraphs of dataset rows (positions and charges ``[M, N, 1]``)."""
+    """MolGraphs of dataset rows: transformed (``positions``, charges
+    ``[M, N, 1]``) or raw (``pos``, ``fc [M, N]``, as
+    ``get_dataset(transform=False)`` gives the reference sets)."""
+    pos = rows["positions"] if "positions" in rows else rows["pos"]
+    fc = rows["formal_charges"][..., 0] if "formal_charges" in rows else rows["fc"]
     out = []
     for i in range(len(rows["num_atom"])):
         n = int(rows["num_atom"][i])
         out.append(from_decoded(
-            (rows["positions"][i][:n], rows["atom_type"][i][:n], rows["edge_type"][i][:n, :n],
-             rows["formal_charges"][i][:n, 0].astype(np.int64)),
+            (pos[i][:n], rows["atom_type"][i][:n], rows["edge_type"][i][:n, :n],
+             fc[i][:n].astype(np.int64)),
             atom_decoder,
         ))
     return out
@@ -111,15 +125,89 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
-def diffspectra_evaluate(config, model, eval_dir: str, device, ckpt: str = "warm") -> dict:
+def _all_graphs(ds, atom_decoder):
+    return _rows_to_molgraphs(ds.take(np.arange(len(ds))), atom_decoder)
+
+
+def eval_references(config, device, config_original_qm9=None) -> dict:
+    """The sweep's datasets and metrics, built once for every checkpoint:
+    the splits of ``config``; the metric reference sets (train molecules
+    for novelty, test molecules for the moses statistics and the target
+    geometry) from ``config_original_qm9``'s original-QM9 split
+    (``configs.original_qm9_config``) where given, else from ``config``'s
+    own; the stability, moses and (with ``eval.sub_geometry``) sub-geometry
+    metrics, the last on ``device``; and the WL hashes of the model's own
+    second train split, which the seen/unseen split always counts
+    against."""
+    device = resolve_device(device)
+    _, train_ds, _, test_ds, dataset_info = get_dataset(config)
+    atom_decoder = dataset_info["atom_decoder"]
+    if config_original_qm9 is not None:
+        logging.info("metric reference sets: original-QM9 (--original-qm9)")
+        # the raw arrays: the reference molecules need no one-hots or spectra
+        _, ref_train_ds, _, ref_test_ds, _ = get_dataset(config_original_qm9, transform=False)
+    else:
+        logging.info("metric reference sets: conditional-split dataset "
+                     "(no --original-qm9 given)")
+        ref_train_ds, ref_test_ds = train_ds, test_ds
+    logging.info("loading training mols")
+    train_graphs = _all_graphs(ref_train_ds, atom_decoder)
+    logging.info("loading test mols")
+    test_graphs = _all_graphs(ref_test_ds, atom_decoder)
+    model_train = train_graphs if config_original_qm9 is None else \
+        _all_graphs(train_ds, atom_decoder)
+    return {
+        "train_ds": train_ds, "test_ds": test_ds, "dataset_info": dataset_info,
+        "reference_sets": "conditional-split" if config_original_qm9 is None else "original-QM9",
+        "edm_metric": get_edm_metric(dataset_info, train_graphs),
+        "edm_metric_2d": get_2D_edm_metric(dataset_info, train_graphs),
+        "mose_metric": get_moses_metrics(test_graphs),
+        "sub_geo_metric": get_sub_geometry_metric(
+            test_graphs, dataset_info, config.data.root, device, config.seed)
+        if config.eval.sub_geometry else None,
+        "train_hashes": {g.wl_hash() for g in model_train},
+    }
+
+
+def save_molecules(eval_dir: str, ckpt: str, sample_mols, complete_mols, gt_graphs) -> str:
+    """Pickle the sweep's 3D and 2D molecules and its targets (all
+    ``MolGraph`` lists) to ``<eval_dir>/molecules_ckpt_<ckpt>``, the files
+    ``evaluation/base_metrics.py`` rescores; returns the directory. The JAX
+    package pickles its targets as decoded tuples, which its own rescoring
+    cannot read; the port pickles them as graphs."""
+    analysis_dir = os.path.join(eval_dir, f"molecules_ckpt_{ckpt}")
+    os.makedirs(analysis_dir, exist_ok=True)
+    for name, mols in (("sample_rdmols_3d.pkl", sample_mols),
+                       ("complete_rdmols_2d.pkl", complete_mols),
+                       ("groundtruth_rdmols.pkl", gt_graphs)):
+        with open(os.path.join(analysis_dir, name), "wb") as f:
+            pickle.dump(mols, f)
+    return analysis_dir
+
+
+def diffspectra_evaluate(config, model, eval_dir: str, device, ckpt: str = "warm",
+                         config_original_qm9=None, references=None) -> dict:
     """The sweep with ``model`` (the config's model in eval mode on
     ``device``); files go
-    to ``eval_dir`` under the name ``ckpt``. Returns the figures: each log
-    line's values, the rounds (draws, ``n_pad``), each sweep's wall time
-    and decoded targets, and the phase times."""
+    to ``eval_dir`` under the name ``ckpt``. ``references`` are
+    ``eval_references``' (built here from ``config_original_qm9`` when not
+    given). Returns the figures: each log line's values, the rounds (draws,
+    ``n_pad``), each sweep's wall time and decoded targets, and the phase
+    times; nothing is sampled without ``eval.enable_sampling``."""
     device = resolve_device(device)
     os.makedirs(eval_dir, exist_ok=True)
-    _, train_ds, _, test_ds, dataset_info = get_dataset(config)
+    if references is None:
+        references = eval_references(config, device, config_original_qm9)
+    train_ds, test_ds = references["train_ds"], references["test_ds"]
+    atom_decoder = references["dataset_info"]["atom_decoder"]
+    edm_metric, edm_metric_2d = references["edm_metric"], references["edm_metric_2d"]
+    mose_metric, train_hashes = references["mose_metric"], references["train_hashes"]
+
+    figures = {"reference_sets": references["reference_sets"], "sweeps": [],
+               "phase_seconds": {}}
+    logging.info("load checkpoint: %s", ckpt)
+    if not config.eval.enable_sampling:
+        return figures
     n_samples, batch_size = int(config.eval.num_samples), int(config.eval.batch_size)
     sampling_fn = make_cond_sampling_fn(
         config, model, NoiseScheduleVP.from_config(config), batch_size, n_samples,
@@ -128,17 +216,7 @@ def diffspectra_evaluate(config, model, eval_dir: str, device, ckpt: str = "warm
     )
     generator = torch.Generator(device=device)
     generator.manual_seed(int(config.seed))
-
-    atom_decoder = dataset_info["atom_decoder"]
-    logging.info("metric reference sets: conditional-split dataset")
-    logging.info("loading training mols")
-    train_graphs = _rows_to_molgraphs(train_ds.take(np.arange(len(train_ds))), atom_decoder)
-    edm_metric = get_edm_metric(dataset_info, train_graphs)
-    edm_metric_2d = get_2D_edm_metric(dataset_info, train_graphs)
-    train_hashes = {g.wl_hash() for g in train_graphs}
-
-    figures = {"targets": n_samples, "rounds": sampling_fn.rounds, "sweeps": [],
-               "phase_seconds": {}}
+    figures.update(targets=n_samples, rounds=sampling_fn.rounds)
     phase_t = [time.monotonic()]
 
     def tick(name):
@@ -162,7 +240,6 @@ def diffspectra_evaluate(config, model, eval_dir: str, device, ckpt: str = "warm
                                   "round_seconds": sampling_fn.round_seconds})
         return processed, gt_mols
 
-    logging.info("load checkpoint: %s", ckpt)
     logging.info("Sampling -- ckpt: %s", ckpt)
     processed_mols, gt_mols = sweep()
     logging.info("Sampling accomplished")
@@ -179,6 +256,10 @@ def diffspectra_evaluate(config, model, eval_dir: str, device, ckpt: str = "warm
             rdkit_res["Validity"], rdkit_res["Complete"],
         )
         figures["metric_3d"] = {**stability_res, **rdkit_res}
+        mose_res = mose_metric(sample_mols)
+        logging.info("Metric-3D || FCD: %.4f (FCD_proxy: %.4f)", mose_res["FCD"],
+                     mose_res["FCD_proxy"])
+        figures["moses_3d"] = mose_res
         tick("metrics-3d")
 
     stability_res, rdkit_res, complete_mols = edm_metric_2d(processed_mols)
@@ -191,7 +272,32 @@ def diffspectra_evaluate(config, model, eval_dir: str, device, ckpt: str = "warm
         rdkit_res["Novelty"],
     )
     figures["metric_2d"] = {**stability_res, **rdkit_res}
+    mose_res = mose_metric(complete_mols)
+    logging.info(
+        "Metric-2D || FCD: %.4f (FCD_proxy: %.4f), SNN: %.4f, "
+        "Frag: %.4f, Scaf: %.4f, IntDiv: %.4f",
+        mose_res["FCD"], mose_res["FCD_proxy"], mose_res["SNN"],
+        mose_res["Frag"], mose_res["Scaf"], mose_res["IntDiv"],
+    )
+    logging.info(
+        "Metric-2D || Filters: %.4f, QED: %.4f, SA: %.4f, "
+        "logP: %.4f, weight: %.4f",
+        mose_res["Filters"], mose_res["QED"], mose_res["SA"],
+        mose_res["logP"], mose_res["weight"],
+    )
+    figures["moses_2d"] = mose_res
     tick("metrics-2d")
+
+    if references["sub_geo_metric"] is not None:
+        sub_geo_res = references["sub_geo_metric"](complete_mols)
+        logging.info(
+            "Metric-Align || Bond Length MMD: %.4f, Bond Angle MMD: "
+            "%.4f, Dihedral Angle MMD: %.6f",
+            sub_geo_res["bond_length_mean"], sub_geo_res["bond_angle_mean"],
+            sub_geo_res["dihedral_angle_mean"],
+        )
+        figures["geometry"] = sub_geo_res
+        tick("geometry")
 
     gt_graphs = [from_decoded(m, atom_decoder) for m in gt_mols]
     num_candidates = int(config.eval.num_candidates)
@@ -298,16 +404,22 @@ def diffspectra_evaluate(config, model, eval_dir: str, device, ckpt: str = "warm
         figures[f"similarity_{name.lower()}"] = (
             None if table is None else {k: float(v) for k, v in table.items()})
     tick("similarity")
+
+    if str(config.eval.save_mols).lower() == "true":
+        figures["saved_mols"] = save_molecules(eval_dir, ckpt, sample_mols, complete_mols,
+                                               gt_graphs)
     return figures
 
 
-def evaluate(config, warm_state: str, eval_dir: str, device=None) -> dict:
+def evaluate(config, warm_state: str, eval_dir: str, device=None,
+             config_original_qm9=None) -> dict:
     """The sweep with the EMA weights of the warm-state export
-    ``warm_state``, on ``cuda`` unless ``device="cpu"``."""
+    ``warm_state``, on ``cuda`` unless ``device="cpu"``, its metric
+    reference sets from ``config_original_qm9`` where given."""
     device = resolve_device(device)
     model = load_model(warm_state, config, device)
     ckpt = os.path.splitext(os.path.basename(warm_state))[0]
-    return diffspectra_evaluate(config, model, eval_dir, device, ckpt)
+    return diffspectra_evaluate(config, model, eval_dir, device, ckpt, config_original_qm9)
 
 
 def checkpoints_to_evaluate(config) -> list:
@@ -318,7 +430,8 @@ def checkpoints_to_evaluate(config) -> list:
     return list(range(config.eval.begin_ckpt, config.eval.end_ckpt + 1))
 
 
-def evaluate_checkpoints(config, workdir: str, eval_folder: str = "eval", device=None) -> dict:
+def evaluate_checkpoints(config, workdir: str, eval_folder: str = "eval", device=None,
+                         config_original_qm9=None) -> dict:
     """The sweep with the EMA weights of each numbered checkpoint
     ``checkpoints/checkpoint_<N>`` of ``workdir`` that
     ``checkpoints_to_evaluate`` names, in turn, on ``cuda`` unless
@@ -327,25 +440,29 @@ def evaluate_checkpoints(config, workdir: str, eval_folder: str = "eval", device
     checkpoint raises ``FileNotFoundError`` when its turn comes."""
     device = resolve_device(device)
     eval_dir = os.path.join(workdir, eval_folder)
+    references = eval_references(config, device, config_original_qm9)
     out = {}
     for ckpt in checkpoints_to_evaluate(config):
         path = ckpt_lib.numbered_checkpoint_dir(workdir, ckpt)
         if not os.path.exists(path):
             raise FileNotFoundError("Checkpoint path error: " + path)
         model, _ = restore_model(workdir, config, device, ckpt=ckpt)
-        out[ckpt] = diffspectra_evaluate(config, model, eval_dir, device, str(ckpt))
+        out[ckpt] = diffspectra_evaluate(config, model, eval_dir, device, str(ckpt),
+                                         references=references)
         with open(os.path.join(eval_dir, f"figures_ckpt_{ckpt}.json"), "w") as f:
             json.dump(out[ckpt], f)
     return out
 
 
-def evaluate_workdir(config, workdir: str, eval_dir: str, device=None) -> dict:
+def evaluate_workdir(config, workdir: str, eval_dir: str, device=None,
+                     config_original_qm9=None) -> dict:
     """The sweep with the EMA weights of a train workdir's latest resumable
     checkpoint (``api.restore_model``), on ``cuda`` unless ``device="cpu"``;
     ``FileNotFoundError`` when the workdir holds none."""
     device = resolve_device(device)
     model, step = restore_model(workdir, config, device)
-    return diffspectra_evaluate(config, model, eval_dir, device, f"step_{step}")
+    return diffspectra_evaluate(config, model, eval_dir, device, f"step_{step}",
+                                config_original_qm9)
 
 
 def batch_to_device(batch, device) -> dict:

@@ -16,6 +16,8 @@ nothing, the run checks the path):
 ``--model-name DMT_WO_EQ --trans-ver v1`` sweeps the non-equivariant
 ablation (a warm state of that model, or ``--random-weights``);
 ``--smoke-2d`` the 2-D path (CDGS, no positions: the 2-D figures alone).
+``--original-qm9`` takes the metric reference sets from the original-QM9
+split of the same data (``configs.original_qm9_config``).
 
 Runs on ``cuda`` unless ``--device cpu`` is given. Logs to stdout and to
 ``<workdir>/eval_sweep.log``; the similarity tables go to ``<workdir>/eval``;
@@ -57,6 +59,8 @@ def parse_args(argv=None):
                    help="model.pallas_ops, comma-separated: block, or attn,equi (the default)")
     p.add_argument("--model-name", help="model.name: DMT (the default), DMT_WO_EQ or CDGS")
     p.add_argument("--trans-ver", help="model.trans_ver of DMT_WO_EQ: v1, v2 or optim")
+    p.add_argument("--original-qm9", action="store_true",
+                   help="the metric reference sets from the original-QM9 split")
     return p.parse_args(argv)
 
 
@@ -91,7 +95,10 @@ def main(argv=None) -> int:
     from diffspectra_tpu_torch.utils.registry import create_model
     from diffspectra_tpu_torch.warm_state import load_model_state, random_variables
 
+    from diffspectra_tpu_torch.configs import original_qm9_config
+
     config = build_config(args)
+    original = original_qm9_config(config) if args.original_qm9 else None
     device = resolve_device(args.device)
     eval_dir = os.path.join(args.workdir, "eval")
     t0 = time.time()
@@ -99,9 +106,9 @@ def main(argv=None) -> int:
         model = create_model(config)
         load_model_state(model, random_variables(model, seed=config.seed))
         figures = run_lib.diffspectra_evaluate(config, model.eval().to(device), eval_dir, device,
-                                               "random")
+                                               "random", original)
     else:
-        figures = run_lib.evaluate(config, args.warm_state, eval_dir, device)
+        figures = run_lib.evaluate(config, args.warm_state, eval_dir, device, original)
     logging.info("TOTAL EVAL WALL TIME: %.1fs", time.time() - t0)
     print(json.dumps(figures))
     return 0

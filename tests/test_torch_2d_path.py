@@ -439,7 +439,8 @@ RUN = {**NARROW, "data.synthetic_size": 64, "training.base_batch_size": 4,
        "training.n_iters": 4, "training.snapshot_freq": 4,
        "training.snapshot_freq_for_preemption": 8, "training.log_freq": 2,
        "sampling.steps": 4, "eval.num_samples": 4, "eval.batch_size": 4,
-       "eval.begin_ckpt": 1, "eval.end_ckpt": 1}
+       "eval.begin_ckpt": 1, "eval.end_ckpt": 1,
+       "eval.sub_geometry": False}  # 2-D molecules carry no conformers, as JAX's test sets
 FIGURE_LINE = re.compile(r"^(Metric-\w+) \|\||Generalization \|\| (.+) exact match"
                          r"|^(Top-\d+ accuracy|Consensus Top-1 \(mode of \d+ draws\)) \|\| (\w+)")
 
@@ -517,7 +518,7 @@ def test_command_lines_take_the_2d_config(tmp_path, capsys):
 
     narrow = ["--config", "model.nf=32", "--config", "model.n_layers=2", "--config",
               "model.n_heads=4", "--config", "sampling.steps=3", "--config",
-              "data.synthetic_size=64", "--device", "cpu"]
+              "data.synthetic_size=64", "--config", "eval.sub_geometry=false", "--device", "cpu"]
     work = str(tmp_path / "w")
     state = main.main(["--mode", "train", "--smoke-2d", "--workdir", work, "--config",
                        "training.n_iters=2", "--config", "training.snapshot_freq=2", *narrow])

@@ -11,16 +11,18 @@
   split's size, no buckets, and buckets (8, 12, 16).
 - The eval loop: the port's ``run_lib`` and JAX's ``run_lib.evaluate`` on the
   same scripted sweeps (JAX's checkpoint restore and model set-up patched
-  out) log the same ``Metric-3D``, ``Metric-2D``, ``Top-K``,
-  ``Consensus``, ``Generalization`` and similarity lines, text and figures
-  (the JAX package's moses lines, its ``phase-time`` lines and the port's
-  line naming the train split are not compared).
+  out) log the same ``Metric-3D``, ``Metric-2D`` (the moses ``FCD`` and
+  ``Filters`` lines among them), ``Metric-Align`` (with ``sub_geometry``),
+  ``Top-K``, ``Consensus``, ``Generalization`` and similarity lines, text
+  and figures (the ``phase-time`` lines and the port's line naming the
+  train split are not compared).
 - End to end: the sweep tool on the CPU at the smoke size with random
   weights (3 steps, 6 targets, K=2), and its refusal without CUDA.
 """
 
 import logging
 import os
+import re
 
 import jax
 import numpy as np
@@ -201,17 +203,21 @@ def _scripted_sweeps(cfg):
     return sweeps
 
 
-COMPARED = ("Metric-3D", "Metric-2D", "Top-", "Consensus", "Generalization", "3D ", "2D ")
+COMPARED = ("Metric-3D", "Metric-2D", "Metric-Align", "Top-", "Consensus", "Generalization",
+            "3D ", "2D ")
 
 
 def _compared_lines(records):
     lines = [r.getMessage() for r in records]
-    return [m for m in lines if m.startswith(COMPARED) and "FCD" not in m
-            and "Filters:" not in m and "train split counted against" not in m]
+    return [m for m in lines if m.startswith(COMPARED) and "train split counted against" not in m]
 
 
-def test_eval_log_lines_match_jax(monkeypatch, tmp_path, caplog):
-    jcfg, cfg = _configs(num_samples=6, batch_size=6, num_candidates=K, sub_geometry=False)
+def run_both_evals(monkeypatch, tmp_path, caplog, jcfg, cfg, jax_original=None, original=None):
+    """JAX's ``run_lib.evaluate`` and the port's ``diffspectra_evaluate``
+    on the same K scripted sweeps (JAX's model set-up and checkpoint
+    restore patched out), JAX's reference config ``jax_original`` and the
+    port's ``original``. Returns JAX's compared log lines, the port's, the
+    port's figures, JAX's eval directory and the port's."""
     jcfg.training.num_devices = 1
     sweeps = _scripted_sweeps(cfg)
 
@@ -256,23 +262,63 @@ def test_eval_log_lines_match_jax(monkeypatch, tmp_path, caplog):
     monkeypatch.setattr(jax_run_lib, "get_2D_edm_metric", kept(jax_run_lib.get_2D_edm_metric))
 
     with caplog.at_level(logging.INFO):
-        jax_run_lib.evaluate(jcfg, None, workdir, "eval")
+        jax_run_lib.evaluate(jcfg, jax_original, workdir, "eval")
     want = _compared_lines(caplog.records)
     caplog.clear()
+    port_dir = str(tmp_path / "port")
     with caplog.at_level(logging.INFO):
-        figures = run_lib.diffspectra_evaluate(cfg, None, str(tmp_path / "port"), "cpu", "1")
+        figures = run_lib.diffspectra_evaluate(cfg, None, port_dir, "cpu", "1", original)
     got = _compared_lines(caplog.records)
     assert calls == {"jax": K, "port": K}
-    assert got == want
-    # every kind of line, and hits and misses both
-    assert len(got) == 2 + 4 + 7 + 2 * 9
+    return want, got, figures, os.path.join(workdir, "eval"), port_dir
+
+
+NUMBER = re.compile(r"-?\d+\.\d+|nan")
+ALIGN_ATOL = 1e-5  # the sub-geometry MMDs' bound against JAX (tests/test_torch_eval_stack.py)
+
+
+def assert_lines_match(got, want):
+    """Every line equal, but the ``Metric-Align`` line's figures: its text
+    equal with each figure within ``ALIGN_ATOL`` of JAX's. Two float32 MMDs
+    summed in another order differ by about 1e-6 (JAX's jitted sums and the
+    port's row blocks each lie within 1e-6 of the float64 plain version), so
+    a dihedral figure printed to six places can flip its last digit."""
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        if not g.startswith("Metric-Align"):
+            assert g == w
+            continue
+        assert NUMBER.sub("#", g) == NUMBER.sub("#", w), (g, w)
+        np.testing.assert_allclose([float(x) for x in NUMBER.findall(g)],
+                                   [float(x) for x in NUMBER.findall(w)], rtol=0,
+                                   atol=ALIGN_ATOL)
+
+
+@pytest.mark.parametrize("sub_geometry", [False, True])
+def test_eval_log_lines_match_jax(monkeypatch, tmp_path, caplog, sub_geometry):
+    """The moses lines (FCD, Filters) always; with ``sub_geometry`` the
+    ``Metric-Align`` line too, each package's target statistics computed
+    from the test split into its own ``data.root`` under ``tmp_path``."""
+    jcfg, cfg = _configs(num_samples=6, batch_size=6, num_candidates=K,
+                         sub_geometry=sub_geometry)
+    jcfg.data.root, cfg.data.root = str(tmp_path / "jax_root"), str(tmp_path / "port_root")
+    want, got, figures, jax_dir, port_dir = run_both_evals(monkeypatch, tmp_path, caplog,
+                                                           jcfg, cfg)
+    assert_lines_match(got, want)
+    # every kind of line, and hits and misses both: the stability and moses
+    # lines (2 + 3), Top-K and consensus (4), the generalization lines (7),
+    # the similarity lines of each dimension (9 each), and Metric-Align
+    assert len(got) == 5 + 4 + 7 + 2 * 9 + sub_geometry
+    assert [m.startswith("Metric-Align") for m in got].count(True) == sub_geometry
+    assert os.path.exists(tmp_path / "port_root" / "target_geometry_stat.pk") == sub_geometry
     assert 0 < figures["top1_2d"] < figures["topk_2d"] and 0 < figures["topk_3d"] < 1
     assert [s["decoded"] for s in figures["sweeps"]] == [6] * K
-    assert sorted(os.listdir(tmp_path / "port")) == sorted(os.listdir(tmp_path / "jax" / "eval"))
-    for name in os.listdir(tmp_path / "port"):
+    assert sorted(os.listdir(port_dir)) == sorted(os.listdir(jax_dir))
+    for name in os.listdir(port_dir):
         if name.endswith("ckpt_1.csv"):
-            assert (tmp_path / "port" / name).read_bytes() == \
-                (tmp_path / "jax" / "eval" / name).read_bytes()
+            with open(os.path.join(port_dir, name), "rb") as a, \
+                    open(os.path.join(jax_dir, name), "rb") as b:
+                assert a.read() == b.read()
 
 
 # ---------------------------------------------------------------- end to end
@@ -290,8 +336,9 @@ def test_sweep_tool_end_to_end_on_the_cpu(tmp_path, capsys):
     assert [len(s["round_seconds"]) for s in figures["sweeps"]] == [1, 1]
     for key in ("top1_2d", "top1_3d", "topk_2d", "topk_3d", "consensus_2d", "consensus_3d"):
         assert 0.0 <= figures[key] <= 1.0
+    # the sub-geometry MMDs run by default, against the committed statistics
     assert set(figures["phase_seconds"]) == {"sampling+decode", "metrics-3d", "metrics-2d",
-                                             "topk-extra-sweeps(x1)", "similarity"}
+                                             "geometry", "topk-extra-sweeps(x1)", "similarity"}
     with open(tmp_path / "eval_sweep.log") as f:
         assert "Top-2 accuracy || 2D" in f.read()
 

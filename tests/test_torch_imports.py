@@ -6,7 +6,9 @@ the CPU (one request at a known atom count, one through the whole-block
 path, one without the atom count through a count head, one from a
 small DMT_WO_EQ built through the model registry, and one from a small
 CDGS on the 2-D path, its candidates without positions), the
-evaluation sweep scores a tiny run and writes its files, and the train
+evaluation sweep scores a tiny run and writes its files (the moses
+metrics, the sub-geometry MMDs, ChemNet, the RMSD and the rescoring CLI run
+too, scipy imported where they use it), and the train
 loop takes two steps, writes a checkpoint that ``torch.load`` reads with
 ``weights_only`` and an export a warm start reads. The QM9S loader reads a
 processed file without ``torch_geometric`` (its stand-ins registered under
@@ -195,6 +197,31 @@ BARE_INSTALL = textwrap.dedent(
     assert all(c.positions is None for c in result.candidates)
     assert sinusoidal_timestep_embedding(torch.zeros(2), 7).shape == (2, 7)
     assert get_rw_feat_dense(3, torch.ones(1, 4, 4)).shape == (1, 4, 4, 4)
+    # the rest of the eval stack: the moses metrics, the sub-geometry MMDs
+    # (their statistics written), ChemNet, the RMSD, and the saved molecules
+    # rescored by the offline CLI
+    from diffspectra_tpu_torch.data.info import get_dataset_info
+    from diffspectra_tpu_torch.evaluation import base_metrics, cal_geometry, chemnet
+    from diffspectra_tpu_torch.evaluation import mose_metric, rmsd
+    from diffspectra_tpu_torch.evaluation.mmd import compute_mmd
+    from diffspectra_tpu_torch.run_lib import save_molecules
+    raw = generate(seed=5, size=12, max_n=16, fidelity=3)
+    graphs = [from_decoded((raw["pos"][i, :n], raw["atom_type"][i, :n],
+                            raw["edge_type"][i, :n, :n], raw["fc"][i, :n]),
+                           ["H", "C", "N", "O", "F"]) for i, n in enumerate(raw["num_atom"])]
+    moses = mose_metric.get_moses_metrics(graphs[:8])(graphs[8:])
+    assert np.isnan(moses["FCD"]) and moses["FCD_proxy"] >= 0 and 0 <= moses["SNN"] <= 1
+    with tempfile.TemporaryDirectory() as tmp:
+        geo = cal_geometry.get_sub_geometry_metric(
+            graphs[:8], get_dataset_info("qm9_second_half"), tmp, "cpu")(graphs[8:])
+        assert geo["bond_length_mean"] >= 0
+        assert os.path.exists(os.path.join(tmp, "target_geometry_stat.pk"))
+        save_molecules(tmp, "1", graphs[8:], graphs[8:], graphs[8:])
+        tables = base_metrics.main(["--base_path", tmp, "--ckpt", "1"])
+        assert tables["2d"]["Top-1 Accuracy"] == tables["3d"]["Top-1 Accuracy"] == "1.0000"
+    assert abs(compute_mmd([1.0, 2.0, 3.0], [1.0, 2.0, 3.0], device="cpu")) < 1e-6
+    assert chemnet.random_chemnet(0).features(["CCO", "c1ccccc1"], device="cpu").shape == (2, 24)
+    assert rmsd.hungarian_rmsd_batch(graphs[:2], graphs[:2])[1] == 1.0
     loaded = sorted(n for n in sys.modules
                     if n.split(".")[0] in BLOCKED and n.split(".")[0] != "torch_geometric")
     assert not loaded, loaded
