@@ -1,5 +1,5 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU (H100): build, check, serve,
-sweep, train, pretrain, score.
+sweep, train, pretrain, score, and train and sweep over two ranks.
 
     python3 chip_smoke.py
 
@@ -47,10 +47,10 @@ Phases, each printing its own lines:
      difference (the ratio printed), while the same cuda forward with
      each kernel's gate product short of its last k step of 16 (the
      ``drop_k`` control of ``tools/bf16_noise.py``) must read above it;
-  5. serve: ``Elucidator.from_warm_state(...).elucidate(...)`` for 3 synthetic
-     requests (fidelity-4 spectra) at their true atom counts, 10 candidates,
-     1000 ancestral steps, once per path in bf16 (the default), and the
-     first of them in f32 (the override); each path's kernels in that dtype
+  5. serve: ``Elucidator.from_warm_state(...).elucidate(...)`` for the first
+     of 3 synthetic requests (fidelity-4 spectra) at its true atom count, 10
+     candidates, 1000 ancestral steps, on each path in bf16 (the default)
+     and in f32 (the override); each path's kernels in that dtype
      must be launched 8 blocks x steps x requests times, every other
      kernel 0. Then on the
      bf16 block path (100 steps, cut from 1000 to keep the run short): one
@@ -83,8 +83,8 @@ Phases, each printing its own lines:
      dropout 0 on cuda and on the CPU from the same state and draws, the
      loss within 1e-4 relative and each parameter's gradient within 1e-3
      of its max |grad|; (b) ``run_lib.train`` for 20 steps, every loss
-     finite, params and EMA moved; (c) its snapshot, 128 draws at 1000
-     steps from the EMA weights, launching each bf16 per-op kernel 8 x
+     finite, params and EMA moved; (c) its snapshot, 128 draws at 400
+     steps (1000 before phase 14 came) from the EMA weights, launching each bf16 per-op kernel 8 x
      steps x rounds times and the steps none (and no port kernel among a
      profiled step's kernel names), its stability figures finite in
      [0, 1], the xyz files of its samples and targets written; timed steps (the median over the last 12 of 20, graphs/s, peak
@@ -113,7 +113,7 @@ Phases, each printing its own lines:
      ``load_qm9s`` (``data.synthetic=False``), 16 steps from
      ``warm_qm9s_as.npz`` through the device store with
      ``training.profile`` (the trace written; numbered checkpoints every 8
-     steps), then 12 through the host iterator: finite losses, the store's
+     steps), then 8 through the host iterator: finite losses, the store's
      bytes on the card equal to ``estimate_bytes``, its first batch equal
      to the host collate's (max |diff| 0), each path's median step time and
      graphs/s; (b) ``pretrain_specformer`` at the flagship's widths
@@ -123,7 +123,7 @@ Phases, each printing its own lines:
      file's) trained 5 finite steps; (c) the allspectra flagship from
      ``warm_qm9s_ir.npz``, partial, ``cond_encoder/head_linear/kernel``
      zeroed: the logged restored, fresh and zeroed counts equal the CPU's,
-     5 finite steps; (d) ``remat_policy='dots'`` for 10 steps, its median
+     5 finite steps; (d) ``remat_policy='dots'`` for 6 steps, its median
      step and peak memory beside phase 8's ``full`` and ``none``, the peak
      between theirs; (e) ``evaluate_checkpoints`` over (a)'s two numbered
      checkpoints, 8 targets, K=1, 100 steps: finite figures for each, the
@@ -184,6 +184,30 @@ Phases, each printing its own lines:
      yy/m^2)), then timed at the 10,000-a-side cap with its peak memory;
      (c) ChemNet (``random_chemnet``) on cuda against the CPU on 64
      SMILES, within 1e-5 of the largest activation.
+ 14. the mesh, data parallelism over ``torch.distributed``: (a) at world
+     size 1 over NCCL in this process, 3 steps of ``make_parallel_train_step``
+     at full width from ``warm_qm9s_as.npz`` (batch 128, bf16, dropout 0.1)
+     equal bit for bit (losses, parameters, EMA, optimizer state, batch
+     statistics) to the one-device step from the same state and draws;
+     (b) two ranks spawned over gloo, both on ``cuda:0`` (one card; NCCL
+     refuses two ranks on one device), each joined under its own time limit
+     and loading phase 2's build: ``run_lib.train`` for 6 steps from the
+     warm state at a global batch of 128 (64 a rank, buckets 17, 21, 25,
+     29, the device store sharded), then a snapshot of 16 draws at 100
+     steps (8 a rank): every loss finite and equal on both ranks, every
+     tensor of the state equal across the ranks (digests gathered), the
+     checkpoint, export and xyz files written by rank 0 alone, each bf16
+     per-op kernel launched 8 x 100 x that rank's rounds times on each rank
+     and no other kernel, each rank's median step time, graphs/s and peak
+     memory; then one f32 step at dropout 0 within 1e-5 of each parameter's
+     largest |value| of one process averaging both shards' gradients;
+     (c) ``run_lib.evaluate`` over those ranks on the block path in bf16,
+     phase 13's 8 targets, K=2, 100 steps: ``block_fused_bf16`` launched 8
+     x 100 x that rank's rounds x K times on each rank and no other kernel,
+     every target decoded, the same figures on both ranks, finite and in
+     [0, 1] (MCES >= 0), and each rank's draws equal bit for bit to one
+     process's ``sample_round`` of its rows with its generator. The phase's
+     budget is 90 s.
 Then one ``{"kernels": [...]}`` line, the card's ``nvidia-smi`` line, and as
 the last line ``{"ok": true, "device": {...}}``. Any failed check raises and
 the script exits non-zero without that last line; without CUDA it exits 2.
@@ -214,11 +238,12 @@ WARM = os.path.join(ROOT, "artifacts", "warm_qm9s_as.npz")
 HEAD = os.path.join(ROOT, "artifacts", "atom_count_head.npz")
 B, N = 10, 29  # draws per request, padded atoms at the largest bucket
 REQUESTS, CANDIDATES, STEPS = 3, 10, 1000
-# requests served a path by dtype: bf16 (the default) all three, f32 (the
-# override) the first, to keep the script inside its time limit on a slower
+# requests served a path by dtype: the first of them in bf16 (the default) and
+# in f32 (the override), to keep the script inside its time limit on a slower
 # card host (1287 s with three f32 requests a path on an H100 whose host ran
-# the host-bound phases 1.3x slower; 925 s with one: PERF.md §6)
-SERVED = {"bf16": REQUESTS, "f32": 1}
+# the host-bound phases 1.3x slower; 925 s with one: PERF.md §6); bf16 went to
+# one request a path when phase 14 came
+SERVED = {"bf16": 1, "f32": 1}
 SHORT_STEPS, DPM_STEPS = 100, 50  # the count-head, batch and DPM-Solver phases
 MARGINAL_STEPS, MARGINAL_DRAWS = 20, 2  # the marginal over the histogram's counts
 # phase 7, the eval sweep: tools/tpu_eval_10k.py's batch of 128; a synthetic
@@ -269,12 +294,15 @@ NOT_COMPARABLE = {"Metric-2D unique & valid": (0.7428, "distinct structures of 1
                   "Metric-2D novelty": (0.4210, "against each set's own train split"),
                   "memorization bound": (0.5564, "against each set's own train split")}
 # phase 8, training: the flagship at full width (bf16, dropout 0.1, batch
-# 128) on the sweep's synthetic set in buckets, warm-started from WARM
+# 128) on the sweep's synthetic set in buckets, warm-started from WARM; its
+# snapshot's depth (1000 steps until phase 14 came, then cut to keep the script
+# inside its time)
+SNAPSHOT_STEPS = 400
 TRAIN = {"seed": 42, "data.synthetic": True, "data.synthetic_cache": SYNTH_CACHE,
          "data.synthetic_size": 1280, "data.synthetic_fidelity": 4,
          "data.bucket_sizes": (17, 21, 25, 29), "training.batch_size": 128,
          "training.eval_batch_size": 128, "training.eval_samples": 128,
-         "training.log_freq": 1, "sampling.steps": 1000, "training.warm_start": WARM}
+         "training.log_freq": 1, "sampling.steps": SNAPSHOT_STEPS, "training.warm_start": WARM}
 # the run of checks (b) and (c), remat_policy='full' (30 steps until phase 9
 # came, PERF.md §6)
 TRAIN_STEPS = 20
@@ -325,13 +353,14 @@ FLAGSHIP = {"seed": 42, "data.synthetic": False, "data.bucket_sizes": (17, 21, 2
             "training.snapshot_sampling": False, "training.snapshot_freq_for_preemption": 10**9,
             "training.snapshot_freq": 10**9}
 WARM_IR = os.path.join(ROOT, "artifacts", "warm_qm9s_ir.npz")
-STORE_STEPS, HOST_STEPS = 16, 12  # (a): through the store (profiled), then the host iterator
+# (a): through the store (profiled), then the host iterator (12 until phase 14 came)
+STORE_STEPS, HOST_STEPS = 16, 8
 STORE_SNAPSHOT_FREQ = 8  # (a) writes two numbered checkpoints, (e)'s
 PRETRAIN = {"pretrain.n_iters": 20, "pretrain.warmup": 5, "pretrain.batch_size": 128,
             "pretrain.log_freq": 1, "pretrain.snapshot_freq": 20}
 RESTORE_STEPS = PARTIAL_STEPS = 5  # (b) from the pretrained SpecFormer, (c) partial
 ZERO_FRESH = "cond_encoder/head_linear/kernel"
-DOTS_STEPS = 10
+DOTS_STEPS = 6  # 10 until phase 14 came
 EVAL_LOOP = {"eval.num_samples": 8, "eval.batch_size": 8, "eval.num_candidates": 1,
              "sampling.steps": 100}
 # phase 11, DMT_WO_EQ (the non-equivariant ablation; no port kernel) at full
@@ -373,6 +402,24 @@ CDGS_TRAIN_STEPS = 10
 EVAL_STACK = {**SWEEP, "eval.num_samples": 8, "eval.batch_size": 8, "eval.num_candidates": 2,
               "sampling.steps": 100, "training.matmul_precision": "bfloat16",
               "eval.sub_geometry": True, "eval.save_mols": "true"}
+# phase 14, the mesh (data parallelism over torch.distributed): (a) at world
+# size 1 over NCCL in this process, MESH_STEPS steps of make_parallel_train_step
+# at full width, batch 128, bf16, dropout 0.1, from WARM, against the
+# one-device step; (b) two ranks over gloo, both on cuda:0 (the card is one
+# device, and NCCL refuses two ranks on one), spawned with their own time limit:
+# run_lib.train for MESH_TRAIN_STEPS steps at a global batch of 128 (64 a rank),
+# the device store sharded, then a snapshot of 16 draws (8 a rank) at 100 steps;
+# then one f32 step at dropout 0 against its one-process emulation, each
+# parameter within MESH_F32_RTOL of its largest |value|; (c) run_lib.evaluate
+# on those ranks: phase 13's 8 targets, K=2, 100 steps, the block path in bf16
+MESH_STEPS, MESH_TRAIN_STEPS = 3, 6
+MESH_TRAIN = {**TRAIN, "training.eval_samples": 16, "training.eval_batch_size": 16,
+              "training.snapshot_freq_for_preemption": 10**9, "sampling.steps": 100}
+MESH_CHECK_BATCH = 4  # (b)'s f32 step: rows a rank
+MESH_F32_RTOL = 1e-5
+MESH_SWEEP = {**SWEEP, "eval.num_samples": 8, "eval.batch_size": 8, "eval.num_candidates": 2,
+              "sampling.steps": 100, "training.matmul_precision": "bfloat16"}
+MESH_RANKS, MESH_RANK_TIMEOUT, MESH_BUDGET_S = 2, 240, 90
 # (b) the MMD's kernel sums on cuda against the float64 plain version: each
 # of xx/n^2, yy/m^2 and xy/nm within MMD_RTOL relative, the MMD within
 # MMD_RTOL x (xx/n^2 + yy/m^2), at MMD_SIDE samples a side; then the sums
@@ -1518,7 +1565,7 @@ def busy_share(prof, window_us, smi):
 def train_run(dev, smi, policy, steps, snapshot):
     """``run_lib.train`` from the warm state for ``steps`` steps with
     ``remat_policy``, and with ``snapshot`` its snapshot of 128 draws at
-    1000 steps from the EMA weights. The loop logs each step after reading
+    SNAPSHOT_STEPS steps from the EMA weights. The loop logs each step after reading
     its loss, which waits for the step: the times between those lines are
     its step times, the median over the tail (without the profiled steps)
     is reported, and the peak memory is read at the last step's line, ahead
@@ -2073,7 +2120,7 @@ def partial_warm_start(dev, smi, root):
 
 
 def dots_run(dev, smi, root, warm_step, phase8):
-    """Phase 10 (d): ``remat_policy='dots'`` for 10 steps from WARM; its
+    """Phase 10 (d): ``remat_policy='dots'`` for DOTS_STEPS steps from WARM; its
     median step and peak memory beside phase 8's ``full`` and ``none``, the
     peak between theirs."""
     config = flagship_config(**{"data.root": root, "training.warm_start": WARM,
@@ -2655,6 +2702,365 @@ def phase_eval_stack(dev, smi):
     return launches
 
 
+def state_digests(state) -> list:
+    """A digest of each tensor of a train state (the model's parameters and
+    batch statistics, the optimizer state, the EMA), in one order."""
+    import hashlib
+
+    from diffspectra_tpu_torch.parallel.mesh import state_tensors
+
+    return [hashlib.sha1(t.detach().cpu().contiguous().view(torch.uint8).numpy().tobytes())
+            .hexdigest() for t in state_tensors(state)]
+
+
+def mesh_world_one(dev, smi):
+    """Phase 14 (a): make_parallel_train_step at world size 1 over NCCL, in
+    this process, against the one-device step from the same state and
+    draws: losses and every tensor of the state equal bit for bit."""
+    import torch.distributed as dist
+
+    from diffspectra_tpu_torch import run_lib
+    from diffspectra_tpu_torch.data.pipeline import collate, get_dataset
+    from diffspectra_tpu_torch.diffusion.schedule import NoiseScheduleVP
+    from diffspectra_tpu_torch.parallel import Mesh, make_parallel_train_step
+    from diffspectra_tpu_torch.training.losses import draw
+    from diffspectra_tpu_torch.training.step import get_step_fn
+    from diffspectra_tpu_torch.utils.scalers import get_data_scaler
+    from diffspectra_tpu_torch.warm_state import warm_start
+
+    config = train_config()
+    _, train_ds, _, _, _ = get_dataset(config)
+    batch = run_lib.batch_to_device(collate(train_ds.take(np.arange(128)),
+                                            config.data.spectra_version), dev)
+    gen, host = torch.Generator(device=dev).manual_seed(1), torch.Generator().manual_seed(2)
+    draws = [draw(gen, host, batch, config.model.n_layers) for _ in range(MESH_STEPS)]
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/rendezvous", rank=0,
+                                world_size=1)
+        try:
+            runs = {}
+            for tag, mesh in (("nccl", Mesh(0, 1, dev)), ("one device", None)):
+                tx, state = run_lib.init_train_state(config, dev)
+                state = warm_start(state, WARM)
+                step_fn = get_step_fn(NoiseScheduleVP.from_config(config), tx,
+                                      get_data_scaler(config), config, mesh=mesh)
+                parallel = make_parallel_train_step(step_fn, mesh) if mesh else None
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                losses = []
+                for d in draws:
+                    if parallel:
+                        state, loss = parallel(state, batch, lambda shard, d=d: (shard, d))
+                    else:
+                        state, loss = step_fn(state, batch, d)
+                    losses.append(loss.item())
+                runs[tag] = (losses, state_digests(state), time.perf_counter() - t0)
+                del state
+        finally:
+            dist.destroy_process_group()
+    (l_a, d_a, s_a), (l_b, d_b, s_b) = runs["nccl"], runs["one device"]
+    differ = [i for i, (a, b) in enumerate(zip(d_a, d_b)) if a != b]
+    say(f"[mesh] (a) world size 1 over NCCL: {MESH_STEPS} steps of make_parallel_train_step, "
+        f"batch 128, bf16, dropout {config.model.dropout}, from {os.path.basename(WARM)}: losses "
+        f"{l_a}, the one-device step's {l_b}; {len(d_b)} state tensors, {len(differ)} differ "
+        f"(indices {differ[:5]}); seconds {s_a:.2f} and {s_b:.2f}; {smi}")
+    assert l_a == l_b and len(d_a) == len(d_b) and not differ
+    assert all(math.isfinite(x) for x in l_a)
+    return {"losses": l_a, "tensors": len(d_b), "seconds": [s_a, s_b]}
+
+
+def mesh_rank(mesh, train_over, sweep_over, warm, smi):
+    """Phase 14 (b) and (c) on one rank (spawned; module globals are this
+    process's own, so every setting comes in the arguments). Returns its
+    figures, timings and launches; its checks raise."""
+    import logging
+
+    import torch.distributed as dist
+
+    from diffspectra_tpu_torch import checkpoint, configs, run_lib
+    from diffspectra_tpu_torch.api import load_model
+    from diffspectra_tpu_torch.ops import LAUNCHES, _lib, reset_launches
+    from diffspectra_tpu_torch.warm_state import read_warm_state
+
+    _lib.load()  # the parent's build
+    dev = mesh.device
+    out = {"rank": mesh.rank}
+    # (b) run_lib.train; rank 0 logs its step lines at INFO, the others at DEBUG
+    marks, losses, writes = [], [], {}
+
+    class StepLines(logging.Handler):
+        def emit(self, record):
+            msg = record.getMessage()
+            if "training_loss" in msg:
+                marks.append(time.perf_counter())
+                losses.append(float(msg.split("training_loss: ")[1].split(",")[0]))
+
+    root = logging.getLogger()
+    root.setLevel(logging.DEBUG)
+    root.addHandler(StepLines())
+    for module, name in ((checkpoint, "save_checkpoint"), (run_lib, "export_warm_state"),
+                         (run_lib, "visualize_mols")):
+        def counted(*args, _fn=getattr(module, name), _name=name, **kwargs):
+            writes[_name] = writes.get(_name, 0) + 1
+            return _fn(*args, **kwargs)
+        setattr(module, name, counted)
+    warm_step = read_warm_state(warm)["step"]
+    last = warm_step + MESH_TRAIN_STEPS - 1
+    config = configs.apply_overrides(configs.get_config(), {
+        **train_over, "training.n_iters": last, "training.snapshot_freq": 10**9})
+    workdir = os.path.join(tempfile.gettempdir(), "chip_smoke_mesh_train")  # the ranks' shared one
+    if mesh.rank == 0:
+        shutil.rmtree(workdir, ignore_errors=True)
+    dist.barrier()
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = run_lib.train(config, workdir, dev)
+    torch.cuda.synchronize()
+    out["train_s"] = time.perf_counter() - t0
+    out["train_launches"] = dict(LAUNCHES)
+    step_ms = [(b - a) * 1e3 for a, b in zip(marks, marks[1:])]
+    out.update(losses=losses, step_ms=step_ms, median_ms=float(np.median(step_ms[1:])),
+               peak_bytes=torch.cuda.max_memory_allocated(), writes=writes,
+               files=sorted(os.listdir(workdir)),
+               checkpoints=sorted(os.listdir(os.path.join(workdir, "checkpoints"))))
+    out["graphs_per_s"] = config.training.batch_size / out["median_ms"] * 1e3
+    digests = [None] * mesh.world
+    dist.all_gather_object(digests, state_digests(state))
+    out["digests_equal"] = all(d == digests[0] for d in digests)
+    out["tensors"] = len(digests[0])
+    with open(os.path.join(workdir, "samples", f"iter_{last}.json")) as f:
+        out["snapshot"] = json.load(f)
+    del state
+    dist.barrier()  # every rank has read the workdir
+    if mesh.rank == 0:
+        shutil.rmtree(workdir)
+    out["f32"] = mesh_f32_step(mesh, train_over, warm)
+    # (c) the sweep fanned out over the ranks
+    config = configs.apply_overrides(configs.get_config(), sweep_over)
+    eval_dir = tempfile.mkdtemp(prefix=f"mesh_eval_{mesh.rank}_")
+    sweeps = []
+    make = run_lib.make_cond_sampling_fn
+
+    def recorded(*args, **kwargs):
+        fn = make(*args, **kwargs)
+
+        def sampling_fn(generator):
+            result = fn(generator)
+            sampling_fn.round_seconds = fn.round_seconds
+            sweeps.append(result[0])
+            return result
+
+        sampling_fn.rounds = fn.rounds
+        return sampling_fn
+
+    run_lib.make_cond_sampling_fn = recorded
+    reset_launches()
+    t0 = time.perf_counter()
+    fig = run_lib.evaluate(config, warm, eval_dir, dev)
+    out["sweep_s"] = time.perf_counter() - t0
+    out["sweep_launches"] = dict(LAUNCHES)
+    shutil.rmtree(eval_dir)
+    out["figures"] = sweep_figures(fig, config.eval.num_candidates)
+    out["decoded"] = [sw["decoded"] for sw in fig["sweeps"]]
+    out["rounds"] = fig["rounds"]
+    out["targets"] = fig["targets"]
+    shared = json.dumps({k: v for k, v in fig.items() if k not in ("sweeps", "phase_seconds")},
+                        sort_keys=True)
+    everyone = [None] * mesh.world
+    dist.all_gather_object(everyone, shared)
+    out["figures_equal"] = all(f == shared for f in everyone)
+    # this rank's rows of each round, sampled in one process with its generator
+    out["emulated_equal"] = mesh_sweep_emulation(mesh, config, warm, sweeps, load_model)
+    return out
+
+
+def mesh_f32_step(mesh, train_over, warm):
+    """Phase 14 (b): one f32 step at dropout 0 over the ranks, each on its
+    MESH_CHECK_BATCH rows with its own draws; rank 0 also takes the step in
+    one process, both shards' gradients averaged, and returns the largest
+    |difference| of each parameter over its largest |value|."""
+    from diffspectra_tpu_torch import configs, run_lib
+    from diffspectra_tpu_torch.data.pipeline import collate, get_dataset
+    from diffspectra_tpu_torch.diffusion.schedule import NoiseScheduleVP
+    from diffspectra_tpu_torch.models import ema as ema_lib
+    from diffspectra_tpu_torch.models.layers import refresh_casts
+    from diffspectra_tpu_torch.parallel import make_parallel_train_step, rank_seed, shard_batch
+    from diffspectra_tpu_torch.training.losses import draw
+    from diffspectra_tpu_torch.training.step import batch_stats_of, get_step_fn, make_loss_fn
+    from diffspectra_tpu_torch.training.train_state import params_of
+    from diffspectra_tpu_torch.utils.scalers import get_data_scaler
+    from diffspectra_tpu_torch.warm_state import warm_start
+
+    dev = mesh.device
+    config = configs.apply_overrides(configs.get_config(), {
+        **train_over, "training.matmul_precision": "float32", "model.dropout": 0.0})
+    _, train_ds, _, _, _ = get_dataset(config)
+    rows = MESH_CHECK_BATCH * mesh.world
+    batch = run_lib.batch_to_device(collate(train_ds.take(np.arange(rows)),
+                                            config.data.spectra_version), dev)
+    shards = [shard_batch(batch, r, mesh.world) for r in range(mesh.world)]
+
+    def draws_of(r):
+        seed = rank_seed(config.seed, r)
+        return draw(torch.Generator(device=dev).manual_seed(seed),
+                    torch.Generator().manual_seed(seed), shards[r], config.model.n_layers)
+
+    scheduler, scaler = NoiseScheduleVP.from_config(config), get_data_scaler(config)
+    tx, state = run_lib.init_train_state(config, dev)
+    state = warm_start(state, warm)
+    one = copy.deepcopy(state) if mesh.rank == 0 else None  # the one-process emulation's
+    step = make_parallel_train_step(get_step_fn(scheduler, tx, scaler, config, mesh=mesh), mesh)
+    own = draws_of(mesh.rank)
+    state, loss = step(state, batch, lambda shard: (shard, own))
+    if mesh.rank != 0:
+        return None
+    # one process: each shard's gradient and batch statistics, averaged, one update
+    model = one.model.train()
+    params = params_of(model)
+    stats = batch_stats_of(model)
+    start = [b.clone() for b in stats]
+    loss_fn = make_loss_fn(scheduler, scaler, config)
+    grads, moved = [], []
+    for r in range(mesh.world):
+        with torch.no_grad():
+            for b, s0 in zip(stats, start):
+                b.copy_(s0)
+        g = torch.autograd.grad(loss_fn(model, shards[r], draws_of(r)), list(params.values()),
+                                allow_unused=True)
+        grads.append([torch.zeros_like(p) if x is None else x for p, x in zip(params.values(), g)])
+        moved.append([b.clone() for b in stats])
+    with torch.no_grad():
+        for b, *per in zip(stats, *moved):
+            b.copy_(sum(per) / mesh.world)
+    mean = {k: sum(gs) / mesh.world for k, *gs in zip(params, *grads)}
+    one.opt_state = tx.update(mean, one.opt_state, params)
+    refresh_casts(model)
+    one.ema = ema_lib.update(one.ema, params)
+    worst, name = 0.0, ""
+    got = dict(state.model.named_parameters())
+    for k, want in params.items():
+        scale = want.detach().abs().max().item()
+        err = (got[k].detach() - want.detach()).abs().max().item()
+        if scale and err / scale > worst:
+            worst, name = err / scale, k
+    return {"loss": loss.item(), "worst": worst, "worst_param": name, "params": len(params)}
+
+
+def mesh_sweep_emulation(mesh, config, warm, sweeps, load_model):
+    """Rank ``mesh.rank``'s draws of each sweep against one process's
+    ``sample_round`` of its rows of each round with its own generator (the
+    caller's seed and the rank), on the same card."""
+    from diffspectra_tpu_torch.data.pipeline import SPECTRA_KEYS, get_dataset
+    from diffspectra_tpu_torch.diffusion.schedule import NoiseScheduleVP
+    from diffspectra_tpu_torch.parallel import rank_seed
+    from diffspectra_tpu_torch.sampling.decode import mol_process
+    from diffspectra_tpu_torch.sampling.harness import (
+        bucket_sizes_of, make_sampler, plan_rounds, sample_round, sampling_world)
+    from diffspectra_tpu_torch.utils.scalers import get_data_inverse_scaler
+
+    dev = mesh.device
+    model = load_model(warm, config, dev)
+    test_ds = get_dataset(config)[3]
+    world, batch = sampling_world(mesh.world, config.eval.batch_size)
+    drawn, rounds = plan_rounds(test_ds, config.eval.num_samples, batch, bucket_sizes_of(config))
+    sampler = make_sampler(config, NoiseScheduleVP.from_config(config))
+    inverse = get_data_inverse_scaler(config)
+    generator = torch.Generator(device=dev).manual_seed(rank_seed(config.seed, mesh.rank))
+    per = batch // world
+    checked = 0
+    for sweep in sweeps:
+        for sel, n_pad in rounds:
+            mine = sel[mesh.rank * per:(mesh.rank + 1) * per]
+            data = test_ds.take(drawn[mine])
+            specs = [torch.from_numpy(data[k]).to(dev)
+                     for k in SPECTRA_KEYS[config.data.spectra_version]]
+            pos, one_hot, fc, edges = sample_round(
+                model, sampler, config, inverse, specs,
+                torch.from_numpy(data["num_atom"]).to(dev), n_pad, generator)
+            for dst, mol in zip(mine, mol_process(one_hot, pos, fc, data["num_atom"], edges)):
+                if dst < len(sweep):
+                    assert all(np.array_equal(a, b) for a, b in zip(sweep[dst], mol)), dst
+                    checked += 1
+    return checked
+
+
+def phase_mesh(dev, smi):
+    """Phase 14: data parallelism over torch.distributed. Returns the
+    kernels' launches on the spawned ranks, summed."""
+    from diffspectra_tpu_torch.parallel.launch import spawn_ranks
+
+    t0 = time.perf_counter()
+    world_one = mesh_world_one(dev, smi)
+    torch.cuda.empty_cache()  # the ranks share the card with this process
+    say(f"[mesh] (b, c) spawning {MESH_RANKS} ranks over gloo on {dev} (time limit "
+        f"{MESH_RANK_TIMEOUT} s)")
+    t1 = time.perf_counter()
+    ranks = spawn_ranks(mesh_rank, MESH_RANKS, "cuda:0", MESH_RANK_TIMEOUT,
+                        args=(MESH_TRAIN, MESH_SWEEP, WARM, smi), backend="gloo", threads=4)
+    spawned = time.perf_counter() - t1
+    per_rank = MESH_TRAIN["training.eval_batch_size"] // MESH_RANKS
+    rounds = math.ceil(MESH_TRAIN["training.eval_samples"] / MESH_TRAIN["training.eval_batch_size"])
+    launches = {}
+    for r in ranks:
+        train_expected = 8 * MESH_TRAIN["sampling.steps"] * rounds
+        say(f"[mesh] (b) rank {r['rank']}: run_lib.train {MESH_TRAIN_STEPS} steps, global batch "
+            f"{MESH_TRAIN['training.batch_size']} ({MESH_TRAIN['training.batch_size'] // MESH_RANKS}"
+            f" a rank), buckets {MESH_TRAIN['data.bucket_sizes']}, bf16, dropout 0.1, in "
+            f"{r['train_s']:.1f} s; losses {r['losses']}; step ms "
+            f"{[round(t, 1) for t in r['step_ms']]}, median {r['median_ms']:.1f} ms "
+            f"({r['graphs_per_s']:.1f} graphs/s, global batch; gloo copies through the host); "
+            f"max_memory_allocated {r['peak_bytes'] / 2**30:.2f} GiB; writes {r['writes']}; "
+            f"files {r['files']}, checkpoints {r['checkpoints']}; snapshot of "
+            f"{MESH_TRAIN['training.eval_samples']} draws ({per_rank} a rank): "
+            f"{json.dumps(r['snapshot'])}; launches {nonzero(r['train_launches'])}, expected "
+            f"{train_expected} for {kernels_of('attn_equi', 'bf16')}; {smi}")
+        assert len(r["losses"]) == MESH_TRAIN_STEPS and all(map(math.isfinite, r["losses"]))
+        assert r["losses"] == ranks[0]["losses"] and r["digests_equal"], r["rank"]
+        launched_only(kernels_of("attn_equi", "bf16"), r["train_launches"], train_expected)
+        assert r["writes"] == ({"save_checkpoint": 1, "export_warm_state": 1,
+                                "visualize_mols": 2} if r["rank"] == 0 else {}), r["writes"]
+        assert "warm_state.npz" in r["files"] and r["checkpoints"] == ["checkpoint_0"], r
+        for dim in r["snapshot"].values():
+            assert all(math.isfinite(v) and 0 <= v <= 1 for v in dim.values()), r["snapshot"]
+        K, steps = MESH_SWEEP["eval.num_candidates"], MESH_SWEEP["sampling.steps"]
+        sweep_expected = 8 * steps * len(r["rounds"]) * K
+        say(f"[mesh] (c) rank {r['rank']}: run_lib.evaluate over {MESH_RANKS} ranks, "
+            f"{r['targets']} targets, K={K}, {steps} steps, block path bf16, in "
+            f"{r['sweep_s']:.1f} s; rounds {r['rounds']}; decoded {r['decoded']}; launches "
+            f"{nonzero(r['sweep_launches'])}, expected {sweep_expected} for "
+            f"{kernels_of('block', 'bf16')}; figures equal on every rank {r['figures_equal']}; "
+            f"{r['emulated_equal']} draws equal to one process's sample_round of its rows; "
+            f"figures {json.dumps(r['figures'])}")
+        launched_only(kernels_of("block", "bf16"), r["sweep_launches"], sweep_expected)
+        assert r["decoded"] == [r["targets"]] * K and r["figures_equal"]
+        assert r["emulated_equal"] == K * r["targets"] // MESH_RANKS, r["emulated_equal"]
+        assert json.dumps(r["figures"]) == json.dumps(ranks[0]["figures"])  # NaN equal to NaN
+        for name, value in r["figures"].items():
+            if "MACCS" in name or "Fraggle" in name:
+                assert math.isnan(value), (name, value)
+            elif "MCES" in name:
+                assert math.isfinite(value) and value >= 0, (name, value)
+            else:
+                assert math.isfinite(value) and 0 <= value <= 1, (name, value)
+        add_launches(launches, r["train_launches"])
+        add_launches(launches, r["sweep_launches"])
+    f32 = ranks[0]["f32"]
+    say(f"[mesh] (b) one f32 step at dropout 0 over {MESH_RANKS} ranks ({MESH_CHECK_BATCH} rows "
+        f"a rank) against one process averaging both shards' gradients: loss {f32['loss']:.6f}; "
+        f"the largest |difference| of a parameter over its largest |value| {f32['worst']:.3e} "
+        f"({f32['worst_param']}) over {f32['params']} parameters (bound {MESH_F32_RTOL})")
+    assert f32["worst"] <= MESH_F32_RTOL, f32
+    seconds = time.perf_counter() - t0
+    print(json.dumps({"mesh": {"world_one": world_one, "ranks": [
+        {k: r[k] for k in ("rank", "losses", "median_ms", "graphs_per_s", "peak_bytes",
+                           "train_s", "sweep_s", "figures")} for r in ranks],
+        "f32": f32, "spawned_s": spawned, "phase_s": seconds}}), flush=True)
+    say(f"[mesh] phase 14 in {seconds:.1f} s (budget {MESH_BUDGET_S} s; the spawned ranks "
+        f"{spawned:.1f} s); launches on the ranks {nonzero(launches)}; {smi}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on the GPU only",
@@ -2686,9 +3092,17 @@ def main() -> int:
         elif "registers" in line or "spill" in line:
             say(f"[build] {kernel}: {line.strip()}")
 
+    started = time.perf_counter()
+
+    def clock(done):  # the script's own seconds at the end of each phase
+        say(f"[clock] {done} done at {time.perf_counter() - started:.1f} s")
+
     rows = phase_kernels(dev)
+    clock("phase 3")
     probe_rows = phase_probes(dev)
+    clock("phase 3b")
     models = phase_forward(dev)
+    clock("phase 4")
     from diffspectra_tpu_torch.data.synthetic import generate
 
     data = generate(seed=7, size=REQUESTS, max_n=29, fidelity=4)
@@ -2698,16 +3112,27 @@ def main() -> int:
         launches.update({k: counts[k] for k in kernels_of(path, dt)})
         serving.update({k: serving.get(k, 0) + counts[k] for k in counts})
     serve_more(el, dev, data, generate(seed=9, size=8, max_n=29, fidelity=4))
+    clock("phase 5")
     for (path, dt), model in models.items():
         phase_profile(f"{path} {dt}", model, dev)
+    clock("phase 6")
     sweeps = {dt: phase_sweep(dev, dt) for dt in ("bf16", "f32")}
     compare_sweeps(sweeps)
+    clock("phase 7")
     trained, phase8 = phase_train(dev, smi)
+    clock("phase 8")
     variants = phase_variants(dev, smi)
+    clock("phase 9")
     flagship = phase_flagship(dev, smi, phase8)
+    clock("phase 10")
     wo_eq = phase_wo_eq(dev, smi)
+    clock("phase 11")
     cdgs = phase_cdgs(dev, smi)
+    clock("phase 12")
     eval_stack = phase_eval_stack(dev, smi)
+    clock("phase 13")
+    mesh = phase_mesh(dev, smi)
+    clock("phase 14")
     sweep = {k: sum(r[0][k] for r in sweeps.values()) for k in serving}
     for row in rows:
         # the dd1 rows' main path is phase 9's (dist_gbf=False); the others'
@@ -2722,15 +3147,17 @@ def main() -> int:
         row["wo_eq_specformer_bf16_launches"] = wo_eq.get(row["name"], 0)
         row["cdgs_launches"] = cdgs.get(row["name"], 0)
         row["eval_stack_launches"] = eval_stack.get(row["name"], 0)
+        row["mesh_launches"] = mesh.get(row["name"], 0)
         assert row["launches"] > 0 and row["cdgs_launches"] == 0, row
     for row in probe_rows:  # launches: the probe tool's run; none on the serving paths
         row["wo_eq_specformer_bf16_launches"] = wo_eq.get(row["name"], 0)
         row["cdgs_launches"] = cdgs.get(row["name"], 0)
         row["eval_stack_launches"] = eval_stack.get(row["name"], 0)
+        row["mesh_launches"] = mesh.get(row["name"], 0)
         row["serving_launches"] = (serving[row["name"]] + sweep[row["name"]] + trained[row["name"]]
                                    + variants.get(row["name"], 0) + flagship.get(row["name"], 0)
                                    + row["wo_eq_specformer_bf16_launches"] + row["cdgs_launches"]
-                                   + row["eval_stack_launches"])
+                                   + row["eval_stack_launches"] + row["mesh_launches"])
         assert row["serving_launches"] == 0, row
     say(f"[probes] launches in the probe tool's run "
         f"{ {r['name']: r['launches'] for r in probe_rows} }, on the serving paths 0 each")

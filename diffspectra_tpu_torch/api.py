@@ -116,7 +116,8 @@ class Elucidator:
     """Conditional-diffusion structure elucidation with the EMA weights."""
 
     def __init__(self, config, model: torch.nn.Module, device: torch.device):
-        self.config = config
+        # a server is one process on one device, as the JAX Elucidator resolves
+        self.config = config = configs.resolve_runtime_config(config, 1)
         self.model = model
         self.device = device
         self.dataset_info = get_dataset_info(config.data.info_name)

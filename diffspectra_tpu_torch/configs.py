@@ -4,10 +4,9 @@ Replaces ``diffspectra_tpu/configs/diffspectra_qm9s.py``, ``base_qm9.py``,
 ``smoke.py`` and ``smoke_2d.py`` (all ``ml_collections``) with nested
 ``SimpleNamespace`` trees holding only the values that serving, the sweep
 and its metrics, the train loop and SpecFormer's pretraining read, at the
-JAX package's defaults (the batch sizes resolved for one device). Left out:
-the keys of the mesh (``training.num_devices``).
-``apply_overrides`` takes the same dotted ``{"model.nf": 64}`` overrides as
-the JAX ``Elucidator``.
+JAX package's defaults. ``apply_overrides`` takes the same dotted
+``{"model.nf": 64}`` overrides as the JAX ``Elucidator``;
+``resolve_runtime_config`` sizes the batches for the ranks that run.
 """
 
 from __future__ import annotations
@@ -137,16 +136,22 @@ def get_config() -> NS:
             # the DMT's working dtype, as the JAX config's: 'bfloat16' (its
             # production default) or 'float32' (MATMUL_PRECISIONS)
             matmul_precision="bfloat16",
-            # the JAX defaults on one device
+            # the ranks (one process a device) training and sweeping; 0: all
+            # of them (the process group's world size, 1 without one); any
+            # other value must equal it
+            num_devices=0,
+            # 0 in batch_size, eval_batch_size, eval_samples and
+            # eval.batch_size: base_batch_size x num_devices
+            # (resolve_runtime_config), 128 on one device
             base_batch_size=128,
-            batch_size=128,
+            batch_size=0,
             n_iters=2000000,
             log_freq=500,
             snapshot_freq=50000,
             snapshot_freq_for_preemption=10000,
             snapshot_sampling=True,
-            eval_batch_size=128,
-            eval_samples=128,
+            eval_batch_size=0,
+            eval_samples=0,
             reduce_mean=False,
             # a warm-state .npz to start from when the workdir has no checkpoint
             warm_start="",
@@ -177,10 +182,10 @@ def get_config() -> NS:
             save_mols="false",
             bucket_sizes=(17, 21, 25, 29),
             # the sweep: num_samples test targets in rounds of batch_size
-            # (the JAX default 0 resolves to 128 on one device), each drawn
-            # num_candidates times
+            # (0: training.base_batch_size x training.num_devices), each
+            # drawn num_candidates times
             num_samples=10000,
-            batch_size=128,
+            batch_size=0,
             num_candidates=1,
             sampling_temperature=1.0,
             # the numbered checkpoints --mode eval sweeps: ckpts ("1,2"), or
@@ -263,6 +268,23 @@ def get_smoke_2d_config() -> NS:
     m.name = "CDGS"
     m.pred_data = m.self_cond = m.noise_align = m.include_fc_charge = False
     m.rw_depth = 4
+    return config
+
+
+def resolve_runtime_config(config: NS, n_devices: int) -> NS:
+    """The JAX package's device-count scaling, in place: ``training.
+    num_devices`` 0 becomes ``n_devices``, and a batch size of 0
+    (``training.batch_size``, ``eval_batch_size``, ``eval_samples``,
+    ``eval.batch_size``) becomes ``base_batch_size x num_devices``; returns
+    ``config``. SpecFormer's pretraining scales nothing."""
+    t = config.training
+    if t.num_devices == 0:
+        t.num_devices = n_devices
+    per_run = t.base_batch_size * t.num_devices
+    for node, key in ((t, "batch_size"), (t, "eval_batch_size"), (t, "eval_samples"),
+                      (config.eval, "batch_size")):
+        if getattr(node, key) == 0:
+            setattr(node, key, per_run)
     return config
 
 

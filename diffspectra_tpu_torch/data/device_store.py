@@ -1,4 +1,4 @@
-"""The device-resident train split (port of the one-device half of
+"""The device-resident train split (port of
 ``diffspectra_tpu/data/device_store.py``).
 
 The whole split goes to the device once, in compact dtypes (int8 atom
@@ -11,7 +11,17 @@ same rows (the edge one-hot without the edge mask's product, which the
 rows' zero padding makes equal); ``index_iterator`` gives the index
 sequence of ``pipeline.get_batch_iterator`` for the same seed.
 ``estimate_bytes`` is the store's size on the device, which
-``run_lib.train`` holds against ``data.device_store_max_bytes``.
+``run_lib.train`` holds against ``data.device_store_max_bytes``, a rank's
+share of it under data parallelism.
+
+Over ``world`` ranks each rank holds one shard of the rows: the rows
+wrap-padded to a multiple of ``world`` (``concat(arange(m), arange(pad))``),
+rank ``r`` holding ``[r shard, (r + 1) shard)``. The sharded iterators
+(``sharded_index_iterator``, ``sharded_bucket_index_iterator``) give every
+rank the same global index vector from the seed, no collective needed;
+block ``r`` holds offsets into rank ``r``'s shard (``global_index_array``).
+Shard-local shuffling means a row is always trained by the same rank; the
+averaged gradients mix them all.
 """
 
 from __future__ import annotations
@@ -39,9 +49,13 @@ class DeviceStore:
     """The rows of ``ds`` on ``device``: ``arrays`` holds ``positions``,
     ``atom_type``, ``edge_type``, ``formal_charges``, ``num_atom`` and the
     spectra of ``spectra_version``; ``host_num_atom`` the atom counts on
-    the host, in store order, for the bucketed index iterator."""
+    the host, in store order, for the bucketed index iterator. With
+    ``world`` ranks, ``arrays`` holds rank ``rank``'s ``shard_size`` rows
+    of the wrap-padded store, and ``host_num_atom`` the counts of the whole
+    padded store, the same on every rank."""
 
-    def __init__(self, ds: ArrayDataset, spectra_version: str, device):
+    def __init__(self, ds: ArrayDataset, spectra_version: str, device, rank: int = 0,
+                 world: int = 1):
         rows = ds.take(np.arange(len(ds)))
         self.spectra_keys = SPECTRA_KEYS[spectra_version]
         store = {
@@ -53,12 +67,19 @@ class DeviceStore:
         }
         for k in self.spectra_keys:
             store[k] = rows[k].astype(np.float32)  # already log-normalised
+        m = len(store["num_atom"])
+        pad = (-m) % world
+        if pad:
+            store = {k: np.concatenate([v, v[:pad]], axis=0) for k, v in store.items()}
+        self.shard_size = (m + pad) // world
         self.host_num_atom = store["num_atom"].copy()
-        self.arrays = {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+        own = slice(rank * self.shard_size, (rank + 1) * self.shard_size)
+        self.arrays = {k: torch.from_numpy(np.ascontiguousarray(v[own])).to(device)
                        for k, v in store.items()}
 
     def __len__(self):
-        return len(self.host_num_atom)
+        """The rows this rank holds."""
+        return self.shard_size
 
     def nbytes(self) -> int:
         return sum(t.numel() * t.element_size() for t in self.arrays.values())
@@ -130,3 +151,101 @@ def index_iterator(size: int, batch_size: int, shuffle: bool = True, seed: int =
     rng.shuffle(batches)
     for bsize, rows in batches:
         yield bsize, rows.astype(np.int64)
+
+
+def global_index_array(idx: np.ndarray, rank: int, world: int) -> np.ndarray:
+    """Rank ``rank``'s block of the global index vector of the sharded
+    iterators: offsets into its own shard."""
+    per = idx.shape[0] // world
+    return idx[rank * per:(rank + 1) * per]
+
+
+def sharded_bucket_index_iterator(num_atom: np.ndarray, shard_size: int, n_dev: int,
+                                  per_dev_batch: int, bucket_sizes, shuffle: bool = True,
+                                  seed: int = 0):
+    """One epoch of bucketed ``(n_pad, idx[n_dev * per_dev_batch])`` over a
+    store sharded ``n_dev`` ways (``num_atom``: ``host_num_atom``, the whole
+    padded store); block ``d`` holds offsets into shard ``d``, every row at
+    most ``n_pad`` atoms. The sequence is a function of ``(num_atom,
+    seed)``: every rank computes the same one, so all run the same bucket
+    at each step.
+
+    The steps of bucket ``b``: its global row count plus the rows carried
+    up from the smaller buckets, over the global batch (the remainder
+    carries up). Each shard's unconsumed rows of ``b`` head its draw list of
+    ``b + 1``, so the carried steps train those rows. A shard with fewer
+    rows than the schedule takes wraps around its list; one with none in a
+    bucket draws from its rows of at most that many atoms; a bucket that
+    no row of some shard fits is skipped, its rows and count carried up.
+    Rows above the largest bucket raise (``validate_bucket_sizes``)."""
+    bucket_sizes = validate_bucket_sizes(bucket_sizes, num_atom)
+    rng = np.random.default_rng(seed)
+    per_shard = np.asarray(num_atom).reshape(n_dev, shard_size)
+    n_buckets = len(bucket_sizes)
+    pools, fallbacks = [], []  # [d][b]: shard d's rows of bucket b; its rows that fit b
+    for d in range(n_dev):
+        b_of = np.searchsorted(bucket_sizes, per_shard[d])
+        shard_pools, shard_fb = [], []
+        for b in range(n_buckets):
+            rows = np.where(b_of == b)[0]
+            if shuffle and rows.size:
+                rows = rng.permutation(rows)
+            shard_pools.append(rows)
+            fb = np.where(per_shard[d] <= bucket_sizes[b])[0]
+            if shuffle and fb.size:
+                fb = rng.permutation(fb)
+            shard_fb.append(fb)
+        pools.append(shard_pools)
+        fallbacks.append(shard_fb)
+
+    b_of_all = np.searchsorted(bucket_sizes, per_shard.reshape(-1))
+    global_batch = n_dev * per_dev_batch
+    lists = [[None] * n_buckets for _ in range(n_dev)]
+    carry = [np.empty(0, dtype=np.int64) for _ in range(n_dev)]
+    steps_of = [0] * n_buckets
+    leftover = 0
+    for b in range(n_buckets):
+        feasible = True
+        for d in range(n_dev):
+            rows = np.concatenate([carry[d], pools[d][b]])
+            if rows.size == 0:
+                rows = fallbacks[d][b].astype(np.int64)
+            lists[d][b] = rows
+            feasible &= rows.size > 0
+        total = int((b_of_all == b).sum()) + leftover
+        if not feasible:
+            leftover = total
+            for d in range(n_dev):
+                carry[d] = np.concatenate([carry[d], pools[d][b]])
+            continue
+        steps_of[b], leftover = total // global_batch, total % global_batch
+        consumed = steps_of[b] * per_dev_batch
+        for d in range(n_dev):
+            own = np.concatenate([carry[d], pools[d][b]])
+            carry[d] = own[consumed:] if consumed < own.size else np.empty(0, dtype=np.int64)
+    schedule = [b for b in range(n_buckets) for _ in range(steps_of[b])]
+    if shuffle:
+        rng.shuffle(schedule)
+
+    cursor = np.zeros((n_dev, n_buckets), dtype=np.int64)
+    for b in schedule:
+        blocks = []
+        for d in range(n_dev):
+            rows = lists[d][b]
+            take = (cursor[d, b] + np.arange(per_dev_batch)) % rows.size
+            cursor[d, b] += per_dev_batch
+            blocks.append(rows[take])
+        yield int(bucket_sizes[b]), np.concatenate(blocks).astype(np.int64)
+
+
+def sharded_index_iterator(shard_size: int, n_dev: int, per_dev_batch: int,
+                           shuffle: bool = True, seed: int = 0):
+    """One epoch of ``idx[n_dev * per_dev_batch]`` over a store sharded
+    ``n_dev`` ways: block ``d`` holds offsets into shard ``d``, each shard
+    permuted on its own; the rows that do not fill a rank's batch are
+    dropped."""
+    rng = np.random.default_rng(seed)
+    orders = [rng.permutation(shard_size) if shuffle else np.arange(shard_size)
+              for _ in range(n_dev)]
+    for start in range(0, shard_size - shard_size % per_dev_batch, per_dev_batch):
+        yield np.concatenate([o[start:start + per_dev_batch] for o in orders]).astype(np.int64)

@@ -32,6 +32,16 @@ sets any config key, the value read as the key's type (``data.root``,
 ``data.bucket_sizes=(17,21,25,29)``). Runs on ``cuda`` unless ``--device
 cpu`` is given. Logs to stdout and to ``<workdir>/stdout.txt``
 (``eval_stdout.txt``, ``pretrain_stdout.txt``).
+
+``train`` and ``eval`` run data parallel under ``torchrun``, one process a
+GPU, with no flag of their own (``parallel.init_distributed`` reads
+torchrun's variables; NCCL on the GPUs, gloo with ``--device cpu``):
+
+    torchrun --nproc_per_node=8 -m diffspectra_tpu_torch.main --mode train --workdir exp/train
+
+Rank 0 alone logs below warnings and writes the files; ``pretrain`` runs
+in one process (the JAX package's pretraining scales nothing over the
+mesh).
 """
 
 from __future__ import annotations
@@ -96,12 +106,21 @@ def parse_overrides(config, items) -> dict:
 def main(argv=None):
     args = parse_args(argv)
     from diffspectra_tpu_torch import configs, run_lib
+    from diffspectra_tpu_torch.parallel.mesh import init_distributed, process_rank
 
+    if args.mode == "pretrain":
+        if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+            raise ValueError("--mode pretrain runs in one process, not under torchrun")
+        device = args.device
+    else:
+        device = init_distributed(args.device)
+    lead = process_rank() == 0
     os.makedirs(args.workdir, exist_ok=True)
-    logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s", force=True,
-                        handlers=[logging.StreamHandler(sys.stdout),
-                                  logging.FileHandler(os.path.join(args.workdir,
-                                                                   LOG_NAMES[args.mode]))])
+    handlers = [logging.StreamHandler(sys.stdout)]
+    if lead:
+        handlers.append(logging.FileHandler(os.path.join(args.workdir, LOG_NAMES[args.mode])))
+    logging.basicConfig(level=logging.INFO if lead else logging.WARNING,
+                        format="%(asctime)s %(message)s", force=True, handlers=handlers)
     if args.smoke_2d:
         config = configs.get_smoke_2d_config()
     else:
@@ -109,21 +128,21 @@ def main(argv=None):
     configs.apply_overrides(config, parse_overrides(config, args.config))
     if args.mode == "train":
         config.training.warm_start = args.warm_start or config.training.warm_start
-        state = run_lib.train(config, args.workdir, args.device)
+        state = run_lib.train(config, args.workdir, device)
         logging.info("trained to step %d", state.step)
         return state
     if args.mode == "pretrain":
         from diffspectra_tpu_torch.training.pretrain import pretrain_specformer
 
-        return pretrain_specformer(config, args.workdir, args.device)
+        return pretrain_specformer(config, args.workdir, device)
     original = None
     if args.original_qm9:
         original = configs.original_qm9_config(config)
         configs.apply_overrides(original, parse_overrides(original, args.original_qm9_config))
     if args.warm_start:
         return run_lib.evaluate(config, args.warm_start, os.path.join(args.workdir, "eval"),
-                                args.device, original)
-    return run_lib.evaluate_checkpoints(config, args.workdir, "eval", args.device, original)
+                                device, original)
+    return run_lib.evaluate_checkpoints(config, args.workdir, "eval", device, original)
 
 
 if __name__ == "__main__":

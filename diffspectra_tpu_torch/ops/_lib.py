@@ -5,7 +5,10 @@ process a source at once, and linked into one shared library with a plain C
 interface (no PyTorch headers, so the build takes seconds), loaded with
 ``ctypes``. The build runs once per process, at the
 first kernel launch, into ``_build/`` beside the package (listed in
-``.gitignore``). A failed build raises with nvcc's output.
+``.gitignore``). A failed build raises with nvcc's output. A process that
+another one's build serves (the ranks ``chip_smoke.py`` spawns after its
+own build) calls ``load()`` first: it loads that library and compiles
+nothing.
 """
 
 from __future__ import annotations
@@ -101,14 +104,31 @@ def build() -> ctypes.CDLL:
             for obj in objs:
                 obj.unlink(missing_ok=True)
         os.replace(tmp, target)
-        lib = ctypes.CDLL(str(target))
-        for name, argtypes in _ARGTYPES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
         build_log = "".join(out + err for out, err in outputs)
-        _lib = lib
-        return lib
+        _lib = _open(target)
+        return _lib
+
+
+def _open(path: Path) -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in _ARGTYPES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def load() -> ctypes.CDLL:
+    """Load the library that a ``build()`` of another process left in
+    ``_build/``, compiling nothing; raises when there is none."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            target = BUILD_DIR / LIB_NAME
+            if not target.exists():
+                raise RuntimeError(f"{target} is not built: build() it in one process first")
+            _lib = _open(target)
+        return _lib
 
 
 def stream_handle(device: torch.device) -> int:

@@ -1,5 +1,5 @@
 """Training and the evaluation sweep (port of ``diffspectra_tpu/run_lib.py``'s
-``diffspectra_train`` and ``diffspectra_evaluate``, graph mode, one device).
+``diffspectra_train`` and ``diffspectra_evaluate``, graph mode).
 
     from diffspectra_tpu_torch import configs, run_lib
     state = run_lib.train(configs.get_config(), "exp/train")
@@ -32,7 +32,19 @@ xyz files of up to 16 sampled molecules and of their targets to
 ``<workdir>/samples/iter_<step>`` and ``iter_<step>_gt``
 (``visualize.py``; the JAX package's grid image needs RDKit). It exports
 the last state as ``<workdir>/warm_state.npz``
-(``warm_state.export_warm_state``). Left out: the mesh.
+(``warm_state.export_warm_state``).
+
+In a process group (``parallel.init_distributed``: ``torchrun``, one
+process a device) ``train`` is data parallel: the batch sizes resolve as
+the JAX package's do (``configs.resolve_runtime_config``: 0 means
+``base_batch_size`` x the ranks), the world size divides
+``training.batch_size``, each rank trains on its rows of every batch (its
+shard of the device store, or its rows of the host iterator's batch) with
+draws of its own (``parallel.rank_seed``: rank 0's are one process's), and
+the step averages the gradients, loss and batch statistics over the ranks
+(``training/step.py``). Rank 0 alone logs the step lines and writes the
+checkpoints, the profile, the snapshot's files and the export, a barrier
+after each; the snapshot fans its draws out over the ranks.
 
 Samples ``eval.num_samples`` test targets with the seed-42 harness, scores
 the 3D and 2D stability and validity and the moses metrics (FCD and its
@@ -58,7 +70,9 @@ figures a checkpoint, the references built once (``evaluate_checkpoints``,
 ``--mode eval``), or from its latest resumable checkpoint, as
 ``Elucidator.from_workdir`` restores it (``evaluate_workdir``). All build
 the schedule of ``config.sde`` (``NoiseScheduleVP.from_config``) and run
-any of the config's model variants. Left out: the mesh.
+any of the config's model variants. In a process group the sweep fans out
+over the ranks (``sampling/harness.py``), each rank returns the same
+figures, and rank 0 alone writes the tables, pickles and figure files.
 """
 
 from __future__ import annotations
@@ -68,13 +82,16 @@ import logging
 import math
 import os
 import pickle
+import tempfile
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from . import checkpoint as ckpt_lib
 from .api import load_model, restore_model
+from .configs import resolve_runtime_config
 from .data import device_store
 from .data.pipeline import (
     augment_positions,
@@ -92,7 +109,10 @@ from .evaluation.mose_metric import get_moses_metrics
 from .evaluation.stability import get_2D_edm_metric, get_edm_metric
 from .models.layers import refresh_casts
 from .models.pretrained import load_pretrained_specformer
-from .sampling.harness import make_cond_sampling_fn
+from .parallel import (create_mesh, make_parallel_store_step, make_parallel_train_step,
+                       rank_seed, replicate)
+from .parallel.mesh import barrier
+from .sampling.harness import make_cond_sampling_fn, sampling_world
 from .training.losses import draw
 from .training.optim import get_optimizer
 from .training.step import get_step_fn, load_ema_weights
@@ -140,6 +160,16 @@ def eval_references(config, device, config_original_qm9=None) -> dict:
     second train split, which the seen/unseen split always counts
     against."""
     device = resolve_device(device)
+    mesh = create_mesh(config.training.num_devices, device)
+    if mesh.rank > 0:  # rank 0 writes the geometry statistics first where they are missing
+        barrier(mesh)
+    references = _eval_references(config, device, config_original_qm9)
+    if mesh.rank == 0:
+        barrier(mesh)
+    return references
+
+
+def _eval_references(config, device, config_original_qm9):
     _, train_ds, _, test_ds, dataset_info = get_dataset(config)
     atom_decoder = dataset_info["atom_decoder"]
     if config_original_qm9 is not None:
@@ -193,8 +223,12 @@ def diffspectra_evaluate(config, model, eval_dir: str, device, ckpt: str = "warm
     ``eval_references``' (built here from ``config_original_qm9`` when not
     given). Returns the figures: each log line's values, the rounds (draws,
     ``n_pad``), each sweep's wall time and decoded targets, and the phase
-    times; nothing is sampled without ``eval.enable_sampling``."""
+    times; nothing is sampled without ``eval.enable_sampling``. In a process
+    group the sweep fans out over the ranks (``sampling_world``), every rank
+    returns the same figures and rank 0 alone writes the files."""
     device = resolve_device(device)
+    mesh = create_mesh(config.training.num_devices, device)
+    config = resolve_runtime_config(config, mesh.world)
     os.makedirs(eval_dir, exist_ok=True)
     if references is None:
         references = eval_references(config, device, config_original_qm9)
@@ -208,11 +242,13 @@ def diffspectra_evaluate(config, model, eval_dir: str, device, ckpt: str = "warm
     logging.info("load checkpoint: %s", ckpt)
     if not config.eval.enable_sampling:
         return figures
-    n_samples, batch_size = int(config.eval.num_samples), int(config.eval.batch_size)
+    n_samples = int(config.eval.num_samples)
+    fan, batch_size = sampling_world(mesh.world, int(config.eval.batch_size))
     sampling_fn = make_cond_sampling_fn(
         config, model, NoiseScheduleVP.from_config(config), batch_size, n_samples,
         get_data_inverse_scaler(config), test_ds, device,
         sampling_temperature=config.eval.sampling_temperature,
+        rank=mesh.rank if fan > 1 else 0, world=fan,
     )
     generator = torch.Generator(device=device)
     generator.manual_seed(int(config.seed))
@@ -399,15 +435,19 @@ def diffspectra_evaluate(config, model, eval_dir: str, device, ckpt: str = "warm
     scored = [(complete_mols, "2D")]
     if not only_2d:
         scored.insert(0, (sample_mols, "3D"))
-    for mols, name in scored:
-        table = cm.compute_similarity_metrics(mols, gt_graphs, eval_dir, ckpt, name)
-        figures[f"similarity_{name.lower()}"] = (
-            None if table is None else {k: float(v) for k, v in table.items()})
+    with tempfile.TemporaryDirectory() as scratch:
+        # the other ranks score the same pairs into files of their own, thrown away
+        tables_dir = eval_dir if mesh.rank == 0 else scratch
+        for mols, name in scored:
+            table = cm.compute_similarity_metrics(mols, gt_graphs, tables_dir, ckpt, name)
+            figures[f"similarity_{name.lower()}"] = (
+                None if table is None else {k: float(v) for k, v in table.items()})
     tick("similarity")
 
     if str(config.eval.save_mols).lower() == "true":
-        figures["saved_mols"] = save_molecules(eval_dir, ckpt, sample_mols, complete_mols,
-                                               gt_graphs)
+        figures["saved_mols"] = os.path.join(eval_dir, f"molecules_ckpt_{ckpt}")
+        if mesh.rank == 0:
+            save_molecules(eval_dir, ckpt, sample_mols, complete_mols, gt_graphs)
     return figures
 
 
@@ -449,8 +489,9 @@ def evaluate_checkpoints(config, workdir: str, eval_folder: str = "eval", device
         model, _ = restore_model(workdir, config, device, ckpt=ckpt)
         out[ckpt] = diffspectra_evaluate(config, model, eval_dir, device, str(ckpt),
                                          references=references)
-        with open(os.path.join(eval_dir, f"figures_ckpt_{ckpt}.json"), "w") as f:
-            json.dump(out[ckpt], f)
+        if create_mesh(config.training.num_devices, device).rank == 0:
+            with open(os.path.join(eval_dir, f"figures_ckpt_{ckpt}.json"), "w") as f:
+                json.dump(out[ckpt], f)
     return out
 
 
@@ -503,14 +544,21 @@ def init_train_state(config, device):
 
 def train(config, workdir: str, device=None):
     """The training loop (``diffspectra_train``) on ``cuda`` unless
-    ``device="cpu"``; returns the final train state."""
+    ``device="cpu"``; returns the final train state. In a process group
+    (``parallel.init_distributed``) every rank runs it on its own device,
+    data parallel."""
     device = resolve_device(device)
+    mesh = create_mesh(config.training.num_devices, device)
+    config = resolve_runtime_config(config, mesh.world)
+    lead = mesh.rank == 0
     sample_dir = os.path.join(workdir, "samples")
     os.makedirs(sample_dir, exist_ok=True)
     _, train_ds, val_ds, test_ds, dataset_info = get_dataset(config)
     logging.info("datasets: train %d val %d test %d", len(train_ds), len(val_ds), len(test_ds))
     t = config.training
     spectra_version, batch_size = config.data.spectra_version, t.batch_size
+    if batch_size % mesh.world:
+        raise ValueError(f"training.batch_size {batch_size} must divide over {mesh.world} ranks")
     bucket_sizes = tuple(config.data.bucket_sizes)
 
     tx, state = init_train_state(config, device)
@@ -525,36 +573,64 @@ def train(config, workdir: str, device=None):
         initial_step = state.step
     if initial_step == 0:
         logging.info("%s", config)
-    step_fn = get_step_fn(noise_scheduler, tx, get_data_scaler(config), config)
-    # the noise on the device; the coins, dropout seeds and sampling seeds on the host
-    generator = torch.Generator(device=device).manual_seed(config.seed)
-    host_generator = torch.Generator().manual_seed(config.seed)
+    parallel = mesh.world > 1
+    state = replicate(state, mesh)
+    step_fn = get_step_fn(noise_scheduler, tx, get_data_scaler(config), config,
+                          mesh=mesh if parallel else None)
+    # each rank's own draws (rank 0's those of one process): the noise on the
+    # device; the coins, dropout seeds and sampling seeds on the host
+    seed = rank_seed(config.seed, mesh.rank)
+    generator = torch.Generator(device=device).manual_seed(seed)
+    host_generator = torch.Generator().manual_seed(seed)
     n_layers = len(state.model.blocks)
     augment = config.model.name in AUGMENTED
 
+    def prepare(batch):
+        batch["positions"] = augment_positions(
+            generator, batch["positions"], batch["atom_mask"], augment, augment,
+            config.data.aug_translation_scale)
+        return batch, draw(generator, host_generator, batch, n_layers,
+                           config.model.include_fc_charge, config.only_2D, config.pred_edge)
+
+    # a rank holds its shard of the split: the budget is a rank's share
     store_bytes = device_store.estimate_bytes(train_ds, spectra_version)
-    if config.data.device_resident and store_bytes <= config.data.device_store_max_bytes:
-        store = device_store.DeviceStore(train_ds, spectra_version, device)
-        idx_iter = inf_iterator(lambda epoch: device_store.index_iterator(
-            len(store), batch_size, shuffle=True, seed=config.seed + epoch, drop_last=True,
-            bucket_sizes=bucket_sizes, num_atom=store.host_num_atom))
-        batch_kwargs = dict(atom_types=config.data.atom_types,
-                            include_aromatic=config.data.include_aromatic,
-                            spectra_keys=store.spectra_keys)
+    if (config.data.device_resident
+            and store_bytes // mesh.world <= config.data.device_store_max_bytes):
+        store = device_store.DeviceStore(train_ds, spectra_version, device, mesh.rank, mesh.world)
+        per_rank = batch_size // mesh.world
+        if not parallel:
+            make_idx_iter = lambda epoch: device_store.index_iterator(  # noqa: E731
+                len(store), batch_size, shuffle=True, seed=config.seed + epoch,
+                drop_last=True, bucket_sizes=bucket_sizes, num_atom=store.host_num_atom)
+        elif bucket_sizes:
+            make_idx_iter = lambda epoch: device_store.sharded_bucket_index_iterator(  # noqa
+                store.host_num_atom, store.shard_size, mesh.world, per_rank, bucket_sizes,
+                shuffle=True, seed=config.seed + epoch)
+        else:
+            make_idx_iter = lambda epoch: ((0, idx) for idx in  # noqa: E731
+                                           device_store.sharded_index_iterator(
+                store.shard_size, mesh.world, per_rank, shuffle=True, seed=config.seed + epoch))
+        idx_iter = inf_iterator(make_idx_iter)
+        store_step = make_parallel_store_step(
+            step_fn, mesh, store.arrays, atom_types=config.data.atom_types,
+            include_aromatic=config.data.include_aromatic, spectra_keys=store.spectra_keys)
 
-        def next_batch():
+        def train_step(state):
             n_pad, idx = next(idx_iter)
-            return device_store.build_batch(store.arrays, torch.from_numpy(idx).to(device),
-                                            n_pad=n_pad, **batch_kwargs)
+            return store_step(state, idx, n_pad, prepare)
 
-        logging.info("device-resident dataset: %.0f MB on %s", store_bytes / 2**20, device)
+        logging.info("device-resident dataset: %.0f MB on %s%s", store_bytes / 2**20, device,
+                     f" ({mesh.world}-way row-sharded)" if parallel else "")
     else:
+        # every rank runs the same seeded iterator and keeps its own rows
         train_iter = prefetch(inf_iterator(lambda epoch: get_batch_iterator(
             train_ds, batch_size, spectra_version, shuffle=True, seed=config.seed + epoch,
             drop_last=True, bucket_sizes=bucket_sizes)), size=2)
+        host_step = make_parallel_train_step(step_fn, mesh)
 
-        def next_batch():
-            return batch_to_device(next(train_iter), device)
+        def train_step(state):
+            return host_step(state, next(train_iter),
+                             lambda shard: prepare(batch_to_device(shard, device)))
 
         logging.info("host input pipeline: the split's %.0f MB %s", store_bytes / 2**20,
                      "over data.device_store_max_bytes" if config.data.device_resident
@@ -562,57 +638,64 @@ def train(config, workdir: str, device=None):
 
     if t.snapshot_sampling:
         eval_model = create_model(config).to(device).eval()
+        fan, snap_batch = sampling_world(mesh.world, t.eval_batch_size)
         snapshot_sampling_fn = make_cond_sampling_fn(
-            config, eval_model, noise_scheduler, t.eval_batch_size, t.eval_samples,
-            get_data_inverse_scaler(config), val_ds, device)
+            config, eval_model, noise_scheduler, snap_batch, t.eval_samples,
+            get_data_inverse_scaler(config), val_ds, device,
+            rank=mesh.rank if fan > 1 else 0, world=fan)
         metrics = [("2D", get_2D_edm_metric(dataset_info))]
         if not config.only_2D:  # no positions: the 2-D figures alone
             metrics.insert(0, ("3D", get_edm_metric(dataset_info)))
 
+    # rank 0 alone logs the step lines and writes files; a barrier follows each write
+    log_step = logging.info if lead else logging.debug
     profiler = None
     t_last, step_last = time.time(), initial_step
     for step in range(initial_step, t.n_iters + 1):
-        if t.profile and step == initial_step + 10:
+        if lead and t.profile and step == initial_step + 10:
             profiler = start_profile(device)
         if profiler is not None and step == initial_step + 15:
             stop_profile(profiler, device, os.path.join(workdir, "profile"), step)
             profiler = None
-        batch = next_batch()
-        batch["positions"] = augment_positions(
-            generator, batch["positions"], batch["atom_mask"], augment, augment,
-            config.data.aug_translation_scale)
-        draws = draw(generator, host_generator, batch, n_layers, config.model.include_fc_charge,
-                     config.only_2D, config.pred_edge)
-        state, loss = step_fn(state, batch, draws)
+        state, loss = train_step(state)
 
         if step % t.log_freq == 0:
-            loss_val = float(loss)
+            loss_val = float(loss)  # the ranks' mean: every rank stops at the same step
             dt = time.time() - t_last
             tput = (step - step_last) * batch_size / dt if dt > 0 else 0
             t_last, step_last = time.time(), step
-            logging.info("step: %d, training_loss: %.5e, graphs/sec: %.1f", step, loss_val, tput)
+            log_step("step: %d, training_loss: %.5e, graphs/sec: %.1f", step, loss_val, tput)
             if not math.isfinite(loss_val):
                 logging.error("NON-FINITE training loss %r at step %d -- aborting (checkpoints "
                               "on disk keep the last finite state)", loss_val, step)
                 raise FloatingPointError(f"non-finite training loss at step {step}")
 
         if step != 0 and step % t.snapshot_freq_for_preemption == 0:
-            ckpt_lib.save_checkpoint_if_finite(ckpt_lib.meta_checkpoint_dir(workdir), state)
+            if lead:
+                ckpt_lib.save_checkpoint_if_finite(ckpt_lib.meta_checkpoint_dir(workdir), state)
+            barrier(mesh)
 
         if step != 0 and (step % t.snapshot_freq == 0 or step == t.n_iters):
-            ckpt_lib.save_checkpoint_if_finite(
-                ckpt_lib.numbered_checkpoint_dir(workdir, step // t.snapshot_freq), state)
+            if lead:
+                ckpt_lib.save_checkpoint_if_finite(
+                    ckpt_lib.numbered_checkpoint_dir(workdir, step // t.snapshot_freq), state)
+            barrier(mesh)
             if t.snapshot_sampling:
                 figures = snapshot(step, state, eval_model, snapshot_sampling_fn, metrics,
                                    host_generator, device, sample_dir,
-                                   dataset_info["atom_decoder"])
-                with open(os.path.join(sample_dir, f"iter_{step}.json"), "w") as f:
-                    json.dump(figures, f)
+                                   dataset_info["atom_decoder"], mesh)
+                if lead:
+                    with open(os.path.join(sample_dir, f"iter_{step}.json"), "w") as f:
+                        json.dump(figures, f)
+                barrier(mesh)
     if profiler is not None:  # the run ended inside the window
         stop_profile(profiler, device, os.path.join(workdir, "profile"), t.n_iters + 1)
 
-    export_warm_state(state, os.path.join(workdir, "warm_state.npz"),
-                      meta={"step": state.step, "source": "diffspectra_tpu_torch.run_lib.train"})
+    if lead:
+        export_warm_state(state, os.path.join(workdir, "warm_state.npz"),
+                          meta={"step": state.step,
+                                "source": "diffspectra_tpu_torch.run_lib.train"})
+    barrier(mesh)
     return state
 
 
@@ -641,16 +724,20 @@ def stop_profile(profiler, device, profile_dir: str, step: int) -> str:
 
 
 def snapshot(step, state, eval_model, sampling_fn, metrics, host_generator, device,
-             sample_dir: str, atom_decoder) -> dict:
+             sample_dir: str, atom_decoder, mesh=None) -> dict:
     """Sample from the EMA weights, log the stability figures of each
     ``(dim, metric)`` of ``metrics`` ("3D" and "2D", or "2D" alone on the
     2-D path), and write ``mol_<i>.xyz`` of up to 16 of the 3D metric's
     molecules to ``<sample_dir>/iter_<step>`` (the 2D metric's, where it has
     none: none without positions) and of their targets to ``iter_<step>_gt``
-    (``visualize.visualize_mols``)."""
+    (``visualize.visualize_mols``). Over several ranks (``mesh``) the
+    sampling seed is rank 0's, and rank 0 alone writes the files."""
     load_ema_weights(state, eval_model)
+    seed = [int(torch.randint(0, 2**62, (), generator=host_generator))]
+    if mesh is not None and mesh.world > 1:
+        dist.broadcast_object_list(seed, src=0)
     generator = torch.Generator(device=device)
-    generator.manual_seed(int(torch.randint(0, 2**62, (), generator=host_generator)))
+    generator.manual_seed(seed[0])
     processed_mols, _, gt_mols = sampling_fn(generator)
     figures, scored = {}, {"3D": []}
     for dim, metric in metrics:
@@ -661,7 +748,8 @@ def snapshot(step, state, eval_model, sampling_fn, metrics, host_generator, devi
             stability_res["atom_stable"], stability_res["mol_stable"], rdkit_res["Validity"],
             rdkit_res["Complete"], rdkit_res["Unique"])
         figures[dim] = {k: float(v) for k, v in {**stability_res, **rdkit_res}.items()}
-    visualize_mols(scored["3D"] or scored["2D"], os.path.join(sample_dir, f"iter_{step}"))
-    visualize_mols([from_decoded(m, atom_decoder) for m in gt_mols],
-                   os.path.join(sample_dir, f"iter_{step}_gt"))
+    if mesh is None or mesh.rank == 0:
+        visualize_mols(scored["3D"] or scored["2D"], os.path.join(sample_dir, f"iter_{step}"))
+        visualize_mols([from_decoded(m, atom_decoder) for m in gt_mols],
+                       os.path.join(sample_dir, f"iter_{step}_gt"))
     return figures

@@ -1,8 +1,7 @@
 """The conditional sampling harness of the evaluation sweep: draw real
 spectra and true atom counts from a dataset split, run the reverse
 diffusion, decode the molecules (port of
-``diffspectra_tpu/sampling/harness.py``'s ``make_cond_sampling_fn``, on one
-device).
+``diffspectra_tpu/sampling/harness.py``'s ``make_cond_sampling_fn``).
 
 The draw order is the JAX package's: a permutation of the split from seed
 42, wrapped around to whole rounds, sorted (stably) by atom count and cut
@@ -15,6 +14,16 @@ bucket policy (``bucket_sizes_of``, ``bucket_for``) is the one serving
 uses. Rounds run and decode one after the other; the JAX harness decodes a
 round while the next one runs. Each call records its rounds' seconds of
 sampling and of decoding, so the cost of the serial decode can be read.
+
+Fanned out over ``world`` ranks (``sampling_world``: the JAX package's
+``_sampling_mesh``), rank ``r`` samples rows ``[r B / world, (r + 1) B /
+world)`` of every round at the round's ``n_pad`` with a generator of its
+own (rank 0 the caller's, rank ``r`` one seeded from the caller's seed and
+``r``, kept across calls as the caller's stream goes on), decodes them,
+and the decoded molecules are gathered in draw order on every rank
+(``all_gather_object``), so every rank returns the same lists. JAX fans
+out one process's chips and repeats the sweep on each host; the port,
+with one process a device, splits it over every rank.
 """
 
 from __future__ import annotations
@@ -26,8 +35,10 @@ from typing import List, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..data.pipeline import SPECTRA_KEYS
+from ..parallel.mesh import rank_seed
 from ..utils import masks as M
 from ..utils.scalers import get_self_cond_fn
 from .ancestral import AncestralSampler, make_time_steps
@@ -116,21 +127,58 @@ def plan_rounds(ds, n_samples: int, batch_size: int, bucket_sizes) -> Tuple[np.n
     return drawn, rounds
 
 
+def sampling_world(world: int, batch_size: int) -> Tuple[int, int]:
+    """``(ranks, batch)``: the ranks a sweep fans out over and the batch it
+    runs at (``_sampling_mesh``'s contract): a batch that divides over the
+    ``world`` ranks passes through; one that does not is rounded down to a
+    multiple of ``world``; one smaller than ``world`` runs whole on every
+    rank (``ranks`` 1, the fan-out off)."""
+    if world <= 1:
+        return 1, batch_size
+    if batch_size < world:
+        logging.info("sampling batch %d < %d ranks; fan-out disabled", batch_size, world)
+        return 1, batch_size
+    if batch_size % world:
+        adjusted = batch_size // world * world
+        logging.info("sampling batch %d not divisible over %d ranks; running the fan-out at "
+                     "batch %d", batch_size, world, adjusted)
+        return world, adjusted
+    return world, batch_size
+
+
 def make_cond_sampling_fn(config, model, noise_scheduler, batch_size: int, n_samples: int,
-                          inverse_scaler, ds, device, sampling_temperature: float = 1.0):
+                          inverse_scaler, ds, device, sampling_temperature: float = 1.0,
+                          rank: int = 0, world: int = 1):
     """Returns ``sampling_fn(generator) -> (pred_mols, gt_pos, gt_mols)``,
     each in draw order: decoded ``(pos, atom_type, edge_type, fc)`` tuples,
     the targets' positions and their ground-truth tuples. The round plan
     (the same every call) is ``sampling_fn.rounds``, ``[(draws, n_pad),
     ...]``; the last call's seconds a round, ``[(sampling, decode), ...]``,
-    are ``sampling_fn.round_seconds``."""
+    are ``sampling_fn.round_seconds`` (this rank's). With ``world`` ranks
+    (``sampling_world``'s, ``batch_size`` a multiple of it) this is rank
+    ``rank``'s part of the fan-out; every rank calls it with the same
+    ``generator`` seed."""
     sampler = make_sampler(config, noise_scheduler, sampling_temperature)
     spectra_keys = SPECTRA_KEYS[config.data.spectra_version]
     drawn, rounds = plan_rounds(ds, n_samples, batch_size, bucket_sizes_of(config))
+    if batch_size % world:
+        raise ValueError(f"sampling batch {batch_size} does not split over {world} ranks")
     cuda = torch.device(device).type == "cuda"
+    own_generators = {}  # the caller's generator -> this rank's (rank > 0)
+
+    def rank_generator(generator):
+        if rank == 0:
+            return generator
+        key = id(generator)
+        if key not in own_generators:  # holds the caller's, so its id stays its own
+            own = torch.Generator(device=generator.device)
+            own.manual_seed(rank_seed(generator.initial_seed(), rank))
+            own_generators[key] = (generator, own)
+        return own_generators[key][1]
 
     def sampling_fn(generator):
         total = len(drawn)
+        generator = rank_generator(generator)
         sampling_fn.round_seconds = []
         processed: List = [None] * total
         gt_pos: List = [None] * total
@@ -143,21 +191,24 @@ def make_cond_sampling_fn(config, model, noise_scheduler, batch_size: int, n_sam
                     else v[:, :n_pad, :n_pad] if k == "edge_type" else v)
                 for k, v in data.items()
             }
-            specs = [torch.from_numpy(data[k]).to(device) for k in spectra_keys]
-            n_nodes = torch.from_numpy(data["num_atom"]).to(device)
+            per = len(sel) // world
+            mine = slice(rank * per, (rank + 1) * per)  # this rank's rows of the round
+            specs = [torch.from_numpy(data[k][mine]).to(device) for k in spectra_keys]
+            n_nodes = torch.from_numpy(data["num_atom"][mine]).to(device)
             t0 = time.perf_counter()
             pos, one_hot, fc, edge_types = sample_round(
                 model, sampler, config, inverse_scaler, specs, n_nodes, n_pad, generator)
             if cuda:
                 torch.cuda.synchronize(device)
             t1 = time.perf_counter()
-            mols = mol_process(one_hot, pos, fc, data["num_atom"], edge_types)
+            mols = mol_process(one_hot, pos, fc, data["num_atom"][mine], edge_types)
             sampling_fn.round_seconds.append((t1 - t0, time.perf_counter() - t1))
             n_generated += len(sel)
             logging.info("Generate %d, Total %d.", n_generated, n_samples)
+            for dst, mol in zip(sel[mine], mols):
+                processed[int(dst)] = mol
             for i, dst in enumerate(sel):
                 dst = int(dst)
-                processed[dst] = mols[i]
                 na = int(data["num_atom"][i])
                 gt_pos[dst] = np.asarray(data["positions"][i][:na])
                 gt_mols[dst] = (
@@ -166,6 +217,15 @@ def make_cond_sampling_fn(config, model, noise_scheduler, batch_size: int, n_sam
                     np.asarray(data["edge_type"][i][:na, :na]),
                     np.asarray(data["formal_charges"][i][:na, 0]).astype(np.int64),
                 )
+        if world > 1:
+            gathered = [None] * world
+            per = batch_size // world
+            dist.all_gather_object(gathered, {
+                int(dst): processed[int(dst)]
+                for sel, _ in rounds for dst in sel[rank * per:(rank + 1) * per]})
+            for part in gathered:
+                for dst, mol in part.items():
+                    processed[dst] = mol
         return processed[:n_samples], gt_pos[:n_samples], gt_mols[:n_samples]
 
     sampling_fn.rounds = [(len(sel), n_pad) for sel, n_pad in rounds]

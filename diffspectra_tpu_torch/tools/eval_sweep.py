@@ -21,7 +21,10 @@ split of the same data (``configs.original_qm9_config``).
 
 Runs on ``cuda`` unless ``--device cpu`` is given. Logs to stdout and to
 ``<workdir>/eval_sweep.log``; the similarity tables go to ``<workdir>/eval``;
-the last line of stdout is the figures as JSON.
+the last line of stdout is the figures as JSON. Under ``torchrun`` the sweep
+fans out over the ranks, one process a GPU (``torchrun --nproc_per_node=8
+-m diffspectra_tpu_torch.tools.eval_sweep ...``); rank 0 alone logs below
+warnings and writes the files, and every rank prints the figures.
 """
 
 from __future__ import annotations
@@ -84,12 +87,17 @@ def build_config(args):
 
 def main(argv=None) -> int:
     args = parse_args(argv)
+    from diffspectra_tpu_torch.parallel.mesh import init_distributed, process_rank
+
+    device = init_distributed(args.device)
+    lead = process_rank() == 0
     os.makedirs(args.workdir, exist_ok=True)
-    logging.basicConfig(
-        level=logging.INFO, force=True, format="%(asctime)s %(levelname)s %(message)s",
-        handlers=[logging.StreamHandler(sys.stdout),
-                  logging.FileHandler(os.path.join(args.workdir, "eval_sweep.log"), mode="w")],
-    )
+    handlers = [logging.StreamHandler(sys.stdout)]
+    if lead:
+        handlers.append(logging.FileHandler(os.path.join(args.workdir, "eval_sweep.log"),
+                                            mode="w"))
+    logging.basicConfig(level=logging.INFO if lead else logging.WARNING, force=True,
+                        format="%(asctime)s %(levelname)s %(message)s", handlers=handlers)
     from diffspectra_tpu_torch import run_lib
     from diffspectra_tpu_torch.device import resolve_device
     from diffspectra_tpu_torch.utils.registry import create_model
@@ -99,7 +107,7 @@ def main(argv=None) -> int:
 
     config = build_config(args)
     original = original_qm9_config(config) if args.original_qm9 else None
-    device = resolve_device(args.device)
+    device = resolve_device(device)
     eval_dir = os.path.join(args.workdir, "eval")
     t0 = time.time()
     if args.random_weights:

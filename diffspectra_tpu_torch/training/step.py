@@ -1,5 +1,4 @@
-"""The train and eval steps (port of ``diffspectra_tpu/training/step.py``,
-on one device: the ``axis_name`` collectives wait for ``parallel/``).
+"""The train and eval steps (port of ``diffspectra_tpu/training/step.py``).
 
 ``train_step(state, batch, draws) -> (state, loss)``: the loss of the
 config's path (``make_loss_fn``) in training mode, its gradient with
@@ -9,6 +8,14 @@ weight copies made anew, then the EMA; SpecFormer's batch statistics move
 inside the loss. ``eval_step(state, batch, draws, eval_model)``: the loss
 with the EMA weights and the batch statistics loaded into ``eval_model``,
 deterministic.
+
+With ``mesh`` (``parallel.Mesh``, the counterpart of JAX's ``axis_name``)
+the step runs on each rank's shard of the batch with that rank's draws,
+and averages over the ranks, before the update, the gradients, the loss
+and SpecFormer's new batch statistics (JAX's ``pmean``s), all three in one
+buffer and one ``all_reduce`` (``parallel.pmean_``). The running statistics
+move linearly in the batch's, so averaging them after the forward is
+averaging the batch's. Every rank then takes the same update.
 """
 
 from __future__ import annotations
@@ -17,8 +24,15 @@ import torch
 
 from ..models import ema as ema_lib
 from ..models.layers import refresh_casts
+from ..parallel.mesh import pmean_
 from .losses import get_sde_2d_loss_fn, get_sde_graph_loss_fn, get_sde_node_loss_fn
 from .train_state import TrainState, params_of
+
+
+def batch_stats_of(model: torch.nn.Module):
+    """The model's persistent buffers: SpecFormer's running statistics."""
+    params = dict(model.named_parameters())
+    return [b for k, b in model.state_dict(keep_vars=True).items() if k not in params]
 
 
 def load_ema_weights(state: TrainState, model: torch.nn.Module) -> torch.nn.Module:
@@ -41,7 +55,7 @@ def make_loss_fn(noise_scheduler, scaler, config):
     return get_sde_node_loss_fn(noise_scheduler, scaler, config)
 
 
-def get_step_fn(noise_scheduler, tx, scaler, config, train: bool = True):
+def get_step_fn(noise_scheduler, tx, scaler, config, train: bool = True, mesh=None):
     loss_fn = make_loss_fn(noise_scheduler, scaler, config)
 
     def train_step(state: TrainState, batch, draws):
@@ -49,13 +63,16 @@ def get_step_fn(noise_scheduler, tx, scaler, config, train: bool = True):
         params = params_of(model)
         loss = loss_fn(model, batch, draws)
         grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
-        grads = {k: torch.zeros_like(p) if g is None else g
-                 for (k, p), g in zip(params.items(), grads)}
+        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params.values(), grads)]
+        loss = loss.detach()
+        if mesh is not None:
+            pmean_([*grads, loss, *batch_stats_of(model)], mesh)
+        grads = dict(zip(params, grads))
         state.opt_state = tx.update(grads, state.opt_state, params)
         refresh_casts(model)  # the bf16 copies that no-grad forwards read
         state.ema = ema_lib.update(state.ema, params)
         state.step += 1
-        return state, loss.detach()
+        return state, loss
 
     @torch.no_grad()
     def eval_step(state: TrainState, batch, draws, eval_model):

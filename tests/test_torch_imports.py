@@ -10,7 +10,8 @@ evaluation sweep scores a tiny run and writes its files (the moses
 metrics, the sub-geometry MMDs, ChemNet, the RMSD and the rescoring CLI run
 too, scipy imported where they use it), and the train
 loop takes two steps, writes a checkpoint that ``torch.load`` reads with
-``weights_only`` and an export a warm start reads. The QM9S loader reads a
+``weights_only`` and an export a warm start reads, and ``parallel/``'s
+train step takes one step in a gloo process group of one rank. The QM9S loader reads a
 processed file without ``torch_geometric`` (its stand-ins registered under
 the PyG names, no module of that name imported) and the host packer runs
 from the port's own build, never ``native/libdiffspectra_native.so``. Also
@@ -149,6 +150,31 @@ BARE_INSTALL = textwrap.dedent(
         assert blob["step"] == 2
         _, fresh = run_lib.init_train_state(config, torch.device("cpu"))
         assert warm_start(fresh, os.path.join(tmp, "warm_state.npz")).step == 2
+    # data parallelism: one step of the parallel train step in a gloo group of one
+    import torch.distributed as dist
+    from diffspectra_tpu_torch.data.pipeline import collate, get_dataset as port_dataset
+    from diffspectra_tpu_torch.diffusion.schedule import NoiseScheduleVP
+    from diffspectra_tpu_torch.parallel import Mesh, make_parallel_train_step
+    from diffspectra_tpu_torch.training.losses import draw
+    from diffspectra_tpu_torch.training.step import get_step_fn
+    from diffspectra_tpu_torch.utils.scalers import get_data_scaler
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("gloo", init_method=f"file://{tmp}/rendezvous", rank=0,
+                                world_size=1)
+        try:
+            mesh = Mesh(0, 1, torch.device("cpu"))
+            tx, state = run_lib.init_train_state(config, mesh.device)
+            step = make_parallel_train_step(get_step_fn(
+                NoiseScheduleVP.from_config(config), tx, get_data_scaler(config), config,
+                mesh=mesh), mesh)
+            rows = port_dataset(config)[1].take(np.arange(2))
+            batch = run_lib.batch_to_device(collate(rows, config.data.spectra_version), mesh.device)
+            gens = torch.Generator().manual_seed(0), torch.Generator().manual_seed(1)
+            state, loss = step(state, batch, lambda shard: (
+                shard, draw(*gens, shard, config.model.n_layers)))
+            assert state.step == 1 and torch.isfinite(loss)
+        finally:
+            dist.destroy_process_group()
     # QM9S from a processed file in the reference's layout, and the packer
     from diffspectra_tpu_torch.data import native, qm9s
     from diffspectra_tpu_torch.data.pipeline import get_dataset
