@@ -1,5 +1,6 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU (H100): build, check, serve,
-sweep, train, pretrain, score, and train and sweep over two ranks.
+sweep, train, pretrain, score, train and sweep over two ranks, and elucidate
+without the atom count.
 
     python3 chip_smoke.py
 
@@ -49,8 +50,9 @@ Phases, each printing its own lines:
      ``drop_k`` control of ``tools/bf16_noise.py``) must read above it;
   5. serve: ``Elucidator.from_warm_state(...).elucidate(...)`` for the first
      of 3 synthetic requests (fidelity-4 spectra) at its true atom count, 10
-     candidates, 1000 ancestral steps, on each path in bf16 (the default)
-     and in f32 (the override); each path's kernels in that dtype
+     candidates, ancestral steps (1000 in bf16, the default; 200 in f32,
+     the override, 1000 before phase 15 came), on each path in each dtype;
+     each path's kernels in that dtype
      must be launched 8 blocks x steps x requests times, every other
      kernel 0. Then on the
      bf16 block path (100 steps, cut from 1000 to keep the run short): one
@@ -83,8 +85,8 @@ Phases, each printing its own lines:
      dropout 0 on cuda and on the CPU from the same state and draws, the
      loss within 1e-4 relative and each parameter's gradient within 1e-3
      of its max |grad|; (b) ``run_lib.train`` for 20 steps, every loss
-     finite, params and EMA moved; (c) its snapshot, 128 draws at 400
-     steps (1000 before phase 14 came) from the EMA weights, launching each bf16 per-op kernel 8 x
+     finite, params and EMA moved; (c) its snapshot, 128 draws at 200
+     steps (1000 before phase 14 came, 400 before phase 15) from the EMA weights, launching each bf16 per-op kernel 8 x
      steps x rounds times and the steps none (and no port kernel among a
      profiled step's kernel names), its stability figures finite in
      [0, 1], the xyz files of its samples and targets written; timed steps (the median over the last 12 of 20, graphs/s, peak
@@ -208,6 +210,21 @@ Phases, each printing its own lines:
      [0, 1] (MCES >= 0), and each rank's draws equal bit for bit to one
      process's ``sample_round`` of its rows with its generator. The phase's
      budget is 90 s.
+ 15. atom-count-free elucidation on the flagship's per-op bf16 path: (a)
+     ``tools/train_atom_count.py``'s ``embed_all`` and ``train_head`` (2
+     epochs at batch 128) on the sweep's set through the SpecFormer of
+     ``warm_qm9s_as.npz`` (allspectra, trained on fidelity-4 spectra as the
+     set is), the held-out metrics, ``save_head`` and
+     ``Elucidator.load_count_head`` (every tensor equal), no port kernel
+     launched; (b) ``tools/nfree_eval.py``'s protocols A, B and C from
+     ``warm_qm9s_ir.npz`` with the committed ``atom_count_head.npz`` at 8
+     targets of a 256-molecule fidelity-2 set, 20 steps, K_KNOWN 2,
+     K_PER_N 1: each protocol's JSON entry and wall time, every figure in
+     [0, 1], ``mix_attention_bf16`` and ``equi_update_bf16`` launched 8 x
+     steps x rounds times and no other kernel; (c) ``tools/elucidate_demo.py``
+     on one target at 10 steps, with its atom count (one round) and without
+     (12 rounds, 2 draws a plausible count): its printed draws, the same
+     launch rule. The phase's budget is 60 s.
 Then one ``{"kernels": [...]}`` line, the card's ``nvidia-smi`` line, and as
 the last line ``{"ok": true, "device": {...}}``. Any failed check raises and
 the script exits non-zero without that last line; without CUDA it exits 2.
@@ -216,8 +233,10 @@ the script exits non-zero without that last line; without CUDA it exits 2.
 from __future__ import annotations
 
 import atexit
+import contextlib
 import copy
 import functools
+import io
 import itertools
 import json
 import math
@@ -244,6 +263,9 @@ REQUESTS, CANDIDATES, STEPS = 3, 10, 1000
 # the host-bound phases 1.3x slower; 925 s with one: PERF.md §6); bf16 went to
 # one request a path when phase 14 came
 SERVED = {"bf16": 1, "f32": 1}
+# their depth by dtype: f32's cut from 1000 steps when phase 15 came, to pay
+# for it; bf16, the production dtype, keeps the reference's 1000
+SERVED_STEPS = {"bf16": STEPS, "f32": 200}
 SHORT_STEPS, DPM_STEPS = 100, 50  # the count-head, batch and DPM-Solver phases
 MARGINAL_STEPS, MARGINAL_DRAWS = 20, 2  # the marginal over the histogram's counts
 # phase 7, the eval sweep: tools/tpu_eval_10k.py's batch of 128; a synthetic
@@ -295,9 +317,9 @@ NOT_COMPARABLE = {"Metric-2D unique & valid": (0.7428, "distinct structures of 1
                   "memorization bound": (0.5564, "against each set's own train split")}
 # phase 8, training: the flagship at full width (bf16, dropout 0.1, batch
 # 128) on the sweep's synthetic set in buckets, warm-started from WARM; its
-# snapshot's depth (1000 steps until phase 14 came, then cut to keep the script
-# inside its time)
-SNAPSHOT_STEPS = 400
+# snapshot's depth (1000 steps until phase 14 came, 400 until phase 15, each
+# cut to keep the script inside its time)
+SNAPSHOT_STEPS = 200
 TRAIN = {"seed": 42, "data.synthetic": True, "data.synthetic_cache": SYNTH_CACHE,
          "data.synthetic_size": 1280, "data.synthetic_fidelity": 4,
          "data.bucket_sizes": (17, 21, 25, 29), "training.batch_size": 128,
@@ -420,6 +442,19 @@ MESH_F32_RTOL = 1e-5
 MESH_SWEEP = {**SWEEP, "eval.num_samples": 8, "eval.batch_size": 8, "eval.num_candidates": 2,
               "sampling.steps": 100, "training.matmul_precision": "bfloat16"}
 MESH_RANKS, MESH_RANK_TIMEOUT, MESH_BUDGET_S = 2, 240, 90
+# phase 15, atom-count-free elucidation: (a) a count head trained by
+# tools/train_atom_count.py's train_head for NFREE_HEAD_EPOCHS epochs at
+# batch NFREE_HEAD_BS on the SpecFormer embeddings of the sweep's set, through
+# WARM's encoder (the allspectra flagship, trained on fidelity-4 spectra as that
+# set is; the trainer's default, warm_qm9s_f4.npz, would make the script read
+# a third warm state), saved and reloaded bit for bit; (b) tools/nfree_eval.py's
+# protocols A, B and C on the committed head at NFREE_EVAL's depth, on a set of
+# NFREE_SIZE molecules at the fidelity warm_qm9s_ir.npz trained on; (c) the
+# demo on one target, with and without its atom count, at DEMO_STEPS steps
+NFREE_HEAD_EPOCHS, NFREE_HEAD_BS = 2, 128
+NFREE_SIZE, NFREE_FIDELITY = 256, 2
+NFREE_EVAL = {"--nt": 8, "--steps": 20, "--k-known": 2, "--k-per-n": 1}
+DEMO_STEPS, NFREE_BUDGET_S = 10, 60
 # (b) the MMD's kernel sums on cuda against the float64 plain version: each
 # of xx/n^2, yy/m^2 and xy/nm within MMD_RTOL relative, the MMD within
 # MMD_RTOL x (xx/n^2 + yy/m^2), at MMD_SIDE samples a side; then the sums
@@ -1155,7 +1190,7 @@ def serve_path(path, dt, dev, data):
     from diffspectra_tpu_torch.ops import LAUNCHES, reset_launches
 
     t0 = time.perf_counter()
-    overrides = {"sampling.steps": STEPS, "model.pallas_ops": PATHS[path]}
+    overrides = {"sampling.steps": SERVED_STEPS[dt], "model.pallas_ops": PATHS[path]}
     if dt == "f32":  # bf16 is the default
         overrides["training.matmul_precision"] = DTYPES[dt]
     el = Elucidator.from_warm_state(WARM, overrides=overrides, device=dev)
@@ -1191,7 +1226,7 @@ def serve_path(path, dt, dev, data):
         per_request.append(dict(n_atoms=n, wall_s=wall, mols_per_s=CANDIDATES / wall,
                                 distinct=len(result.candidates), top1_hit=hit))
     launches = dict(LAUNCHES)
-    expected = el.config.model.n_layers * STEPS * SERVED[dt]
+    expected = el.config.model.n_layers * SERVED_STEPS[dt] * SERVED[dt]
     say(f"[{tag}] launches {nonzero(launches)}, expected {expected} for "
         f"{kernels_of(path, dt)}, 0 for the others")
     launched_only(kernels_of(path, dt), launches, expected)
@@ -3061,6 +3096,159 @@ def phase_mesh(dev, smi):
     return launches
 
 
+def counted_rounds():
+    """A list that ``Elucidator._round`` appends each round's ``(rows,
+    n_pad)`` to, and the function that puts the plain ``_round`` back."""
+    from diffspectra_tpu_torch.api import Elucidator
+
+    plain, rounds = Elucidator._round, []
+
+    def counted(self, contexts, n_atoms, n_pad, generator):
+        rounds.append((len(contexts), n_pad))
+        return plain(self, contexts, n_atoms, n_pad, generator)
+
+    Elucidator._round = counted
+    return rounds, lambda: setattr(Elucidator, "_round", plain)
+
+
+def nfree_head(dev, smi):
+    """Phase 15 (a): a count head trained on the sweep's set through WARM's
+    SpecFormer, saved and reloaded through ``Elucidator.load_count_head``."""
+    from diffspectra_tpu_torch.api import Elucidator
+    from diffspectra_tpu_torch.data.pipeline import SPECTRA_KEYS, _conditional_splits
+    from diffspectra_tpu_torch.data.synthetic import generate
+    from diffspectra_tpu_torch.models import atom_count
+    from diffspectra_tpu_torch.ops import LAUNCHES, reset_launches
+    from diffspectra_tpu_torch.tools import train_atom_count as tac
+
+    el = Elucidator.from_warm_state(WARM, device=dev)
+    size, fidelity = SWEEP["data.synthetic_size"], SWEEP["data.synthetic_fidelity"]
+    raw = generate(seed=42, size=size, max_n=29, fidelity=fidelity, cache_dir=SYNTH_CACHE)
+    first, second, _val, test = _conditional_splits(np.random.default_rng(42), size)
+    train, labels = np.concatenate([first, second]), np.asarray(raw["num_atom"], np.int64)
+    keys = SPECTRA_KEYS[el.config.data.spectra_version]
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    x_train, x_test = (tac.embed_all(el, raw, rows, keys) for rows in (train, test))
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    head, losses = tac.train_head(x_train, labels[train], NFREE_HEAD_EPOCHS, bs=NFREE_HEAD_BS,
+                                  device=dev)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    m = tac.held_out_metrics(tac.predict_probs(head, x_test), labels[test])
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "head.npz")
+        atom_count.save_head(path, head, meta={"spectra": el.config.data.spectra_version,
+                                               "test_top1": m["top1"]})
+        meta = el.load_count_head(path)
+    saved, loaded = head.state_dict(), el._count_head.state_dict()
+    equal = saved.keys() == loaded.keys() and all(torch.equal(loaded[k], v)
+                                                  for k, v in saved.items())
+    steps = NFREE_HEAD_EPOCHS * (len(train) // NFREE_HEAD_BS)
+    say(f"[n-free] (a) count head on WARM's SpecFormer ({el.config.data.spectra_version}, "
+        f"{x_train.shape[1]} wide): {len(train)} train + {len(test)} test spectra of "
+        f"generate(seed=42, size={size}, fidelity={fidelity}) embedded in {t1 - t0:.2f} s; "
+        f"train_head {NFREE_HEAD_EPOCHS} epochs at batch {NFREE_HEAD_BS} ({steps} steps) in "
+        f"{t2 - t1:.2f} s, epoch losses {[round(v, 4) for v in losses]}; held-out "
+        f"{json.dumps(m)}; saved and reloaded through load_count_head: every tensor equal "
+        f"{equal}; launches {nonzero(LAUNCHES)}; {smi}")
+    assert equal and meta["test_top1"] == m["top1"] and all(map(math.isfinite, losses))
+    assert losses[-1] < losses[0] and not nonzero(LAUNCHES)
+    return {"embed_s": t1 - t0, "train_s": t2 - t1, "losses": losses, **m}
+
+
+def nfree_protocols(dev, smi):
+    """Phase 15 (b): tools/nfree_eval.py's protocols A, B and C with the
+    committed head; the bf16 per-op kernels launched 8 x steps a round."""
+    from diffspectra_tpu_torch.ops import LAUNCHES, reset_launches
+    from diffspectra_tpu_torch.tools import nfree_eval
+
+    # the set is cached with the run's others, not in the checkout
+    cache, nfree_eval.SYNTH_CACHE = nfree_eval.SYNTH_CACHE, SYNTH_CACHE
+    rounds, restore = counted_rounds()
+    reset_launches()
+    t0 = time.perf_counter()
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            argv = [str(a) for kv in NFREE_EVAL.items() for a in kv]
+            results = nfree_eval.main(argv + [
+                "--warm-state", WARM_IR, "--size", str(NFREE_SIZE), "--fidelity",
+                str(NFREE_FIDELITY), "--count-head", HEAD, "--out", os.path.join(tmp, "nfree.json")])
+    finally:
+        restore()
+        nfree_eval.SYNTH_CACHE = cache
+    wall = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    nt, steps = NFREE_EVAL["--nt"], NFREE_EVAL["--steps"]
+    for key in ("n_known", "n_free", "n_free_head"):
+        entry = results[key]
+        say(f"[n-free] (b) {key}: {json.dumps(entry)}")
+        assert entry["aggregate"]["n"] == nt and entry["wall_s"] > 0
+        for col in ("aggregate", "unseen", "seen"):
+            assert all(0.0 <= entry[col][f] <= 1.0 for f in ("top1", "in_list")), entry
+    expected = 8 * steps * len(rounds)
+    say(f"[n-free] (b) nfree_eval at {nt} targets, {steps} steps, K_KNOWN "
+        f"{NFREE_EVAL['--k-known']}, K_PER_N {NFREE_EVAL['--k-per-n']}: wall A "
+        f"{results['n_known']['wall_s']:.2f} s, B {results['n_free']['wall_s']:.2f} s, C "
+        f"{results['n_free_head']['wall_s']:.2f} s, all {wall:.2f} s; plausible counts "
+        f"{results['plausible_counts']}; {len(rounds)} rounds (rows, n_pad) {rounds}; launches "
+        f"{nonzero(launches)}, expected {expected} for {kernels_of('attn_equi', 'bf16')}; {smi}")
+    assert results["n_free"]["draws_per_query"] == len(results["plausible_counts"])
+    launched_only(kernels_of("attn_equi", "bf16"), launches, expected)
+    return launches, {"wall_s": wall, **{k: results[k]["wall_s"]
+                                         for k in ("n_known", "n_free", "n_free_head")}}
+
+
+def nfree_demo(dev, smi, known_n):
+    """Phase 15 (c): the demo on one target, its printed lines checked."""
+    from diffspectra_tpu_torch.ops import LAUNCHES, reset_launches
+    from diffspectra_tpu_torch.tools import elucidate_demo
+
+    rounds, restore = counted_rounds()
+    reset_launches()
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out):
+            rc = elucidate_demo.main(["--warm-state", WARM_IR, "--targets", "1", "--steps",
+                                      str(DEMO_STEPS)] + (["--known-n"] if known_n else []))
+    finally:
+        restore()
+    wall = time.perf_counter() - t0
+    lines = out.getvalue().strip().splitlines()
+    for line in lines:
+        say(f"[n-free] (c) {line}")
+    draws = sum(int(line.split()[1][1:]) for line in lines if line.startswith("  #"))
+    want = 10 if known_n else 2 * len(rounds)  # max(2, 10 // 4) a plausible count
+    launches = dict(LAUNCHES)
+    say(f"[n-free] (c) demo, {'known' if known_n else 'unknown'} atom count: {wall:.2f} s, "
+        f"{len(rounds)} rounds at n_pad {sorted({p for _, p in rounds})}, {draws} draws; "
+        f"launches {nonzero(launches)}; {smi}")
+    assert rc == 0 and draws == want and lines[-1] in ("consensus Top-1: 0/1",
+                                                       "consensus Top-1: 1/1")
+    assert len(rounds) == (1 if known_n else 12) and {p for _, p in rounds} == {29}
+    launched_only(kernels_of("attn_equi", "bf16"), launches, 8 * DEMO_STEPS * len(rounds))
+    return launches, wall
+
+
+def phase_nfree(dev, smi):
+    """Phase 15: atom-count-free elucidation, (a) to (c); the per-op bf16
+    kernels' launches of (b) and (c), summed."""
+    t0 = time.perf_counter()
+    head = nfree_head(dev, smi)
+    launches, walls = nfree_protocols(dev, smi)
+    for known_n in (True, False):
+        counts, walls[f"demo_{'known' if known_n else 'free'}_s"] = nfree_demo(dev, smi, known_n)
+        add_launches(launches, counts)
+    seconds = time.perf_counter() - t0
+    print(json.dumps({"nfree": {"head": head, **walls, "phase_s": seconds}}), flush=True)
+    say(f"[n-free] phase 15 in {seconds:.1f} s (budget {NFREE_BUDGET_S} s); launches "
+        f"{nonzero(launches)}; {smi}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on the GPU only",
@@ -3133,6 +3321,8 @@ def main() -> int:
     clock("phase 13")
     mesh = phase_mesh(dev, smi)
     clock("phase 14")
+    nfree = phase_nfree(dev, smi)
+    clock("phase 15")
     sweep = {k: sum(r[0][k] for r in sweeps.values()) for k in serving}
     for row in rows:
         # the dd1 rows' main path is phase 9's (dist_gbf=False); the others'
@@ -3148,16 +3338,20 @@ def main() -> int:
         row["cdgs_launches"] = cdgs.get(row["name"], 0)
         row["eval_stack_launches"] = eval_stack.get(row["name"], 0)
         row["mesh_launches"] = mesh.get(row["name"], 0)
+        row["nfree_launches"] = nfree.get(row["name"], 0)
         assert row["launches"] > 0 and row["cdgs_launches"] == 0, row
+        assert (row["nfree_launches"] > 0) == (row["name"] in kernels_of("attn_equi", "bf16")), row
     for row in probe_rows:  # launches: the probe tool's run; none on the serving paths
         row["wo_eq_specformer_bf16_launches"] = wo_eq.get(row["name"], 0)
         row["cdgs_launches"] = cdgs.get(row["name"], 0)
         row["eval_stack_launches"] = eval_stack.get(row["name"], 0)
         row["mesh_launches"] = mesh.get(row["name"], 0)
+        row["nfree_launches"] = nfree.get(row["name"], 0)
         row["serving_launches"] = (serving[row["name"]] + sweep[row["name"]] + trained[row["name"]]
                                    + variants.get(row["name"], 0) + flagship.get(row["name"], 0)
                                    + row["wo_eq_specformer_bf16_launches"] + row["cdgs_launches"]
-                                   + row["eval_stack_launches"] + row["mesh_launches"])
+                                   + row["eval_stack_launches"] + row["mesh_launches"]
+                                   + row["nfree_launches"])
         assert row["serving_launches"] == 0, row
     say(f"[probes] launches in the probe tool's run "
         f"{ {r['name']: r['launches'] for r in probe_rows} }, on the serving paths 0 each")
