@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU (H100): build, check, serve,
-sweep, train, pretrain, score, train and sweep over two ranks, and elucidate
-without the atom count.
+sweep, train, pretrain, score, train and sweep over two ranks, elucidate
+without the atom count, and run the repository's tools through the command
+line.
 
     python3 chip_smoke.py
 
@@ -68,8 +69,9 @@ Phases, each printing its own lines:
      ``artifacts/warm_qm9s_as.npz`` on the block path, in bf16 and then in
      f32, each: 128 test targets of
      ``generate(seed=42, size=1280, fidelity=4)``'s split in rounds of 128
-     (buckets 17, 21, 25, 29), K sweeps of 1000 ancestral steps at
-     temperature 1.0 (K=10 in bf16, K=1 in f32: SWEEP_K); its rounds, each sweep's wall time and mols/s, its
+     (buckets 17, 21, 25, 29), K sweeps of ancestral steps at temperature
+     1.0 (K=10 at 500 steps in bf16, K=1 at 1000 in f32: SWEEP_K,
+     SWEEP_STEPS); its rounds, each sweep's wall time and mols/s, its
      rounds' seconds of sampling and of host decoding, the host scoring's
      phase times, and every figure beside round 5's (the JAX package in
      bf16 on 10k targets) with the binomial standard error at this run's
@@ -127,9 +129,9 @@ Phases, each printing its own lines:
      zeroed: the logged restored, fresh and zeroed counts equal the CPU's,
      5 finite steps; (d) ``remat_policy='dots'`` for 6 steps, its median
      step and peak memory beside phase 8's ``full`` and ``none``, the peak
-     between theirs; (e) ``evaluate_checkpoints`` over (a)'s two numbered
-     checkpoints, 8 targets, K=1, 100 steps: finite figures for each, the
-     bf16 per-op kernels launched 8 x steps x rounds times; (f) the host
+     between theirs; (e) ``evaluate_checkpoints`` over (a)'s first numbered
+     checkpoint (two until phase 16 came), 8 targets, K=1, 100 steps: finite
+     figures, the bf16 per-op kernels launched 8 x steps x rounds times; (f) the host
      packer built on the card's host, against ``pack_batch_numpy``.
  11. DMT_WO_EQ, the non-equivariant ablation, which runs on PyTorch ops and
      no port kernel, at full width (nf=256, 8 blocks, 16 heads), random
@@ -225,6 +227,28 @@ Phases, each printing its own lines:
      on one target at 10 steps, with its atom count (one round) and without
      (12 rounds, 2 draws a plausible count): its printed draws, the same
      launch rule. The phase's budget is 60 s.
+ 16. the repository's last tools through the port's command line, the
+     flagship at full width (nf=256, 8 blocks, 16 heads, N <= 29, bf16): (a)
+     ``tools/make_rehearsal_pt.py`` writes 512 molecules (its 2048 cut) as
+     the reference's processed file with its split file; (b)
+     ``diffspectra_tpu_torch/scripts/real_data.sh`` on it, its own
+     processes: 9 train steps from a fresh init at batch 128 with a
+     checkpoint at the last (``checkpoint_1``), then ``--mode eval`` of that
+     checkpoint, 8 targets, K=1, 100 steps on the per-op bf16 path: exit 0,
+     finite losses in ``stdout.txt``, ``warm_state.npz`` written, the eval's
+     figures finite and in [0, 1]; the same eval again in this process
+     (``main.main``): its figures equal the script's, ``mix_attention_bf16``
+     and ``equi_update_bf16`` launched 8 x 100 x rounds times and no other
+     kernel; (c) ``tools/export_warm_state.py`` on that workdir: every array
+     of its npz equal to the train's own ``warm_state.npz`` (max |diff| 0);
+     (d) ``tools/warm_to_ckpt.py`` of that npz into a fresh workdir: the
+     restored EMA tensors equal the npz's, and ``main.py --mode eval`` there
+     gives the figures of ``--mode eval --warm-start`` on the npz (the npz
+     holds the weights rounded to bf16, so (b)'s figures are printed beside,
+     not held), the same launch rule; (e) ``tools/gt_mmd_anchor.py --size
+     512 --n-gen 64`` on cuda within 1e-5 (relative, or absolute near 0) of
+     its run on the CPU. Each sub-phase's seconds on a ``[clock]`` line; the
+     phase's budget is 75 s.
 Then one ``{"kernels": [...]}`` line, the card's ``nvidia-smi`` line, and as
 the last line ``{"ok": true, "device": {...}}``. Any failed check raises and
 the script exits non-zero without that last line; without CUDA it exits 2.
@@ -288,6 +312,10 @@ TOP1_2D_FLOOR = 0.60
 # at K=1, to keep the script inside its time limit (with both at K=10 it ran
 # 997 s on an H100; with f32 at K=2 and phase 9, 1166 s: PERF.md §6)
 SWEEP_K = {"bf16": 10, "f32": 1}
+# ancestral steps a sweep by dtype: bf16's K=10 sweeps cut from round 5's
+# 1000 to 500 when phase 16 came, to keep the script inside its time (at
+# 1000 they took 250-280 s of it: PERF.md §6); f32's one sweep keeps 1000
+SWEEP_STEPS = {"bf16": 500, "f32": 1000}
 # round 5: the JAX package (bf16) on warm_qm9s_as.npz, 10k targets of
 # generate(seed=42, size=131072, fidelity=4), K=10, 1000 steps, graph mode
 # (tools/pipeline_logs/r5/as_topk_10k.log:106-109, 833-860); figure name ->
@@ -377,7 +405,7 @@ FLAGSHIP = {"seed": 42, "data.synthetic": False, "data.bucket_sizes": (17, 21, 2
 WARM_IR = os.path.join(ROOT, "artifacts", "warm_qm9s_ir.npz")
 # (a): through the store (profiled), then the host iterator (12 until phase 14 came)
 STORE_STEPS, HOST_STEPS = 16, 8
-STORE_SNAPSHOT_FREQ = 8  # (a) writes two numbered checkpoints, (e)'s
+STORE_SNAPSHOT_FREQ = 8  # (a) writes two numbered checkpoints; (e) evaluates the first
 PRETRAIN = {"pretrain.n_iters": 20, "pretrain.warmup": 5, "pretrain.batch_size": 128,
             "pretrain.log_freq": 1, "pretrain.snapshot_freq": 20}
 RESTORE_STEPS = PARTIAL_STEPS = 5  # (b) from the pretrained SpecFormer, (c) partial
@@ -455,6 +483,26 @@ NFREE_HEAD_EPOCHS, NFREE_HEAD_BS = 2, 128
 NFREE_SIZE, NFREE_FIDELITY = 256, 2
 NFREE_EVAL = {"--nt": 8, "--steps": 20, "--k-known": 2, "--k-per-n": 1}
 DEMO_STEPS, NFREE_BUDGET_S = 10, 60
+# phase 16, the repository's last tools through the port's command line: (a)
+# make_rehearsal_pt writes REHEARSAL_SIZE molecules (its default of 2048 cut
+# to keep the phase short); (b) diffspectra_tpu_torch/scripts/real_data.sh
+# trains the flagship from a fresh init (bf16, batch 128) for 9 steps, a
+# checkpoint at the last, and evaluates that checkpoint (8 targets, K=1, 100
+# steps on the per-op bf16 path); the same eval then runs in this process,
+# where the launches can be counted; (c) export_warm_state on that workdir;
+# (d) warm_to_ckpt of its npz and main.py --mode eval on the new workdir,
+# against main.py --mode eval --warm-start on the npz; (e) gt_mmd_anchor on
+# cuda against the CPU, within ANCHOR_TOL (relative or absolute: the floor's
+# MMDs lie near 0, and float32 kernel sums in another order move them by
+# ~1e-7 of the sums, which are of order 1)
+REHEARSAL_SIZE = 512
+REAL_DATA_TRAIN = ["training.n_iters=8", "training.snapshot_freq=8",
+                   "training.snapshot_sampling=false", "training.log_freq=1"]
+REAL_DATA_EVAL = ["eval.num_samples=8", "eval.batch_size=8", "eval.num_candidates=1",
+                  "sampling.steps=100"]
+REAL_DATA_TIMEOUT = 300
+ANCHOR = ["--size", "512", "--n-gen", "64"]
+ANCHOR_TOL, TOOLS_BUDGET_S = 1e-5, 75
 # (b) the MMD's kernel sums on cuda against the float64 plain version: each
 # of xx/n^2, yy/m^2 and xy/nm within MMD_RTOL relative, the MMD within
 # MMD_RTOL x (xx/n^2 + yy/m^2), at MMD_SIDE samples a side; then the sums
@@ -1414,7 +1462,7 @@ def phase_sweep(dev, dt):
     logging.basicConfig(level=logging.INFO, stream=sys.stdout, format="[sweep log] %(message)s",
                         force=True)
     settings = {**SWEEP, "training.matmul_precision": DTYPES[dt],
-                "eval.num_candidates": SWEEP_K[dt]}
+                "eval.num_candidates": SWEEP_K[dt], "sampling.steps": SWEEP_STEPS[dt]}
     config = configs.apply_overrides(configs.get_config(), settings)
     tag = f"sweep {dt}"
     say(f"[{tag}] settings {json.dumps(settings)}")
@@ -2177,15 +2225,14 @@ def dots_run(dev, smi, root, warm_step, phase8):
 
 
 def eval_loop(dev, smi, root, workdir, warm_step):
-    """Phase 10 (e): ``--mode eval``'s loop over (a)'s two numbered
-    checkpoints (``eval.ckpts``), 8 targets, K=1, 100 steps: finite figures
-    for each, the bf16 per-op kernels launched 8 x steps x rounds times a
-    checkpoint and no other. Returns the launches."""
+    """Phase 10 (e): ``--mode eval``'s loop over (a)'s first numbered
+    checkpoint (``eval.ckpts``; two until phase 16 came), 8 targets, K=1,
+    100 steps: finite figures, the bf16 per-op kernels launched 8 x steps x
+    rounds times and no other. Returns the launches."""
     from diffspectra_tpu_torch import run_lib
     from diffspectra_tpu_torch.ops import LAUNCHES, reset_launches
 
-    first = (warm_step + STORE_SNAPSHOT_FREQ - 1) // STORE_SNAPSHOT_FREQ
-    ckpts = [first, first + 1]
+    ckpts = [(warm_step + STORE_SNAPSHOT_FREQ - 1) // STORE_SNAPSHOT_FREQ]
     config = flagship_config(**{"data.root": root, **EVAL_LOOP,
                                 "eval.ckpts": ",".join(map(str, ckpts))})
     reset_launches()
@@ -2817,7 +2864,7 @@ def mesh_rank(mesh, train_over, sweep_over, warm, smi):
     from diffspectra_tpu_torch.ops import LAUNCHES, _lib, reset_launches
     from diffspectra_tpu_torch.warm_state import read_warm_state
 
-    _lib.load()  # the parent's build
+    _lib.build()  # loads the parent's build
     dev = mesh.device
     out = {"rank": mesh.rank}
     # (b) run_lib.train; rank 0 logs its step lines at INFO, the others at DEBUG
@@ -3249,6 +3296,189 @@ def phase_nfree(dev, smi):
     return launches
 
 
+def tool_log():
+    """The root logger back on stdout after an entry point that set its
+    own (``main.py`` logs to its workdir too)."""
+    import logging
+
+    logging.basicConfig(level=logging.INFO, stream=sys.stdout, format="[tools log] %(message)s",
+                        force=True)
+
+
+def eval_scores(figures):
+    """An eval's figures without its clock readings, as sorted JSON."""
+    kept = {k: v for k, v in figures.items() if k != "phase_seconds"}
+    kept["sweeps"] = [s["decoded"] for s in figures["sweeps"]]
+    return json.dumps(kept, sort_keys=True)
+
+
+def counted_eval(argv):
+    """``main.main(argv)`` (an eval) in this process: its figures, its
+    launches and seconds."""
+    from diffspectra_tpu_torch import main as cli
+    from diffspectra_tpu_torch.ops import LAUNCHES, reset_launches
+
+    reset_launches()
+    t0 = time.perf_counter()
+    try:
+        figures = cli.main(argv)
+    finally:
+        tool_log()
+    torch.cuda.synchronize()
+    return figures, dict(LAUNCHES), time.perf_counter() - t0
+
+
+def real_data_run(dev, smi, tmp, clocks):
+    """Phase 16 (a), (b): the rehearsal file, the script, and its eval again
+    in this process for the launches. Returns the workdir, the script's
+    figures and the launches."""
+    from diffspectra_tpu_torch.tools import make_rehearsal_pt
+
+    root, workdir = os.path.join(tmp, "rehearsal"), os.path.join(tmp, "run")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        splits = make_rehearsal_pt.main(["--size", str(REHEARSAL_SIZE), "--root", root])
+    clocks["a"] = time.perf_counter() - t0
+    say(f"[tools] (a) {out.getvalue().strip()} in {clocks['a']:.1f} s")
+    assert [len(x) for x in splits] == [192, 192, 64, 64]
+
+    torch.cuda.empty_cache()  # the script's processes share the card with this one
+    env = dict(os.environ, PYTHON=sys.executable, WORKDIR=workdir, DATA_ROOT=root,
+               EVAL_CKPT="1", TRAIN_FLAGS=" ".join(f"--config {c}" for c in REAL_DATA_TRAIN),
+               EVAL_FLAGS=" ".join(f"--config {c}" for c in REAL_DATA_EVAL))
+    t0 = time.perf_counter()
+    proc = subprocess.run(["bash", os.path.join(ROOT, "diffspectra_tpu_torch", "scripts",
+                                                "real_data.sh")],
+                          cwd=tmp, env=env, capture_output=True, text=True,
+                          timeout=REAL_DATA_TIMEOUT)
+    clocks["b_script"] = time.perf_counter() - t0
+    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+    with open(os.path.join(workdir, "stdout.txt")) as f:
+        losses = [float(line.split("training_loss: ")[1].split(",")[0])
+                  for line in f if "training_loss" in line]
+    with open(os.path.join(workdir, "eval", "figures_ckpt_1.json")) as f:
+        script = json.load(f)
+    numbers = [script["top1_2d"], script["top1_3d"], *script["metric_2d"].values(),
+               *script["metric_3d"].values()]
+    say(f"[tools] (b) real_data.sh (train {REAL_DATA_TRAIN}, eval {REAL_DATA_EVAL}, EVAL_CKPT=1) "
+        f"in {clocks['b_script']:.1f} s: losses {[round(x, 4) for x in losses]}; figures "
+        f"Top-1 2D {script['top1_2d']:.4f}, 3D {script['top1_3d']:.4f}, 2D "
+        f"{json.dumps(script['metric_2d'])}, 3D {json.dumps(script['metric_3d'])}, rounds "
+        f"{script['rounds']}; the eval's phase-time {json.dumps(script['phase_seconds'])}; {smi}")
+    assert len(losses) == 9 and all(map(math.isfinite, losses)), losses
+    assert os.path.exists(os.path.join(workdir, "warm_state.npz"))
+    assert all(math.isfinite(v) and 0.0 <= v <= 1.0 for v in numbers), script
+    assert script["sweeps"][0]["decoded"] == 8
+
+    items = ["data.synthetic=false", f"data.root={root}", "eval.ckpts=1",
+             "eval.num_candidates=10", *REAL_DATA_EVAL]
+    figures, launches, clocks["b_again"] = counted_eval(
+        ["--mode", "eval", "--workdir", workdir] + [a for c in items for a in ("--config", c)])
+    expected = 8 * 100 * len(figures[1]["rounds"])
+    say(f"[tools] (b) the script's eval again in this process (main.main) in "
+        f"{clocks['b_again']:.1f} s: its figures equal the script's "
+        f"{eval_scores(figures[1]) == eval_scores(script)}; launches {nonzero(launches)}, "
+        f"expected {expected} for {kernels_of('attn_equi', 'bf16')}; {smi}")
+    launched_only(kernels_of("attn_equi", "bf16"), launches, expected)
+    return root, workdir, script, launches
+
+
+def phase_tools(dev, smi):
+    """Phase 16: the repository's last tools through the port's command
+    line, (a) to (e); the per-op bf16 kernels' launches of (b) and (d)."""
+    from diffspectra_tpu_torch.api import restore_model
+    from diffspectra_tpu_torch import configs
+    from diffspectra_tpu_torch.tools import export_warm_state, gt_mmd_anchor, warm_to_ckpt
+    from diffspectra_tpu_torch.warm_state import flax_variables, read_warm_state
+
+    t_phase = time.perf_counter()
+    clocks = {}
+    tmp = tempfile.mkdtemp(prefix="tools_")
+    root, workdir, script, launches = real_data_run(dev, smi, tmp, clocks)
+
+    # (c) the workdir's checkpoint exported, against the train's own export
+    out = os.path.join(tmp, "exported.npz")
+    spectra = ["--config", "data.spectra_version=allspectra"]
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as printed:
+        rc = export_warm_state.main(["--workdir", workdir, "--out", out, *spectra])
+    tool_log()
+    clocks["c"] = time.perf_counter() - t0
+    with np.load(out) as got, np.load(os.path.join(workdir, "warm_state.npz")) as want:
+        keys = sorted(set(want.files) - {"__meta__"})
+        same_keys = set(got.files) == set(want.files)
+        err = max(float(np.abs(got[k].astype(np.float64) - want[k].astype(np.float64)).max())
+                  for k in keys)
+    say(f"[tools] (c) export_warm_state in {clocks['c']:.1f} s: "
+        f"{printed.getvalue().strip().splitlines()[0]}; {len(keys)} arrays against the train's "
+        f"own export, max |diff| {err}; {smi}")
+    assert rc == 0 and same_keys and err == 0.0
+
+    # (d) written back as a checkpoint and evaluated through main.py
+    back = os.path.join(tmp, "back")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as printed:
+        rc = warm_to_ckpt.main(["--warm", out, "--workdir", back, "--ckpt", "1", *spectra])
+    tool_log()
+    config = configs.apply_overrides(configs.get_config(), {"data.spectra_version": "allspectra"})
+    model, step = restore_model(back, config, dev, ckpt=1)
+    ema, got = read_warm_state(out)["ema"], flax_variables(model)
+    ema_err = max(float(np.abs(got[k] - v).max()) for k, v in ema.items())
+    del model
+    clocks["d_write"] = time.perf_counter() - t0
+    items = ["data.synthetic=false", f"data.root={root}", "eval.ckpts=1", *REAL_DATA_EVAL]
+    argv = [a for c in items for a in ("--config", c)]
+    by_ckpt, counts, clocks["d_eval"] = counted_eval(["--mode", "eval", "--workdir", back] + argv)
+    add_launches(launches, counts)
+    expected = 8 * 100 * len(by_ckpt[1]["rounds"])
+    launched_only(kernels_of("attn_equi", "bf16"), counts, expected)
+    by_warm, counts, clocks["d_warm_eval"] = counted_eval(
+        ["--mode", "eval", "--workdir", os.path.join(tmp, "warm_eval"), "--warm-start", out]
+        + argv)
+    add_launches(launches, counts)
+    launched_only(kernels_of("attn_equi", "bf16"), counts, expected)
+    say(f"[tools] (d) warm_to_ckpt: {printed.getvalue().strip()}, {len(ema)} EMA tensors "
+        f"restored from checkpoint_1 against the npz's: max |diff| {ema_err} ({clocks['d_write']:.1f}"
+        f" s); main.py --mode eval on it in {clocks['d_eval']:.1f} s, --warm-start on the npz in "
+        f"{clocks['d_warm_eval']:.1f} s: figures equal {eval_scores(by_ckpt[1]) == eval_scores(by_warm)}"
+        f"; equal to (b)'s (its f32 weights, not the npz's bf16) "
+        f"{eval_scores(by_ckpt[1]) == eval_scores(script)}: Top-1 2D {by_ckpt[1]['top1_2d']:.4f}, "
+        f"3D {by_ckpt[1]['top1_3d']:.4f}, 2D {json.dumps(by_ckpt[1]['metric_2d'])}; launches "
+        f"{expected} a kernel each; {smi}")
+    assert rc == 0 and step == read_warm_state(out)["step"] == 9 and ema_err == 0.0
+    assert eval_scores(by_ckpt[1]) == eval_scores(by_warm)
+
+    # (e) the geometry-MMD floor on cuda against the CPU
+    anchors = {}
+    for device in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            anchors[device] = gt_mmd_anchor.main(ANCHOR + ["--cache-dir", SYNTH_CACHE,
+                                                           "--device", device])
+        tool_log()
+        clocks[f"e_{device}"] = time.perf_counter() - t0
+    worst = max(abs(anchors["cuda"][a][k] - v) / max(1.0, abs(v))
+                for a in ("gt_vs_test_stats", "gt_vs_train_stats")
+                for k, v in anchors["cpu"][a].items())
+    say(f"[tools] (e) gt_mmd_anchor {' '.join(ANCHOR)}: cuda {json.dumps(anchors['cuda'])} in "
+        f"{clocks['e_cuda']:.1f} s, cpu {json.dumps(anchors['cpu'])} in {clocks['e_cpu']:.1f} s; "
+        f"the largest difference over max(1, |cpu|) {worst:.3g} (bound {ANCHOR_TOL}); {smi}")
+    # at 512 molecules the test split holds 51, so the 64 draws are all of
+    # it and the test-pool floor is 0 up to float32 rounding (either sign)
+    assert worst <= ANCHOR_TOL and all(math.isfinite(v) for a in anchors.values()
+                                       for stats in ("gt_vs_test_stats", "gt_vs_train_stats")
+                                       for v in a[stats].values())
+    shutil.rmtree(tmp)
+    seconds = time.perf_counter() - t_phase
+    for key, value in clocks.items():
+        say(f"[clock] phase 16 ({key}) {value:.1f} s; {smi}")
+    print(json.dumps({"tools": {"clocks": clocks, "anchor": anchors["cuda"], "phase_s": seconds}}),
+          flush=True)
+    say(f"[tools] phase 16 in {seconds:.1f} s (budget {TOOLS_BUDGET_S} s); launches "
+        f"{nonzero(launches)}; {smi}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on the GPU only",
@@ -3271,8 +3501,9 @@ def main() -> int:
     say(f"[card] {name}; torch {torch.__version__}, CUDA {torch.version.cuda}; {smi}")
 
     t0 = time.perf_counter()
+    shutil.rmtree(_lib.BUILD_DIR, ignore_errors=True)  # build from the sources, not a cache
     _lib.build()
-    say(f"[build] nvcc built {_lib.LIB_NAME} in {time.perf_counter() - t0:.2f} s")
+    say(f"[build] nvcc built {_lib.library_path().name} in {time.perf_counter() - t0:.2f} s")
     kernel = "?"
     for line in _lib.build_log.splitlines():  # ptxas -v: registers and spills by kernel
         if "Compiling entry function" in line:
@@ -3323,6 +3554,8 @@ def main() -> int:
     clock("phase 14")
     nfree = phase_nfree(dev, smi)
     clock("phase 15")
+    tools = phase_tools(dev, smi)
+    clock("phase 16")
     sweep = {k: sum(r[0][k] for r in sweeps.values()) for k in serving}
     for row in rows:
         # the dd1 rows' main path is phase 9's (dist_gbf=False); the others'
@@ -3339,19 +3572,22 @@ def main() -> int:
         row["eval_stack_launches"] = eval_stack.get(row["name"], 0)
         row["mesh_launches"] = mesh.get(row["name"], 0)
         row["nfree_launches"] = nfree.get(row["name"], 0)
+        row["tools_launches"] = tools.get(row["name"], 0)
         assert row["launches"] > 0 and row["cdgs_launches"] == 0, row
-        assert (row["nfree_launches"] > 0) == (row["name"] in kernels_of("attn_equi", "bf16")), row
+        for phase in ("nfree_launches", "tools_launches"):
+            assert (row[phase] > 0) == (row["name"] in kernels_of("attn_equi", "bf16")), row
     for row in probe_rows:  # launches: the probe tool's run; none on the serving paths
         row["wo_eq_specformer_bf16_launches"] = wo_eq.get(row["name"], 0)
         row["cdgs_launches"] = cdgs.get(row["name"], 0)
         row["eval_stack_launches"] = eval_stack.get(row["name"], 0)
         row["mesh_launches"] = mesh.get(row["name"], 0)
         row["nfree_launches"] = nfree.get(row["name"], 0)
+        row["tools_launches"] = tools.get(row["name"], 0)
         row["serving_launches"] = (serving[row["name"]] + sweep[row["name"]] + trained[row["name"]]
                                    + variants.get(row["name"], 0) + flagship.get(row["name"], 0)
                                    + row["wo_eq_specformer_bf16_launches"] + row["cdgs_launches"]
                                    + row["eval_stack_launches"] + row["mesh_launches"]
-                                   + row["nfree_launches"])
+                                   + row["nfree_launches"] + row["tools_launches"])
         assert row["serving_launches"] == 0, row
     say(f"[probes] launches in the probe tool's run "
         f"{ {r['name']: r['launches'] for r in probe_rows} }, on the serving paths 0 each")

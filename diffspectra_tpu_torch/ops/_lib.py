@@ -3,17 +3,18 @@
 The sources under ``csrc/`` (and the headers they include) are compiled with ``nvcc``, one
 process a source at once, and linked into one shared library with a plain C
 interface (no PyTorch headers, so the build takes seconds), loaded with
-``ctypes``. The build runs once per process, at the
-first kernel launch, into ``_build/`` beside the package (listed in
-``.gitignore``). A failed build raises with nvcc's output. A process that
-another one's build serves (the ranks ``chip_smoke.py`` spawns after its
-own build) calls ``load()`` first: it loads that library and compiles
-nothing.
+``ctypes``, at a process's first kernel launch. The library goes to
+``_build/`` beside the package (listed in ``.gitignore``) under a name that
+holds a digest of ``csrc/`` and the flags: a process that finds the library
+of the same sources there (another command of the same checkout, a spawned
+rank) loads it and compiles nothing. A failed build raises with nvcc's
+output.
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 import shutil
 import subprocess
@@ -26,7 +27,6 @@ _PKG = Path(__file__).resolve().parent.parent
 SOURCES = tuple(_PKG / "csrc" / f for f in ("mix_attention.cu", "equi_update.cu", "block_fused.cu",
                                             "probe_tiles.cu"))
 BUILD_DIR = _PKG / "_build"
-LIB_NAME = "libdstt_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -73,15 +73,28 @@ def _nvcc() -> str:
     return found
 
 
+def library_path() -> Path:
+    """The library built from ``csrc/`` as it is: its name holds a digest
+    of every file there (sources and headers) and of the flags."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sorted((_PKG / "csrc").iterdir()):
+        digest.update(path.name.encode() + b"\0" + path.read_bytes())
+    return BUILD_DIR / f"libdstt_kernels.{digest.hexdigest()[:16]}.so"
+
+
 def build() -> ctypes.CDLL:
-    """Compile ``csrc/*.cu`` (first call in the process) and load it."""
+    """Load the library of ``csrc/*.cu`` (first call in the process),
+    compiling it unless ``_build/`` holds it already."""
     global _lib, build_log
     with _lock:
         if _lib is not None:
             return _lib
+        target = library_path()
+        if target.exists():
+            _lib = _open(target)
+            return _lib
         BUILD_DIR.mkdir(exist_ok=True)
-        target = BUILD_DIR / LIB_NAME
-        tmp = BUILD_DIR / f"{LIB_NAME}.{os.getpid()}.tmp"
+        tmp = BUILD_DIR / f"{target.name}.{os.getpid()}.tmp"
         # one nvcc a source, all at once, then one link
         objs = [BUILD_DIR / f"{src.stem}.{os.getpid()}.o" for src in SOURCES]
         compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
@@ -116,19 +129,6 @@ def _open(path: Path) -> ctypes.CDLL:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib
-
-
-def load() -> ctypes.CDLL:
-    """Load the library that a ``build()`` of another process left in
-    ``_build/``, compiling nothing; raises when there is none."""
-    global _lib
-    with _lock:
-        if _lib is None:
-            target = BUILD_DIR / LIB_NAME
-            if not target.exists():
-                raise RuntimeError(f"{target} is not built: build() it in one process first")
-            _lib = _open(target)
-        return _lib
 
 
 def stream_handle(device: torch.device) -> int:

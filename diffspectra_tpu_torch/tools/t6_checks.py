@@ -113,7 +113,7 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     print(torch.cuda.get_device_name(0), flush=True)
     _lib.build()
-    library = Path(args.library) if args.library else _lib.BUILD_DIR / _lib.LIB_NAME
+    library = Path(args.library) if args.library else _lib.library_path()
     mufu = mufu_ops(library, args.kernel)
     print(f"[sass] {library}: {mufu}", flush=True)
     plain = plain_side_errors(repeats=args.cpu_repeats)

@@ -10,7 +10,10 @@ evaluation sweep scores a tiny run and writes its files (the moses
 metrics, the sub-geometry MMDs, ChemNet, the RMSD and the rescoring CLI run
 too, scipy imported where they use it), and the train
 loop takes two steps, writes a checkpoint that ``torch.load`` reads with
-``weights_only`` and an export a warm start reads, and ``parallel/``'s
+``weights_only`` and an export a warm start reads, which the tools
+``export_warm_state`` and ``warm_to_ckpt`` export and write back as a
+checkpoint, the repository's other tools (the identifiability analyses, the
+geometry-MMD anchor and the rehearsal file) run at tiny sizes, and ``parallel/``'s
 train step takes one step in a gloo process group of one rank. The QM9S loader reads a
 processed file without ``torch_geometric`` (its stand-ins registered under
 the PyG names, no module of that name imported) and the host packer runs
@@ -150,6 +153,19 @@ BARE_INSTALL = textwrap.dedent(
         assert blob["step"] == 2
         _, fresh = run_lib.init_train_state(config, torch.device("cpu"))
         assert warm_start(fresh, os.path.join(tmp, "warm_state.npz")).step == 2
+        # the repository's tools: the checkpoint exported, and written back
+        import contextlib, io
+        from diffspectra_tpu_torch.tools import export_warm_state, warm_to_ckpt
+        small = ["--device", "cpu"] + [f"--config={k}={v}" for k, v in (
+            ("model.nf", 32), ("model.n_layers", 2), ("model.n_heads", 4),
+            ("data.max_node", 16), ("training.matmul_precision", "float32"))]
+        with contextlib.redirect_stdout(io.StringIO()):
+            assert export_warm_state.main(
+                ["--workdir", tmp, "--out", os.path.join(tmp, "w.npz")] + small) == 0
+            assert warm_to_ckpt.main(["--warm", os.path.join(tmp, "w.npz"), "--workdir",
+                                      os.path.join(tmp, "back"), "--ckpt", "1"] + small) == 0
+        assert os.path.exists(os.path.join(checkpoint.numbered_checkpoint_dir(
+            os.path.join(tmp, "back"), 1), checkpoint.STATE_FILE))
     # data parallelism: one step of the parallel train step in a gloo group of one
     import torch.distributed as dist
     from diffspectra_tpu_torch.data.pipeline import collate, get_dataset as port_dataset
@@ -248,6 +264,20 @@ BARE_INSTALL = textwrap.dedent(
     assert abs(compute_mmd([1.0, 2.0, 3.0], [1.0, 2.0, 3.0], device="cpu")) < 1e-6
     assert chemnet.random_chemnet(0).features(["CCO", "c1ccccc1"], device="cpu").shape == (2, 24)
     assert rmsd.hungarian_rmsd_batch(graphs[:2], graphs[:2])[1] == 1.0
+    # the rest of the repository's tools, host-only but the anchor, tiny
+    from diffspectra_tpu_torch.tools import (ceiling_analysis, f4_continuity, gt_mmd_anchor,
+                                             make_rehearsal_pt, protocol_ceiling,
+                                             unseen_env_analysis)
+    with tempfile.TemporaryDirectory() as tmp, contextlib.redirect_stdout(io.StringIO()):
+        assert ceiling_analysis.main(["--fidelity", "4", "16"])[0]["n"] == 16
+        assert protocol_ceiling.main(["--size", "64", "--cache-dir", tmp])["test"] == 6
+        assert unseen_env_analysis.main(["--size", "64"])["test"] == 6
+        assert f4_continuity.main(["--n-molecules", "4"])["f4"]
+        anchor = gt_mmd_anchor.main(["--size", "64", "--n-gen", "4", "--cache-dir", tmp,
+                                     "--device", "cpu"])
+        assert set(anchor["gt_vs_test_stats"]) == set(gt_mmd_anchor.MEANS)
+        make_rehearsal_pt.main(["--size", "16", "--root", os.path.join(tmp, "r")])
+        assert os.path.exists(os.path.join(tmp, "r", qm9s.PROCESSED))
     loaded = sorted(n for n in sys.modules
                     if n.split(".")[0] in BLOCKED and n.split(".")[0] != "torch_geometric")
     assert not loaded, loaded
